@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's codec serving path on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's codec serving path and its audio path on one
+NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
@@ -14,7 +15,12 @@ printing no result, without one. Phases (any failure exits non-zero):
     mel-mixers, the FSQ head), B=8, T=512, ragged lengths: fp32 with TF32
     off (max|k - p| <= 1e-4 * max(1, max|p|)) and bf16 (||k - p|| / ||p||
     <= 2e-2); FSQ indices may differ only where the plain pre-round value
-    lies within 1e-4 of a rounding midpoint. Then the whole fp32 round trip
+    lies within 1e-4 of a rounding midpoint. The log-mel kernel in fp32
+    (max|k - p| <= 1e-4 in the log domain) on the hifispeech spec at
+    B=8 x 261,632 samples with 1 s of leading silence in clip 0 (silent
+    frames must be exactly log(1e-5) in both), at B=1 x 100,003 samples, on
+    the hifimusic spec (160 mels) at B=2, and at n_fft 512 (16 kHz, 80 mels).
+    Then the whole fp32 round trip
     through the kernels against the same model on the CPU (plain versions);
  4. serve 12 concurrent clips of mixed lengths (100-512 frames) through
     CodecServer over the runtime (flagship GeneratorConfig defaults, 128
@@ -24,14 +30,33 @@ printing no result, without one. Phases (any failure exits non-zero):
     distinct inputs per iteration: mel-frames/s for exact and poly-decode
     mixers; then profile one round trip of each (torch.profiler): device
     time by kernel group and the card's idle share;
- 6. time each kernel at its flagship shapes beside its plain version and
-    its bound, and print one JSON line of them;
- 7. print {"ok": true, "device": {...}} as the last line.
+ 6. the convert CLI's library entry point on the card: 8 wavs written with
+    stdlib wave (44.1 kHz 16-bit of 1.5-15 s, one at 22.05 kHz, one of
+    0.5 s): 7 mel files of (samples // 512 + 1, 128), one log-mel launch
+    per file, a rerun changes nothing, two spawned workers write the same
+    files;
+ 7. the audio round trip at full width: 64 seeded clips of 261,632 samples
+    (5.93 s at 44.1 kHz, 512 frames) -> MelFrontend (the log-mel kernel) ->
+    the codec of phase 5 (exact mixers, tokens on the card) -> the flagship
+    ISTFTNetGenerator (seeded, bf16, fp32 heads) -> istft -> (64, 1,
+    262,136) waveform; 1 log-mel, 6 block, 1 FSQ-head and 2 mixer launches
+    per trip; times of the front end (mel-frames/s) and of wav -> wav
+    (audio-s/s), Griffin-Lim (32 iterations) on the 64 decoded mels, a
+    profile of one trip, its split into front end, codec and vocoder (CUDA
+    events) and each stage's kernel groups;
+ 8. time each kernel at its flagship shapes beside its plain version, its
+    bound and, for the log-mel kernel, the torch.stft chain that computes
+    the same function, and print one JSON line of them; the log-mel kernel
+    is first held against its plain version at that batch (64 clips,
+    max|k - p| <= 1e-4), and its bound is the function's (with an FFT), not
+    the kernel's DFT product;
+ 9. print {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -48,6 +73,10 @@ CMP_LENGTHS = (512, 480, 300, 257, 128, 77, 5, 1)
 CLIP_LENGTHS = (100, 117, 128, 140, 201, 256, 300, 384, 450, 500, 512, 333)
 BENCH_B, BENCH_T = 64, 512
 WARMUP, ITERS = 2, 5
+# the audio batch of the same throughput shape: 511 hops of 512 samples
+# give 512 frames per clip (5.93 s at 44.1 kHz)
+AUDIO_B, AUDIO_SAMPLES, AUDIO_ITERS = 64, 261_632, 3
+GL_ITERS = 32
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores,
 # fp32 CUDA cores, HBM bandwidth
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -218,6 +247,61 @@ def compare_round_trip(state, device) -> None:
         fail("fp32 round trip disagrees with the plain CPU path")
 
 
+def log_mel_library(wav, window, fbank, n_fft: int, hop: int, win: int):
+    """The library yardstick of the log-mel kernel: torch.stft (cuFFT on the
+    card; center, reflect, the periodic Hann window padded to n_fft) ->
+    |.| -> fbank matmul -> clamp -> log. No one PyTorch call computes the
+    function; the port never calls this chain."""
+    import torch
+
+    spec = torch.stft(wav, n_fft, hop, win, window=window, center=True,
+                      pad_mode="reflect", return_complex=True)
+    mel = spec.abs().transpose(1, 2) @ fbank
+    return torch.log(torch.clamp(mel, min=1e-5))
+
+
+def compare_log_mel(device) -> float:
+    """Phase 3, log-mel: the kernel against its plain version (TF32 off);
+    returns the largest |kernel - plain|."""
+    import torch
+
+    from mqgan_tpu_torch.core.config import SpectrogramConfig
+    from mqgan_tpu_torch.ops.stft_kernels import (dft_mel_tables, log_mel,
+                                                  log_mel_plain)
+    from mqgan_tpu_torch.signal.mel import LOG_CLIP_VAL
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    floor = torch.log(torch.tensor(LOG_CLIP_VAL, device=device))
+    worst = 0.0
+    small = SpectrogramConfig(sampling_rate=16000, filter_length=512, hop_length=128,
+                              win_length=512, n_mel_channels=80, mel_fmax=8000.0)
+    # (label, spec, clips, samples, leading silence of clip 0 in samples)
+    cases = (("hifispeech", SpectrogramConfig(), 8, AUDIO_SAMPLES, 44_100),
+             ("hifispeech", SpectrogramConfig(), 1, 100_003, 0),
+             ("hifimusic", SpectrogramConfig(n_mel_channels=160), 2, AUDIO_SAMPLES, 0),
+             ("16k n_fft=512", small, 2, 16_000, 0))
+    for label, cfg, b, n, quiet in cases:
+        tables = [t.to(device) for t in dft_mel_tables(cfg)]
+        wav = 0.3 * torch.randn((b, n), generator=gen, device=device)
+        wav[0, :quiet] = 0.0
+        # frames whose window sees only zeros
+        silent = max(0, (quiet - cfg.filter_length // 2) // cfg.hop_length + 1)
+        got = log_mel(wav, *tables, cfg.hop_length)
+        want = log_mel_plain(wav, *tables, cfg.hop_length)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        exact = bool((got[0, :silent] == floor).all() and (want[0, :silent] == floor).all())
+        ok = err <= 1e-4 and exact and tuple(got.shape) == (b, n // cfg.hop_length + 1,
+                                                           cfg.n_mel_channels)
+        print(f"  {'log_mel':15s} {label} B={b} x {n}: {tuple(got.shape)} "
+              f"max|k-p| {err:.3e} (limit 1e-4), {silent} silent frames "
+              f"{'== log(1e-5)' if exact else 'NOT log(1e-5)'} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"log_mel {label} B={b}: max|k-p| {err:.3e}, silent exact {exact}")
+        worst = max(worst, err)
+    return worst
+
+
 def serve(model, device, counters) -> dict:
     """Phase 4: concurrent clips through the micro-batching server."""
     from mqgan_tpu_torch.deploy.runtime import CodecRuntime
@@ -291,35 +375,39 @@ KERNEL_GROUPS = (
     ("residual_block", ("conv_gemm", "cbam_", "sam_stats")),
     ("mel_mixer", ("mel_mixer",)),
     ("fsq_head", ("fsq_head",)),
+    ("log_mel", ("log_mel",)),
+    ("fft (cuFFT)", ("fft",)),
     ("conv (cuDNN/cuBLAS)", ("conv", "gemm", "xmma", "cudnn", "sm90_", "cutlass",
                              "wgrad", "dgrad", "implicit")),
 )
 
 
-def profile_round_trip(model, device, label: str) -> None:
-    """Phase 5b: device time of one B=64, T=512 round trip by kernel group,
-    from torch.profiler, and the share of the wall time the card was busy."""
+def _device_profile(fn):
+    """(device events [(kernel name, ms)], wall ms) of one synchronised call
+    of fn under torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device=device).manual_seed(SEED + 6)
-    mel = torch.randn((BENCH_B, BENCH_T, MELS), generator=gen, device=device)
-    pad = torch.zeros((BENCH_B, BENCH_T), dtype=torch.bool, device=device)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.decode(model.encode(mel, pad), pad)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # device-side events only: a CPU op also carries its kernels' time
     events = [(e.key, e.self_device_time_total / 1e3)
               for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    events = [(k, ms) for k, ms in events if ms > 0]
+    return [(k, ms) for k, ms in events if ms > 0], wall_ms
+
+
+def _report_profile(label, events, wall_ms, top=8) -> float:
+    """Print device busy time, idle share, time by kernel group and the
+    largest kernels; returns the busy ms (0.0: the profiler saw nothing)."""
     busy = sum(ms for _, ms in events)
     if busy == 0:
         print(f"  {label}: the profiler saw no device time (not measured)")
-        return
+        return 0.0
     groups: dict = {}
     for key, ms in events:
         low = key.lower()
@@ -330,8 +418,203 @@ def profile_round_trip(model, device, label: str) -> None:
           f"(idle share {1 - busy / wall_ms:.3f}, profiler on)")
     for group, ms in sorted(groups.items(), key=lambda g: -g[1]):
         print(f"    {group:22s} {ms:9.3f} ms  {100 * ms / busy:5.1f}%")
-    for key, ms in sorted(events, key=lambda e: -e[1])[:8]:
+    for key, ms in sorted(events, key=lambda e: -e[1])[:top]:
         print(f"      {ms:9.3f} ms  {key[:90]}")
+    return busy
+
+
+def profile_round_trip(model, device, label: str) -> None:
+    """Phase 5b: device time of one B=64, T=512 round trip by kernel group,
+    from torch.profiler, and the share of the wall time the card was busy."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    mel = torch.randn((BENCH_B, BENCH_T, MELS), generator=gen, device=device)
+    pad = torch.zeros((BENCH_B, BENCH_T), dtype=torch.bool, device=device)
+    _report_profile(label, *_device_profile(
+        lambda: model.decode(model.encode(mel, pad), pad)))
+
+
+def _write_wav(path, samples: np.ndarray, sr: int) -> None:
+    import wave
+
+    pcm = (np.clip(samples, -1.0, 1.0) * 32767).astype(np.int16)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm.tobytes())
+
+
+def convert_on_card(counters) -> None:
+    """Phase 6: the convert CLI's library entry point with the front end on
+    the card."""
+    import tempfile
+
+    from mqgan_tpu_torch.core.config import IOConfig, SpecConfig
+    from mqgan_tpu_torch.signal import convert
+
+    rng = np.random.default_rng(SEED + 8)
+    # (sub-folder, name, seconds, rate): the 22.05 kHz clip is resampled,
+    # the 0.5 s one gated out
+    clips = [("a", "c0", 1.5, 44100), ("a", "c1", 2.0, 44100),
+             ("a", "c2", 3.7, 44100), ("b", "c3", 6.0, 44100),
+             ("b", "c4", 9.5, 44100), ("b", "c5", 15.0, 44100),
+             ("b", "r22k", 4.0, 22050), ("a", "short", 0.5, 44100)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_convert_") as tmp:
+        want = {}
+        for sub, name, secs, sr in clips:
+            os.makedirs(os.path.join(tmp, "wav", sub), exist_ok=True)
+            n = int(round(secs * sr))
+            t = np.arange(n) / sr
+            x = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 2000) * t)
+            _write_wav(os.path.join(tmp, "wav", sub, f"{name}.wav"),
+                       x + 0.05 * rng.standard_normal(n), sr)
+            if secs >= 1.0:
+                want[f"{sub}/{name}_mel.npy"] = (n * 44100 // sr) // 512 + 1
+
+        def run(out, workers):
+            cfg = SpecConfig(io=IOConfig(input_folder=os.path.join(tmp, "wav"),
+                                         output_folder=os.path.join(tmp, out),
+                                         audio_extensions=(".wav",)))
+            convert.run(cfg, num_workers=workers, device="cuda")
+            root = os.path.join(tmp, out)
+            return {os.path.relpath(os.path.join(d, f), root): os.path.join(d, f)
+                    for d, _, files in os.walk(root) for f in files}
+
+        counters.reset()
+        t0 = time.perf_counter()
+        first = run("mels", 1)
+        secs = time.perf_counter() - t0
+        launches = counters.snapshot()
+        if sorted(first) != sorted(want):
+            fail(f"convert wrote {sorted(first)}, expected {sorted(want)}")
+        for rel, path in first.items():
+            mel = np.load(path)
+            if mel.shape != (want[rel], MELS) or mel.dtype != np.float32 \
+                    or not np.isfinite(mel).all():
+                fail(f"convert {rel}: {mel.shape} {mel.dtype}, expected "
+                     f"({want[rel]}, {MELS}) float32, finite")
+        if launches != {"log_mel": len(want)}:
+            fail(f"convert launches {launches}, expected log_mel {len(want)}")
+        mtimes = {rel: os.path.getmtime(p) for rel, p in first.items()}
+        counters.reset()
+        run("mels", 1)
+        if {rel: os.path.getmtime(p) for rel, p in first.items()} != mtimes \
+                or counters.snapshot():
+            fail("convert rerun touched a finished file")
+        second = run("mels_2w", 2)
+        if sorted(second) != sorted(want):
+            fail(f"convert with 2 workers wrote {sorted(second)}")
+        err = max(float(np.abs(np.load(second[r]) - np.load(first[r])).max())
+                  for r in want)
+        if err > 1e-6:
+            fail(f"convert with 2 workers differs by {err:.3e}")
+    print(f"  {len(want)} of {len(clips)} files written in {secs:.2f} s "
+          f"(short clip gated, 22.05 kHz clip resampled), launches {launches}; "
+          f"rerun skipped every file; 2 spawned workers: same files, max "
+          f"diff {err:.1e}")
+
+
+def _audio_batch(device, seed):
+    """(AUDIO_B, AUDIO_SAMPLES) fp32: per clip three sines of random
+    frequency and level plus noise, scaled to a peak of 0.3."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t = torch.arange(AUDIO_SAMPLES, device=device) / 44100.0
+    freq = 80.0 + 3920.0 * torch.rand((AUDIO_B, 3, 1), generator=gen, device=device)
+    level = torch.rand((AUDIO_B, 3, 1), generator=gen, device=device)
+    x = (level * torch.sin(2 * np.pi * freq * t)).sum(dim=1)
+    x = x + 0.1 * torch.randn((AUDIO_B, AUDIO_SAMPLES), generator=gen, device=device)
+    return 0.3 * x / x.abs().amax(dim=1, keepdim=True)
+
+
+def audio_round_trip(model, device, counters, card) -> dict:
+    """Phase 7: wav -> log-mel -> tokens -> refined mel -> wav at full width;
+    returns the launch counts of one trip."""
+    import torch
+
+    from mqgan_tpu_torch.core.config import SpectrogramConfig
+    from mqgan_tpu_torch.models.istft_vocoder import (ISTFTNetGenerator,
+                                                      build_vocoder_fe)
+    from mqgan_tpu_torch.signal.griffin_lim import GriffinLimVocoder
+    from mqgan_tpu_torch.signal.mel import MelFrontend
+    from mqgan_tpu_torch.utils.init import seeded_init_
+
+    cfg = SpectrogramConfig()
+    frontend = MelFrontend(cfg, device=device)
+    gen = seeded_init_(ISTFTNetGenerator(n_mels=MELS, dtype=torch.bfloat16),
+                       SEED + 9).to(device).eval()
+    vocoder = build_vocoder_fe(gen, cfg.hop_length // gen.total_upsample)
+    pad = torch.zeros((AUDIO_B, BENCH_T), dtype=torch.bool, device=device)
+    wavs = [_audio_batch(device, SEED + 10 + i) for i in range(AUDIO_ITERS + 1)]
+
+    def codec(mel):
+        return model.decode(model.encode(mel, pad), pad)
+
+    def trip(wav):
+        return vocoder(codec(frontend(wav)).transpose(1, 2))
+
+    counters.reset()
+    out = trip(wavs[0])
+    torch.cuda.synchronize()
+    launches = counters.snapshot()
+    per_trip = {"log_mel": 1, "residual_block": 6, "fsq_head": 1, "mel_mixer": 2}
+    n_out = (BENCH_T * gen.total_upsample - 1) * (cfg.hop_length // gen.total_upsample)
+    print(f"  one trip: wav {tuple(wavs[0].shape)} -> {tuple(out.shape)}, "
+          f"launches {launches}")
+    if launches != per_trip:
+        fail(f"audio round trip launches {launches} != {per_trip}")
+    if tuple(out.shape) != (AUDIO_B, 1, n_out) or not bool(torch.isfinite(out).all()):
+        fail(f"audio round trip output {tuple(out.shape)} (want {(AUDIO_B, 1, n_out)}) "
+             f"or not finite")
+
+    fe_ms = time_ms(lambda: [frontend(w) for w in wavs[1:]], 3) / AUDIO_ITERS
+    trip_ms = time_ms(lambda: [trip(w) for w in wavs[1:]], 2) / AUDIO_ITERS
+    audio_s = AUDIO_B * AUDIO_SAMPLES / cfg.sampling_rate
+    print(f"  front end: {fe_ms:.3f} ms per batch, "
+          f"{AUDIO_B * BENCH_T / (fe_ms / 1e3):.1f} mel-frames/s [{card}]")
+    print(f"  wav -> wav: {trip_ms:.3f} ms per batch of {audio_s:.2f} s of "
+          f"audio, {audio_s / (trip_ms / 1e3):.1f} audio-s/s [{card}]")
+
+    post = codec(frontend(wavs[0])).float()
+    GriffinLimVocoder(cfg, n_iter=1)(post)  # cuFFT plans
+    gl = GriffinLimVocoder(cfg, n_iter=GL_ITERS)
+    gl_ms = time_ms(lambda: gl(post), 3)
+    gl_out = gl(post)
+    if tuple(gl_out.shape) != (AUDIO_B, 1, AUDIO_SAMPLES) \
+            or not bool(torch.isfinite(gl_out).all()):
+        fail(f"Griffin-Lim output {tuple(gl_out.shape)} or not finite")
+    print(f"  Griffin-Lim, {GL_ITERS} iterations on the {AUDIO_B} decoded mels: "
+          f"{gl_ms:.3f} ms -> {tuple(gl_out.shape)} [{card}]")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del gl_out, post
+
+    print(f"[7b] where the time goes, one audio round trip [{card}]")
+    events, wall = _device_profile(lambda: trip(wavs[1]))
+    _report_profile("wav -> wav", events, wall, top=10)
+    # the split: CUDA events between the stages of one trip
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    marks[0].record()
+    mel = frontend(wavs[1])
+    marks[1].record()
+    post = codec(mel)
+    marks[2].record()
+    vocoder(post.transpose(1, 2))
+    marks[3].record()
+    marks[3].synchronize()
+    total = marks[0].elapsed_time(marks[3])
+    print(f"  split of one trip ({total:.3f} ms, CUDA events): " + ", ".join(
+        f"{label} {marks[i].elapsed_time(marks[i + 1]):.3f} ms "
+        f"({100 * marks[i].elapsed_time(marks[i + 1]) / total:.1f}%)"
+        for i, label in enumerate(("front end", "codec", "vocoder"))))
+    # kernel groups of each stage, profiled alone
+    for label, fn in (("front end", lambda: frontend(wavs[1])),
+                      ("codec", lambda: codec(mel)),
+                      ("vocoder", lambda: vocoder(post.transpose(1, 2)))):
+        _report_profile(label, *_device_profile(fn), top=4)
+    return launches
 
 
 class _KernelRow:
@@ -342,6 +625,8 @@ class _KernelRow:
         self.name, self.source, self.replaces = name, source, replaces
         self.ms = self.plain_ms = self.bound_ms = 0.0
         self.ops_ms = self.bytes_ms = 0.0
+        self.max_abs_err = 0.0  # kernel vs plain at these shapes, where checked
+        self.library_ms = None  # one PyTorch call (or chain) of the same function
 
     def add(self, ms, plain_ms, ops, peak, nbytes) -> float:
         ops_ms, bytes_ms = 1e3 * ops / peak, 1e3 * nbytes / PEAK_BYTES
@@ -358,12 +643,17 @@ class _KernelRow:
 
 
 def kernel_times(model, device) -> list:
-    """Phase 6: each kernel at its flagship shapes (B=64, T=512, bf16),
-    summed over its calls in one round trip. Bounds count each input byte
-    read once and each output byte written once; the block's operations
-    are its conv GEMMs at the bf16 tensor-core peak, the mixer's and the
-    FSQ head's are fp32 operations (a tanh counted as one) at the fp32
-    peak."""
+    """Phase 8: each kernel at its flagship shapes (B=64, T=512, bf16; the
+    log-mel kernel fp32 on 64 clips of 512 frames), summed over its calls in
+    one round trip. Bounds count each input byte read once and each output
+    byte written once; the block's operations are its conv GEMMs at the bf16
+    tensor-core peak, the mixer's and the FSQ head's are fp32 operations (a
+    tanh counted as one) at the fp32 peak. The log-mel bound is that of the
+    function, not of the kernel's DFT-as-GEMM: a real FFT of each frame
+    (2.5 n log2 n), the magnitude, the mel product, clamp and log, at the
+    fp32 peak, against the waveform, window and filterbank read and the
+    log-mel written. The log-mel kernel is also held against its plain
+    version at these shapes."""
     import torch
 
     from mqgan_tpu_torch.ops.block_kernels import (fused_residual_block,
@@ -424,7 +714,49 @@ def kernel_times(model, device) -> list:
                         2.0 * m * c + 4.0 * m + 4.0 * (c * d + 6 * d))
     print(f"  fsq_head N={m} C={c}: {ms:.4f} ms, plain {pms:.4f} ms, "
           f"bound {bound:.4f} ms")
-    return [blk_row, mix_row, fsq_row]
+
+    from mqgan_tpu_torch.core.config import SpectrogramConfig
+    from mqgan_tpu_torch.ops.stft_kernels import (dft_mel_tables, log_mel,
+                                                  log_mel_plain)
+    from mqgan_tpu_torch.signal.stft import hann_window
+
+    mel_row = _KernelRow("log_mel", "mqgan_tpu_torch/csrc/log_mel.cu",
+                         "mqgan_tpu/ops/stft_kernels.py:95")
+    cfg = SpectrogramConfig()
+    hop, n_fft, n_freq, n_mels = (cfg.hop_length, cfg.filter_length,
+                                  cfg.n_freqs, cfg.n_mel_channels)
+    cos, sin, fbank = (x.to(device) for x in dft_mel_tables(cfg))
+    wav = _audio_batch(device, SEED + 5)
+    n = AUDIO_B * (AUDIO_SAMPLES // hop + 1)
+    window = hann_window(cfg.win_length, device=device)
+    got = log_mel(wav, cos, sin, fbank, hop)
+    err = float((got - log_mel_plain(wav, cos, sin, fbank, hop)).abs().max())
+    lib_err = float((log_mel_library(wav, window, fbank, n_fft, hop, cfg.win_length)
+                     - got).abs().max())
+    del got
+    print(f"  log_mel at B={AUDIO_B} x {AUDIO_SAMPLES}: max|k-p| {err:.3e} "
+          f"(limit 1e-4) {'ok' if err <= 1e-4 else 'FAIL'}, max|chain - kernel| "
+          f"{lib_err:.2e} (not gated)")
+    if not err <= 1e-4:
+        fail(f"log_mel at B={AUDIO_B}: max|k-p| {err:.3e}")
+    mel_row.max_abs_err = err
+    ms = time_ms(lambda: log_mel(wav, cos, sin, fbank, hop), 10)
+    pms = time_ms(lambda: log_mel_plain(wav, cos, sin, fbank, hop), 3)
+    mel_row.library_ms = time_ms(lambda: log_mel_library(
+        wav, window, fbank, n_fft, hop, cfg.win_length), 10)
+    flops = (2.5 * n * n_fft * math.log2(n_fft)  # real FFT of each frame
+             + 4.0 * n * n_freq                  # |.|: two products, a sum, a sqrt
+             + 2.0 * n * n_freq * n_mels         # mel product
+             + 2.0 * n * n_mels)                 # clamp, log
+    dft_flops = 4.0 * n * n_fft * n_freq  # the kernel's own DFT-as-GEMM
+    bound = mel_row.add(ms, pms, flops, PEAK_FP32,
+                        4.0 * (wav.numel() + cfg.win_length + n_freq * n_mels
+                               + n * n_mels))
+    print(f"  log_mel N={n} n_fft={n_fft} F={n_freq} mels={n_mels}: {ms:.4f} ms, "
+          f"plain {pms:.4f} ms, bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP "
+          f"with an FFT; the kernel's DFT-as-GEMM does {dft_flops / 1e9:.1f}), "
+          f"torch.stft chain {mel_row.library_ms:.4f} ms")
+    return [blk_row, mix_row, fsq_row, mel_row]
 
 
 def main() -> None:
@@ -457,6 +789,7 @@ def main() -> None:
           f"lengths {CMP_LENGTHS}")
     errs = compare_kernels(model, device, CMP_B, CMP_T, CMP_LENGTHS,
                            (torch.float32, torch.bfloat16))
+    errs["log_mel"] = compare_log_mel(device)
     compare_round_trip(state, device)
 
     counters = _cuda.COUNTERS
@@ -480,16 +813,24 @@ def main() -> None:
     profile_round_trip(poly, device, "poly-decode")
     del poly
 
-    print(f"[6] kernel times at B={BENCH_B} T={BENCH_T} bf16 [{card}]")
+    print("[6] convert on the card (hifispeech spec)")
+    convert_on_card(counters)
+
+    print(f"[7] audio round trip, {AUDIO_B} clips x {AUDIO_SAMPLES} samples, "
+          f"codec bf16 exact mixers, ISTFTNetGenerator() bf16 [{card}]")
+    torch.cuda.reset_peak_memory_stats()
+    launches.update(log_mel=audio_round_trip(model, device, counters, card)["log_mel"])
+
+    print(f"[8] kernel times at B={BENCH_B} T={BENCH_T} [{card}]")
     rows = kernel_times(model, device)
     kernels = []
     for row in rows:
         kernels.append({
             "name": row.name, "route": "cuda", "source": row.source,
             "replaces": row.replaces, "launches": launches.get(row.name, 0),
-            "max_abs_err": errs[row.name],
+            "max_abs_err": max(errs[row.name], row.max_abs_err),
             "ms": row.ms, "plain_ms": row.plain_ms, "bound_ms": row.bound_ms,
-            "bound_by": row.bound_by, "library_ms": None,
+            "bound_by": row.bound_by, "library_ms": row.library_ms,
         })
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -24,24 +24,25 @@ def weight_norm_kernel(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return v * (g.float() / norm).reshape(shape)
 
 
-def same_padding_1d(kernel_size: int, causal: bool) -> tuple:
-    """(lo, hi) time padding: causal pads k-1 on the left only, SAME pads
-    k//2 on both sides (torch 'same' for odd k)."""
+def same_padding_1d(kernel_size: int, causal: bool, dilation: int = 1) -> tuple:
+    """(lo, hi) time padding: causal pads d*(k-1) on the left only, SAME
+    pads d*(k//2) on both sides (torch 'same' for odd k)."""
     if causal:
-        return kernel_size - 1, 0
-    return kernel_size // 2, kernel_size // 2
+        return dilation * (kernel_size - 1), 0
+    return dilation * (kernel_size // 2), dilation * (kernel_size // 2)
 
 
 class WNConv1d(nn.Module):
-    """1-D conv over (B, T, C) with optional weight norm."""
+    """1-D conv over (B, T, C) with optional weight norm and dilation."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  *, causal: bool = False, weight_norm: bool = True,
-                 bias: bool = True):
+                 bias: bool = True, dilation: int = 1):
         super().__init__()
         shape = (out_channels, in_channels, kernel_size)
         self.kernel_size = kernel_size
         self.causal = causal
+        self.dilation = dilation
         self.weight_norm = weight_norm
         if weight_norm:
             self.v = nn.Parameter(torch.empty(shape))
@@ -57,9 +58,9 @@ class WNConv1d(nn.Module):
         return self.weight.float()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        lo, hi = same_padding_1d(self.kernel_size, self.causal)
+        lo, hi = same_padding_1d(self.kernel_size, self.causal, self.dilation)
         y = F.conv1d(F.pad(x.transpose(1, 2), (lo, hi)),
-                     self.folded().to(x.dtype))
+                     self.folded().to(x.dtype), dilation=self.dilation)
         y = y.transpose(1, 2)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)

@@ -28,9 +28,10 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fsq_head.cu", "residual_block.cu", "mel_mixer.cu")
-# no --use_fast_math: the mixer and the FSQ head need exact tanhf, and an
-# approximate tanh flips FSQ codes on the encode side
+SOURCES = ("fsq_head.cu", "residual_block.cu", "mel_mixer.cu", "log_mel.cu")
+# no --use_fast_math: the mixer and the FSQ head need exact tanhf (an
+# approximate tanh flips FSQ codes on the encode side), the log-mel kernel
+# exact sqrtf and logf
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +50,9 @@ _SIGNATURES = {
     # x, lengths, dwk, consts, w1, b1, w2, out, B, T, C, P, dw_k, is_bf16,
     # stream
     "mqgan_mel_mixer": (_PTR,) * 8 + (_INT,) * 6 + (_PTR,),
+    # wav_pad, cos, sin, fbank, out, n_clips, frames_per_clip, row_stride,
+    # hop, n_fft, n_freq, n_mels, stream
+    "mqgan_log_mel": (_PTR,) * 5 + (_INT,) * 7 + (_PTR,),
 }
 
 

@@ -2,7 +2,9 @@
 
 The input is a nested dict of numpy arrays as ``PreEncoder.init(...)["params"]``
 gives it (or the subtree of one of its modules: a block, a mixer, the
-refiner). Key paths map one to one onto the port's module names:
+refiner), or as ``ISTFTNetGenerator.init(...)["params"]`` gives it (whose
+names the port's vocoder mirrors as they are). Key paths map one to one onto
+the port's module names:
 
   encoder_blocks_i / decoder_blocks_i -> encoder_blocks.i / decoder_blocks.i
   down{i} / up{i} (refiner)           -> downs.i / ups.i

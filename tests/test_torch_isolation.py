@@ -28,6 +28,12 @@ try:
     result["default_device"] = str(rt.device)
 except RuntimeError as e:
     result["default_device_error"] = str(e)
+from mqgan_tpu_torch.core.config import SpectrogramConfig
+from mqgan_tpu_torch.signal.mel import MelFrontend
+try:
+    result["mel_device"] = str(MelFrontend(SpectrogramConfig()).device)
+except RuntimeError as e:
+    result["mel_device_error"] = str(e)
 print(json.dumps(result))
 """
 
@@ -40,8 +46,13 @@ def test_port_imports_nothing_of_jax_and_does_not_fall_back():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert "mqgan_tpu_torch.models.preencoder" in result["modules"]
     assert "mqgan_tpu_torch.ops.block_kernels" in result["modules"]
+    for name in ("ops.stft_kernels", "signal.mel", "signal.convert",
+                 "models.istft_vocoder"):
+        assert f"mqgan_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     if result["cuda"]:
         assert result["default_device"].startswith("cuda")
+        assert result["mel_device"].startswith("cuda")
     else:
         assert "CUDA is not available" in result["default_device_error"]
+        assert "CUDA is not available" in result["mel_device_error"]

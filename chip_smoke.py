@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's codec serving path and its audio path on one
-NVIDIA GPU (H100).
+"""Drive the PyTorch port's codec serving path, its audio path and its
+token-LM training path on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
@@ -50,7 +50,27 @@ printing no result, without one. Phases (any failure exits non-zero):
     is first held against its plain version at that batch (64 clips,
     max|k - p| <= 1e-4), and its bound is the function's (with an FFT), not
     the kernel's DFT product;
- 9. print {"ok": true, "device": {...}} as the last line.
+ 9. the three flash-attention kernels (forward, dQ, dK/dV) against their
+    plain versions, fp32 (max|k - p| <= 1e-4 * max(1, max|p|), TF32 off)
+    and bf16 (rel-L2 <= 2e-2), at T 1, 17, 128, 129, 2047 and head sizes
+    32, 64, 128 (B=2, H=4); at T=1 dq and dk are 0 by definition (one key)
+    and take the absolute gate in both dtypes;
+10. the token-LM training slice at the flagship width (MusicTransformer
+    vocab 1003, 10 genres, emb 512, 6 layers, 8 heads, mlp 4x): one fp32
+    step on the card through the kernels against the same step on the CPU
+    through the plain path (loss and every gradient); the trainer CLI
+    (--arch transformer --flash_lm --bf16) for one epoch of 2047-token
+    chunks with 6 launches of each kernel per train step (the slice's main
+    path: counts reset just before, read just after); training tokens/s
+    (B * (L - 1) per step, bf16, dropout 0.1) at B=8 L=2048 and B=4 L=4096
+    through the kernels, the plain attention and the SDPA yardstick, with
+    peak memory, and a torch.profiler split of one step; one --arch lstm
+    step at flagship width;
+11. time the flash kernels at the flagship layer call (B=8, H=8, T=2047,
+    D=64, bf16) beside their plain versions, their bounds (the function's
+    operations) and SDPA's forward and backward, after holding them against
+    the plain versions there; print the kernels JSON line (seven rows);
+12. print {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -77,6 +97,26 @@ WARMUP, ITERS = 2, 5
 # give 512 frames per clip (5.93 s at 44.1 kHz)
 AUDIO_B, AUDIO_SAMPLES, AUDIO_ITERS = 64, 261_632, 3
 GL_ITERS = 32
+# flash attention: kernel vs plain at these sequence lengths and head sizes
+FLASH_TS = (1, 17, 128, 129, 2047)
+FLASH_DS = (32, 64, 128)
+# the JAX package calls JAX's library kernels (JAX 0.9.0,
+# jax/experimental/pallas/ops/tpu/flash_attention.py) from _attend_flash
+FLASH_REPLACES = {
+    "flash_fwd": "mqgan_tpu/models/token_transformer.py:128 "
+                 "(jax flash_attention.py:758 _flash_attention_impl)",
+    "flash_bwd_dq": "mqgan_tpu/models/token_transformer.py:128 "
+                    "(jax flash_attention.py:1456 _flash_attention_bwd_dq)",
+    "flash_bwd_dkv": "mqgan_tpu/models/token_transformer.py:128 "
+                     "(jax flash_attention.py:1121 _flash_attention_bwd_dkv)",
+}
+# the flagship token LM (benchmarks/bench_flash_sweep.py, the trainer's
+# defaults), the trainer run's chunk count, and the training shapes timed
+LM = dict(vocab_size=1003, num_genres=10, emb_dim=512, n_layers=6, n_heads=8,
+          mlp_ratio=4)
+LM_CHUNKS = 20
+LM_SHAPES = ((8, 2048), (4, 4096))
+LM_ITERS = 3
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores,
 # fp32 CUDA cores, HBM bandwidth
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -159,19 +199,11 @@ def compare_kernels(model, device, b, t, lengths, dtypes) -> dict:
     errs = {k: 0.0 for k in ("residual_block", "mel_mixer", "fsq_head")}
 
     def judge(kernel, name, got, want, dtype):
-        diff = (got.float() - want.float())
-        max_abs = float(diff.abs().max())
-        if dtype == torch.float32:
-            limit = 1e-4 * max(1.0, float(want.float().abs().max()))
-            ok = max_abs <= limit
-            detail = f"max|k-p| {max_abs:.3e} (limit {limit:.3e})"
-        else:
-            rel = float(diff.norm() / want.float().norm().clamp_min(1e-30))
-            ok = rel <= 2e-2
-            detail = f"rel-L2 {rel:.3e} (limit 2e-2), max|k-p| {max_abs:.3e}"
+        ok, max_abs, detail = _judge("", got, want, dtype)
+        if dtype != torch.float32:
             errs[kernel] = max(errs[kernel], max_abs)
-        print(f"  {kernel:15s} {name:5s} {str(dtype)[6:]:8s} {detail} "
-              f"{'ok' if ok else 'FAIL'}")
+        print(f"  {kernel:15s} {name:5s} {str(dtype)[6:]:8s} {detail.strip()}, "
+              f"max|k-p| {max_abs:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"{kernel} {name} {dtype}: {detail}")
 
@@ -302,6 +334,70 @@ def compare_log_mel(device) -> float:
     return worst
 
 
+def _judge(label, got, want, dtype, zero=False) -> tuple:
+    """(ok, max|k - p|, detail) under the kernel gates: fp32 max|k - p| <=
+    1e-4 * max(1, max|p|), bf16 rel-L2 <= 2e-2. ``zero``: the function is
+    identically 0 (its plain value is rounding noise), so both dtypes take
+    the fp32 gate, as no relative error exists."""
+    import torch
+
+    diff = got.float() - want.float()
+    max_abs = float(diff.abs().max()) if diff.numel() else 0.0
+    if dtype == torch.float32 or zero:
+        limit = 1e-4 * max(1.0, float(want.float().abs().max()))
+        return max_abs <= limit, max_abs, f"{label} max|k-p| {max_abs:.2e} (<= {limit:.1e})"
+    rel = float(diff.norm() / want.float().norm().clamp_min(1e-30))
+    return rel <= 2e-2, max_abs, f"{label} rel-L2 {rel:.2e} (<= 2e-2)"
+
+
+def compare_flash(device) -> dict:
+    """Phase 9: the three flash kernels against their plain versions (TF32
+    off), fp32 and bf16, T in FLASH_TS, D in FLASH_DS, B=2 H=4; returns each
+    kernel's largest |kernel - plain| in bf16."""
+    import torch
+
+    from mqgan_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_dkv_plain,
+        flash_attention_bwd_dq_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in FLASH_DS:
+            for t in FLASH_TS:
+                q, k, v, do = (torch.randn((2, t, 4, d), generator=gen, device=device)
+                               .to(dtype) for _ in range(4))
+                scale = d ** -0.5
+                o, lse = flash_attention_fwd(q, k, v, scale)
+                dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, scale)
+                torch.cuda.synchronize()
+                o_p, lse_p = flash_attention_fwd_plain(q, k, v, scale)
+                # the backward plain versions take the kernel's o and lse, so
+                # each kernel is held on the same inputs
+                dq_p = flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale)
+                dk_p, dv_p = flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, scale)
+                checks = (("flash_fwd", "o", o, o_p), ("flash_fwd", "lse", lse, lse_p),
+                          ("flash_bwd_dq", "dq", dq, dq_p),
+                          ("flash_bwd_dkv", "dk", dk, dk_p),
+                          ("flash_bwd_dkv", "dv", dv, dv_p))
+                details, bad = [], []
+                for kernel, label, got, want in checks:
+                    # one key: softmax has no gradient, dq = dk = 0
+                    zero = t == 1 and label in ("dq", "dk")
+                    ok, max_abs, detail = _judge(label, got, want, dtype, zero)
+                    details.append(detail)
+                    if not ok:
+                        bad.append(detail)
+                    if dtype == torch.bfloat16:
+                        errs[kernel] = max(errs[kernel], max_abs)
+                print(f"  flash {str(dtype)[6:]:8s} D={d:3d} T={t:4d}: "
+                      f"{'; '.join(details)} {'FAIL' if bad else 'ok'}")
+                if bad:
+                    fail(f"flash {dtype} D={d} T={t}: {bad}")
+    return errs
+
+
 def serve(model, device, counters) -> dict:
     """Phase 4: concurrent clips through the micro-batching server."""
     from mqgan_tpu_torch.deploy.runtime import CodecRuntime
@@ -372,13 +468,14 @@ def throughput(model, device, counters, per_trip) -> float:
 
 
 KERNEL_GROUPS = (
+    ("flash attention", ("flash_fwd", "flash_bwd")),
     ("residual_block", ("conv_gemm", "cbam_", "sam_stats")),
     ("mel_mixer", ("mel_mixer",)),
     ("fsq_head", ("fsq_head",)),
     ("log_mel", ("log_mel",)),
     ("fft (cuFFT)", ("fft",)),
     ("conv (cuDNN/cuBLAS)", ("conv", "gemm", "xmma", "cudnn", "sm90_", "cutlass",
-                             "wgrad", "dgrad", "implicit")),
+                             "wgrad", "dgrad", "implicit", "nvjet")),
 )
 
 
@@ -759,6 +856,293 @@ def kernel_times(model, device) -> list:
     return [blk_row, mix_row, fsq_row, mel_row]
 
 
+def lm_model(device, dtype, route: str, dropout: float = 0.0):
+    """The flagship MusicTransformer (seeded) with its attention routed
+    through the flash kernels ("kernels"), the naive materialised scores
+    ("plain") or torch's scaled_dot_product_attention ("sdpa": the library
+    yardstick, defined here; the port never calls it)."""
+    import types
+
+    import torch.nn.functional as F
+
+    from mqgan_tpu_torch.models.token_transformer import MusicTransformer
+    from mqgan_tpu_torch.utils.init import seeded_init_
+
+    def sdpa_attend(self, q, k, v):
+        out = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, scale=q.shape[-1] ** -0.5)
+        return out.transpose(1, 2)
+
+    model = MusicTransformer(**LM, dropout=dropout, flash=route == "kernels",
+                             dtype=dtype)
+    seeded_init_(model, SEED + 12)
+    if route == "sdpa":
+        for blk in model.blocks:
+            blk.attn.attend = types.MethodType(sdpa_attend, blk.attn)
+    return model.to(device)
+
+
+def lm_batch(device, b: int, length: int, seed: int):
+    """(tokens (b, length) with BOS first, genres (b,), lengths (b,))."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tokens = torch.randint(2, LM["vocab_size"], (b, length), generator=gen,
+                           device=device)
+    tokens[:, 0] = 1
+    genres = torch.randint(0, LM["num_genres"], (b,), generator=gen, device=device)
+    return tokens, genres, torch.full((b,), length, device=device)
+
+
+def compare_lm_step(device) -> None:
+    """Phase 10a: one fp32 train step of the flagship-width transformer on
+    the card through the kernels against the same step on the CPU through
+    the plain attention (B=2, L=300, one row padded from 200): loss within
+    1e-5 * max(1, |loss|), every gradient within 1e-4 * max(1, max|g|)."""
+    import torch
+
+    from mqgan_tpu_torch.models.music_lstm import masked_ce_loss
+    from mqgan_tpu_torch.train.lstm_trainer import ClipAdamW, make_lstm_step
+
+    tokens, genres, lengths = lm_batch("cpu", 2, 300, SEED + 13)
+    tokens[1, 200:] = 0
+    lengths[1] = 200
+    cpu = lm_model("cpu", None, "kernels")
+    card = lm_model(device, None, "kernels")
+    card.load_state_dict(cpu.state_dict())
+    out = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, device)):
+        logits = model(tokens[:, :-1].to(dev), genres.to(dev))
+        loss, _ = masked_ce_loss(logits, tokens[:, 1:].to(dev))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[name] = (float(loss.detach()), [g.cpu() for g in grads])
+    loss_err = abs(out["card"][0] - out["cpu"][0])
+    g_err = max(float((a - b).abs().max()) for a, b in zip(out["card"][1], out["cpu"][1]))
+    g_max = max(float(b.abs().max()) for b in out["cpu"][1])
+    ok = loss_err <= 1e-5 * max(1.0, abs(out["cpu"][0])) and g_err <= 1e-4 * max(1.0, g_max)
+    # then the trainer's whole step on both (AdamW moves every coordinate by
+    # about lr, so a gradient that is 0 up to rounding can move apart: the
+    # largest parameter difference is reported, not gated)
+    stepped = []
+    for model, dev in ((cpu, "cpu"), (card, device)):
+        tx = ClipAdamW(1e-3)
+        step = make_lstm_step(model, tx, 0, train=True)
+        loss = step(tx.init(model.parameters()), tokens.to(dev), genres.to(dev),
+                    lengths.to(dev), torch.Generator().manual_seed(0))
+        stepped.append((float(loss), torch.cat([p.detach().cpu().flatten()
+                                                for p in model.parameters()])))
+    p_err = float((stepped[0][1] - stepped[1][1]).abs().max())
+    print(f"  fp32 step, flagship width, B=2 L=300: loss card {out['card'][0]:.6f} "
+          f"cpu {out['cpu'][0]:.6f} (|d| {loss_err:.2e}), max|dgrad| {g_err:.2e} "
+          f"(max|g| {g_max:.2e}) {'ok' if ok else 'FAIL'}; after the AdamW step "
+          f"max|dparam| {p_err:.2e}")
+    if not ok or not math.isfinite(stepped[1][0]):
+        fail("fp32 LM step on the card disagrees with the CPU plain path")
+
+
+def _write_chunks(root, n: int, length: int, seed: int) -> str:
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "chunks"))
+    mapping = {}
+    for i in range(n):
+        name = f"c{i:03d}.npy"
+        np.save(os.path.join(root, "chunks", name),
+                rng.integers(2, LM["vocab_size"], length).astype(np.int32))
+        mapping[name] = int(i % LM["num_genres"])
+    path = os.path.join(root, "fname_to_id.json")
+    with open(path, "w") as f:
+        json.dump(mapping, f)
+    return path
+
+
+def lm_trainer_cli(counters, device) -> dict:
+    """Phase 10b, the slice's main path: the trainer CLI (--arch transformer
+    --flash_lm --bf16, flagship defaults) for one epoch over LM_CHUNKS chunks
+    of 2047 tokens (input T = 2047): LM_CHUNKS - 2 train rows in steps of 8,
+    2 val rows; 6 launches of each flash kernel per train step, 6 forward
+    launches per val step. Returns the launch counts."""
+    import tempfile
+
+    from mqgan_tpu_torch.train import lstm_trainer
+
+    n_val = max(1, int(0.1 * LM_CHUNKS))
+    steps = -(-(LM_CHUNKS - n_val) // 8)
+    want = {"flash_fwd": 6 * (steps + 1), "flash_bwd_dq": 6 * steps,
+            "flash_bwd_dkv": 6 * steps}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+        mapping = _write_chunks(tmp, LM_CHUNKS, 2047, SEED + 14)
+        out = os.path.join(tmp, "run")
+        counters.reset()
+        t0 = time.perf_counter()
+        lstm_trainer.main([
+            "--chunks_dir", os.path.join(tmp, "chunks"), "--mapping_json", mapping,
+            "--vocab_size", str(LM["vocab_size"]), "--num_genres", str(LM["num_genres"]),
+            "--arch", "transformer", "--flash_lm", "--bf16", "--batch_size", "8",
+            "--epochs", "1", "--log_every", "1", "--out_dir", out, "--device", str(device)])
+        secs = time.perf_counter() - t0
+        launches = counters.snapshot()
+        with open(os.path.join(out, "best.json")) as f:
+            best = json.load(f)
+    print(f"  trainer CLI: {steps} train + 1 val steps at B=8 L=2048 in {secs:.2f} s "
+          f"(set-up included), val loss {best['val_loss']:.4f}; launches {launches} "
+          f"(want {want})")
+    if launches != want:
+        fail(f"trainer launches {launches} != {want}")
+    if not math.isfinite(best["val_loss"]):
+        fail("trainer val loss not finite")
+    return launches
+
+
+def lm_throughput(device, counters, card) -> None:
+    """Phase 10c: training tokens/s, B * (L - 1) per step, bf16, dropout
+    0.1, at B=8 L=2048 and B=4 L=4096, through the kernels, the plain
+    attention and the SDPA yardstick; peak device memory of each."""
+    import torch
+
+    from mqgan_tpu_torch.train.lstm_trainer import ClipAdamW, make_lstm_step
+
+    for b, length in LM_SHAPES:
+        for route in ("kernels", "plain", "sdpa"):
+            model = lm_model(device, torch.bfloat16, route, dropout=0.1)
+            tx = ClipAdamW(1e-3)
+            state = tx.init(model.parameters())
+            step = make_lstm_step(model, tx, 0, train=True)
+            gen = torch.Generator().manual_seed(SEED)
+            data = [lm_batch(device, b, length, SEED + 20 + i)
+                    for i in range(LM_ITERS + 1)]
+            counters.reset()
+            step(state, *data[0], gen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: [step(state, *d, gen) for d in data[1:]], 1) / LM_ITERS
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            launches = counters.snapshot()
+            print(f"  B={b} L={length} {route:8s}: {ms:9.3f} ms/step, "
+                  f"{b * (length - 1) / (ms / 1e3):12.1f} tokens/s, peak {peak:6.2f} GB "
+                  f"[{card}]")
+            n = LM_ITERS + 1
+            want = ({"flash_fwd": 6 * n, "flash_bwd_dq": 6 * n, "flash_bwd_dkv": 6 * n}
+                    if route == "kernels" else {})
+            if launches != want:
+                fail(f"{route} launches {launches} != {want}")
+            if route == "kernels" and (b, length) == LM_SHAPES[0]:
+                print(f"[10d] where the time goes, one training step B={b} "
+                      f"L={length} through the kernels [{card}]")
+                busy = _report_profile("train step", *_device_profile(
+                    lambda: step(state, *data[1], gen)), top=10)
+                print(f"  device busy {busy:.3f} ms against the unprofiled "
+                      f"{ms:.3f} ms step: idle share {1 - busy / ms:.3f}")
+            del model, state, step, data
+            torch.cuda.empty_cache()
+
+
+def lstm_step(device, card) -> None:
+    """Phase 10e: one --arch lstm train step at flagship width (emb 512, 2
+    layers of 1024, fp32, the trainer's default) at B=8, L=2048."""
+    import torch
+
+    from mqgan_tpu_torch.models.token_lm import build_token_lm
+    from mqgan_tpu_torch.train.lstm_trainer import ClipAdamW, make_lstm_step
+    from mqgan_tpu_torch.utils.init import seeded_init_
+
+    model = build_token_lm(dict(LM, arch="lstm", lstm_hid=1024, lstm_layers=2,
+                                pad_id=0), dropout=0.1)
+    model = seeded_init_(model, SEED + 15).to(device)
+    before = torch.cat([p.detach().flatten() for p in model.parameters()])
+    tx = ClipAdamW(1e-3)
+    state = tx.init(model.parameters())
+    step = make_lstm_step(model, tx, 0, train=True)
+    gen = torch.Generator().manual_seed(SEED)
+    data = [lm_batch(device, 8, 2048, SEED + 30 + i) for i in range(2)]
+    losses = [float(step(state, *data[0], gen))]
+    t0 = time.perf_counter()
+    losses.append(float(step(state, *data[1], gen)))
+    secs = time.perf_counter() - t0
+    moved = float((torch.cat([p.detach().flatten() for p in model.parameters()])
+                   - before).abs().max())
+    print(f"  lstm step B=8 L=2048 fp32: losses {losses[0]:.4f}, {losses[1]:.4f}; "
+          f"{secs:.3f} s for the second step ({8 * 2047 / secs:.1f} tokens/s), "
+          f"parameters moved up to {moved:.2e} [{card}]")
+    if not all(math.isfinite(x) for x in losses) or int(state["count"]) != 2 or moved == 0:
+        fail("lstm step did not train")
+
+
+def flash_times(device, errs) -> list:
+    """Phase 11: the three flash kernels at the flagship layer call (B=8,
+    H=8, T=2047, D=64, bf16), first held against their plain versions
+    there. Bounds are the function's: a product of the causal pairs is
+    2*B*H*D*T(T+1)/2 FLOP; the forward does 2, the backward of the function
+    5 (S, dP, dV, dK, dQ), of which the dQ row is charged dQ and one of the
+    two shared recomputations, the dK/dV row dV, dK and the other (the
+    kernels' split does 7 in all); at the bf16 peak, against each input
+    read once and each output written once. Library: SDPA forward, and
+    SDPA's backward (which computes dq, dk and dv together) for both
+    backward rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from mqgan_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
+        flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
+        flash_attention_fwd, flash_attention_fwd_plain)
+
+    b, t, h, d = 8, 2047, 8, 64
+    scale = d ** -0.5
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device=device)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = flash_attention_fwd(q, k, v, scale)
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+    plain = {"o": flash_attention_fwd_plain(q, k, v, scale)[0],
+             "dq": flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale)}
+    plain["dk"], plain["dv"] = flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, scale)
+    names = {"o": "flash_fwd", "dq": "flash_bwd_dq", "dk": "flash_bwd_dkv",
+             "dv": "flash_bwd_dkv"}
+    for label, got in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+        ok, max_abs, detail = _judge(label, got, plain[label], torch.bfloat16)
+        print(f"  at B={b} T={t} H={h} D={d} bf16: {detail} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"flash at the flagship shape: {detail}")
+        errs[names[label]] = max(errs[names[label]], max_abs)
+    del plain
+
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    with torch.enable_grad():
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, scale=scale)
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale), 20)
+        sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), dot, retain_graph=True), 20)
+    prod = 2.0 * b * h * d * t * (t + 1) / 2
+    elems = b * t * h * d  # one (B, T, H, D) bf16 tensor: 2 bytes each
+    stats = 4.0 * b * h * t  # one (B, H, T) fp32 vector
+    rows = []
+    for name, fn, plain_fn, n_prod, nbytes, lib in (
+            ("flash_fwd", lambda: flash_attention_fwd(q, k, v, scale),
+             lambda: flash_attention_fwd_plain(q, k, v, scale), 2,
+             2.0 * 4 * elems + stats, sdpa_fwd),
+            ("flash_bwd_dq", lambda: flash_attention_bwd_dq(q, k, v, o, lse, do, scale),
+             lambda: flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale), 2,
+             2.0 * 6 * elems + 2 * stats, sdpa_bwd),
+            ("flash_bwd_dkv", lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale),
+             lambda: flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, scale), 3,
+             2.0 * 6 * elems + 2 * stats, sdpa_bwd)):
+        row = _KernelRow(name, "mqgan_tpu_torch/csrc/flash_attention.cu", FLASH_REPLACES[name])
+        ms = time_ms(fn, 20)
+        pms = time_ms(plain_fn, 3)
+        bound = row.add(ms, pms, n_prod * prod, PEAK_BF16, nbytes)
+        row.library_ms = lib
+        print(f"  {name:14s}: {ms:.4f} ms, plain {pms:.4f} ms, bound {bound:.4f} ms "
+              f"({n_prod * prod / 1e9:.1f} GFLOP, {n_prod * prod / ms / 1e9:.1f} "
+              f"TFLOP/s), SDPA {'forward' if name == 'flash_fwd' else 'backward'} "
+              f"{lib:.4f} ms")
+        rows.append(row)
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -823,6 +1207,22 @@ def main() -> None:
 
     print(f"[8] kernel times at B={BENCH_B} T={BENCH_T} [{card}]")
     rows = kernel_times(model, device)
+    del model
+    torch.cuda.empty_cache()
+
+    print(f"[9] flash-attention kernels vs plain versions, T {FLASH_TS}, "
+          f"D {FLASH_DS}, B=2 H=4")
+    errs.update(compare_flash(device))
+    with torch.enable_grad():
+        print("[10] token-LM training slice (MusicTransformer flagship width)")
+        compare_lm_step(device)
+        launches.update(lm_trainer_cli(counters, device))
+        print(f"[10c] training throughput, bf16 [{card}]")
+        lm_throughput(device, counters, card)
+        print(f"[10e] --arch lstm [{card}]")
+        lstm_step(device, card)
+    print(f"[11] flash kernel times at the flagship layer call [{card}]")
+    rows += flash_times(device, errs)
     kernels = []
     for row in rows:
         kernels.append({

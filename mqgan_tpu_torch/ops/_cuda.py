@@ -28,15 +28,17 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fsq_head.cu", "residual_block.cu", "mel_mixer.cu", "log_mel.cu")
+SOURCES = ("fsq_head.cu", "residual_block.cu", "mel_mixer.cu", "log_mel.cu",
+           "flash_attention.cu")
 # no --use_fast_math: the mixer and the FSQ head need exact tanhf (an
 # approximate tanh flips FSQ codes on the encode side), the log-mel kernel
-# exact sqrtf and logf
+# exact sqrtf and logf, the flash kernels exact expf/logf
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_FLT = ctypes.c_float
 
 # C entry points: name -> argtypes (all return int, cudaGetLastError())
 _SIGNATURES = {
@@ -53,6 +55,12 @@ _SIGNATURES = {
     # wav_pad, cos, sin, fbank, out, n_clips, frames_per_clip, row_stride,
     # hop, n_fft, n_freq, n_mels, stream
     "mqgan_log_mel": (_PTR,) * 5 + (_INT,) * 7 + (_PTR,),
+    # q, k, v, o, lse, B, T, H, D, is_bf16, scale, stream
+    "mqgan_flash_fwd": (_PTR,) * 5 + (_INT,) * 5 + (_FLT, _PTR),
+    # q, k, v, o, do, lse, delta, dq, B, T, H, D, is_bf16, scale, stream
+    "mqgan_flash_bwd_dq": (_PTR,) * 8 + (_INT,) * 5 + (_FLT, _PTR),
+    # q, k, v, do, lse, delta, dk, dv, B, T, H, D, is_bf16, scale, stream
+    "mqgan_flash_bwd_dkv": (_PTR,) * 8 + (_INT,) * 5 + (_FLT, _PTR),
 }
 
 

@@ -1,6 +1,8 @@
 """Seeded initialisation without JAX, after the JAX package's scheme (not
 its bits): lecun-normal kernels (truncated normal, variance 1/fan_in),
-weight-norm magnitudes g = ||v||, zero biases, APTx beta = 1, gamma = 0.5.
+weight-norm magnitudes g = ||v||, zero biases, APTx beta = 1, gamma = 0.5;
+and for the token LMs flax's embedding init (normal, variance 1/features)
+and LayerNorm scale 1, bias 0.
 """
 
 from __future__ import annotations
@@ -37,4 +39,12 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
         if name.endswith(".g"):
             v = named[name[:-1] + "v"]
             p.copy_(v.flatten(1).norm(dim=1))
+    for sub in module.modules():
+        if isinstance(sub, nn.Embedding):
+            w = torch.empty(sub.weight.shape)
+            nn.init.normal_(w, 0.0, math.sqrt(1.0 / w.shape[1]), generator=gen)
+            sub.weight.copy_(w)
+        elif isinstance(sub, nn.LayerNorm):
+            sub.weight.fill_(1.0)
+            sub.bias.zero_()
     return module

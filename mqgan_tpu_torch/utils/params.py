@@ -3,13 +3,17 @@
 The input is a nested dict of numpy arrays as ``PreEncoder.init(...)["params"]``
 gives it (or the subtree of one of its modules: a block, a mixer, the
 refiner), or as ``ISTFTNetGenerator.init(...)["params"]`` gives it (whose
-names the port's vocoder mirrors as they are). Key paths map one to one onto
-the port's module names:
+names the port's vocoder mirrors as they are), or as the token LMs'
+``MusicTransformer.init`` / ``MusicLSTM.init`` give it. Key paths map one to
+one onto the port's module names:
 
   encoder_blocks_i / decoder_blocks_i -> encoder_blocks.i / decoder_blocks.i
   down{i} / up{i} (refiner)           -> downs.i / ups.i
+  block_{i} (transformer)             -> blocks.i
   APTx_0 (a block's activation)       -> act
-  kernel                              -> weight;  v, g, bias, beta, gamma as is
+  kernel, embedding (Embed),
+  scale (LayerNorm)                   -> weight;  v, g, bias, beta, gamma as is
+  lstm_{i}/ii ... ho (LSTM gates)     as they are named
 
 and layouts convert from JAX's to PyTorch's:
 
@@ -35,7 +39,9 @@ _RENAMES = (
     (re.compile(r"^down(\d+)$"), r"downs.\1"),
     (re.compile(r"^up(\d+)$"), r"ups.\1"),
     (re.compile(r"^APTx_0$"), "act"),
+    (re.compile(r"^block_(\d+)$"), r"blocks.\1"),
 )
+_WEIGHT_LEAVES = ("kernel", "embedding", "scale")
 _LAYOUTS = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
 
 
@@ -64,7 +70,7 @@ def state_dict_from_jax(params: dict, module: nn.Module) -> dict:
         name = path[-1]
         if name in ("kernel", "v") and arr.ndim in _LAYOUTS:
             arr = arr.transpose(_LAYOUTS[arr.ndim])
-        leaf_name = "weight" if name == "kernel" else name
+        leaf_name = "weight" if name in _WEIGHT_LEAVES else name
         key = ".".join([_rename(p) for p in path[:-1]] + [leaf_name])
         if key not in expected:
             raise KeyError(f"JAX param {'/'.join(path)} -> {key}: the module "

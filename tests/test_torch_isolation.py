@@ -34,6 +34,15 @@ try:
     result["mel_device"] = str(MelFrontend(SpectrogramConfig()).device)
 except RuntimeError as e:
     result["mel_device_error"] = str(e)
+from mqgan_tpu_torch.train import lstm_trainer
+lm_args = ["--vocab_size", "8", "--num_genres", "2", "--arch", "transformer",
+           "--flash_lm", "--chunks_dir", "no_such_dir"]
+result["trainer_device"] = lstm_trainer.parse_args(lm_args).device
+if not result["cuda"]:
+    try:
+        lstm_trainer.main(lm_args)
+    except RuntimeError as e:
+        result["trainer_device_error"] = str(e)
 print(json.dumps(result))
 """
 
@@ -47,12 +56,17 @@ def test_port_imports_nothing_of_jax_and_does_not_fall_back():
     assert "mqgan_tpu_torch.models.preencoder" in result["modules"]
     assert "mqgan_tpu_torch.ops.block_kernels" in result["modules"]
     for name in ("ops.stft_kernels", "signal.mel", "signal.convert",
-                 "models.istft_vocoder"):
+                 "models.istft_vocoder", "ops.flash_attention",
+                 "models.token_transformer", "models.music_lstm",
+                 "models.token_lm", "train.lstm_trainer", "utils.logging",
+                 "utils.npy", "nn.layers"):
         assert f"mqgan_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
+    assert result["trainer_device"] == "cuda"
     if result["cuda"]:
         assert result["default_device"].startswith("cuda")
         assert result["mel_device"].startswith("cuda")
     else:
         assert "CUDA is not available" in result["default_device_error"]
         assert "CUDA is not available" in result["mel_device_error"]
+        assert "CUDA is not available" in result["trainer_device_error"]

@@ -15,12 +15,17 @@ printing no result, without one. Phases (any failure exits non-zero):
     mel-mixers, the FSQ head), B=8, T=512, ragged lengths: fp32 with TF32
     off (max|k - p| <= 1e-4 * max(1, max|p|)) and bf16 (||k - p|| / ||p||
     <= 2e-2); FSQ indices may differ only where the plain pre-round value
-    lies within 1e-4 of a rounding midpoint. The log-mel kernel in fp32
-    (max|k - p| <= 1e-4 in the log domain) on the hifispeech spec at
-    B=8 x 261,632 samples with 1 s of leading silence in clip 0 (silent
-    frames must be exactly log(1e-5) in both), at B=1 x 100,003 samples, on
-    the hifimusic spec (160 mels) at B=2, and at n_fft 512 (16 kHz, 80 mels).
-    Then the whole fp32 round trip
+    lies within 1e-4 of a rounding midpoint. The log-mel kernels in fp32
+    (max|k - p| <= 1e-4 in the log domain), each case through the route its
+    shape selects (one launch of that kernel): the FFT kernel on the
+    hifispeech spec at B=8 x 261,632 samples with 1 s of leading silence in
+    clip 0 (silent frames must be exactly log(1e-5) in both), at B=1 x
+    100,003 samples, at B=3 x 1,025 samples (n_fft/2 + 1: both reflected
+    edges in every frame), on the hifimusic spec (160 mels) at B=2, at
+    n_fft 512 (16 kHz, 80 mels), and at n_fft 256, 1024 and 4096 (256 mels)
+    where a radix-2 pass ends the FFT; the DFT kernel at n_fft 1200 (16 kHz, hop
+    300, 80 mels, 0.25 s of leading silence) and at n_fft 1000 (hop 250, a
+    last partial 16-sample stage). Then the whole fp32 round trip
     through the kernels against the same model on the CPU (plain versions);
  4. serve 12 concurrent clips of mixed lengths (100-512 frames) through
     CodecServer over the runtime (flagship GeneratorConfig defaults, 128
@@ -46,10 +51,13 @@ printing no result, without one. Phases (any failure exits non-zero):
     events) and each stage's kernel groups;
  8. time each kernel at its flagship shapes beside its plain version, its
     bound and, for the log-mel kernel, the torch.stft chain that computes
-    the same function, and print one JSON line of them; the log-mel kernel
-    is first held against its plain version at that batch (64 clips,
-    max|k - p| <= 1e-4), and its bound is the function's (with an FFT), not
-    the kernel's DFT product;
+    the same function and the DFT kernel (the earlier design, now the route
+    for other n_fft), and print one JSON line of them; the log-mel kernel
+    is first held against its plain version in float64 at that batch (64
+    clips; max|k - p64| <= 1e-4, or no more than the fp32 plain version's
+    own error, since fp32 rounding reaches ~1e-4 in the log domain at
+    near-silent single-bin mels), and its bound is the function's: an FFT
+    per frame and the filterbank's nonzeros, not F x n_mels;
  9. the three flash-attention kernels (forward, dQ, dK/dV) against their
     plain versions, fp32 (max|k - p| <= 1e-4 * max(1, max|p|), TF32 off)
     and bf16 (rel-L2 <= 2e-2), at T 1, 17, 128, 129, 2047 and head sizes
@@ -134,7 +142,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, inner: int = 1) -> float:
+    """Median over reps of the CUDA-event time of ``inner`` back-to-back
+    calls of fn, per call (inner > 1 hides the host's launch cost behind
+    the card's work for sub-millisecond calls)."""
     import torch
 
     times = []
@@ -142,10 +153,11 @@ def time_ms(fn, reps: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
 
 
@@ -293,13 +305,14 @@ def log_mel_library(wav, window, fbank, n_fft: int, hop: int, win: int):
 
 
 def compare_log_mel(device) -> float:
-    """Phase 3, log-mel: the kernel against its plain version (TF32 off);
+    """Phase 3, log-mel: each kernel against its plain version (TF32 off);
     returns the largest |kernel - plain|."""
     import torch
 
     from mqgan_tpu_torch.core.config import SpectrogramConfig
+    from mqgan_tpu_torch.ops import _cuda
     from mqgan_tpu_torch.ops.stft_kernels import (dft_mel_tables, log_mel,
-                                                  log_mel_plain)
+                                                  log_mel_plain, log_mel_tables)
     from mqgan_tpu_torch.signal.mel import LOG_CLIP_VAL
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
@@ -307,29 +320,54 @@ def compare_log_mel(device) -> float:
     worst = 0.0
     small = SpectrogramConfig(sampling_rate=16000, filter_length=512, hop_length=128,
                               win_length=512, n_mel_channels=80, mel_fmax=8000.0)
-    # (label, spec, clips, samples, leading silence of clip 0 in samples)
-    cases = (("hifispeech", SpectrogramConfig(), 8, AUDIO_SAMPLES, 44_100),
-             ("hifispeech", SpectrogramConfig(), 1, 100_003, 0),
-             ("hifimusic", SpectrogramConfig(n_mel_channels=160), 2, AUDIO_SAMPLES, 0),
-             ("16k n_fft=512", small, 2, 16_000, 0))
-    for label, cfg, b, n, quiet in cases:
-        tables = [t.to(device) for t in dft_mel_tables(cfg)]
+    odd = SpectrogramConfig(sampling_rate=16000, filter_length=1200, hop_length=300,
+                            win_length=1200, n_mel_channels=80, mel_fmax=8000.0)
+    # n_fft 1000 is no multiple of the DFT kernel's 16-sample stage
+    ragged = SpectrogramConfig(sampling_rate=16000, filter_length=1000, hop_length=250,
+                               win_length=1000, n_mel_channels=80, mel_fmax=8000.0)
+    # odd log2(n_fft / 2): the FFT kernel's radix-2 pass; 32 and 2 frames a block
+    fft256 = SpectrogramConfig(sampling_rate=8000, filter_length=256, hop_length=64,
+                               win_length=256, n_mel_channels=40, mel_fmax=4000.0)
+    fft1024 = SpectrogramConfig(sampling_rate=16000, filter_length=1024, hop_length=256,
+                                win_length=1024, n_mel_channels=80, mel_fmax=8000.0)
+    fft4096 = SpectrogramConfig(filter_length=4096, hop_length=1024, win_length=4096,
+                                n_mel_channels=256)
+    # (label, spec, clips, samples, leading silence of clip 0 in samples,
+    # the kernel its shape selects)
+    cases = (("hifispeech", SpectrogramConfig(), 8, AUDIO_SAMPLES, 44_100, "log_mel"),
+             ("hifispeech", SpectrogramConfig(), 1, 100_003, 0, "log_mel"),
+             ("hifispeech edges", SpectrogramConfig(), 3, 1_025, 0, "log_mel"),
+             ("hifimusic", SpectrogramConfig(n_mel_channels=160), 2, AUDIO_SAMPLES, 0,
+              "log_mel"),
+             ("16k n_fft=512", small, 2, 16_000, 0, "log_mel"),
+             ("8k n_fft=256", fft256, 3, 8_001, 1_000, "log_mel"),
+             ("16k n_fft=1024", fft1024, 2, 16_000, 0, "log_mel"),
+             ("44.1k n_fft=4096 256 mels", fft4096, 2, 100_003, 0, "log_mel"),
+             ("16k n_fft=1200", odd, 2, 16_000, 4_000, "log_mel_dft"),
+             ("16k n_fft=1000", ragged, 2, 16_003, 0, "log_mel_dft"))
+    for label, cfg, b, n, quiet, kernel in cases:
+        tables = log_mel_tables(cfg, device)
+        cos, sin, _ = (t.to(device) for t in dft_mel_tables(cfg))  # the plain version's
         wav = 0.3 * torch.randn((b, n), generator=gen, device=device)
         wav[0, :quiet] = 0.0
         # frames whose window sees only zeros
         silent = max(0, (quiet - cfg.filter_length // 2) // cfg.hop_length + 1)
-        got = log_mel(wav, *tables, cfg.hop_length)
-        want = log_mel_plain(wav, *tables, cfg.hop_length)
+        _cuda.COUNTERS.reset()
+        got = log_mel(wav, tables)
+        launches = _cuda.COUNTERS.snapshot()
+        want = log_mel_plain(wav, cos, sin, tables.fbank, cfg.hop_length)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         exact = bool((got[0, :silent] == floor).all() and (want[0, :silent] == floor).all())
-        ok = err <= 1e-4 and exact and tuple(got.shape) == (b, n // cfg.hop_length + 1,
-                                                           cfg.n_mel_channels)
-        print(f"  {'log_mel':15s} {label} B={b} x {n}: {tuple(got.shape)} "
+        ok = (err <= 1e-4 and exact and launches == {kernel: 1}
+              and tuple(got.shape) == (b, n // cfg.hop_length + 1, cfg.n_mel_channels))
+        print(f"  {kernel:15s} {label} B={b} x {n}: {tuple(got.shape)} "
               f"max|k-p| {err:.3e} (limit 1e-4), {silent} silent frames "
-              f"{'== log(1e-5)' if exact else 'NOT log(1e-5)'} {'ok' if ok else 'FAIL'}")
+              f"{'== log(1e-5)' if exact else 'NOT log(1e-5)'}, launches {launches} "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"log_mel {label} B={b}: max|k-p| {err:.3e}, silent exact {exact}")
+            fail(f"{kernel} {label} B={b}: max|k-p| {err:.3e}, silent exact {exact}, "
+                 f"launches {launches}")
         worst = max(worst, err)
     return worst
 
@@ -746,11 +784,12 @@ def kernel_times(model, device) -> list:
     byte written once; the block's operations are its conv GEMMs at the bf16
     tensor-core peak, the mixer's and the FSQ head's are fp32 operations (a
     tanh counted as one) at the fp32 peak. The log-mel bound is that of the
-    function, not of the kernel's DFT-as-GEMM: a real FFT of each frame
-    (2.5 n log2 n), the magnitude, the mel product, clamp and log, at the
-    fp32 peak, against the waveform, window and filterbank read and the
-    log-mel written. The log-mel kernel is also held against its plain
-    version at these shapes."""
+    function: a real FFT of each frame (2.5 n log2 n), the magnitude, a
+    multiply-add per nonzero of the filterbank (not F x n_mels), clamp and
+    log, at the fp32 peak, against the waveform, window and the
+    filterbank's nonzeros read and the log-mel written. The log-mel kernel
+    is also held against its plain version in float64 at these shapes; it
+    and the torch.stft chain are timed in bursts of 10 calls."""
     import torch
 
     from mqgan_tpu_torch.ops.block_kernels import (fused_residual_block,
@@ -814,7 +853,8 @@ def kernel_times(model, device) -> list:
 
     from mqgan_tpu_torch.core.config import SpectrogramConfig
     from mqgan_tpu_torch.ops.stft_kernels import (dft_mel_tables, log_mel,
-                                                  log_mel_plain)
+                                                  log_mel_dft, log_mel_plain,
+                                                  log_mel_tables)
     from mqgan_tpu_torch.signal.stft import hann_window
 
     mel_row = _KernelRow("log_mel", "mqgan_tpu_torch/csrc/log_mel.cu",
@@ -822,37 +862,56 @@ def kernel_times(model, device) -> list:
     cfg = SpectrogramConfig()
     hop, n_fft, n_freq, n_mels = (cfg.hop_length, cfg.filter_length,
                                   cfg.n_freqs, cfg.n_mel_channels)
+    tables = log_mel_tables(cfg, device)
     cos, sin, fbank = (x.to(device) for x in dft_mel_tables(cfg))
     wav = _audio_batch(device, SEED + 5)
     n = AUDIO_B * (AUDIO_SAMPLES // hop + 1)
     window = hann_window(cfg.win_length, device=device)
-    got = log_mel(wav, cos, sin, fbank, hop)
-    err = float((got - log_mel_plain(wav, cos, sin, fbank, hop)).abs().max())
-    lib_err = float((log_mel_library(wav, window, fbank, n_fft, hop, cfg.win_length)
-                     - got).abs().max())
-    del got
-    print(f"  log_mel at B={AUDIO_B} x {AUDIO_SAMPLES}: max|k-p| {err:.3e} "
-          f"(limit 1e-4) {'ok' if err <= 1e-4 else 'FAIL'}, max|chain - kernel| "
-          f"{lib_err:.2e} (not gated)")
-    if not err <= 1e-4:
-        fail(f"log_mel at B={AUDIO_B}: max|k-p| {err:.3e}")
+    # Against the plain version in float64, the function up to float64
+    # rounding. In fp32 no algorithm reaches 1e-4 in the log domain at every
+    # entry of this batch: a mel over one or two bins whose magnitude lies
+    # in the noise's Rayleigh tail (a few 1e-6 of its frame's mel sum) takes
+    # an fp32 rounding of the frame's loud bins as a relative error near
+    # 1e-4 (the fp32 plain DFT's error there is larger). So the kernel must
+    # be within 1e-4 of the function, or at least as close as the plain
+    # version in fp32.
+    ref = log_mel_plain(wav, *(x.to(device) for x in dft_mel_tables(cfg, np.float64)), hop)
+    got = log_mel(wav, tables)
+    plain = log_mel_plain(wav, cos, sin, fbank, hop)
+    chain = log_mel_library(wav, window, fbank, n_fft, hop, cfg.win_length)
+    dft = log_mel_dft(wav, cos, sin, fbank, hop)
+    err, plain_err, chain_err = (float((x - ref).abs().max()) for x in (got, plain, chain))
+    gaps = [float((x - got).abs().max()) for x in (plain, chain, dft)]
+    limit = max(1e-4, plain_err)
+    print(f"  log_mel at B={AUDIO_B} x {AUDIO_SAMPLES} against the float64 plain "
+          f"version: max|k-p64| {err:.3e} (limit {limit:.3e} = max(1e-4, the fp32 "
+          f"plain's {plain_err:.3e})) {'ok' if err <= limit else 'FAIL'}; not gated: "
+          f"max|chain-p64| {chain_err:.3e}, max|k-p| {gaps[0]:.3e} (fp32 plain), "
+          f"max|chain-k| {gaps[1]:.3e}, max|DFT kernel-k| {gaps[2]:.3e}")
+    del got, plain, chain, dft, ref
+    if not err <= limit:
+        fail(f"log_mel at B={AUDIO_B}: max|k-p64| {err:.3e} > {limit:.3e}")
     mel_row.max_abs_err = err
-    ms = time_ms(lambda: log_mel(wav, cos, sin, fbank, hop), 10)
+    ms = time_ms(lambda: log_mel(wav, tables), 10, inner=10)
+    dft_ms = time_ms(lambda: log_mel_dft(wav, cos, sin, fbank, hop), 5)
     pms = time_ms(lambda: log_mel_plain(wav, cos, sin, fbank, hop), 3)
     mel_row.library_ms = time_ms(lambda: log_mel_library(
-        wav, window, fbank, n_fft, hop, cfg.win_length), 10)
-    flops = (2.5 * n * n_fft * math.log2(n_fft)  # real FFT of each frame
-             + 4.0 * n * n_freq                  # |.|: two products, a sum, a sqrt
-             + 2.0 * n * n_freq * n_mels         # mel product
-             + 2.0 * n * n_mels)                 # clamp, log
-    dft_flops = 4.0 * n * n_fft * n_freq  # the kernel's own DFT-as-GEMM
-    bound = mel_row.add(ms, pms, flops, PEAK_FP32,
-                        4.0 * (wav.numel() + cfg.win_length + n_freq * n_mels
-                               + n * n_mels))
-    print(f"  log_mel N={n} n_fft={n_fft} F={n_freq} mels={n_mels}: {ms:.4f} ms, "
-          f"plain {pms:.4f} ms, bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP "
-          f"with an FFT; the kernel's DFT-as-GEMM does {dft_flops / 1e9:.1f}), "
-          f"torch.stft chain {mel_row.library_ms:.4f} ms")
+        wav, window, fbank, n_fft, hop, cfg.win_length), 10, inner=10)
+    # the function's work: a real FFT of each frame, |.| (two products, a
+    # sum, a sqrt), the filterbank's nonzeros (a multiply-add each), clamp
+    # and log; a dense count of the mel product (F x n_mels) is printed too
+    nnz = int((fbank != 0).sum())
+    fft_flops = 2.5 * n * n_fft * math.log2(n_fft) + 4.0 * n * n_freq + 2.0 * n * n_mels
+    flops = fft_flops + 2.0 * n * nnz
+    dense_flops = fft_flops + 2.0 * n * n_freq * n_mels
+    nbytes = 4.0 * (wav.numel() + cfg.win_length + nnz + n * n_mels)
+    bound = mel_row.add(ms, pms, flops, PEAK_FP32, nbytes)
+    print(f"  log_mel N={n} n_fft={n_fft} F={n_freq} mels={n_mels}: {ms:.4f} ms "
+          f"(roofline share {bound / ms:.3f}), the DFT kernel {dft_ms:.4f} ms, plain "
+          f"{pms:.4f} ms, torch.stft chain {mel_row.library_ms:.4f} ms; bound "
+          f"{bound:.4f} ms ({mel_row.bound_by}: {flops / 1e9:.2f} GFLOP counting the "
+          f"filterbank's {nnz} nonzeros, {dense_flops / 1e9:.2f} counting F x n_mels "
+          f"= {n_freq * n_mels} densely; {nbytes / 1e6:.1f} MB)")
     return [blk_row, mix_row, fsq_row, mel_row]
 
 

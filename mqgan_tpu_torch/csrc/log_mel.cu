@@ -1,252 +1,276 @@
-// Fused log-mel front end: reflect-padded waveform -> (frames, n_mels)
-// log-mel, in fp32.
+// Fused log-mel front end: waveform -> (frames, n_mels) log-mel in fp32, by
+// an FFT of each frame. The route of ops/stft_kernels.py for power-of-two
+// n_fft from 256 to 4096 (every spec config of the repo); log_mel_dft.cu
+// takes the other shapes.
 //
-// Replaces: mqgan_tpu/ops/stft_kernels.py:_log_mel_frames_pallas (the
-// Pallas TPU kernel `_kernel` behind PallasMelFrontend).
+// Replaces: mqgan_tpu/ops/stft_kernels.py:95 _log_mel_frames_pallas (the
+// Pallas TPU kernel behind PallasMelFrontend, a DFT product on the MXU).
 //
-//   re[n, f]  = sum_j x[n, j] * cos[j, f]       (window folded into cos/sin)
-//   im[n, f]  = sum_j x[n, j] * sin[j, f]
-//   out[n, m] = log(max(sum_f sqrt(re^2 + im^2) * fbank[f, m], 1e-5))
+//   frame n = (b, t): x[j] = wav[b, reflect(t * hop + j - n_fft / 2)] * w[j]
+//   X[k]      = sum_j x[j] exp(-2 pi i j k / n_fft),   k = 0 .. n_fft / 2
+//   out[n, m] = log(max(sum_{k in [lo_m, hi_m)} |X[k]| * fbank[k, m], 1e-5))
 //
-// Frame n = (b, t) is read in place: sample j is wav_pad[b * stride +
-// t * hop + j]. The (N, n_fft) frame matrix never exists in device memory
-// (268 MB at the flagship batch of 64 clips x 512 frames, against 67 MB of
-// waveform).
-//
-// What bounds the function: operations. With a real FFT of each frame
-// (2.5 * n_fft * log2 n_fft flops), the magnitude and the mel projection
-// (2 * N * F * n_mels) it needs about 10.6 GFLOP at N = 32768, n_fft = 2048,
-// F = 1025, 128 mels, against 67 MB of waveform read and 17 MB of log-mel
-// written: at least 0.16 ms on the fp32 CUDA cores (67 TFLOP/s).
-// This kernel's own work is far larger: the DFT as a product is
-// 4 * N * n_fft * F flops (275 GFLOP), so even at the fp32 peak it would take
-// 4.2 ms, about 27 times the function's bound. That algorithmic gap, not the
-// kernel's rate, is what the redesign below removes.
+// What bounds the function: operations, barely. At the flagship shape
+// (N = 64 clips x 512 frames = 32768, n_fft 2048, F 1025, 128 mels whose
+// filterbank has 2,019 nonzeros of 131,200) it needs a real FFT per frame
+// (2.5 n_fft log2 n_fft flops), the magnitudes (4 F), the filterbank's
+// nonzeros (2 per nonzero), clamp and log (2 n_mels): 2.12 GFLOP, 0.032 ms
+// at the fp32 peak (67 TFLOP/s); it moves 84 MB (67 MB of waveform read,
+// 17 MB of log-mel written), 0.025 ms at 3.35 TB/s. The DFT product it
+// replaces did 275 GFLOP.
 //
 // Why fp32 on CUDA cores, without TF32 or bf16 tensor cores: TF32 keeps
 // about three decimal digits, which in the log domain is an error of ~1e-3,
 // over the 5e-4 the front end is held to against the JAX reference.
 //
-// Design: a block owns 64 frames and walks the frequency axis in tiles of
-// 64 bins. For each tile it accumulates re and im over n_fft through
-// shared-memory stages of 16 samples (frames stored transposed, cos and
-// sin row-major; the next stage is prefetched into registers while the
-// current one is consumed); each thread holds an 8-frame x 4-bin tile of
-// both re and im, so the magnitude is formed in registers. The magnitudes
-// go to shared memory and are projected onto the filterbank into a
-// (64, n_mels) accumulator held in shared memory, each element owned by one
-// thread: no atomics, the result is deterministic. After the last tile the
-// clamp and the log are applied and the tile is written once. F = n_fft/2+1
-// is not padded: loads past F read zeros, so the last tile (one bin at
-// n_fft = 2048) costs a whole tile of work, about 6% of the total.
-//
-// Redesign, for a later change: an FFT does ~5 n log2 n flops per frame
-// against the DFT's 4 n F (0.11 against 8.4 MFLOP at n_fft = 2048), so an
-// in-kernel FFT (or cuFFT's output fed to a fused magnitude/mel/log pass)
-// wins by far; keeping the product form, 3xTF32 on the tensor cores would
-// reach fp32 accuracy at several times the CUDA-core rate.
-// Exact sqrtf and logf: the library is built without --use_fast_math.
+// Design. A block of 256 threads owns kBlockPoints / (n_fft / 2) consecutive
+// frames (4 at n_fft 2048; they may span two clips) and runs:
+//  1. load: the n_fft real samples of a frame become an M = n_fft / 2-point
+//     complex sequence z[n] = x[2n] + i x[2n+1]. Samples are read straight
+//     from the unpadded waveform (the reflect padding is index arithmetic,
+//     so no padded copy of the batch exists), windowed as they load, and
+//     fed to the first pass; overlapping frames share L1/L2 lines.
+//  2. a Stockham (autosorting) FFT of z: a first radix-16 pass in registers
+//     (a 4 x 4 decomposition), radix-4 passes, and a radix-2 pass when
+//     log2 M is odd; every pass reads one shared-memory buffer and writes
+//     the other, one barrier between passes. The buffers are padded by one
+//     slot per 16 points, which makes every pass's reads and writes free of
+//     bank conflicts (the radix-16 pass writes 16 consecutive points per
+//     thread). Twiddles come from a table computed in float64 on the host,
+//     laid out in the order each pass reads them (consecutive threads read
+//     consecutive entries); none is computed on the card.
+//  3. the real-FFT split: X[k] = (Z[k] + conj Z[M-k]) / 2
+//     + W^k (Z[k] - conj Z[M-k]) / 2i for the F = M + 1 bins, and |X[k]|,
+//     written to the other buffer.
+//  4. the banded mel: each thread takes one (mel, frame) and sums the band
+//     [lo_m, hi_m) of nonzero filter weights in a fixed order (at most two
+//     filters overlap a bin; the widest band is 56 bins), no atomics, the
+//     result is deterministic; then the clamp, the exact logf, and a store
+//     in which neighbouring threads write neighbouring frames of one mel.
+// One launch per call on the caller's stream; the kernel allocates
+// nothing. Exact sqrtf and logf: the library is built without
+// --use_fast_math.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTileN = 64;    // frames per block
-constexpr int kTileF = 64;    // frequency bins per tile
-constexpr int kTileK = 16;    // samples per shared-memory stage
-constexpr int kThreads = 128;
-constexpr int kRows = 8;      // frames per thread
-constexpr int kCols = 4;      // bins per thread (re and im each)
-constexpr int kAStride = kTileN + 4;  // transposed frame tile, padded rows
+constexpr int kThreads = 256;
+constexpr int kThreadsLog2 = 8;
+constexpr int kBlockPoints = 4096;  // complex FFT points per block
+constexpr int kPadded = kBlockPoints + kBlockPoints / 16;
 constexpr float kLogClip = 1e-5f;
 
-static_assert(kThreads == (kTileN / kRows) * (kTileF / kCols), "thread tile");
-static_assert(kTileN * kTileK == kThreads * kRows, "frame stage loads");
-static_assert(kTileF * kTileK == kThreads * 8, "table stage loads");
+// shared-memory slot of point e: one pad slot after every 16 points
+__device__ __forceinline__ int slot(int e) { return e + (e >> 4); }
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
+}
+
+// in-place 4-point DFT: a_q <- sum_m a_m exp(-2 pi i m q / 4)
+__device__ __forceinline__ void dft4(float2& a0, float2& a1, float2& a2,
+                                     float2& a3) {
+  const float2 v0 = cadd(a0, a2), v1 = csub(a0, a2);
+  const float2 v2 = cadd(a1, a3), d = csub(a1, a3);
+  const float2 v3 = make_float2(d.y, -d.x);  // -i (a1 - a3)
+  a0 = cadd(v0, v2);
+  a1 = cadd(v1, v3);
+  a2 = csub(v0, v2);
+  a3 = csub(v1, v3);
+}
+
+// sample pos of a clip of `samples`, reflected at both ends (pos is within
+// one reflection: the wrapper asks for samples > n_fft / 2)
+__device__ __forceinline__ float reflected(const float* __restrict__ clip,
+                                           int pos, int samples) {
+  pos = pos < 0 ? -pos : pos;
+  pos = pos >= samples ? 2 * (samples - 1) - pos : pos;
+  return __ldg(clip + pos);
+}
 
 __global__ void __launch_bounds__(kThreads)
-log_mel_kernel(const float* __restrict__ wav, const float* __restrict__ cosw,
-               const float* __restrict__ sinw,
-               const float* __restrict__ fbank, float* __restrict__ out,
-               int n_total, int frames_per_clip, int row_stride, int hop,
-               int n_fft, int n_freq, int n_mels) {
-  extern __shared__ float4 smem4[];
-  float* a_s = reinterpret_cast<float*>(smem4);  // [kTileK][kAStride]
-  float* c_s = a_s + kTileK * kAStride;          // [kTileK][kTileF]
-  float* s_s = c_s + kTileK * kTileF;            // [kTileK][kTileF]
-  float* mag_s = s_s + kTileK * kTileF;          // [kTileN][kTileF]
-  float* out_s = mag_s + kTileN * kTileF;        // [kTileN][n_mels]
+log_mel_fft_kernel(const float* __restrict__ wav,
+                   const float* __restrict__ window,
+                   const float2* __restrict__ tw,
+                   const int* __restrict__ bands,
+                   const float* __restrict__ weights,
+                   float* __restrict__ out, int n_total, int frames_per_clip,
+                   int samples, int hop, int n_fft, int n_mels) {
+  extern __shared__ float2 smem[];
+  float2* src = smem;
+  float2* dst = smem + kPadded;
 
   const int tid = threadIdx.x;
-  const int tx = tid % (kTileF / kCols);  // bins tx*4 .. tx*4+3
-  const int ty = tid / (kTileF / kCols);  // frames ty*8 .. ty*8+7
-  const int n0 = blockIdx.x * kTileN;
+  const int m = n_fft / 2;
+  const int log2m = __ffs(m) - 1;
+  const int frames = kBlockPoints / m;  // a power of two, 2 .. 32
+  const int log2f = __ffs(frames) - 1;
+  const int n0 = blockIdx.x * frames;
 
-  // Stage loads. Frames: this thread loads sample (k0 + a_kk) of frames
-  // a_row + 8r; consecutive threads read consecutive samples of one frame.
-  const int a_kk = tid % kTileK;
-  const int a_row = tid / kTileK;
-  int a_base[kRows];
+  // 1-2a. load and the radix-16 pass: u_q = z[i + q M/16] -> Y[16 i + c]
+  {
+    const int log2t = log2m - 4;
+    const float2* win2 = reinterpret_cast<const float2*>(window);
+    for (int idx = tid; idx < kBlockPoints / 16; idx += kThreads) {
+      const int f = idx >> log2t;
+      const int i = idx & ((1 << log2t) - 1);
+      const int n = n0 + f;
+      float2 u[16];
+      if (n < n_total) {
+        const int b = n / frames_per_clip;
+        const float* clip = wav + static_cast<size_t>(b) * samples;
+        const int start = (n - b * frames_per_clip) * hop - n_fft / 2;
+        // a frame inside its clip, 8-byte aligned: sample pairs as float2
+        const bool paired = start >= 0 && start + n_fft <= samples &&
+                            (reinterpret_cast<size_t>(clip + start) & 7) == 0;
+        const float2* pairs = reinterpret_cast<const float2*>(clip + start);
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int n = n0 + a_row + 8 * r;
-    if (n < n_total) {
-      const int b = n / frames_per_clip;
-      const int t = n - b * frames_per_clip;
-      a_base[r] = b * row_stride + t * hop + a_kk;
-    } else {
-      a_base[r] = -1;
+        for (int q = 0; q < 16; ++q) {
+          const int h = i + (q << log2t);  // z[h] = x[2h] + i x[2h + 1]
+          const float2 w = __ldg(win2 + h);
+          const float2 x = paired
+              ? __ldg(pairs + h)
+              : make_float2(reflected(clip, start + 2 * h, samples),
+                            reflected(clip, start + 2 * h + 1, samples));
+          u[q] = make_float2(x.x * w.x, x.y * w.y);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 16; ++q) u[q] = make_float2(0.0f, 0.0f);
+      }
+      // q = 4a + b: a 4-point DFT over a for each b leaves A_b[c] in u[4c + b]
+#pragma unroll
+      for (int b = 0; b < 4; ++b) dft4(u[b], u[4 + b], u[8 + b], u[12 + b]);
+#pragma unroll
+      for (int c = 1; c < 4; ++c) {
+#pragma unroll
+        for (int b = 1; b < 4; ++b) u[4 * c + b] = cmul(u[4 * c + b], __ldg(tw + b * c));
+      }
+      // a 4-point DFT over b leaves Y[c + 4d] in u[4c + d]
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dft4(u[4 * c], u[4 * c + 1], u[4 * c + 2], u[4 * c + 3]);
+      const int base = (f << log2m) + 16 * i;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+#pragma unroll
+        for (int d = 0; d < 4; ++d) dst[slot(base + c + 4 * d)] = u[4 * c + d];
+      }
     }
   }
-  // Tables: bin b_f of rows b_kk + 2r; consecutive threads, consecutive bins.
-  const int b_f = tid % kTileF;
-  const int b_kk = tid / kTileF;
-
-  float a_reg[kRows], c_reg[8], s_reg[8];
-  auto load_stage = [&](int f0, int k0) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      a_reg[r] = a_base[r] >= 0 ? wav[a_base[r] + k0] : 0.0f;
-    }
-    const int f = f0 + b_f;
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const size_t idx = static_cast<size_t>(k0 + b_kk + 2 * r) * n_freq + f;
-      c_reg[r] = f < n_freq ? cosw[idx] : 0.0f;
-      s_reg[r] = f < n_freq ? sinw[idx] : 0.0f;
-    }
-  };
-  auto store_stage = [&]() {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      a_s[a_kk * kAStride + a_row + 8 * r] = a_reg[r];
-    }
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      c_s[(b_kk + 2 * r) * kTileF + b_f] = c_reg[r];
-      s_s[(b_kk + 2 * r) * kTileF + b_f] = s_reg[r];
-    }
-  };
-
-  for (int i = tid; i < kTileN * n_mels; i += kThreads) out_s[i] = 0.0f;
-
-  const int n_ftiles = (n_freq + kTileF - 1) / kTileF;
-  const int n_ksteps = n_fft / kTileK;
-  load_stage(0, 0);
-  for (int ft = 0; ft < n_ftiles; ++ft) {
-    const int f0 = ft * kTileF;
-    float re[kRows][kCols], im[kRows][kCols];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) re[r][c] = im[r][c] = 0.0f;
-    }
-
-    for (int ks = 0; ks < n_ksteps; ++ks) {
-      __syncthreads();  // every reader of the previous stage is done
-      store_stage();
-      __syncthreads();
-      if (ks + 1 < n_ksteps) {
-        load_stage(f0, (ks + 1) * kTileK);
-      } else if (ft + 1 < n_ftiles) {
-        load_stage(f0 + kTileF, 0);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kTileK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(
-            &a_s[kk * kAStride + ty * kRows]);
-        const float4 a1 = *reinterpret_cast<const float4*>(
-            &a_s[kk * kAStride + ty * kRows + 4]);
-        const float4 cv = *reinterpret_cast<const float4*>(
-            &c_s[kk * kTileF + tx * kCols]);
-        const float4 sv = *reinterpret_cast<const float4*>(
-            &s_s[kk * kTileF + tx * kCols]);
-        const float av[kRows] = {a0.x, a0.y, a0.z, a0.w,
-                                 a1.x, a1.y, a1.z, a1.w};
-        const float cc[kCols] = {cv.x, cv.y, cv.z, cv.w};
-        const float ss[kCols] = {sv.x, sv.y, sv.z, sv.w};
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            re[r][c] = fmaf(av[r], cc[c], re[r][c]);
-            im[r][c] = fmaf(av[r], ss[c], im[r][c]);
-          }
-        }
-      }
-    }
-
-    // magnitudes of this tile (zero past n_freq: those table columns are 0)
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float4 m;
-      m.x = sqrtf(re[r][0] * re[r][0] + im[r][0] * im[r][0]);
-      m.y = sqrtf(re[r][1] * re[r][1] + im[r][1] * im[r][1]);
-      m.z = sqrtf(re[r][2] * re[r][2] + im[r][2] * im[r][2]);
-      m.w = sqrtf(re[r][3] * re[r][3] + im[r][3] * im[r][3]);
-      *reinterpret_cast<float4*>(&mag_s[(ty * kRows + r) * kTileF + tx * kCols]) = m;
-    }
+  // The later passes give each thread fixed butterflies (lanes of
+  // consecutive i) over a group of frames: a twiddle loads once per
+  // butterfly and serves every frame.
+  int tw_off = 16;
+  int p = 16;  // length of the sub-transforms done so far
+  // 2b. radix-4 passes: inputs z[i + q M/4], outputs at 4(i - k) + k + q p
+  for (; 4 * p <= m; p *= 4) {
+    float2* t = src; src = dst; dst = t;
     __syncthreads();
-
-    // out[n][m] += sum_f mag[n][f] * fbank[f0 + f][m]: each thread owns
-    // whole columns m of the accumulator
-    const int f_len = min(kTileF, n_freq - f0);
-    for (int m = tid; m < n_mels; m += kThreads) {
-      float acc[kTileN];
-#pragma unroll
-      for (int n = 0; n < kTileN; ++n) acc[n] = out_s[n * n_mels + m];
-      for (int f = 0; f < f_len; f += 4) {
-        float w[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          w[j] = f + j < f_len
-                     ? fbank[static_cast<size_t>(f0 + f + j) * n_mels + m]
-                     : 0.0f;
-        }
-#pragma unroll
-        for (int n = 0; n < kTileN; ++n) {
-          const float4 mv =
-              *reinterpret_cast<const float4*>(&mag_s[n * kTileF + f]);
-          acc[n] = fmaf(mv.x, w[0], acc[n]);
-          acc[n] = fmaf(mv.y, w[1], acc[n]);
-          acc[n] = fmaf(mv.z, w[2], acc[n]);
-          acc[n] = fmaf(mv.w, w[3], acc[n]);
-        }
+    const int quarter = m / 4;
+    const int log2l = min(log2m - 2, kThreadsLog2);
+    for (int i = tid & ((1 << log2l) - 1); i < quarter; i += 1 << log2l) {
+      const int k = i & (p - 1);
+      const float2 w1 = __ldg(tw + tw_off + k);
+      const float2 w2 = __ldg(tw + tw_off + p + k);
+      const float2 w3 = __ldg(tw + tw_off + 2 * p + k);
+      const int o = ((i - k) << 2) + k;
+      for (int f = tid >> log2l; f < frames; f += kThreads >> log2l) {
+        const int row = f << log2m;
+        float2 a0 = src[slot(row + i)];
+        float2 a1 = cmul(src[slot(row + i + quarter)], w1);
+        float2 a2 = cmul(src[slot(row + i + 2 * quarter)], w2);
+        float2 a3 = cmul(src[slot(row + i + 3 * quarter)], w3);
+        dft4(a0, a1, a2, a3);
+        dst[slot(row + o)] = a0;
+        dst[slot(row + o + p)] = a1;
+        dst[slot(row + o + 2 * p)] = a2;
+        dst[slot(row + o + 3 * p)] = a3;
       }
-#pragma unroll
-      for (int n = 0; n < kTileN; ++n) out_s[n * n_mels + m] = acc[n];
+    }
+    tw_off += 3 * p;
+  }
+  // 2c. a radix-2 pass (p = M/2) when log2 M is odd
+  if (2 * p == m) {
+    float2* t = src; src = dst; dst = t;
+    __syncthreads();
+    const int log2l = min(log2m - 1, kThreadsLog2);
+    for (int i = tid & ((1 << log2l) - 1); i < p; i += 1 << log2l) {
+      const float2 w = __ldg(tw + tw_off + i);
+      for (int f = tid >> log2l; f < frames; f += kThreads >> log2l) {
+        const int in = (f << log2m) + i;
+        const float2 a0 = src[slot(in)];
+        const float2 a1 = cmul(src[slot(in + p)], w);
+        dst[slot(in)] = cadd(a0, a1);
+        dst[slot(in + p)] = csub(a0, a1);
+      }
+    }
+    tw_off += p;
+  }
+  // 3. split to the F = M + 1 bins of the real FFT, and the magnitudes
+  {
+    float2* t = src; src = dst; dst = t;
+    __syncthreads();
+    float* mag = reinterpret_cast<float*>(dst);  // [frames][M + 1]
+    const int n_freq = m + 1;
+    const int log2l = min(log2m, kThreadsLog2);
+    for (int k = tid & ((1 << log2l) - 1); k <= m; k += 1 << log2l) {
+      const float2 w = __ldg(tw + tw_off + k);
+      const int ka = k & (m - 1), kb = (m - k) & (m - 1);
+      for (int f = tid >> log2l; f < frames; f += kThreads >> log2l) {
+        const float2 a = src[slot((f << log2m) + ka)];
+        const float2 b = src[slot((f << log2m) + kb)];
+        const float2 even = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
+        const float2 odd = make_float2(0.5f * (a.y + b.y), 0.5f * (b.x - a.x));
+        const float2 x = cadd(even, cmul(w, odd));
+        mag[f * n_freq + k] = sqrtf(fmaf(x.x, x.x, x.y * x.y));
+      }
     }
   }
-
-  // the thread that accumulated each element also finishes it
-  for (int m = tid; m < n_mels; m += kThreads) {
-    for (int n = 0; n < kTileN && n0 + n < n_total; ++n) {
-      out[static_cast<size_t>(n0 + n) * n_mels + m] =
-          logf(fmaxf(out_s[n * n_mels + m], kLogClip));
-    }
+  __syncthreads();
+  // 4. banded mel, clamp, log
+  const float* mag = reinterpret_cast<const float*>(dst);
+  for (int idx = tid; idx < (n_mels << log2f); idx += kThreads) {
+    const int mel = idx >> log2f;
+    const int f = idx & (frames - 1);
+    const int n = n0 + f;
+    if (n >= n_total) continue;
+    const int lo = __ldg(bands + 3 * mel);
+    const int hi = __ldg(bands + 3 * mel + 1);
+    const float* w = weights + __ldg(bands + 3 * mel + 2);
+    const float* row = mag + f * (m + 1);
+    float acc = 0.0f;
+    for (int k = lo; k < hi; ++k) acc = fmaf(row[k], __ldg(w + (k - lo)), acc);
+    out[static_cast<size_t>(n) * n_mels + mel] = logf(fmaxf(acc, kLogClip));
   }
 }
 
 }  // namespace
 
-extern "C" int mqgan_log_mel(const void* wav_pad, const void* cosw,
-                             const void* sinw, const void* fbank, void* out,
-                             int n_clips, int frames_per_clip, int row_stride,
-                             int hop, int n_fft, int n_freq, int n_mels,
-                             void* stream) {
+extern "C" int mqgan_log_mel(const void* wav, const void* window,
+                             const void* twiddles, const void* bands,
+                             const void* weights, void* out, int n_clips,
+                             int frames_per_clip, int samples, int hop,
+                             int n_fft, int n_mels, void* stream) {
   const int n_total = n_clips * frames_per_clip;
-  const size_t smem =
-      sizeof(float) * (kTileK * kAStride + 2 * kTileK * kTileF +
-                       kTileN * kTileF + static_cast<size_t>(kTileN) * n_mels);
+  const int frames = kBlockPoints / (n_fft / 2);
+  const size_t smem = sizeof(float2) * 2 * kPadded;
   cudaError_t err = cudaFuncSetAttribute(
-      log_mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      log_mel_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_total + kTileN - 1) / kTileN);
-  log_mel_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(wav_pad), static_cast<const float*>(cosw),
-      static_cast<const float*>(sinw), static_cast<const float*>(fbank),
-      static_cast<float*>(out), n_total, frames_per_clip, row_stride, hop,
-      n_fft, n_freq, n_mels);
+  const dim3 grid((n_total + frames - 1) / frames);
+  log_mel_fft_kernel<<<grid, kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(wav), static_cast<const float*>(window),
+      static_cast<const float2*>(twiddles), static_cast<const int*>(bands),
+      static_cast<const float*>(weights), static_cast<float*>(out), n_total,
+      frames_per_clip, samples, hop, n_fft, n_mels);
   return static_cast<int>(cudaGetLastError());
 }

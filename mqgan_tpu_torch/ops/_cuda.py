@@ -29,9 +29,9 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("fsq_head.cu", "residual_block.cu", "mel_mixer.cu", "log_mel.cu",
-           "flash_attention.cu")
+           "log_mel_dft.cu", "flash_attention.cu")
 # no --use_fast_math: the mixer and the FSQ head need exact tanhf (an
-# approximate tanh flips FSQ codes on the encode side), the log-mel kernel
+# approximate tanh flips FSQ codes on the encode side), the log-mel kernels
 # exact sqrtf and logf, the flash kernels exact expf/logf
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -52,9 +52,12 @@ _SIGNATURES = {
     # x, lengths, dwk, consts, w1, b1, w2, out, B, T, C, P, dw_k, is_bf16,
     # stream
     "mqgan_mel_mixer": (_PTR,) * 8 + (_INT,) * 6 + (_PTR,),
+    # wav, window, twiddles, bands, weights, out, n_clips, frames_per_clip,
+    # samples, hop, n_fft, n_mels, stream
+    "mqgan_log_mel": (_PTR,) * 6 + (_INT,) * 6 + (_PTR,),
     # wav_pad, cos, sin, fbank, out, n_clips, frames_per_clip, row_stride,
     # hop, n_fft, n_freq, n_mels, stream
-    "mqgan_log_mel": (_PTR,) * 5 + (_INT,) * 7 + (_PTR,),
+    "mqgan_log_mel_dft": (_PTR,) * 5 + (_INT,) * 7 + (_PTR,),
     # q, k, v, o, lse, B, T, H, D, is_bf16, scale, stream
     "mqgan_flash_fwd": (_PTR,) * 5 + (_INT,) * 5 + (_FLT, _PTR),
     # q, k, v, o, do, lse, delta, dq, B, T, H, D, is_bf16, scale, stream

@@ -5,8 +5,9 @@ torchaudio ``MelSpectrogram`` of the reference converter:
     HTK mel scale, no filterbank norm, then log(clamp(mel, 1e-5)).
 
 ``MelFrontend`` runs the whole chain through ``ops/stft_kernels.py``
-``log_mel``: on the card that is the hand-written DFT->mel->log kernel, on
-the CPU its plain PyTorch version.
+``log_mel``: on the card that is a hand-written kernel (an FFT for
+power-of-two n_fft from 256 to 4096, else a DFT product), on the CPU the
+plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -68,11 +69,11 @@ class MelFrontend:
         """device: None means CUDA (raises without a card); pass "cpu"
         explicitly to run the plain PyTorch version on the CPU."""
         # imported here: ops/stft_kernels builds its tables from this module
-        from mqgan_tpu_torch.ops.stft_kernels import dft_mel_tables
+        from mqgan_tpu_torch.ops.stft_kernels import log_mel_tables
 
         self.cfg = cfg
         self.device = resolve_device(device)
-        self._tables = tuple(t.to(self.device) for t in dft_mel_tables(cfg))
+        self._tables = log_mel_tables(cfg, self.device)
 
     def __call__(self, wav) -> torch.Tensor:
         from mqgan_tpu_torch.ops.stft_kernels import log_mel
@@ -81,7 +82,7 @@ class MelFrontend:
         squeeze = wav.ndim == 1
         if squeeze:
             wav = wav[None]
-        out = log_mel(wav.contiguous(), *self._tables, self.cfg.hop_length)
+        out = log_mel(wav.contiguous(), self._tables)
         return out[0] if squeeze else out
 
     def frames_for(self, num_samples: int) -> int:

@@ -10,7 +10,7 @@ the squared-window envelope, trims n_fft//2 from each side and returns
 ``stft`` and ``istft`` call ``torch.stft`` / ``torch.istft`` (cuFFT on the
 card), as the JAX package computes them through XLA's FFT: neither is a
 kernel of the repository. The log-mel front end does not go through here;
-it runs the hand-written DFT->mel->log kernel of ``ops/stft_kernels.py``.
+it runs the hand-written log-mel kernels of ``ops/stft_kernels.py``.
 """
 
 from __future__ import annotations

@@ -15,7 +15,8 @@ from mqgan_tpu.ops.stft_kernels import dft_mel_tables as jax_dft_mel_tables
 from mqgan_tpu.signal.mel import MelFrontend as JaxMelFrontend
 from mqgan_tpu.signal.stft import frame_signal as jax_frame_signal
 from mqgan_tpu_torch.core.config import SpectrogramConfig
-from mqgan_tpu_torch.ops.stft_kernels import dft_mel_tables, log_mel, log_mel_plain
+from mqgan_tpu_torch.ops.stft_kernels import (dft_mel_tables, log_mel, log_mel_plain,
+                                              log_mel_tables)
 from mqgan_tpu_torch.signal.mel import LOG_CLIP_VAL, MelFrontend
 from mqgan_tpu_torch.signal.stft import hann_window
 from tests.test_torch_bridge import max_err
@@ -106,10 +107,10 @@ def test_mel_frontend_without_a_card_raises(monkeypatch):
 
 
 def test_log_mel_rejects_other_devices():
-    cfg = _specs()[0]
-    tables = [t.to("meta") for t in dft_mel_tables(cfg)]
-    with pytest.raises(ValueError, match="unsupported device"):
-        log_mel(torch.zeros((1, 4096), device="meta"), *tables, 128)
+    for cfg in (_specs()[0], _specs(filter_length=1200, win_length=1200)[0]):
+        tables = log_mel_tables(cfg, "meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            log_mel(torch.zeros((1, 4096), device="meta"), tables)
 
 
 def test_library_yardstick_computes_the_same_function():

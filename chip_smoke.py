@@ -62,7 +62,9 @@ printing no result, without one. Phases (any failure exits non-zero):
     plain versions, fp32 (max|k - p| <= 1e-4 * max(1, max|p|), TF32 off)
     and bf16 (rel-L2 <= 2e-2), at T 1, 17, 128, 129, 2047 and head sizes
     32, 64, 128 (B=2, H=4); at T=1 dq and dk are 0 by definition (one key)
-    and take the absolute gate in both dtypes;
+    and take the absolute gate in both dtypes; then the backward run twice
+    on the same inputs must give bit-identical dq, dk and dv (torch.equal),
+    fp32 and bf16, T 129 and 2047, every head size: no kernel uses atomics;
 10. the token-LM training slice at the flagship width (MusicTransformer
     vocab 1003, 10 genres, emb 512, 6 layers, 8 heads, mlp 4x): one fp32
     step on the card through the kernels against the same step on the CPU
@@ -77,7 +79,10 @@ printing no result, without one. Phases (any failure exits non-zero):
 11. time the flash kernels at the flagship layer call (B=8, H=8, T=2047,
     D=64, bf16) beside their plain versions, their bounds (the function's
     operations) and SDPA's forward and backward, after holding them against
-    the plain versions there; print the kernels JSON line (seven rows);
+    the plain versions there, and each kernel's rate on the products it
+    does (2 forward, 3 dQ, 4 dK/dV) beside the charged bound; kernels and
+    SDPA are timed in single calls (the kernels line) and in bursts of 10
+    calls (printed beside); print the kernels JSON line (seven rows);
 12. print {"ok": true, "device": {...}} as the last line.
 """
 
@@ -125,6 +130,8 @@ LM = dict(vocab_size=1003, num_genres=10, emb_dim=512, n_layers=6, n_heads=8,
 LM_CHUNKS = 20
 LM_SHAPES = ((8, 2048), (4, 4096))
 LM_ITERS = 3
+# phase 11 also times each flash kernel and SDPA over bursts of this many calls
+FLASH_BURST = 10
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores,
 # fp32 CUDA cores, HBM bandwidth
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -434,6 +441,33 @@ def compare_flash(device) -> dict:
                 if bad:
                     fail(f"flash {dtype} D={d} T={t}: {bad}")
     return errs
+
+
+def check_flash_determinism(device) -> None:
+    """Phase 9b: the backward (flash_bwd_dq then flash_bwd_dkv) twice on
+    the same inputs must give bit-identical dq, dk and dv: every output
+    tile is written once by one block, with no atomics."""
+    import torch
+
+    from mqgan_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in FLASH_DS:
+            for t in (129, 2047):
+                q, k, v, do = (torch.randn((2, t, 4, d), generator=gen, device=device)
+                               .to(dtype) for _ in range(4))
+                scale = d ** -0.5
+                o, lse = flash_attention_fwd(q, k, v, scale)
+                first = flash_attention_bwd(q, k, v, o, lse, do, scale)
+                second = flash_attention_bwd(q, k, v, o, lse, do, scale)
+                torch.cuda.synchronize()
+                same = [torch.equal(a, b) for a, b in zip(first, second)]
+                print(f"  determinism {str(dtype)[6:]:8s} D={d:3d} T={t:4d}: "
+                      f"dq, dk, dv bit-identical {same}")
+                if not all(same):
+                    fail(f"flash backward not deterministic: {dtype} D={d} T={t} {same}")
 
 
 def serve(model, device, counters) -> dict:
@@ -1137,7 +1171,12 @@ def flash_times(device, errs) -> list:
     kernels' split does 7 in all); at the bf16 peak, against each input
     read once and each output written once. Library: SDPA forward, and
     SDPA's backward (which computes dq, dk and dv together) for both
-    backward rows."""
+    backward rows. Beside the charged rate, each kernel's rate on the
+    products it does: 2 (forward), 3 (dQ: S, dP, dQ), 4 (dK/dV: S, dP, dV,
+    dK). The times in the kernels line (ms, library_ms) are single calls,
+    which count the host's work per call (checks, allocation, autograd)
+    where the card waits on it; beside each the time per call in bursts of
+    FLASH_BURST calls is printed, where that work hides behind the card's."""
     import torch
     import torch.nn.functional as F
 
@@ -1171,33 +1210,38 @@ def flash_times(device, errs) -> list:
     with torch.enable_grad():
         qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
         out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, scale=scale)
-        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, scale=scale), 20)
-        sdpa_bwd = time_ms(lambda: torch.autograd.grad(
-            out, (qg, kg, vg), dot, retain_graph=True), 20)
+        sdpa = {"forward": lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, scale=scale),
+                "backward": lambda: torch.autograd.grad(
+                    out, (qg, kg, vg), dot, retain_graph=True)}
+        lib_ms = {key: time_ms(fn, 20) for key, fn in sdpa.items()}
+        lib_burst = {key: time_ms(fn, 10, FLASH_BURST) for key, fn in sdpa.items()}
     prod = 2.0 * b * h * d * t * (t + 1) / 2
     elems = b * t * h * d  # one (B, T, H, D) bf16 tensor: 2 bytes each
     stats = 4.0 * b * h * t  # one (B, H, T) fp32 vector
     rows = []
-    for name, fn, plain_fn, n_prod, nbytes, lib in (
+    for name, fn, plain_fn, n_prod, n_done, nbytes, lib in (
             ("flash_fwd", lambda: flash_attention_fwd(q, k, v, scale),
-             lambda: flash_attention_fwd_plain(q, k, v, scale), 2,
-             2.0 * 4 * elems + stats, sdpa_fwd),
+             lambda: flash_attention_fwd_plain(q, k, v, scale), 2, 2,
+             2.0 * 4 * elems + stats, "forward"),
             ("flash_bwd_dq", lambda: flash_attention_bwd_dq(q, k, v, o, lse, do, scale),
-             lambda: flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale), 2,
-             2.0 * 6 * elems + 2 * stats, sdpa_bwd),
+             lambda: flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale), 2, 3,
+             2.0 * 6 * elems + 2 * stats, "backward"),
             ("flash_bwd_dkv", lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale),
-             lambda: flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, scale), 3,
-             2.0 * 6 * elems + 2 * stats, sdpa_bwd)):
+             lambda: flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, scale), 3, 4,
+             2.0 * 6 * elems + 2 * stats, "backward")):
         row = _KernelRow(name, "mqgan_tpu_torch/csrc/flash_attention.cu", FLASH_REPLACES[name])
         ms = time_ms(fn, 20)
+        burst = time_ms(fn, 10, FLASH_BURST)
         pms = time_ms(plain_fn, 3)
         bound = row.add(ms, pms, n_prod * prod, PEAK_BF16, nbytes)
-        row.library_ms = lib
-        print(f"  {name:14s}: {ms:.4f} ms, plain {pms:.4f} ms, bound {bound:.4f} ms "
-              f"({n_prod * prod / 1e9:.1f} GFLOP, {n_prod * prod / ms / 1e9:.1f} "
-              f"TFLOP/s), SDPA {'forward' if name == 'flash_fwd' else 'backward'} "
-              f"{lib:.4f} ms")
+        row.library_ms = lib_ms[lib]
+        print(f"  {name:14s}: {ms:.4f} ms (bursts {burst:.4f}), plain "
+              f"{pms:.4f} ms, bound {bound:.4f} ms ({n_prod * prod / 1e9:.1f} GFLOP "
+              f"charged, {n_prod * prod / ms / 1e9:.1f} TFLOP/s; {n_done} products "
+              f"done, {n_done * prod / 1e9:.1f} GFLOP, {n_done * prod / ms / 1e9:.1f} "
+              f"TFLOP/s (bursts {n_done * prod / burst / 1e9:.1f})), SDPA {lib} "
+              f"{lib_ms[lib]:.4f} ms (bursts {lib_burst[lib]:.4f})")
         rows.append(row)
     return rows
 
@@ -1272,6 +1316,8 @@ def main() -> None:
     print(f"[9] flash-attention kernels vs plain versions, T {FLASH_TS}, "
           f"D {FLASH_DS}, B=2 H=4")
     errs.update(compare_flash(device))
+    print("[9b] flash backward run twice: bit-identical dq, dk, dv")
+    check_flash_determinism(device)
     with torch.enable_grad():
         print("[10] token-LM training slice (MusicTransformer flagship width)")
         compare_lm_step(device)

@@ -32,7 +32,7 @@ SOURCES = ("fsq_head.cu", "residual_block.cu", "mel_mixer.cu", "log_mel.cu",
            "log_mel_dft.cu", "flash_attention.cu")
 # no --use_fast_math: the mixer and the FSQ head need exact tanhf (an
 # approximate tanh flips FSQ codes on the encode side), the log-mel kernels
-# exact sqrtf and logf, the flash kernels exact expf/logf
+# exact sqrtf and logf, the flash kernels expf/exp2f/logf at full accuracy
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

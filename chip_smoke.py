@@ -9,13 +9,21 @@ printing no result, without one. Phases (any failure exits non-zero):
 
  1. check the card; print its name and power limit (nvidia-smi);
  2. build the hand-written CUDA kernels from mqgan_tpu_torch/csrc (nvcc,
-    sm_90a) and print the build time and the ptxas register report;
+    sm_90a) and print the build time, the ptxas register report and a
+    summary of registers and spills of the mma.sync kernels
+    (flash_fwd_mma, flash_bwd_dq_mma, flash_bwd_dkv_mma per head size,
+    conv_gemm_mma);
  3. hold each kernel against its plain PyTorch version on the same inputs,
     at the flagship widths (all six residual-block configurations, both
     mel-mixers, the FSQ head), B=8, T=512, ragged lengths: fp32 with TF32
     off (max|k - p| <= 1e-4 * max(1, max|p|)) and bf16 (||k - p|| / ||p||
     <= 2e-2); FSQ indices may differ only where the plain pre-round value
-    lies within 1e-4 of a rounding midpoint. The log-mel kernels in fp32
+    lies within 1e-4 of a rounding midpoint. The same for the hifimusic
+    generator (160 mels, channels 384/384/512/512, refiner 96: its six
+    blocks, two mixers and FSQ head), and for blocks whose widths and B*T
+    are not multiples of the conv GEMM's 128 x 128 tile (24 -> 40 k7
+    causal and k5 CBAM at B=3 T=77, 40 -> 136 k3 causal at B=2 T=130,
+    136 -> 24 k1 CBAM at B=5 T=29), fp32 and bf16. The log-mel kernels in fp32
     (max|k - p| <= 1e-4 in the log domain), each case through the route its
     shape selects (one launch of that kernel): the FFT kernel on the
     hifispeech spec at B=8 x 261,632 samples with 1 s of leading silence in
@@ -50,7 +58,9 @@ printing no result, without one. Phases (any failure exits non-zero):
     profile of one trip, its split into front end, codec and vocoder (CUDA
     events) and each stage's kernel groups;
  8. time each kernel at its flagship shapes beside its plain version, its
-    bound and, for the log-mel kernel, the torch.stft chain that computes
+    bound (each block also with its conv GEMMs' TFLOP/s and, as a yardstick
+    outside the kernels line, the same convs through cuDNN's bf16
+    conv1d) and, for the log-mel kernel, the torch.stft chain that computes
     the same function and the DFT kernel (the earlier design, now the route
     for other n_fft), and print one JSON line of them; the log-mel kernel
     is first held against its plain version in float64 at that batch (64
@@ -91,6 +101,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -104,6 +115,17 @@ BUCKETS = (128, 256, 512)
 CMP_B, CMP_T = 8, 512
 CMP_LENGTHS = (512, 480, 300, 257, 128, 77, 5, 1)
 CLIP_LENGTHS = (100, 117, 128, 140, 201, 256, 300, 384, 450, 500, 512, 333)
+# blocks off the conv GEMM's 128 x 128 tile: (Cin, Cout, k, causal, B, T,
+# lengths)
+RAGGED_BLOCKS = ((24, 40, 7, True, 3, 77, (77, 60, 1)),
+                 (24, 40, 5, False, 3, 77, (77, 60, 1)),
+                 (40, 136, 3, True, 2, 130, (130, 3)),
+                 (136, 24, 1, False, 5, 29, (29, 28, 1, 17, 5)))
+# the hifimusic generator, configs/model_config_hifimusic.yaml:14-35 written
+# out (the card's machine has no PyYAML)
+HIFIMUSIC = dict(mels=160, channels=(384, 384, 512, 512), kernel_sizes=(3, 3, 5, 7),
+                 fsq_levels=(8, 5, 5, 5), refiner_base_channels=96, refiner_depth=3,
+                 refiner_hidden_proj_divisor=8)
 BENCH_B, BENCH_T = 64, 512
 WARMUP, ITERS = 2, 5
 # the audio batch of the same throughput shape: 511 hops of 512 samples
@@ -149,6 +171,31 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_summary(report: str) -> list:
+    """(kernel, head size or None, registers, spill bytes stored, spill
+    bytes loaded) of each mma.sync kernel entry in the ptxas report."""
+    kernels = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma", "conv_gemm_mma")
+    rows, entry = [], None
+    for line in report.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            name = next((k for k in kernels if k in found.group(1)), None)
+            d = re.search(r"ILi(\d+)E", found.group(1))
+            entry = [name, int(d.group(1)) if d else None, None, 0, 0] if name else None
+            continue
+        if entry is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            entry[3], entry[4] = int(spill.group(1)), int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            entry[2] = int(regs.group(1))
+            rows.append(tuple(entry))
+            entry = None
+    return sorted(rows, key=lambda r: (r[0], r[1] or 0))
+
+
 def time_ms(fn, reps: int, inner: int = 1) -> float:
     """Median over reps of the CUDA-event time of ``inner`` back-to-back
     calls of fn, per call (inner > 1 hides the host's launch cost behind
@@ -168,13 +215,20 @@ def time_ms(fn, reps: int, inner: int = 1) -> float:
     return float(np.median(times))
 
 
-def build_model(device, dtype, poly_mixers=False, state=None):
+def build_model(device, dtype, poly_mixers=False, state=None, music=False):
+    """The flagship hifispeech generator (seeded), or with ``music`` the
+    hifimusic one."""
     from mqgan_tpu_torch.core.config import GeneratorConfig
     from mqgan_tpu_torch.models.preencoder import PreEncoder
     from mqgan_tpu_torch.utils.init import seeded_init_
 
-    model = PreEncoder.from_config(MELS, GeneratorConfig(), dtype=dtype,
-                                   poly_mixers=poly_mixers)
+    if music:
+        cfg = dict(HIFIMUSIC)
+        mels = cfg.pop("mels")
+        model = PreEncoder.from_config(mels, GeneratorConfig(**cfg), dtype=dtype)
+    else:
+        model = PreEncoder.from_config(MELS, GeneratorConfig(), dtype=dtype,
+                                       poly_mixers=poly_mixers)
     if state is None:
         seeded_init_(model, SEED)
     else:
@@ -200,10 +254,11 @@ def _fsq_near_midpoint(h, w, b, consts):
     return ((frac - 0.5).abs() < 1e-4).any(dim=-1)
 
 
-def compare_kernels(model, device, b, t, lengths, dtypes) -> dict:
+def compare_kernels(model, device, b, t, lengths, dtypes, tag="") -> dict:
     """Phase 3: every kernel against its plain version; returns each
     kernel's largest |kernel - plain| in bf16, the main path's dtype (for
-    the FSQ head: the largest index difference away from a midpoint)."""
+    the FSQ head: the largest index difference away from a midpoint).
+    ``tag`` prefixes the printed case names."""
     import torch
 
     from mqgan_tpu_torch.ops.block_kernels import (fused_residual_block,
@@ -221,6 +276,7 @@ def compare_kernels(model, device, b, t, lengths, dtypes) -> dict:
         ok, max_abs, detail = _judge("", got, want, dtype)
         if dtype != torch.float32:
             errs[kernel] = max(errs[kernel], max_abs)
+        name = tag + name
         print(f"  {kernel:15s} {name:5s} {str(dtype)[6:]:8s} {detail.strip()}, "
               f"max|k-p| {max_abs:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -253,7 +309,7 @@ def compare_kernels(model, device, b, t, lengths, dtypes) -> dict:
         near = _fsq_near_midpoint(h, w, bias, model.fsq_consts)
         mism = got != want
         far_err = int((got - want)[~near].abs().max()) if bool((~near).any()) else 0
-        print(f"  {'fsq_head':15s} {'':5s} {str(dtype)[6:]:8s} "
+        print(f"  {'fsq_head':15s} {tag:5s} {str(dtype)[6:]:8s} "
               f"{int(mism.sum())} of {got.numel()} indices differ, "
               f"{int((mism & near).sum())} of them within 1e-4 of a midpoint "
               f"{'ok' if far_err == 0 else 'FAIL'}")
@@ -263,6 +319,39 @@ def compare_kernels(model, device, b, t, lengths, dtypes) -> dict:
             fail("fsq_head: index out of range")
         errs["fsq_head"] = max(errs["fsq_head"], float(far_err))
     return errs
+
+
+def compare_ragged_blocks(device) -> float:
+    """Phase 3: blocks whose widths and B*T are off the conv GEMM's tile
+    (RAGGED_BLOCKS), seeded, against their plain versions in fp32 and bf16;
+    returns the largest bf16 |kernel - plain|."""
+    import torch
+
+    from mqgan_tpu_torch.nn.blocks import ResidualBlock1D
+    from mqgan_tpu_torch.ops.block_kernels import (fused_residual_block,
+                                                   residual_block_plain)
+    from mqgan_tpu_torch.utils.init import seeded_init_
+
+    gen = torch.Generator().manual_seed(SEED + 17)
+    worst = 0.0
+    for cin, cout, k, causal, b, t, lengths in RAGGED_BLOCKS:
+        blk = seeded_init_(ResidualBlock1D(cin, cout, k, causal=causal), SEED + 17)
+        blk = blk.to(device)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((b, t, cin), generator=gen).to(device, dtype)
+            wts = blk.kernel_weights(dtype)
+            got = fused_residual_block(x, lens, wts, causal=causal)
+            want = residual_block_plain(x, lens, wts, causal=causal)
+            ok, max_abs, detail = _judge("", got, want, dtype)
+            if dtype == torch.bfloat16:
+                worst = max(worst, max_abs)
+            print(f"  residual_block  {cin}->{cout} k{k} {'causal' if causal else 'CBAM'} "
+                  f"B={b} T={t} lengths {lengths} {str(dtype)[6:]:8s} {detail.strip()}, "
+                  f"max|k-p| {max_abs:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"residual_block {cin}->{cout} k{k} B={b} T={t} {dtype}: {detail}")
+    return worst
 
 
 def compare_round_trip(state, device) -> None:
@@ -811,6 +900,34 @@ class _KernelRow:
         return "operations" if self.ops_ms >= self.bytes_ms else "bytes"
 
 
+def conv_yardstick(blk, b: int, t: int, gen, device):
+    """A function running a block's convs (the projection, conv1, conv2) as
+    cuDNN bf16 conv1d calls on (B, C, T) inputs, causal ones left-padded by
+    k - 1 (conv1d pads both sides; the k - 1 extra frames are ~1% more
+    work): the yardstick of the block kernel's GEMMs; the port never calls
+    it."""
+    import torch
+    import torch.nn.functional as F
+
+    dt = torch.bfloat16
+    cin, cout, k = blk.conv1.v.shape[1], blk.conv1.v.shape[0], blk.kernel_size
+    x = torch.randn((b, cin, t), generator=gen, device=device).to(dt)
+    h = torch.randn((b, cout, t), generator=gen, device=device).to(dt)
+    w1, w2 = (c.folded().to(dt) for c in (blk.conv1, blk.conv2))
+    b1, b2 = (c.bias.to(dt) for c in (blk.conv1, blk.conv2))
+    pad = k - 1 if blk.causal else k // 2
+    proj = None
+    if blk.residual is not None:
+        proj = (blk.residual.folded().to(dt), blk.residual.bias.to(dt))
+
+    def convs():
+        if proj is not None:
+            F.conv1d(x, *proj)
+        F.conv1d(x, w1, b1, padding=pad)
+        F.conv1d(h, w2, b2, padding=pad)
+    return convs
+
+
 def kernel_times(model, device) -> list:
     """Phase 8: each kernel at its flagship shapes (B=64, T=512, bf16; the
     log-mel kernel fp32 on 64 clips of 512 frames), summed over its calls in
@@ -841,21 +958,34 @@ def kernel_times(model, device) -> list:
 
     blk_row = _KernelRow("residual_block", "mqgan_tpu_torch/csrc/residual_block.cu",
                          "mqgan_tpu/ops/block_kernels.py:161")
+    bursts = [0.0, 0.0, 0.0]  # the block in bursts; cuDNN's convs single, in bursts
     for name, blk in block_cases(model):
         cin, cout, k = blk.conv1.v.shape[1], blk.conv1.v.shape[0], blk.kernel_size
         x = torch.randn((b, t, cin), generator=gen, device=device).to(dt)
         wts = blk.kernel_weights(dt)
         ms = time_ms(lambda: fused_residual_block(x, lens, wts,
                                                   causal=blk.causal), 10)
+        burst = time_ms(lambda: fused_residual_block(x, lens, wts,
+                                                     causal=blk.causal), 5, 10)
         pms = time_ms(lambda: residual_block_plain(x, lens, wts,
                                                    causal=blk.causal), 3)
         macs = k * cin * cout + k * cout * cout + (cin * cout if cin != cout else 0)
         flops = 2.0 * m * macs
         bound = blk_row.add(ms, pms, flops, PEAK_BF16,
                             2.0 * (m * cin + m * cout + macs))
+        convs = conv_yardstick(blk, b, t, gen, device)
+        conv_ms, conv_burst = time_ms(convs, 10), time_ms(convs, 5, 10)
+        bursts = [b_ + x_ for b_, x_ in zip(bursts, (burst, conv_ms, conv_burst))]
         print(f"  residual_block {name} {cin}->{cout} k{k}"
-              f"{' causal' if blk.causal else ' CBAM'}: {ms:.4f} ms, plain "
-              f"{pms:.4f} ms, bound {bound:.4f} ms ({flops / 1e9:.1f} GFLOP)")
+              f"{' causal' if blk.causal else ' CBAM'}: {ms:.4f} ms (bursts {burst:.4f}), "
+              f"plain {pms:.4f} ms, bound {bound:.4f} ms ({flops / 1e9:.1f} GFLOP of conv "
+              f"GEMMs, {flops / ms / 1e9:.1f} TFLOP/s over the block's time (bursts "
+              f"{flops / burst / 1e9:.1f}){'' if blk.causal else ', CBAM included'}); the same "
+              f"convs through cuDNN {conv_ms:.4f} ms (bursts {conv_burst:.4f}, "
+              f"{flops / conv_burst / 1e9:.1f} TFLOP/s)")
+    print(f"  residual_block, six blocks: {blk_row.ms:.4f} ms (bursts {bursts[0]:.4f}); "
+          f"the same convs through cuDNN {bursts[1]:.4f} ms (bursts {bursts[2]:.4f}), a "
+          f"yardstick of the GEMMs alone: no one PyTorch call computes the block")
 
     mix_row = _KernelRow("mel_mixer", "mqgan_tpu_torch/csrc/mel_mixer.cu",
                          "mqgan_tpu/ops/mixer_kernels.py:92")
@@ -1266,7 +1396,11 @@ def main() -> None:
 
     _cuda.LIBRARY.load()
     print(f"[2] kernels built in {_cuda.LIBRARY.build_seconds:.1f} s")
-    print(_cuda.ptxas_report())
+    report = _cuda.ptxas_report()
+    print(report)
+    for kernel, d, regs, st, ld in ptxas_summary(report):
+        print(f"  ptxas {kernel}{'' if d is None else f' D={d}'}: {regs} registers, "
+              f"spill stores {st} B, spill loads {ld} B")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1276,6 +1410,13 @@ def main() -> None:
           f"lengths {CMP_LENGTHS}")
     errs = compare_kernels(model, device, CMP_B, CMP_T, CMP_LENGTHS,
                            (torch.float32, torch.bfloat16))
+    music = build_model(device, torch.bfloat16, music=True)
+    for kernel, err in compare_kernels(music, device, CMP_B, CMP_T, CMP_LENGTHS,
+                                       (torch.float32, torch.bfloat16),
+                                       tag="hifimusic ").items():
+        errs[kernel] = max(errs[kernel], err)
+    del music
+    errs["residual_block"] = max(errs["residual_block"], compare_ragged_blocks(device))
     errs["log_mel"] = compare_log_mel(device)
     compare_round_trip(state, device)
 

@@ -23,15 +23,26 @@
 // of products against 67 MB of q, k, v and o; the backward of the function
 // 86 GFLOP.
 //
-// Forward (flash_fwd, bf16 and fp32) and the fp32 backward: one block of 8
-// warps per (b, h, 64-row tile); key tiles above the diagonal are skipped,
-// so the causal mask costs half the work and is applied only where it can
-// bite. bf16 products of the forward run on WMMA 16x16x16 over tiles staged
-// in shared memory, with fp32 scores, online softmax and statistics; P is
-// rounded to bf16 before P V (the naive path also casts the probabilities
-// to v's dtype). fp32 inputs run the same algorithm on a SIMT tile (4x4
-// outputs per thread, no TF32: it would miss the 1e-4 gate), accumulators
-// in shared memory.
+// fp32 (flash_fwd_simt and the *_simt backward): one block of 8 warps per
+// (b, h, 64-row tile); key tiles above the diagonal are skipped, so the
+// causal mask costs half the work and is applied only where it can bite; a
+// SIMT tile (4x4 outputs per thread, no TF32: it would miss the 1e-4 gate),
+// scores and accumulators in shared memory.
+//
+// bf16 forward (flash_fwd_mma), FA2's forward: the 2 products of the causal
+// pairs, 34 GFLOP at the flagship call. One block of 4 warps per (b, h,
+// 64-row query tile), the longest rows of all heads first; warp w owns
+// query rows 16w .. 16w + 15 and keeps them in registers throughout:
+//   - S = Q_w K^T (16 x 64) is mma.sync C fragments; the online softmax
+//     runs on them in base 2 (scale * log2 e folded in, exp2f), the row max
+//     over the 4 lanes of a row by shuffles, each lane's share of the row
+//     sum in a register until the end;
+//   - alpha = exp2(m_old - m_new) rescales the fp32 O accumulator (16 x D,
+//     registers); P, rounded to bf16 as the plain path rounds it to v's
+//     dtype, is repacked in place as the A fragments of P V (V stored
+//     [key][d] is the [k][n] operand, read with ldmatrix.trans);
+//   - K and V stream through the cp.async ring below, one barrier a tile;
+//   - O leaves scaled by 1/l in 16-byte stores, lse = m ln 2 + log l.
 //
 // bf16 backward (flash_bwd_dq_mma, flash_bwd_dkv_mma), the training path.
 // They replace _flash_attention_bwd_dq and _flash_attention_bwd_dkv; 7
@@ -67,138 +78,115 @@
 // written once, so dq, dk and dv are bit-identical from run to run; the
 // price is the recomputed S and dP (7 products instead of 5).
 
-#include <mma.h>
-
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using mqgan::from_f32;
+using mqgan::bf16;
+using mqgan::c_to_a;
+using mqgan::cp_async16;
+using mqgan::cp_async4;
+using mqgan::cp_async_commit;
+using mqgan::cp_async_wait;
+using mqgan::lane_a;
+using mqgan::lane_b;
+using mqgan::lane_bt;
+using mqgan::ldsm4;
+using mqgan::ldsm4_t;
+using mqgan::mma_bf16;
+using mqgan::pack_bf16;
 
-constexpr int kThreads = 256;  // 8 warps
+constexpr int kThreads = 256;  // 8 warps of the fp32 SIMT kernels
 
-// rows of a query / key tile: 64, except fp32 at D=128, whose dK/dV block
-// would not fit in shared memory at 64 rows
-template <typename T, int D>
+// rows of a query / key tile of the fp32 kernels: 64, except at D=128, whose
+// dK/dV block would not fit in shared memory at 64 rows
+template <int D>
 constexpr int tile_rows() {
-  return (sizeof(T) == 4 && D == 128) ? 32 : 64;
+  return D == 128 ? 32 : 64;
 }
 
-// padded leading dimensions (in elements) of the shared-memory tiles: keep
-// 16x16 fragment pointers 32-byte aligned and spread the banks
-template <typename T>
+// padded leading dimensions (in elements) of the fp32 shared-memory tiles:
+// spread the banks
 constexpr int ld_of(int n) { return n + 8; }
 constexpr int ldf_of(int n) { return n + 4; }
 
 constexpr size_t align128(size_t bytes) { return (bytes + 127) / 128 * 128; }
 
-// c (M x N fp32, ldc) = [c +] op(a) . op(b); op(a) is M x K: a[i * lda + k],
-// or a[k * lda + i] when TA; op(b) is K x N: b[k * ldb + j], or
-// b[j * ldb + k] when TB. All in shared memory; the caller synchronises.
-template <typename T, bool TA, bool TB, int M, int N, int K>
-__device__ __forceinline__ void tile_mm(float* c, int ldc, const T* a, int lda,
-                                        const T* b, int ldb, bool accumulate) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    using LA = typename std::conditional<TA, wmma::col_major, wmma::row_major>::type;
-    using LB = typename std::conditional<TB, wmma::col_major, wmma::row_major>::type;
-    const int warp = threadIdx.x / 32;
-    constexpr int kBlocksN = N / 16, kBlocks = (M / 16) * kBlocksN;
-    for (int blk = warp; blk < kBlocks; blk += kThreads / 32) {
-      const int mi = blk / kBlocksN, ni = blk - mi * kBlocksN;
-      float* cp = c + mi * 16 * ldc + ni * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      if (accumulate) {
-        wmma::load_matrix_sync(acc, cp, ldc, wmma::mem_row_major);
-      } else {
-        wmma::fill_fragment(acc, 0.0f);
-      }
+// c (M x N, ldc) = [c +] op(a) . op(b) in fp32 on the SIMT cores; op(a) is
+// M x K: a[i * lda + k], or a[k * lda + i] when TA; op(b) is K x N:
+// b[k * ldb + j], or b[j * ldb + k] when TB. All in shared memory; the
+// caller synchronises. Each thread owns 4 x 4 outputs, rows ty + i * M/4
+// and columns tx + j * N/4 of one sub-block.
+template <bool TA, bool TB, int M, int N, int K>
+__device__ __forceinline__ void tile_mm(float* c, int ldc, const float* a, int lda,
+                                        const float* b, int ldb, bool accumulate) {
+  constexpr int kCols = N / 4, kTiles = (M / 4) * kCols;
+  for (int u = threadIdx.x; u < kTiles; u += kThreads) {
+    const int ty = u / kCols, tx = u - ty * kCols;
+    float acc[4][4];
 #pragma unroll
-      for (int kk = 0; kk < K; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> fb;
-        const T* ap = TA ? a + kk * lda + mi * 16 : a + mi * 16 * lda + kk;
-        const T* bp = TB ? b + ni * 16 * ldb + kk : b + kk * ldb + ni * 16;
-        wmma::load_matrix_sync(fa, ap, lda);
-        wmma::load_matrix_sync(fb, bp, ldb);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(cp, acc, ldc, wmma::mem_row_major);
-    }
-  } else {
-    // fp32 SIMT: each thread owns 4 x 4 outputs, rows ty + i * M/4 and
-    // columns tx + j * N/4 of one sub-block
-    constexpr int kCols = N / 4, kTiles = (M / 4) * kCols;
-    for (int u = threadIdx.x; u < kTiles; u += kThreads) {
-      const int ty = u / kCols, tx = u - ty * kCols;
-      float acc[4][4];
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = accumulate ? c[(ty + i * (M / 4)) * ldc + tx + j * kCols]
-                                 : 0.0f;
+      for (int j = 0; j < 4; ++j)
+        acc[i][j] = accumulate ? c[(ty + i * (M / 4)) * ldc + tx + j * kCols] : 0.0f;
 #pragma unroll 4
-      for (int kk = 0; kk < K; ++kk) {
-        float av[4], bv[4];
+    for (int kk = 0; kk < K; ++kk) {
+      float av[4], bv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = ty + i * (M / 4);
-          av[i] = TA ? a[kk * lda + r] : a[r * lda + kk];
-        }
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + i * (M / 4);
+        av[i] = TA ? a[kk * lda + r] : a[r * lda + kk];
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = tx + j * kCols;
-          bv[j] = TB ? b[col * ldb + kk] : b[kk * ldb + col];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < 4; ++j) {
+        const int col = tx + j * kCols;
+        bv[j] = TB ? b[col * ldb + kk] : b[kk * ldb + col];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          c[(ty + i * (M / 4)) * ldc + tx + j * kCols] = acc[i][j];
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[(ty + i * (M / 4)) * ldc + tx + j * kCols] = acc[i][j];
   }
 }
 
-// rows [row0, row0 + R) of head h of a (B, T, H, D) tensor into a shared
-// tile (R x D, leading dim ld), 16 bytes per load; rows >= T become zeros
-template <typename T, int D, int R>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
-                                          int b, int h, int row0, int t_len,
-                                          int n_heads) {
-  constexpr int kVec = 16 / sizeof(T), kChunks = D / kVec;
+// rows [row0, row0 + R) of head h of a (B, T, H, D) fp32 tensor into a
+// shared tile (R x D, leading dim ld), 16 bytes per load; rows >= T become
+// zeros
+template <int D, int R>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, int b,
+                                          int h, int row0, int t_len, int n_heads) {
+  constexpr int kChunks = D / 4;
   for (int e = threadIdx.x; e < R * kChunks; e += kThreads) {
     const int r = e / kChunks, ch = e - r * kChunks, t = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (t < t_len) {
-      const size_t off =
-          ((static_cast<size_t>(b) * t_len + t) * n_heads + h) * D + ch * kVec;
-      val = *reinterpret_cast<const uint4*>(src + off);
+      const size_t off = ((static_cast<size_t>(b) * t_len + t) * n_heads + h) * D + ch * 4;
+      val = *reinterpret_cast<const float4*>(src + off);
     }
-    *reinterpret_cast<uint4*>(dst + r * ld + ch * kVec) = val;
+    *reinterpret_cast<float4*>(dst + r * ld + ch * 4) = val;
   }
 }
 
-// a (R x D) fp32 shared tile times `mul`, rounded to T, into rows
-// [row0, row0 + R) of head h (rows >= T are not written)
-template <typename T, int D, int R>
-__device__ __forceinline__ void store_rows(T* dst, const float* src, int ld,
-                                           float mul, int b, int h, int row0,
-                                           int t_len, int n_heads) {
+// a (R x D) shared tile times `mul` into rows [row0, row0 + R) of head h
+// (rows >= T are not written)
+template <int D, int R>
+__device__ __forceinline__ void store_rows(float* dst, const float* src, int ld, float mul,
+                                           int b, int h, int row0, int t_len,
+                                           int n_heads) {
   for (int e = threadIdx.x; e < R * D; e += kThreads) {
     const int r = e / D, d = e - r * D, t = row0 + r;
     if (t < t_len) {
-      dst[((static_cast<size_t>(b) * t_len + t) * n_heads + h) * D + d] =
-          from_f32<T>(src[r * ld + d] * mul);
+      dst[((static_cast<size_t>(b) * t_len + t) * n_heads + h) * D + d] = src[r * ld + d] * mul;
     }
   }
 }
@@ -217,33 +205,33 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// ---------------------------------------------------------------- forward
-template <typename T, int D>
+// ----------------------------------------------------- forward, fp32 SIMT
+template <int D>
 struct FwdSmem {
-  static constexpr int R = tile_rows<T, D>(), LD = ld_of<T>(D),
-                       LDS = ldf_of(R), LDP = ld_of<T>(R), LDO = ldf_of(D);
+  static constexpr int R = tile_rows<D>(), LD = ld_of(D), LDS = ldf_of(R), LDP = ld_of(R),
+                       LDO = ldf_of(D);
   static constexpr size_t q = 0;
-  static constexpr size_t k = q + align128(sizeof(T) * R * LD);
-  static constexpr size_t v = k + align128(sizeof(T) * R * LD);
-  static constexpr size_t s = v + align128(sizeof(T) * R * LD);
+  static constexpr size_t k = q + align128(sizeof(float) * R * LD);
+  static constexpr size_t v = k + align128(sizeof(float) * R * LD);
+  static constexpr size_t s = v + align128(sizeof(float) * R * LD);
   static constexpr size_t p = s + align128(sizeof(float) * R * LDS);
-  static constexpr size_t o = p + align128(sizeof(T) * R * LDP);
+  static constexpr size_t o = p + align128(sizeof(float) * R * LDP);
   static constexpr size_t bytes = o + align128(sizeof(float) * R * LDO);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o,
-              float* __restrict__ lse, int t_len, int n_heads, float scale) {
-  using L = FwdSmem<T, D>;
+    flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o,
+                   float* __restrict__ lse, int t_len, int n_heads, float scale) {
+  using L = FwdSmem<D>;
   constexpr int R = L::R, kWidth = kThreads / R, kPer = R / kWidth;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem + L::q);
-  T* ks = reinterpret_cast<T*>(smem + L::k);
-  T* vs = reinterpret_cast<T*>(smem + L::v);
+  float* qs = reinterpret_cast<float*>(smem + L::q);
+  float* ks = reinterpret_cast<float*>(smem + L::k);
+  float* vs = reinterpret_cast<float*>(smem + L::v);
   float* ss = reinterpret_cast<float*>(smem + L::s);
-  T* ps = reinterpret_cast<T*>(smem + L::p);
+  float* ps = reinterpret_cast<float*>(smem + L::p);
   float* os = reinterpret_cast<float*>(smem + L::o);
 
   const int n_tiles = (t_len + R - 1) / R;
@@ -251,18 +239,17 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.y, b = blockIdx.z, q0 = qt * R;
   const int row = threadIdx.x / kWidth, part = threadIdx.x % kWidth;
 
-  load_rows<T, D, R>(qs, L::LD, q, b, h, q0, t_len, n_heads);
-  for (int e = threadIdx.x; e < R * D; e += kThreads)
-    os[(e / D) * L::LDO + e % D] = 0.0f;
+  load_rows<D, R>(qs, L::LD, q, b, h, q0, t_len, n_heads);
+  for (int e = threadIdx.x; e < R * D; e += kThreads) os[(e / D) * L::LDO + e % D] = 0.0f;
   float m = -INFINITY, l = 0.0f;  // this row's running max and sum
 
   for (int kt = 0; kt <= qt; ++kt) {
     const int k0 = kt * R;
     __syncthreads();  // the previous tile's K, V and P are consumed
-    load_rows<T, D, R>(ks, L::LD, k, b, h, k0, t_len, n_heads);
-    load_rows<T, D, R>(vs, L::LD, v, b, h, k0, t_len, n_heads);
+    load_rows<D, R>(ks, L::LD, k, b, h, k0, t_len, n_heads);
+    load_rows<D, R>(vs, L::LD, v, b, h, k0, t_len, n_heads);
     __syncthreads();
-    tile_mm<T, false, true, R, R, D>(ss, L::LDS, qs, L::LD, ks, L::LD, false);
+    tile_mm<false, true, R, R, D>(ss, L::LDS, qs, L::LD, ks, L::LD, false);
     __syncthreads();
     // online softmax of this row, kWidth threads per row, kPer columns each
     const int qi = q0 + row;
@@ -283,13 +270,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kPer; ++j) {
       const float p = expf(sv[j] - m_new);
       sum += p;
-      ps[row * L::LDP + part + j * kWidth] = from_f32<T>(p);
+      ps[row * L::LDP + part + j * kWidth] = p;
     }
     l = l * alpha + group_sum<kWidth>(sum);
     m = m_new;
     for (int d = part; d < D; d += kWidth) os[row * L::LDO + d] *= alpha;
     __syncthreads();
-    tile_mm<T, false, false, R, D, R>(os, L::LDO, ps, L::LDP, vs, L::LD, true);
+    tile_mm<false, false, R, D, R>(os, L::LDO, ps, L::LDP, vs, L::LD, true);
   }
   __syncthreads();
   // normalise in place, then write O and lse
@@ -298,7 +285,7 @@ __global__ void __launch_bounds__(kThreads)
   if (part == 0 && q0 + row < t_len)
     lse[(static_cast<size_t>(b) * n_heads + h) * t_len + q0 + row] = m + logf(l);
   __syncthreads();
-  store_rows<T, D, R>(o, os, L::LDO, 1.0f, b, h, q0, t_len, n_heads);
+  store_rows<D, R>(o, os, L::LDO, 1.0f, b, h, q0, t_len, n_heads);
 }
 
 // ---------------------------------------------------- backward, fp32 SIMT
@@ -309,8 +296,8 @@ __global__ void __launch_bounds__(kThreads)
 template <int D>
 struct BwdSmem {
   using T = float;
-  static constexpr int R = tile_rows<T, D>(), LD = ld_of<T>(D),
-                       LDS = ldf_of(R), LDP = ld_of<T>(R), LDA = ldf_of(D);
+  static constexpr int R = tile_rows<D>(), LD = ld_of(D),
+                       LDS = ldf_of(R), LDP = ld_of(R), LDA = ldf_of(D);
   static constexpr size_t q = 0;
   static constexpr size_t k = q + align128(sizeof(T) * R * LD);
   static constexpr size_t v = k + align128(sizeof(T) * R * LD);
@@ -372,8 +359,8 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.y, b = blockIdx.z, q0 = qt * R;
   const size_t stat0 = (static_cast<size_t>(b) * n_heads + h) * t_len;
 
-  load_rows<T, D, R>(qs, L::LD, q, b, h, q0, t_len, n_heads);
-  load_rows<T, D, R>(dos, L::LD, dout, b, h, q0, t_len, n_heads);
+  load_rows<D, R>(qs, L::LD, q, b, h, q0, t_len, n_heads);
+  load_rows<D, R>(dos, L::LD, dout, b, h, q0, t_len, n_heads);
   for (int e = threadIdx.x; e < R * D; e += kThreads)
     dqs[(e / D) * L::LDA + e % D] = 0.0f;
   {
@@ -395,18 +382,18 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt <= qt; ++kt) {
     const int k0 = kt * R;
     __syncthreads();
-    load_rows<T, D, R>(ks, L::LD, k, b, h, k0, t_len, n_heads);
-    load_rows<T, D, R>(vs, L::LD, v, b, h, k0, t_len, n_heads);
+    load_rows<D, R>(ks, L::LD, k, b, h, k0, t_len, n_heads);
+    load_rows<D, R>(vs, L::LD, v, b, h, k0, t_len, n_heads);
     __syncthreads();
-    tile_mm<T, false, true, R, R, D>(ss, L::LDS, qs, L::LD, ks, L::LD, false);
-    tile_mm<T, false, true, R, R, D>(dps, L::LDS, dos, L::LD, vs, L::LD, false);
+    tile_mm<false, true, R, R, D>(ss, L::LDS, qs, L::LD, ks, L::LD, false);
+    tile_mm<false, true, R, R, D>(dps, L::LDS, dos, L::LD, vs, L::LD, false);
     __syncthreads();
     probs_and_dscores<D>(ss, dps, ps, dss, lse_s, delta_s, q0, k0, t_len, scale);
     __syncthreads();
-    tile_mm<T, false, false, R, D, R>(dqs, L::LDA, dss, L::LDP, ks, L::LD, true);
+    tile_mm<false, false, R, D, R>(dqs, L::LDA, dss, L::LDP, ks, L::LD, true);
   }
   __syncthreads();
-  store_rows<T, D, R>(dq, dqs, L::LDA, scale, b, h, q0, t_len, n_heads);
+  store_rows<D, R>(dq, dqs, L::LDA, scale, b, h, q0, t_len, n_heads);
 }
 
 // dK and dV, one block per (b, h, key tile); query tiles diagonal .. end.
@@ -439,8 +426,8 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.y, b = blockIdx.z, k0 = kt * R;
   const size_t stat0 = (static_cast<size_t>(b) * n_heads + h) * t_len;
 
-  load_rows<T, D, R>(ks, L::LD, k, b, h, k0, t_len, n_heads);
-  load_rows<T, D, R>(vs, L::LD, v, b, h, k0, t_len, n_heads);
+  load_rows<D, R>(ks, L::LD, k, b, h, k0, t_len, n_heads);
+  load_rows<D, R>(vs, L::LD, v, b, h, k0, t_len, n_heads);
   for (int e = threadIdx.x; e < R * D; e += kThreads) {
     dks[(e / D) * L::LDA + e % D] = 0.0f;
     dvs[(e / D) * L::LDA + e % D] = 0.0f;
@@ -449,45 +436,36 @@ __global__ void __launch_bounds__(kThreads)
   for (int qt = kt; qt < n_tiles; ++qt) {
     const int q0 = qt * R;
     __syncthreads();
-    load_rows<T, D, R>(qs, L::LD, q, b, h, q0, t_len, n_heads);
-    load_rows<T, D, R>(dos, L::LD, dout, b, h, q0, t_len, n_heads);
+    load_rows<D, R>(qs, L::LD, q, b, h, q0, t_len, n_heads);
+    load_rows<D, R>(dos, L::LD, dout, b, h, q0, t_len, n_heads);
     for (int r = threadIdx.x; r < R; r += kThreads) {
       const bool in = q0 + r < t_len;
       lse_s[r] = in ? lse[stat0 + q0 + r] : 0.0f;
       delta_s[r] = in ? delta[stat0 + q0 + r] : 0.0f;
     }
     __syncthreads();
-    tile_mm<T, false, true, R, R, D>(ss, L::LDS, qs, L::LD, ks, L::LD, false);
-    tile_mm<T, false, true, R, R, D>(dps, L::LDS, dos, L::LD, vs, L::LD, false);
+    tile_mm<false, true, R, R, D>(ss, L::LDS, qs, L::LD, ks, L::LD, false);
+    tile_mm<false, true, R, R, D>(dps, L::LDS, dos, L::LD, vs, L::LD, false);
     __syncthreads();
     probs_and_dscores<D>(ss, dps, ps, dss, lse_s, delta_s, q0, k0, t_len, scale);
     __syncthreads();
-    tile_mm<T, true, false, R, D, R>(dvs, L::LDA, ps, L::LDP, dos, L::LD, true);
-    tile_mm<T, true, false, R, D, R>(dks, L::LDA, dss, L::LDP, qs, L::LD, true);
+    tile_mm<true, false, R, D, R>(dvs, L::LDA, ps, L::LDP, dos, L::LD, true);
+    tile_mm<true, false, R, D, R>(dks, L::LDA, dss, L::LDP, qs, L::LD, true);
   }
   __syncthreads();
-  store_rows<T, D, R>(dk, dks, L::LDA, scale, b, h, k0, t_len, n_heads);
-  store_rows<T, D, R>(dv, dvs, L::LDA, 1.0f, b, h, k0, t_len, n_heads);
+  store_rows<D, R>(dk, dks, L::LDA, scale, b, h, k0, t_len, n_heads);
+  store_rows<D, R>(dv, dvs, L::LDA, 1.0f, b, h, k0, t_len, n_heads);
 }
 
-// ------------------------------------------ backward, bf16 (tensor cores)
-// Fragment layouts of mma.sync m16n8k16 (PTX ISA, "Matrix fragments for
-// mma.m16n8k16"), with g = lane / 4 and c = lane % 4, each register two bf16
-// (the lower column or row in the lower half) or one fp32:
-//   A (16 x 16, row): a0 (g, 2c..2c+1)   a1 (g+8, 2c..)   a2 (g, 2c+8..)   a3 (g+8, 2c+8..)
-//   B (16 x 8, col):  b0 (k 2c..2c+1, n g)                b1 (k 2c+8.., n g)
-//   C (16 x 8):       c0, c1 (g, 2c, 2c+1)                c2, c3 (g+8, 2c, 2c+1)
-// So the C fragments of two adjacent 8-column tiles, packed in pairs, are
-// the A fragment of one 16-deep step. One ldmatrix.x4 reads an A fragment,
-// or the B fragments of two 8-column tiles: from a tile stored [n][k]
-// directly, from one stored [k][n] with .trans.
-
-using bf16 = __nv_bfloat16;
+// ------------------------------------------------- bf16 (tensor cores)
+// mma.sync m16n8k16 on ldmatrix fragments; the helpers and the fragment
+// layouts are in mma.cuh.
 
 constexpr int kMmaWarps = 4, kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaRows = 16 * kMmaWarps;  // rows of a tile, 16 per warp
 constexpr int kStages = 2;                // depth of the cp.async ring
 constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
+constexpr float kLn2 = 0.6931471805599453f;     // and back: x = x log2 e * ln 2
 static_assert(kMmaThreads == 2 * kMmaRows, "one thread per lse / delta entry");
 
 template <int D>
@@ -496,83 +474,13 @@ struct MmaSmem {
   static constexpr int LD = D + 8;
   static constexpr int tile = kMmaRows * LD;  // bf16 elements of one tile
   static constexpr size_t tiles = (2 + 2 * kStages) * sizeof(bf16) * tile;
+  // forward: Q, then kStages x (K, V);
   // dQ: Q, dO, then kStages x (K, V);
   // dK/dV: K, V, kStages x (Q, dO), then kStages x (lse, delta) in fp32
+  static constexpr size_t bytes_fwd = tiles - sizeof(bf16) * tile;
   static constexpr size_t bytes_dq = tiles;
   static constexpr size_t bytes_dkv = tiles + kStages * 2 * kMmaRows * sizeof(float);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of 16 (or 4) bytes from global to shared memory; with !in nothing
-// is read and the destination is zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(in ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c += a . b on the tensor cores, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the lower half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// the A fragment of 16-deep step kk from the C fragments of 8-column tiles
-// 2 kk and 2 kk + 1, rounded to bf16
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&lo)[4],
-                                       const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// this lane's ldmatrix.x4 offsets (elements) into a tile of leading dim ld:
-// an A fragment at [m][k]; B fragments of n tiles n0, n0 + 8 stored [n][k];
-// the same stored [k][n] (.trans)
-__device__ __forceinline__ int lane_a(int lane, int ld) {
-  return (lane & 15) * ld + (lane >> 4) * 8;
-}
-__device__ __forceinline__ int lane_b(int lane, int ld) {
-  return ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8;
-}
-__device__ __forceinline__ int lane_bt(int lane, int ld) {
-  return ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + (lane >> 4) * 8;
-}
 
 // rows [row0, row0 + 64) of head h of a (B, T, H, D) bf16 tensor into a
 // shared tile (leading dim D + 8), 16 bytes per cp.async; rows >= T are
@@ -622,6 +530,169 @@ __device__ __forceinline__ void store_strip(bf16* dst, bf16* stage,
           *reinterpret_cast<const uint4*>(stage + r * LD + ch * 8);
     }
   }
+}
+
+// Forward, one block per (b, h, query tile); key tiles 0 .. diagonal stream
+// through the ring. The tile is the grid's slowest dimension, counted from
+// the last: the longest rows of every head start first and the short ones
+// fill the tail (faster on an H100 at B=8 H=8 T=2047 D=64 than
+// longest-first within each head only). Warp w owns query rows 16w ..
+// 16w + 15: S = Q_w K^T (16 x 64, registers) scaled to base-2 units, the
+// online softmax on its C fragments, O_w = O_w alpha + P V (P as the A
+// operand, V via ldmatrix.trans); at the end O_w / l and lse = m ln 2 +
+// log l, the natural-log statistic the backward kernels read.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  float* __restrict__ lse, int t_len, int n_heads, float scale) {
+  using L = MmaSmem<D>;
+  constexpr int LD = L::LD, kSteps = D / 16;
+  constexpr bool kHold = D <= 64;  // Q_w fragments in registers
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = qs + L::tile;  // stage s: K at ring + 2 s tiles, V after it
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int n_tiles = (t_len + kMmaRows - 1) / kMmaRows;
+  const int qt = n_tiles - 1 - blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y, q0 = qt * kMmaRows;
+  const int row_w = q0 + 16 * warp;  // this warp's first query row
+
+  auto load_stage = [&](int kt) {
+    bf16* ks = ring + 2 * (kt % kStages) * L::tile;
+    load_tile_async<D>(ks, k, b, h, kt * kMmaRows, t_len, n_heads);
+    load_tile_async<D>(ks + L::tile, v, b, h, kt * kMmaRows, t_len, n_heads);
+  };
+  load_tile_async<D>(qs, q, b, h, q0, t_len, n_heads);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s <= qt) load_stage(s);
+    cp_async_commit();
+  }
+
+  const int qi_lo = row_w + g, qi_hi = qi_lo + 8;  // the rows of c0, c1 and c2, c3
+  const float scale2 = scale * kLog2e;             // exp(S scale) = exp2(S scale2)
+  const bf16* qw = qs + 16 * warp * LD + lane_a(lane, LD);
+  const int off_b = lane_b(lane, LD), off_bt = lane_bt(lane, LD);
+  uint32_t qf[kHold ? kSteps : 1][4];
+  float acc[D / 8][4] = {};
+  // per row: the running max in base-2 units, and this lane's share of the
+  // running sum (its 16 columns of each tile), reduced over the quad at the end
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.0f, l_hi = 0.0f;
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile kt is in for every thread; tile kt - 1's slot is free
+    if (kt + kStages - 1 <= qt) load_stage(kt + kStages - 1);
+    cp_async_commit();
+    if (kHold && kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < (kHold ? kSteps : 0); ++kk) ldsm4(qf[kk], qw + 16 * kk);
+    }
+    const bf16* ks = ring + 2 * (kt % kStages) * L::tile;
+    const bf16* vs = ks + L::tile;
+
+    float sc[kMmaRows / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kHold) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = qf[kk][i];
+      } else {
+        ldsm4(qa, qw + 16 * kk);
+      }
+#pragma unroll
+      for (int j = 0; j < kMmaRows / 16; ++j) {
+        uint32_t fb[4];
+        ldsm4(fb, ks + 16 * j * LD + 16 * kk + off_b);
+        mma_bf16(sc[2 * j], qa, fb[0], fb[1]);
+        mma_bf16(sc[2 * j + 1], qa, fb[2], fb[3]);
+      }
+    }
+    // base-2 scores; keys above the diagonal only on its tile (there key >
+    // query also covers every key >= T of a row < T); the tile's row max
+    const bool diag = kt == qt;
+    const int k0 = kt * kMmaRows;
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kMmaRows / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool lo = e < 2;
+        const int key = k0 + 8 * j + 2 * c + (e & 1);
+        float s2 = sc[j][e] * scale2;
+        if (diag && key > (lo ? qi_lo : qi_hi)) s2 = -INFINITY;
+        sc[j][e] = s2;
+        if (lo) {
+          mx_lo = fmaxf(mx_lo, s2);
+        } else {
+          mx_hi = fmaxf(mx_hi, s2);
+        }
+      }
+    }
+    // finite: key k0 <= query on every tile
+    const float mn_lo = fmaxf(m_lo, group_max<4>(mx_lo));
+    const float mn_hi = fmaxf(m_hi, group_max<4>(mx_hi));
+    const float alpha_lo = exp2f(m_lo - mn_lo), alpha_hi = exp2f(m_hi - mn_hi);  // 0 first
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    l_lo *= alpha_lo;
+    l_hi *= alpha_hi;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][0] *= alpha_lo;
+      acc[j][1] *= alpha_lo;
+      acc[j][2] *= alpha_hi;
+      acc[j][3] *= alpha_hi;
+    }
+#pragma unroll
+    for (int j = 0; j < kMmaRows / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool lo = e < 2;
+        const float p = exp2f(sc[j][e] - (lo ? m_lo : m_hi));
+        sc[j][e] = p;
+        if (lo) {
+          l_lo += p;
+        } else {
+          l_hi += p;
+        }
+      }
+    }
+    // O_w += P V, P rounded to bf16 as the A operand
+#pragma unroll
+    for (int kk = 0; kk < kMmaRows / 16; ++kk) {
+      uint32_t pa[4];
+      c_to_a(pa, sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        uint32_t fb[4];
+        ldsm4_t(fb, vs + 16 * kk * LD + 16 * j + off_bt);
+        mma_bf16(acc[2 * j], pa, fb[0], fb[1]);
+        mma_bf16(acc[2 * j + 1], pa, fb[2], fb[3]);
+      }
+    }
+  }
+  l_lo = group_sum<4>(l_lo);
+  l_hi = group_sum<4>(l_hi);
+  const float inv_lo = 1.0f / l_lo, inv_hi = 1.0f / l_hi;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    acc[j][0] *= inv_lo;
+    acc[j][1] *= inv_lo;
+    acc[j][2] *= inv_hi;
+    acc[j][3] *= inv_hi;
+  }
+  if (c == 0) {
+    const size_t stat0 = (static_cast<size_t>(b) * n_heads + h) * t_len;
+    if (qi_lo < t_len) lse[stat0 + qi_lo] = m_lo * kLn2 + logf(l_lo);
+    if (qi_hi < t_len) lse[stat0 + qi_hi] = m_hi * kLn2 + logf(l_hi);
+  }
+  __syncthreads();
+  store_strip<D>(o, qs + 16 * warp * LD, acc, 1.0f, b, h, row_w, t_len, n_heads, lane);
 }
 
 // sum of the products of 8 bf16 pairs, in fp32
@@ -936,15 +1007,27 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                 Shape s, float scale, cudaStream_t st) {
-  constexpr int R = tile_rows<T, D>();
-  constexpr size_t smem = FwdSmem<T, D>::bytes;
-  auto kernel = flash_fwd<T, D>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((s.t + R - 1) / R, s.h, s.b);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, s.t, s.h, scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    constexpr size_t smem = MmaSmem<D>::bytes_fwd;
+    auto kernel = flash_fwd_mma<D>;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    // tiles last: a launch error past 65,535 tiles (T > 4,194,240)
+    const dim3 grid(s.h, s.b, (s.t + kMmaRows - 1) / kMmaRows);
+    kernel<<<grid, kMmaThreads, smem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, s.t, s.h, scale);
+  } else {
+    constexpr int R = tile_rows<D>();
+    constexpr size_t smem = FwdSmem<D>::bytes;
+    auto kernel = flash_fwd_simt<D>;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((s.t + R - 1) / R, s.h, s.b);
+    kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), lse, s.t, s.h, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -964,7 +1047,7 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* o,
         static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), s.t,
         s.h, scale);
   } else {
-    constexpr int R = tile_rows<T, D>();
+    constexpr int R = tile_rows<D>();
     constexpr size_t smem = BwdSmem<D>::bytes_dq;
     auto kernel = flash_bwd_dq_simt<D>;
     cudaError_t err = prepare(kernel, smem);
@@ -993,7 +1076,7 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), s.t, s.h, scale);
   } else {
-    constexpr int R = tile_rows<T, D>();
+    constexpr int R = tile_rows<D>();
     constexpr size_t smem = BwdSmem<D>::bytes_dkv;
     auto kernel = flash_bwd_dkv_simt<D>;
     cudaError_t err = prepare(kernel, smem);

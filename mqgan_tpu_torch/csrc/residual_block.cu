@@ -25,21 +25,32 @@
 // implicit GEMM over all B*T rows: the A tile is gathered straight from x
 // with the time shift t + j - lo applied on load (zeros only outside
 // [0, T) -- padded frames of x are read as they are, like the reference),
-// so no im2col copy exists; bf16 runs on the tensor cores (WMMA 16x16x16,
-// fp32 accumulators, a 128 x 64 block tile), fp32 on a 64 x 64 SIMT tile.
-// The mask, bias, APTx and residual add run in the GEMM epilogue, so h and
-// the causal output are written once. The CBAM chain is three small
-// memory-bound passes (a per-(b, c) reduction over valid T, the tiny MLP,
-// a per-frame reduction over C) and one elementwise tail pass.
-
-#include <mma.h>
+// so no im2col copy exists. bf16 runs on the tensor cores (conv_gemm_mma:
+// mma.sync m16n8k16 on ldmatrix fragments, fp32 accumulators in registers,
+// a 128 x 128 x 64 block tile fed by a 3-stage cp.async ring whose
+// zero-fill does the padding), fp32 on a 64 x 64 SIMT tile. The mask,
+// bias, APTx and residual add run in the GEMM epilogue, straight from the
+// accumulators, so h and the causal output are written once. The CBAM
+// chain is three small memory-bound passes (a per-(b, c) reduction over
+// valid T, the tiny MLP, a per-frame reduction over C) and one elementwise
+// tail pass.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using mqgan::aptx;
+using mqgan::bf16;
+using mqgan::cp_async16;
+using mqgan::cp_async_commit;
+using mqgan::cp_async_wait;
+using mqgan::lane_a;
+using mqgan::lane_bt;
+using mqgan::ldsm4;
+using mqgan::ldsm4_t;
+using mqgan::mma_bf16;
+using mqgan::pack_bf16;
 using mqgan::from_f32;
 using mqgan::round_to;
 using mqgan::to_f32;
@@ -57,25 +68,35 @@ struct ConvArgs {
   int b, t, cin, cout, k, lo, epi;
 };
 
+// the value stored at (m, n) before its rounding to T: acc + bias, and for
+// kConv1 / kTail rounded where the TPU kernel rounds, the residual added,
+// masked by the row's `valid` and put through APTx
+template <typename T>
+__device__ __forceinline__ float epilogue(int epi, float acc, float bias, float valid,
+                                          float res, float beta, float gamma) {
+  const float v = acc + bias;
+  if (epi == kPlain) return v;
+  float s = round_to<T>(v);
+  if (epi == kTail) s = round_to<T>(s + res);
+  s = round_to<T>(s * valid);
+  return aptx<T>(s, beta, gamma);
+}
+
+// 1 where frame m of its clip is below the clip's length, else 0
+__device__ __forceinline__ float row_valid(const ConvArgs& a, int m) {
+  const int bi = m / a.t;
+  return m - bi * a.t < a.lengths[bi] ? 1.0f : 0.0f;
+}
+
 template <typename T>
 __device__ __forceinline__ void epilogue_store(const ConvArgs& a, float acc,
                                                int m, int n, float beta,
                                                float gamma) {
-  T* out = static_cast<T*>(a.out);
   const size_t o = static_cast<size_t>(m) * a.cout + n;
-  const float v = acc + a.bias[n];
-  if (a.epi == kPlain) {
-    out[o] = from_f32<T>(v);
-    return;
-  }
-  const int bi = m / a.t, ti = m - bi * a.t;
-  const float valid = ti < a.lengths[bi] ? 1.0f : 0.0f;
-  float s = round_to<T>(v);
-  if (a.epi == kTail) {
-    s = round_to<T>(s + to_f32<T>(static_cast<const T*>(a.res)[o]));
-  }
-  s = round_to<T>(s * valid);
-  out[o] = from_f32<T>(aptx<T>(s, beta, gamma));
+  const float valid = a.epi == kPlain ? 1.0f : row_valid(a, m);
+  const float res = a.epi == kTail ? to_f32<T>(static_cast<const T*>(a.res)[o]) : 0.0f;
+  static_cast<T*>(a.out)[o] =
+      from_f32<T>(epilogue<T>(a.epi, acc, a.bias[n], valid, res, beta, gamma));
 }
 
 template <typename T>
@@ -157,106 +178,164 @@ __global__ void __launch_bounds__(256) conv_gemm_simt(ConvArgs a) {
   }
 }
 
-// ---- bf16: WMMA tensor-core implicit GEMM, 128 x 64 x 32 block tile ----
-// 8 warps as 4 (M) x 2 (N), each a 32 x 32 tile of 2 x 2 16x16 fragments.
-// Needs Cin % 8 == 0 and Cout % 8 == 0 and 16-byte aligned x and w, so an
-// 8-wide chunk of K never straddles two taps (the wrapper checks).
-constexpr int kWM = 128, kWN = 64, kWK = 32;
-constexpr int kALd = kWK + 8;  // bf16 elements per staged A row
-constexpr int kBLd = kWN + 8;
-constexpr int kCLd = kWN + 4;  // fp32 elements per staged C row
-constexpr int kSmemAB = (kWM * kALd + kWK * kBLd) * 2;
-constexpr int kSmemC = kWM * kCLd * 4;
-constexpr int kSmem = kSmemC > kSmemAB ? kSmemC : kSmemAB;
+// ---- bf16: mma.sync implicit GEMM, 128 x 128 x 64 block tile ----
+// 8 warps as 2 (M) x 4 (N), each a 64 x 32 tile: per 16-deep step 4
+// ldmatrix.x4 of A, 2 ldmatrix.x4.trans of B (W is stored (k * Cin, Cout),
+// so the B tile is [k][n]) and 16 mma.sync, into 64 fp32 accumulators a
+// thread; the fragments of the next step are read while this one
+// multiplies. A and B arrive through a 3-stage cp.async ring (35,840 B a
+// stage, 2 blocks an SM), 16 bytes a copy, one barrier a k-step; A is
+// gathered with the time shift and its zero-fill covers t + j - lo outside
+// [0, T) (so a shifted row never reads the neighbouring clip), rows m >= M
+// and k >= K. Needs Cin % 8 == 0 and Cout % 8 == 0 and 16-byte aligned x
+// and w, so an 8-wide chunk of K never straddles two taps (the wrapper
+// checks). On an H100 this tile was the fastest for the six blocks of a
+// flagship round trip among 32-deep steps with 3-5 stages, 2 x 2 warps of
+// 64 x 64, and 128 x 256 or 256 x 128 tiles.
+constexpr int kBM = 128, kBN = 128, kBK = 64, kGemmStages = 3;
+constexpr int kWarpsM = 2, kWarpsN = 4, kGemmThreads = 32 * kWarpsM * kWarpsN;
+constexpr int kGemmBlocksPerSM = 2;  // launch bound: registers for this many
+constexpr int kWM = kBM / kWarpsM, kWN = kBN / kWarpsN;
+constexpr int kMI = kWM / 16, kNJ = kWN / 16;  // A fragments, B fragment pairs
+constexpr int kALd = kBK + 8;  // bf16 elements per A row: ldmatrix rows
+constexpr int kBLd = kBN + 8;  // 16 bytes apart modulo 128, no bank conflict
+constexpr int kStageElems = kBM * kALd + kBK * kBLd;
+constexpr size_t kGemmSmem = kGemmStages * kStageElems * sizeof(bf16);
+// copies per thread and stage; every copy of a thread has the same column
+constexpr int kACopies = kBM * kBK / 8 / kGemmThreads, kBCopies = kBK * kBN / 8 / kGemmThreads;
+static_assert(kGemmThreads % (kBK / 8) == 0 && kGemmThreads % (kBN / 8) == 0 &&
+                  kACopies * kGemmThreads * 8 == kBM * kBK &&
+                  kBCopies * kGemmThreads * 8 == kBK * kBN,
+              "whole copies per thread");
 
-__global__ void __launch_bounds__(256) conv_gemm_wmma(ConvArgs a) {
-  __shared__ __align__(128) unsigned char smem[kSmem];
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* bs = as + kWM * kALd;
-  float* cs = reinterpret_cast<float*>(smem);  // reused after the K loop
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int m0 = blockIdx.y * kWM, n0 = blockIdx.x * kWN;
+__global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSM) conv_gemm_mma(ConvArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int m_total = a.b * a.t, k_total = a.k * a.cin;
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
+  const bf16* x = static_cast<const bf16*>(a.x);
+  const bf16* w = static_cast<const bf16*>(a.w);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  // this thread's copies: A rows a_row + r * kAStride at column a_col of
+  // each k-step, with their frame and clip; B rows b_row + r * kBStride at
+  // column b_col
+  constexpr int kAStride = kGemmThreads / (kBK / 8), kBStride = kGemmThreads / (kBN / 8);
+  const int a_row = tid / (kBK / 8), a_col = (tid % (kBK / 8)) * 8;
+  const int b_row = tid / (kBN / 8), b_col = (tid % (kBN / 8)) * 8;
+  int a_t[kACopies];
+  const bf16* a_clip[kACopies];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  for (int r = 0; r < kACopies; ++r) {
+    const int m = m0 + a_row + r * kAStride, bi = m / a.t;
+    a_t[r] = m < m_total ? m - bi * a.t : -(1 << 30);  // rows >= M: never in
+    a_clip[r] = x + static_cast<size_t>(bi) * a.t * a.cin;
+  }
+  const bool b_in_n = n0 + b_col < a.cout;
+  // the tap j and channel i of column k0 + a_col for the next k-step loaded
+  int next_k0 = 0, tap = a_col / a.cin, chan = a_col - tap * a.cin;
 
-  for (int k0 = 0; k0 < k_total; k0 += kWK) {
+  auto load_stage = [&](int slot) {
+    bf16* as = ring + slot * kStageElems;
+    bf16* bs = as + kBM * kALd;
+    const bool k_in = next_k0 + a_col < k_total;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {  // A: 128 x 32 = 512 chunks of 8
-      const int chunk = tid + r * 256;
-      const int row = chunk / 4, kc = (chunk % 4) * 8;
-      const int m = m0 + row, kx = k0 + kc;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < m_total && kx < k_total) {
-        const int j = kx / a.cin, i = kx - j * a.cin;
-        const int bi = m / a.t, ti = m - bi * a.t, ts = ti + j - a.lo;
-        if (ts >= 0 && ts < a.t) {
-          v = *reinterpret_cast<const uint4*>(
-              x + (static_cast<size_t>(bi) * a.t + ts) * a.cin + i);
+    for (int r = 0; r < kACopies; ++r) {
+      const int ts = a_t[r] + tap - a.lo;
+      const bool in = k_in && ts >= 0 && ts < a.t;
+      const bf16* src = in ? a_clip[r] + static_cast<size_t>(ts) * a.cin + chan : x;
+      cp_async16(as + (a_row + r * kAStride) * kALd + a_col, src, in);
+    }
+#pragma unroll
+    for (int r = 0; r < kBCopies; ++r) {
+      const int kr = b_row + r * kBStride, kx = next_k0 + kr;
+      const bool in = b_in_n && kx < k_total;
+      const bf16* src = in ? w + static_cast<size_t>(kx) * a.cout + n0 + b_col : w;
+      cp_async16(bs + kr * kBLd + b_col, src, in);
+    }
+    next_k0 += kBK;
+    for (chan += kBK; chan >= a.cin; chan -= a.cin) ++tap;
+  };
+
+  const int n_k = (k_total + kBK - 1) / kBK;
+#pragma unroll
+  for (int s = 0; s < kGemmStages - 1; ++s) {
+    if (s < n_k) load_stage(s);
+    cp_async_commit();
+  }
+  const int off_a = (wm * kWM) * kALd + lane_a(lane, kALd);
+  const int off_b = kBM * kALd + wn * kWN + lane_bt(lane, kBLd);
+  float acc[kMI][2 * kNJ][4] = {};  // [m tile of 16][n tile of 8][C fragment]
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    cp_async_wait<kGemmStages - 2>();
+    __syncthreads();  // step kt is in for every thread; step kt - 1's slot is free
+    if (kt + kGemmStages - 1 < n_k) load_stage((kt + kGemmStages - 1) % kGemmStages);
+    cp_async_commit();
+    const bf16* stage = ring + (kt % kGemmStages) * kStageElems;
+    // fragments of 16-deep step kk + 1 are read while step kk multiplies
+    uint32_t af[2][kMI][4], bf[2][kNJ][4];
+    auto load_frags = [&](int kk, int buf) {
+#pragma unroll
+      for (int i = 0; i < kMI; ++i) ldsm4(af[buf][i], stage + off_a + 16 * i * kALd + 16 * kk);
+#pragma unroll
+      for (int jj = 0; jj < kNJ; ++jj)
+        ldsm4_t(bf[buf][jj], stage + off_b + 16 * kk * kBLd + 16 * jj);
+    };
+    load_frags(0, 0);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      if (kk + 1 < kBK / 16) load_frags(kk + 1, (kk + 1) % 2);
+#pragma unroll
+      for (int jj = 0; jj < kNJ; ++jj) {
+#pragma unroll
+        for (int i = 0; i < kMI; ++i) {
+          mma_bf16(acc[i][2 * jj], af[kk % 2][i], bf[kk % 2][jj][0], bf[kk % 2][jj][1]);
+          mma_bf16(acc[i][2 * jj + 1], af[kk % 2][i], bf[kk % 2][jj][2], bf[kk % 2][jj][3]);
         }
       }
-      *reinterpret_cast<uint4*>(as + row * kALd + kc) = v;
     }
-    {  // B: 32 x 64 = 256 chunks of 8
-      const int row = tid / 8, nc = (tid % 8) * 8;
-      const int kx = k0 + row, n = n0 + nc;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (kx < k_total && n < a.cout) {
-        v = *reinterpret_cast<const uint4*>(
-            w + static_cast<size_t>(kx) * a.cout + n);
-      }
-      *reinterpret_cast<uint4*>(bs + row * kBLd + nc) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kWK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(fa[i], as + (wm * 32 + i * 16) * kALd + kk,
-                               kALd);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::load_matrix_sync(fb[j], bs + kk * kBLd + wn * 32 + j * 16,
-                               kBLd);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
   }
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * kCLd + wn * 32 + j * 16,
-                              acc[i][j], kCLd, wmma::mem_row_major);
-  __syncthreads();
-
+  // the epilogue from the C fragments: this lane owns columns n, n + 1 of
+  // rows g and g + 8 of each 16-row tile; bf16x2 residual reads and stores
   float beta, gamma;
-  act_params<__nv_bfloat16>(a, &beta, &gamma);
-  for (int e = tid; e < kWM * kWN; e += 256) {
-    const int row = e / kWN, col = e - row * kWN;
-    const int m = m0 + row, n = n0 + col;
-    if (m < m_total && n < a.cout) {
-      epilogue_store<__nv_bfloat16>(a, cs[row * kCLd + col], m, n, beta,
-                                    gamma);
+  act_params<bf16>(a, &beta, &gamma);
+  const int g = lane / 4, c = lane % 4;
+  const bf16* res = static_cast<const bf16*>(a.res);
+  bf16* out = static_cast<bf16*>(a.out);
+  int col[2 * kNJ];
+  float bias_lo[2 * kNJ], bias_hi[2 * kNJ];
+#pragma unroll
+  for (int jn = 0; jn < 2 * kNJ; ++jn) {
+    col[jn] = n0 + wn * kWN + 8 * jn + 2 * c;  // even, so n + 1 < Cout too
+    const bool in = col[jn] < a.cout;
+    bias_lo[jn] = in ? a.bias[col[jn]] : 0.0f;
+    bias_hi[jn] = in ? a.bias[col[jn] + 1] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kMI; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm * kWM + 16 * i + g + 8 * half;
+      if (m >= m_total) continue;
+      const float valid = a.epi == kPlain ? 1.0f : row_valid(a, m);
+      const size_t row = static_cast<size_t>(m) * a.cout;
+#pragma unroll
+      for (int jn = 0; jn < 2 * kNJ; ++jn) {
+        if (col[jn] >= a.cout) continue;
+        float2 r = make_float2(0.0f, 0.0f);
+        if (a.epi == kTail) {
+          r = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(res + row + col[jn]));
+        }
+        *reinterpret_cast<uint32_t*>(out + row + col[jn]) = pack_bf16(
+            epilogue<bf16>(a.epi, acc[i][jn][2 * half], bias_lo[jn], valid, r.x, beta,
+                           gamma),
+            epilogue<bf16>(a.epi, acc[i][jn][2 * half + 1], bias_hi[jn], valid, r.y,
+                           beta, gamma));
+      }
     }
   }
 }
@@ -453,8 +532,12 @@ extern "C" int mqgan_residual_block(
     ConvArgs a{in, w, static_cast<const float*>(bias), r, len, actf, dst,
                b, t, c_in, cout, taps, pad_lo, epi};
     if (is_bf16) {
-      conv_gemm_wmma<<<dim3((cout + kWN - 1) / kWN, (m + kWM - 1) / kWM), 256,
-                       0, s>>>(a);
+      const cudaError_t err = cudaFuncSetAttribute(
+          conv_gemm_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(kGemmSmem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      conv_gemm_mma<<<dim3((cout + kBN - 1) / kBN, (m + kBM - 1) / kBM),
+                      kGemmThreads, kGemmSmem, s>>>(a);
     } else {
       conv_gemm_simt<<<dim3((cout + kSN - 1) / kSN, (m + kSM - 1) / kSM), 256,
                        0, s>>>(a);
@@ -477,7 +560,7 @@ extern "C" int mqgan_residual_block(
   float* pooledf = static_cast<float*>(pooled);
   float* statsf = static_cast<float*>(sam_stats_buf);
   if (is_bf16) {
-    return run_cbam<__nv_bfloat16>(z, len, actf, cw1, cb1f, cw2, cb2f, samf,
+    return run_cbam<bf16>(z, len, actf, cw1, cb1f, cw2, cb2f, samf,
                                    residual, pooledf, gate_c, statsf, out, b,
                                    t, cout, hid, sam_k, s);
   }

@@ -71,6 +71,24 @@ def _aptx(z, beta, gamma):
     return (1.0 + torch.tanh(beta * z)) * (gamma * z)
 
 
+def plain_conv_stages(x: torch.Tensor, lengths: torch.Tensor,
+                      w: BlockWeights, *, causal: bool) -> tuple:
+    """(res, h, z) of the plain block in the compute dtype: the residual
+    (x or its projection), h = aptx(conv1(x) * valid) and z = conv2(h),
+    the three GEMMs of the kernel with their epilogues."""
+    cdt = x.dtype
+    beta, gamma = w.act[0].to(cdt), w.act[1].to(cdt)
+    valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+             < lengths[:, None])[..., None].to(cdt)  # (B, T, 1)
+    if w.proj_w is not None:
+        res = (x.float() @ w.proj_w.float() + w.proj_b).to(cdt)
+    else:
+        res = x
+    h = _shifted_conv(x, w.w1, w.b1, causal).to(cdt)
+    h = _aptx(h * valid, beta, gamma)
+    return res, h, _shifted_conv(h, w.w2, w.b2, causal).to(cdt)
+
+
 def residual_block_plain(x: torch.Tensor, lengths: torch.Tensor,
                          w: BlockWeights, *, causal: bool) -> torch.Tensor:
     cdt = x.dtype
@@ -79,14 +97,7 @@ def residual_block_plain(x: torch.Tensor, lengths: torch.Tensor,
     valid_b = (torch.arange(t, device=x.device)[None, :]
                < lengths[:, None])[..., None]  # (B, T, 1) bool
     valid = valid_b.to(cdt)
-
-    if w.proj_w is not None:
-        res = (x.float() @ w.proj_w.float() + w.proj_b).to(cdt)
-    else:
-        res = x
-    h = _shifted_conv(x, w.w1, w.b1, causal).to(cdt)
-    h = _aptx(h * valid, beta, gamma)
-    z = _shifted_conv(h, w.w2, w.b2, causal).to(cdt)
+    res, _, z = plain_conv_stages(x, lengths, w, causal=causal)
 
     if not causal:
         mx = torch.where(valid_b, z, torch.tensor(_NEG_INF, dtype=cdt,

@@ -12,10 +12,14 @@ printing no result, without one. Phases (any failure exits non-zero):
     sm_90a) and print the build time, the ptxas register report and a
     summary of registers and spills of the mma.sync kernels
     (flash_fwd_mma, flash_bwd_dq_mma, flash_bwd_dkv_mma per head size,
-    conv_gemm_mma);
+    conv_gemm_mma) and of the mixer kernels (the exact kernel per dtype and
+    tap count, the Chebyshev mode's five kernels), and, from
+    cuobjdump -sass of the built library, the MUFU, FP32 and other
+    instructions per evaluation in the mixers' inner loops;
  3. hold each kernel against its plain PyTorch version on the same inputs,
     at the flagship widths (all six residual-block configurations, both
-    mel-mixers, the FSQ head), B=8, T=512, ragged lengths: fp32 with TF32
+    mel-mixers with padded rows bit for bit b_out, the FSQ head), B=8,
+    T=512, ragged lengths: fp32 with TF32
     off (max|k - p| <= 1e-4 * max(1, max|p|)) and bf16 (||k - p|| / ||p||
     <= 2e-2); FSQ indices may differ only where the plain pre-round value
     lies within 1e-4 of a rounding midpoint. The same for the hifimusic
@@ -23,7 +27,18 @@ printing no result, without one. Phases (any failure exits non-zero):
     blocks, two mixers and FSQ head), and for blocks whose widths and B*T
     are not multiples of the conv GEMM's 128 x 128 tile (24 -> 40 k7
     causal and k5 CBAM at B=3 T=77, 40 -> 136 k3 causal at B=2 T=130,
-    136 -> 24 k1 CBAM at B=5 T=29), fp32 and bf16. The log-mel kernels in fp32
+    136 -> 24 k1 CBAM at B=5 T=29), fp32 and bf16. The Chebyshev kernel
+    (mel_mixer_poly: the conv and min/max, the fit, the Clenshaw pass)
+    against the plain poly_mixer_plain on the flagship and hifimusic
+    (P = 384) post mixers, fp32 and bf16, ragged lengths and a plane of
+    equal values, and on the flagship post mixer at the main path's B=64
+    T=512 with ragged lengths (one of 1), padded rows bit for bit b2, one
+    launch a call. Phase 3c:
+    FSQ tokens at B=64 T=512 through the pre mixer's kernel against the
+    plain pre mixer, beside a control (the plain mixer summing its P units in
+    another order): fp32 tokens equal away from midpoints; bf16 output
+    equal to the kernel's fp32 arithmetic rounded once, and no more than 1.5x
+    the control's tokens differing away from a midpoint. The log-mel kernels in fp32
     (max|k - p| <= 1e-4 in the log domain), each case through the route its
     shape selects (one launch of that kernel): the FFT kernel on the
     hifispeech spec at B=8 x 261,632 samples with 1 s of leading silence in
@@ -41,8 +56,10 @@ printing no result, without one. Phases (any failure exits non-zero):
     and that each batch launched 6 block, 1 FSQ-head and 2 mixer kernels;
  5. time encode -> decode at B=64, T=512, bf16, tokens kept on the card,
     distinct inputs per iteration: mel-frames/s for exact and poly-decode
-    mixers; then profile one round trip of each (torch.profiler): device
-    time by kernel group and the card's idle share;
+    mixers (poly-decode: one mel_mixer and one mel_mixer_poly launch a
+    trip, the main path of the Chebyshev kernel); then profile one round
+    trip of each (torch.profiler): device time by kernel group and the
+    card's idle share;
  6. the convert CLI's library entry point on the card: 8 wavs written with
     stdlib wave (44.1 kHz 16-bit of 1.5-15 s, one at 22.05 kHz, one of
     0.5 s): 7 mel files of (samples // 512 + 1, 128), one log-mel launch
@@ -60,10 +77,13 @@ printing no result, without one. Phases (any failure exits non-zero):
  8. time each kernel at its flagship shapes beside its plain version, its
     bound (each block also with its conv GEMMs' TFLOP/s and, as a yardstick
     outside the kernels line, the same convs through cuDNN's bf16
-    conv1d) and, for the log-mel kernel, the torch.stft chain that computes
-    the same function and the DFT kernel (the earlier design, now the route
-    for other n_fft), and print one JSON line of them; the log-mel kernel
-    is first held against its plain version in float64 at that batch (64
+    conv1d; the exact mixer with its clocks per evaluation per SM at the
+    card's maximum SM clock; the Chebyshev mode, one call of five kernel
+    launches, also in bursts) and,
+    for the log-mel kernel, the torch.stft chain that computes the same
+    function and the DFT kernel (the earlier design, now the route for
+    other n_fft), and print one JSON line of them; the log-mel kernel is
+    first held against its plain version in float64 at that batch (64
     clips; max|k - p64| <= 1e-4, or no more than the fp32 plain version's
     own error, since fp32 rounding reaches ~1e-4 in the log domain at
     near-silent single-bin mels), and its bound is the function's: an FFT
@@ -92,7 +112,7 @@ printing no result, without one. Phases (any failure exits non-zero):
     the plain versions there, and each kernel's rate on the products it
     does (2 forward, 3 dQ, 4 dK/dV) beside the charged bound; kernels and
     SDPA are timed in single calls (the kernels line) and in bursts of 10
-    calls (printed beside); print the kernels JSON line (seven rows);
+    calls (printed beside); print the kernels JSON line (eight rows);
 12. print {"ok": true, "device": {...}} as the last line.
 """
 
@@ -104,8 +124,11 @@ import os
 import re
 import subprocess
 import sys
+import shutil
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -127,6 +150,13 @@ HIFIMUSIC = dict(mels=160, channels=(384, 384, 512, 512), kernel_sizes=(3, 3, 5,
                  fsq_levels=(8, 5, 5, 5), refiner_base_channels=96, refiner_depth=3,
                  refiner_hidden_proj_divisor=8)
 BENCH_B, BENCH_T = 64, 512
+# phase 3c, bf16: the pre mixer's kernel may flip at most this many times
+# the FSQ tokens (away from a midpoint) that the plain mixer summed in
+# another order flips
+TOKEN_FLIP_RATIO = 1.5
+# ragged lengths at the main path's batch (phase 3's Chebyshev case): every
+# length 1..512 reached by a stride of 389, one clip of 1 and one full
+BENCH_LENGTHS = tuple(1 + (i * 389) % BENCH_T for i in range(BENCH_B - 1)) + (BENCH_T,)
 WARMUP, ITERS = 2, 5
 # the audio batch of the same throughput shape: 511 hops of 512 samples
 # give 512 frames per clip (5.93 s at 44.1 kHz)
@@ -171,17 +201,33 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _kernel_variant(mangled: str):
+    """A compiled kernel's template arguments as printed: 'D=64' for a
+    flash kernel, 'bf16 taps=5' for a mixer kernel, 'fp32' etc."""
+    if "poly_stats" in mangled or "poly_fit" in mangled:
+        return None  # no template arguments
+    if "mixer_kernel" in mangled or "poly_" in mangled:
+        dtype = "bf16" if "nv_bfloat16" in mangled else "fp32"
+        arg = re.search(r"Li(\d+)E", mangled)
+        return dtype + (f" taps={arg.group(1)}" if arg else "")
+    d = re.search(r"ILi(\d+)E", mangled)
+    return f"D={d.group(1)}" if d else None
+
+
 def ptxas_summary(report: str) -> list:
-    """(kernel, head size or None, registers, spill bytes stored, spill
-    bytes loaded) of each mma.sync kernel entry in the ptxas report."""
-    kernels = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma", "conv_gemm_mma")
+    """(kernel, template variant or None, registers, spill bytes stored,
+    spill bytes loaded) of each mma.sync kernel and mixer kernel entry in
+    the ptxas report."""
+    kernels = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma", "conv_gemm_mma",
+               "mel_mixer_kernel", "poly_minmax_kernel", "poly_stats_kernel",
+               "poly_fit_nodes_kernel", "poly_fit_coef_kernel", "poly_eval_kernel")
     rows, entry = [], None
     for line in report.splitlines():
         found = re.search(r"Compiling entry function '(\S+)'", line)
         if found:
             name = next((k for k in kernels if k in found.group(1)), None)
-            d = re.search(r"ILi(\d+)E", found.group(1))
-            entry = [name, int(d.group(1)) if d else None, None, 0, 0] if name else None
+            entry = ([name, _kernel_variant(found.group(1)), None, 0, 0]
+                     if name else None)
             continue
         if entry is None:
             continue
@@ -193,7 +239,105 @@ def ptxas_summary(report: str) -> list:
             entry[2] = int(regs.group(1))
             rows.append(tuple(entry))
             entry = None
-    return sorted(rows, key=lambda r: (r[0], r[1] or 0))
+    return sorted(rows, key=lambda r: (r[0], len(r[1] or ""), r[1] or ""))
+
+
+# SASS opcodes issued to the FP32 pipe (besides MUFU, the SFU's)
+FP32_OPCODES = ("FFMA", "FADD", "FMUL", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK",
+                "FSWZADD")
+
+
+def sass_loop_counts(sass: str) -> list:
+    """For each mixer kernel in ``cuobjdump -sass`` output (the exact mixer
+    and the Chebyshev mode's Clenshaw pass): the instructions of its inner
+    loop, the loop between a backward branch and its target that holds the
+    most MUFU.EX2 (exact) or FFMA (Chebyshev), innermost on a tie. Rows (kernel,
+    variant, evaluations per iteration, {"MUFU.EX2": n, "MUFU.RCP": n,
+    "MUFU other": n, "FP32": n, "other": n}); an evaluation is one z tanh z
+    (one MUFU.EX2 each, old and new design) or one Clenshaw step of one
+    element (one FFMA each), and the loop's opcodes (a Counter). Counts are
+    static: both sides of a branch inside the loop count."""
+    rows = []
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = chunk.split()[0]
+        kind = ("exact" if "mel_mixer_kernel" in name
+                else "poly" if "poly_eval_kernel" in name else None)
+        if kind is None:
+            continue
+        instrs, labels, pending = [], {}, []
+        for line in chunk.splitlines()[1:]:
+            label = re.match(r"\s*(\.L_x_\d+):", line)
+            if label:
+                pending.append(label.group(1))
+                continue
+            ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if not ins:
+                continue
+            addr = int(ins.group(1), 16)
+            for lab in pending:
+                labels[lab] = addr
+            pending = []
+            text = re.sub(r"^@!?U?P\w+\s+", "", ins.group(2))
+            instrs.append((addr, text.split()[0], text))
+        best = None
+        for addr, op, text in instrs:
+            if not op.startswith("BRA"):
+                continue
+            target = re.search(r"`\((\.L_x_\d+)\)", text)
+            dest = labels.get(target.group(1)) if target else None
+            if dest is None:
+                hexa = re.search(r"BRA\S*\s+(0x[0-9a-f]+)", text)
+                dest = int(hexa.group(1), 16) if hexa else None
+            if dest is None or dest > addr:
+                continue
+            body = [o for a, o, _ in instrs if dest <= a <= addr]
+            key = sum(o == ("MUFU.EX2" if kind == "exact" else "FFMA") for o in body)
+            if key and (best is None or (key, -len(body)) > (best[0], -len(best[1]))):
+                best = (key, body)
+        if best is None:
+            continue
+        key, body = best
+        counts = {"MUFU.EX2": sum(o == "MUFU.EX2" for o in body),
+                  "MUFU.RCP": sum(o == "MUFU.RCP" for o in body)}
+        counts["MUFU other"] = sum(o.startswith("MUFU") for o in body) - sum(counts.values())
+        counts["FP32"] = sum(o.split(".")[0] in FP32_OPCODES for o in body)
+        counts["other"] = len(body) - sum(counts.values())
+        rows.append((kind, _kernel_variant(name), key, counts,
+                     Counter(o.split(".")[0] for o in body)))
+    return sorted(rows, key=lambda r: (r[0], r[1] or ""))
+
+
+def mixer_sass(library: str) -> list:
+    """sass_loop_counts of a built kernel library (cuobjdump from the CUDA
+    toolkit); [] with a note when cuobjdump is not there."""
+    from mqgan_tpu_torch.ops import _cuda
+
+    tool = shutil.which("cuobjdump") or str(Path(_cuda._nvcc()).parent / "cuobjdump")
+    if not os.path.exists(tool):
+        print("  cuobjdump not found: SASS counts not measured")
+        return []
+    out = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                         timeout=300, check=True)
+    return sass_loop_counts(out.stdout)
+
+
+def print_mixer_sass(library: str, detail=("bf16 taps=5", "bf16")) -> None:
+    """Print the per-evaluation MUFU / FP32 / other instruction counts of
+    the mixer kernels' inner loops in a built library, and the opcodes of
+    the loops whose variant is in ``detail`` (the main path's); importable
+    to read another build of the kernels (an earlier commit's)."""
+    for kind, variant, evals, c, ops in mixer_sass(library):
+        unit = "z tanh z" if kind == "exact" else "Clenshaw step x element"
+        per = {k: v / evals for k, v in c.items()}
+        issue = sum(per.values())
+        print(f"  SASS {'mel_mixer' if kind == 'exact' else 'mel_mixer_poly Clenshaw'} "
+              f"{variant}: {evals} per loop iteration; per {unit}: MUFU.EX2 "
+              f"{per['MUFU.EX2']:.3f}, MUFU.RCP {per['MUFU.RCP']:.3f}, MUFU other "
+              f"{per['MUFU other']:.3f}, FP32 {per['FP32']:.3f}, other "
+              f"{per['other']:.3f}; issue slots {issue:.3f}, SFU "
+              f"{sum(v for k, v in per.items() if k.startswith('MUFU')):.3f}")
+        if variant in detail:
+            print(f"    opcodes per loop iteration: {dict(sorted(ops.items()))}")
 
 
 def time_ms(fn, reps: int, inner: int = 1) -> float:
@@ -265,8 +409,7 @@ def compare_kernels(model, device, b, t, lengths, dtypes, tag="") -> dict:
                                                    residual_block_plain)
     from mqgan_tpu_torch.ops.fsq_kernels import (fsq_encode_head,
                                                  fsq_encode_plain)
-    from mqgan_tpu_torch.ops.mixer_kernels import (fused_mel_mixer,
-                                                   mel_mixer_plain)
+    from mqgan_tpu_torch.ops.mixer_kernels import fused_mel_mixer, mel_mixer_plain
 
     gen = torch.Generator().manual_seed(SEED + 1)
     lens = torch.tensor(lengths, dtype=torch.int32, device=device)
@@ -294,12 +437,12 @@ def compare_kernels(model, device, b, t, lengths, dtypes, tag="") -> dict:
             c = model.proj.weight.shape[0]
             x = torch.randn((b, t, c), generator=gen).to(device, dtype)
             wts = mixer.kernel_weights()
-            got = fused_mel_mixer(x, lens, wts)
             want = mel_mixer_plain(x, lens, wts)
+            got = fused_mel_mixer(x, lens, wts)
             judge("mel_mixer", name, got, want, dtype)
             pad_rows = torch.arange(t, device=device)[None, :] >= lens[:, None]
             if not bool((got.float()[pad_rows] == wts.consts[1].to(dtype).float()).all()):
-                fail(f"mel_mixer {name} {dtype}: padded rows are not b_out")
+                fail(f"mel_mixer {tag}{name} {dtype}: padded rows are not b_out")
         c = model.q_in_proj.weight.shape[1]
         h = torch.randn((b * t, c), generator=gen).to(device, dtype)
         w = model.q_in_proj.weight.float().t().contiguous()
@@ -319,6 +462,135 @@ def compare_kernels(model, device, b, t, lengths, dtypes, tag="") -> dict:
             fail("fsq_head: index out of range")
         errs["fsq_head"] = max(errs["fsq_head"], float(far_err))
     return errs
+
+
+def compare_poly(model, device, b, t, lengths, tag="", main_path=False) -> float:
+    """Phase 3: the Chebyshev kernels (the conv and min/max, the fit, the
+    Clenshaw pass) against the plain
+    poly_mixer_plain on the post mixer, fp32 (TF32 off) and bf16: ragged
+    lengths, and a plane whose masked values are all equal (x = 0, every
+    frame valid: half clamps to 1e-6); with ``main_path`` also ragged
+    lengths at the main path's B=64 T=512 (BENCH_LENGTHS: a min/max over 64
+    clips and 8,192 tiles); padded rows must be b2 bit for bit; one
+    mel_mixer_poly launch per call. Returns the largest bf16
+    |kernel - plain|."""
+    import torch
+
+    from mqgan_tpu_torch.ops import _cuda
+    from mqgan_tpu_torch.ops.mixer_poly import fused_poly_mixer, poly_mixer_plain
+
+    gen = torch.Generator().manual_seed(SEED + 18)
+    c = model.proj.weight.shape[0]
+    wts = model.post.kernel_weights()
+    # the seeded biases are 0, where g(0) = 0 and a plane of zeros would hold
+    # rounding noise against rounding noise: the equal plane takes s = 0.37
+    equal_wts = wts._replace(consts=torch.cat([torch.full_like(wts.consts[:1], 0.37),
+                                               wts.consts[1:]]))
+    cases = [("ragged", b, t, lengths), ("all equal", b, t, (t,) * b)]
+    if main_path:
+        cases.append((f"B={BENCH_B} T={BENCH_T} ragged", BENCH_B, BENCH_T, BENCH_LENGTHS))
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for case, b, t, lens_t in cases:
+            lens = torch.tensor(lens_t, dtype=torch.int32, device=device)
+            x = torch.randn((b, t, c), generator=gen).to(device, dtype)
+            w = wts
+            if case == "all equal":
+                x.zero_()
+                w = equal_wts
+            want = poly_mixer_plain(x, lens, w)
+            _cuda.COUNTERS.reset()
+            got = fused_poly_mixer(x, lens, w)
+            launches = _cuda.COUNTERS.snapshot()
+            torch.cuda.synchronize()
+            ok, max_abs, detail = _judge("", got, want, dtype)
+            pad_rows = torch.arange(t, device=device)[None, :] >= lens[:, None]
+            pads_exact = bool((got[pad_rows] == wts.consts[1].to(dtype)).all())
+            ok = ok and pads_exact and launches == {"mel_mixer_poly": 1}
+            if dtype != torch.float32:
+                worst = max(worst, max_abs)
+            print(f"  {'mel_mixer_poly':15s} {tag}post {case} {str(dtype)[6:]:8s} "
+                  f"{detail.strip()}, max|k-p| {max_abs:.3e}, pads "
+                  f"{'== b2' if pads_exact else 'NOT b2'}, launches {launches} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"mel_mixer_poly {tag}{case} {dtype}: {detail}, pads exact "
+                     f"{pads_exact}, launches {launches}")
+    return worst
+
+
+def compare_pre_mixer_tokens(state, device) -> None:
+    """Phase 3c: FSQ tokens at B=64 T=512 through the pre mixer's kernel
+    against the same encoder with the plain pre mixer (the blocks and the
+    FSQ head through their kernels in both), beside a control: the plain
+    pre mixer with its P hidden units summed in another order (the same
+    function). fp32: tokens equal wherever the plain path's pre-round value
+    lies more than 1e-4 from a rounding midpoint. bf16: no mixer that sums
+    in another order than the plain one can hold that (a bf16 rounding of
+    the mixer's output flips wherever its fp32 value lies between the two
+    sums, and the bf16 blocks carry that ulp to the pre-round values; the
+    control shows it), so the gates there are that the bf16 kernel's output
+    is its fp32 arithmetic on the same values rounded once, bit for bit,
+    that arithmetic within the fp32 gate of the plain version, and that no
+    more than TOKEN_FLIP_RATIO times the control's tokens differ from the
+    plain path's away from a midpoint."""
+    import torch
+
+    from mqgan_tpu_torch.ops.mixer_kernels import fused_mel_mixer, mel_mixer_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    mel = torch.randn((BENCH_B, BENCH_T, MELS), generator=gen, device=device)
+    pad = torch.zeros((BENCH_B, BENCH_T), dtype=torch.bool, device=device)
+    lens = torch.full((BENCH_B,), BENCH_T, dtype=torch.int32, device=device)
+    for dtype in (torch.float32, torch.bfloat16):
+        model = build_model(device, dtype, state=state)
+        x = model.proj(mel.to(dtype))
+        wts = model.pre.kernel_weights()
+        perm = torch.randperm(wts.w1.shape[0], generator=torch.Generator().manual_seed(SEED))
+        perm = perm.to(device)
+        permuted = wts._replace(w1=wts.w1[perm].contiguous(), b1=wts.b1[perm].contiguous(),
+                                w2=wts.w2[perm].contiguous())
+        mixed = {"kernel": fused_mel_mixer(x, lens, wts),
+                 "plain": mel_mixer_plain(x, lens, wts),
+                 "control": mel_mixer_plain(x, lens, permuted)}
+        w, bias = model.q_in_proj.weight.float().t(), model.q_in_proj.bias.float()
+        idx, pre = {}, {}
+        for label, h in mixed.items():
+            for block in model.encoder_blocks:
+                h = block(h, pad)
+            idx[label] = model._fsq_head(h)
+            pre[label] = h.reshape(-1, h.shape[-1]).float() @ w + bias
+            if label == "plain":
+                near = _fsq_near_midpoint(h.reshape(-1, h.shape[-1]), w, bias,
+                                          model.fsq_consts).reshape(idx[label].shape)
+        far = {}
+        for label in ("kernel", "control"):
+            flips = idx[label] != idx["plain"]
+            far[label] = int((flips & ~near).sum())
+            diff = int((mixed[label] != mixed["plain"]).sum())
+            print(f"  tokens, pre mixer {label:7s} vs plain, B={BENCH_B} T={BENCH_T} "
+                  f"{str(dtype)[6:]:8s}: mixer outputs differ at {diff} elements; "
+                  f"{int(flips.sum())} of {flips.numel()} tokens differ, {far[label]} of "
+                  f"them away from a midpoint; max|pre-round diff| "
+                  f"{float((pre[label] - pre['plain']).abs().max()):.3e}")
+        if dtype == torch.float32:
+            ok = far["kernel"] == 0
+            detail = f"{far['kernel']} tokens differ away from a midpoint"
+        else:
+            k32 = fused_mel_mixer(x.float(), lens, wts)
+            p32 = mel_mixer_plain(x.float(), lens, wts)
+            once = torch.equal(mixed["kernel"], k32.to(dtype))
+            ok32, _, detail32 = _judge("fp32 arithmetic vs plain:", k32, p32, torch.float32)
+            limit = TOKEN_FLIP_RATIO * far["control"]
+            ok = once and ok32 and far["kernel"] <= limit
+            detail = (f"bf16 output {'==' if once else '!='} its fp32 arithmetic rounded "
+                      f"once; {detail32.strip()}; {far['kernel']} tokens differ away from a "
+                      f"midpoint (limit {TOKEN_FLIP_RATIO} x the control's {far['control']} "
+                      f"= {limit:g})")
+        print(f"  tokens gate {str(dtype)[6:]:8s}: {detail} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"pre mixer tokens {dtype}: {detail}")
+        del model, x, mixed, idx, pre
 
 
 def compare_ragged_blocks(device) -> float:
@@ -599,8 +871,9 @@ def serve(model, device, counters) -> dict:
     return launches
 
 
-def throughput(model, device, counters, per_trip) -> float:
-    """Phase 5: chained encode -> decode, tokens on the card."""
+def throughput(model, device, counters, per_trip) -> tuple:
+    """Phase 5: chained encode -> decode, tokens on the card; returns
+    (mel-frames/s, the launch counts of the timed trips)."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
@@ -625,13 +898,14 @@ def throughput(model, device, counters, per_trip) -> float:
     want = {k: v * ITERS for k, v in per_trip.items()}
     if launches != want:
         fail(f"throughput launch counts {launches} != {want}")
-    return BENCH_B * BENCH_T * ITERS / (start.elapsed_time(end) / 1e3)
+    return BENCH_B * BENCH_T * ITERS / (start.elapsed_time(end) / 1e3), launches
 
 
 KERNEL_GROUPS = (
     ("flash attention", ("flash_fwd", "flash_bwd")),
     ("residual_block", ("conv_gemm", "cbam_", "sam_stats")),
     ("mel_mixer", ("mel_mixer",)),
+    ("mel_mixer_poly", ("poly_minmax", "poly_stats", "poly_fit", "poly_eval")),
     ("fsq_head", ("fsq_head",)),
     ("log_mel", ("log_mel",)),
     ("fft (cuFFT)", ("fft",)),
@@ -947,8 +1221,9 @@ def kernel_times(model, device) -> list:
                                                    residual_block_plain)
     from mqgan_tpu_torch.ops.fsq_kernels import (fsq_encode_head,
                                                  fsq_encode_plain)
-    from mqgan_tpu_torch.ops.mixer_kernels import (fused_mel_mixer,
-                                                   mel_mixer_plain)
+    from mqgan_tpu_torch.ops.mixer_kernels import fused_mel_mixer, mel_mixer_plain
+    from mqgan_tpu_torch.ops.mixer_poly import (POLY_DEGREE, POLY_GRID, fused_poly_mixer,
+                                                poly_mixer_plain)
 
     dt = torch.bfloat16
     b, t = BENCH_B, BENCH_T
@@ -989,6 +1264,10 @@ def kernel_times(model, device) -> list:
 
     mix_row = _KernelRow("mel_mixer", "mqgan_tpu_torch/csrc/mel_mixer.cu",
                          "mqgan_tpu/ops/mixer_kernels.py:92")
+    props = torch.cuda.get_device_properties(device)
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
     for name, mixer in (("pre", model.pre), ("post", model.post)):
         c = model.proj.weight.shape[0]
         x = torch.randn((b, t, c), generator=gen, device=device).to(dt)
@@ -998,8 +1277,32 @@ def kernel_times(model, device) -> list:
         pms = time_ms(lambda: mel_mixer_plain(x, lens, wts), 2)
         bound = mix_row.add(ms, pms, m * c * (2.0 * k * k + 6.0 * p), PEAK_FP32,
                             2.0 * 2 * m * c + 4.0 * (k * k + 3 * p + 4))
+        clocks = ms * 1e-3 * max_mhz * 1e6 * props.multi_processor_count / (m * c * p)
         print(f"  mel_mixer {name} C={c} P={p}: {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"bound {bound:.4f} ms ({m * c * p / 1e9:.2f} G tanh)")
+              f"bound {bound:.4f} ms ({m * c * p / 1e9:.2f} G z tanh z evaluations, "
+              f"a tanh counted as one operation; {clocks:.4f} clocks per evaluation per "
+              f"SM at the maximum {max_mhz:.0f} MHz, {props.multi_processor_count} SMs)")
+
+    poly_row = _KernelRow("mel_mixer_poly", "mqgan_tpu_torch/csrc/mel_mixer.cu",
+                          "mqgan_tpu/ops/mixer_poly.py:72")
+    c = model.proj.weight.shape[0]
+    x = torch.randn((b, t, c), generator=gen, device=device).to(dt)
+    wts = model.post.kernel_weights()
+    p, k = wts.w1.shape[0], wts.dwk.shape[0]
+    ms = time_ms(lambda: fused_poly_mixer(x, lens, wts), 10)
+    burst = time_ms(lambda: fused_poly_mixer(x, lens, wts), 5, 10)
+    pms = time_ms(lambda: poly_mixer_plain(x, lens, wts), 2)
+    # per element: the conv (k*k multiply-adds), the division into t, the
+    # Clenshaw steps (an add and a multiply-add each); the fit: g at the
+    # nodes (P x (multiply-add, tanh, add, 2 multiplies, multiply-add)) and
+    # the cosine projection
+    ops = (m * c * (2.0 * k * k + 3.0 * POLY_DEGREE + 6.0)
+           + POLY_GRID * p * 8.0 + 2.0 * (POLY_DEGREE + 1) * POLY_GRID)
+    bound = poly_row.add(ms, pms, ops, PEAK_FP32, 2.0 * 2 * m * c + 4.0 * (k * k + 3 * p + 4))
+    print(f"  mel_mixer_poly post C={c} P={p} degree {POLY_DEGREE} grid {POLY_GRID}, "
+          f"one call of five kernel launches: {ms:.4f} ms (bursts {burst:.4f}), "
+          f"plain {pms:.4f} ms, bound {bound:.4f} ms ({poly_row.bound_by}: "
+          f"{ops / 1e9:.2f} GFLOP)")
 
     fsq_row = _KernelRow("fsq_head", "mqgan_tpu_torch/csrc/fsq_head.cu",
                          "mqgan_tpu/ops/fsq_kernels.py:84")
@@ -1076,7 +1379,7 @@ def kernel_times(model, device) -> list:
           f"{bound:.4f} ms ({mel_row.bound_by}: {flops / 1e9:.2f} GFLOP counting the "
           f"filterbank's {nnz} nonzeros, {dense_flops / 1e9:.2f} counting F x n_mels "
           f"= {n_freq * n_mels} densely; {nbytes / 1e6:.1f} MB)")
-    return [blk_row, mix_row, fsq_row, mel_row]
+    return [blk_row, mix_row, poly_row, fsq_row, mel_row]
 
 
 def lm_model(device, dtype, route: str, dropout: float = 0.0):
@@ -1398,9 +1701,10 @@ def main() -> None:
     print(f"[2] kernels built in {_cuda.LIBRARY.build_seconds:.1f} s")
     report = _cuda.ptxas_report()
     print(report)
-    for kernel, d, regs, st, ld in ptxas_summary(report):
-        print(f"  ptxas {kernel}{'' if d is None else f' D={d}'}: {regs} registers, "
-              f"spill stores {st} B, spill loads {ld} B")
+    for kernel, variant, regs, st, ld in ptxas_summary(report):
+        print(f"  ptxas {kernel}{'' if variant is None else f' {variant}'}: {regs} "
+              f"registers, spill stores {st} B, spill loads {ld} B")
+    print_mixer_sass(str(_cuda.build_library()[0]))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1415,8 +1719,13 @@ def main() -> None:
                                        (torch.float32, torch.bfloat16),
                                        tag="hifimusic ").items():
         errs[kernel] = max(errs[kernel], err)
+    errs["mel_mixer_poly"] = max(
+        compare_poly(model, device, CMP_B, CMP_T, CMP_LENGTHS, main_path=True),
+        compare_poly(music, device, CMP_B, CMP_T, CMP_LENGTHS, tag="hifimusic "))
     del music
     errs["residual_block"] = max(errs["residual_block"], compare_ragged_blocks(device))
+    print(f"[3c] FSQ tokens through the pre mixer's kernel, B={BENCH_B} T={BENCH_T}")
+    compare_pre_mixer_tokens(state, device)
     errs["log_mel"] = compare_log_mel(device)
     compare_round_trip(state, device)
 
@@ -1428,9 +1737,13 @@ def main() -> None:
     print(f"[5] round-trip throughput, B={BENCH_B} T={BENCH_T} bf16 "
           f"[{card}]")
     torch.cuda.reset_peak_memory_stats()
-    exact = throughput(model, device, counters, per_batch)
+    exact, _ = throughput(model, device, counters, per_batch)
     poly = build_model(device, torch.bfloat16, poly_mixers="decode", state=state)
-    poly_fps = throughput(poly, device, counters, dict(per_batch, mel_mixer=1))
+    # poly-decode, the serving default: the post mixer through the
+    # Chebyshev kernel (the main path of mel_mixer_poly)
+    poly_fps, poly_launches = throughput(poly, device, counters,
+                                         dict(per_batch, mel_mixer=1, mel_mixer_poly=1))
+    launches["mel_mixer_poly"] = poly_launches["mel_mixer_poly"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  exact mixers: {exact:.1f} mel-frames/s")
     print(f"  poly-decode mixers: {poly_fps:.1f} mel-frames/s")

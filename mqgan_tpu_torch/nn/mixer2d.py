@@ -5,9 +5,10 @@ mask -> pointwise expansion to ``features`` planes -> mask -> APTx -> 1x1
 contraction back to one plane.
 
 Inference only. The exact path runs as ``ops/mixer_kernels.py``
-``fused_mel_mixer`` (the CUDA kernel for a CUDA tensor, the plain version
-for a CPU tensor); ``poly_approx`` evaluates the pointwise MLP as the
-Chebyshev interpolant of ``ops/mixer_poly.py`` instead.
+``fused_mel_mixer``; ``poly_approx`` evaluates the pointwise MLP as the
+Chebyshev interpolant, ``ops/mixer_poly.py`` ``fused_poly_mixer``. Each
+launches its CUDA kernel for a CUDA tensor and takes its plain version for a
+CPU tensor.
 """
 
 from __future__ import annotations
@@ -16,10 +17,10 @@ import torch
 from torch import nn
 
 from mqgan_tpu_torch.core.device import check_inference
-from mqgan_tpu_torch.core.masking import apply_mask, lengths_from_mask
+from mqgan_tpu_torch.core.masking import lengths_from_mask
 from mqgan_tpu_torch.nn.conv import WNConv2d
 from mqgan_tpu_torch.ops.mixer_kernels import MixerWeights, fused_mel_mixer
-from mqgan_tpu_torch.ops.mixer_poly import poly_mixer_apply
+from mqgan_tpu_torch.ops.mixer_poly import fused_poly_mixer
 
 
 class MelMixer2D(nn.Module):
@@ -49,9 +50,6 @@ class MelMixer2D(nn.Module):
         if pad_mask is None:
             pad_mask = torch.zeros(x.shape[:2], dtype=torch.bool,
                                    device=x.device)
-        w = self.kernel_weights()
-        if not self.poly_approx:
-            return fused_mel_mixer(x.contiguous(), lengths_from_mask(pad_mask), w)
-        dw_out = apply_mask(self.dw(x[:, None])[:, 0], pad_mask)
-        return poly_mixer_apply(dw_out, pad_mask, w.w1, w.b1, w.w2,
-                                self.conv_out.bias.float()[0])
+        mixer = fused_poly_mixer if self.poly_approx else fused_mel_mixer
+        return mixer(x.contiguous(), lengths_from_mask(pad_mask),
+                     self.kernel_weights())

@@ -30,9 +30,11 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("fsq_head.cu", "residual_block.cu", "mel_mixer.cu", "log_mel.cu",
            "log_mel_dft.cu", "flash_attention.cu")
-# no --use_fast_math: the mixer and the FSQ head need exact tanhf (an
-# approximate tanh flips FSQ codes on the encode side), the log-mel kernels
-# exact sqrtf and logf, the flash kernels expf/exp2f/logf at full accuracy
+# no --use_fast_math: the FSQ head needs exact tanhf and the mixer its
+# exact-grade z tanh z (it writes its ex2/rcp.approx instructions itself;
+# tanh.approx's 2^-11 flips FSQ codes on the encode side), the log-mel
+# kernels exact sqrtf and logf, the flash kernels expf/exp2f/logf at full
+# accuracy
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,6 +54,9 @@ _SIGNATURES = {
     # x, lengths, dwk, consts, w1, b1, w2, out, B, T, C, P, dw_k, is_bf16,
     # stream
     "mqgan_mel_mixer": (_PTR,) * 8 + (_INT,) * 6 + (_PTR,),
+    # x, lengths, dwk, consts, w1, b1, w2, z, partials, stats,
+    # g_nodes, coef, out, B, T, C, P, dw_k, degree, grid, is_bf16, stream
+    "mqgan_mel_mixer_poly": (_PTR,) * 13 + (_INT,) * 8 + (_PTR,),
     # wav, window, twiddles, bands, weights, out, n_clips, frames_per_clip,
     # samples, hop, n_fft, n_mels, stream
     "mqgan_log_mel": (_PTR,) * 6 + (_INT,) * 6 + (_PTR,),

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from mqgan_tpu_torch.ops import _cuda
 
 MAX_DW_K = 7  # the kernel's shared halo tile is sized for taps <= 7
-MAX_P = 2048  # w1, b1, w2 live in shared memory
+MAX_P = 2048  # (w1, b1, w2) per p live in shared memory
 HIDDEN_CHUNK_BYTES = 1 << 28  # plain version: fp32 hidden per time chunk
 
 
@@ -60,15 +60,18 @@ def mel_mixer_plain(x: torch.Tensor, lengths: torch.Tensor,
     return out.to(x.dtype)
 
 
-def fused_mel_mixer(x: torch.Tensor, lengths: torch.Tensor,
-                    w: MixerWeights) -> torch.Tensor:
-    """x (B, T, C) in the compute dtype, lengths (B,) int32 valid frames
-    (contiguous masks) -> (B, T, C) in the compute dtype."""
-    if x.device.type == "cpu":
-        return mel_mixer_plain(x, lengths, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mel_mixer: unsupported device {x.device}")
-    b, t, c = x.shape
+def check_mixer_shape(name: str, k: int, p: int | None = None) -> None:
+    """Raise on a tap count (or P) outside the mixer kernels."""
+    if k % 2 == 0 or k > MAX_DW_K:
+        raise ValueError(f"{name}: taps {k} outside the kernel (odd, <= {MAX_DW_K})")
+    if p is not None and not 1 <= p <= MAX_P:
+        raise ValueError(f"{name}: P={p} outside the kernel (1..{MAX_P})")
+
+
+def check_mixer_args(x: torch.Tensor, lengths: torch.Tensor,
+                     w: MixerWeights) -> int:
+    """Check the arguments of a mixer kernel launch; returns the bf16 flag."""
+    b = x.shape[0]
     k, p = w.dwk.shape[0], w.w1.shape[0]
     dev = x.device
     bf16 = _cuda.cuda_dtype_flag(x.dtype)
@@ -76,17 +79,29 @@ def fused_mel_mixer(x: torch.Tensor, lengths: torch.Tensor,
     _cuda.check(lengths, "lengths", dtype=torch.int32, shape=(b,), device=dev)
     _cuda.check(w.dwk, "dwk", dtype=torch.float32, shape=(k, k), device=dev)
     _cuda.check(w.consts, "consts", dtype=torch.float32, shape=(4,), device=dev)
-    for name in ("w1", "b1", "w2"):
-        _cuda.check(getattr(w, name), name, dtype=torch.float32, shape=(p,),
+    for field in ("w1", "b1", "w2"):
+        _cuda.check(getattr(w, field), field, dtype=torch.float32, shape=(p,),
                     device=dev)
-    if k % 2 == 0 or k > MAX_DW_K or p > MAX_P:
-        raise ValueError(f"fused_mel_mixer: taps {k} (odd, <= {MAX_DW_K}) "
-                         f"or P={p} (<= {MAX_P}) outside the kernel")
+    return bf16
+
+
+def fused_mel_mixer(x: torch.Tensor, lengths: torch.Tensor,
+                    w: MixerWeights) -> torch.Tensor:
+    """x (B, T, C) in the compute dtype, lengths (B,) int32 valid frames
+    (contiguous masks) -> (B, T, C) in the compute dtype."""
+    check_mixer_shape("fused_mel_mixer", w.dwk.shape[0], w.w1.shape[0])
+    if x.device.type == "cpu":
+        return mel_mixer_plain(x, lengths, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mel_mixer: unsupported device {x.device}")
+    bf16 = check_mixer_args(x, lengths, w)
+    b, t, c = x.shape
+    k, p = w.dwk.shape[0], w.w1.shape[0]
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
     pt = _cuda.ptr
-    _cuda.launch("mqgan_mel_mixer", dev, pt(x), pt(lengths), pt(w.dwk),
+    _cuda.launch("mqgan_mel_mixer", x.device, pt(x), pt(lengths), pt(w.dwk),
                  pt(w.consts), pt(w.w1), pt(w.b1), pt(w.w2), pt(out),
                  b, t, c, p, k, bf16)
     _cuda.COUNTERS.add("mel_mixer")

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's codec serving path, its audio path and its
-token-LM training path on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's codec serving path, its audio path, its
+token-LM training path and its token-LM serving path on one NVIDIA GPU
+(H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --fsq-head-of DIR   # time another checkout's FSQ head
 
 Run from the root of a checkout. It needs one CUDA card and exits non-zero,
 printing no result, without one. Phases (any failure exits non-zero):
@@ -22,7 +24,10 @@ printing no result, without one. Phases (any failure exits non-zero):
     T=512, ragged lengths: fp32 with TF32
     off (max|k - p| <= 1e-4 * max(1, max|p|)) and bf16 (||k - p|| / ||p||
     <= 2e-2); FSQ indices may differ only where the plain pre-round value
-    lies within 1e-4 of a rounding midpoint. The same for the hifimusic
+    lies within 1e-4 of a rounding midpoint; the FSQ head also at N = 1,
+    4,099 and 32,768 rows, on rows that are not 16-byte aligned (its
+    scalar-load instantiation) and with d = 1, 3 and 8 code dims. The same
+    for the hifimusic
     generator (160 mels, channels 384/384/512/512, refiner 96: its six
     blocks, two mixers and FSQ head), and for blocks whose widths and B*T
     are not multiples of the conv GEMM's 128 x 128 tile (24 -> 40 k7
@@ -87,7 +92,9 @@ printing no result, without one. Phases (any failure exits non-zero):
     clips; max|k - p64| <= 1e-4, or no more than the fp32 plain version's
     own error, since fp32 rounding reaches ~1e-4 in the log domain at
     near-silent single-bin mels), and its bound is the function's: an FFT
-    per frame and the filterbank's nonzeros, not F x n_mels;
+    per frame and the filterbank's nonzeros, not F x n_mels; the FSQ head
+    in single calls, in bursts of 10 and by the profiler's kernel time,
+    each with its GB/s;
  9. the three flash-attention kernels (forward, dQ, dK/dV) against their
     plain versions, fp32 (max|k - p| <= 1e-4 * max(1, max|p|), TF32 off)
     and bf16 (rel-L2 <= 2e-2), at T 1, 17, 128, 129, 2047 and head sizes
@@ -105,15 +112,34 @@ printing no result, without one. Phases (any failure exits non-zero):
     (B * (L - 1) per step, bf16, dropout 0.1) at B=8 L=2048 and B=4 L=4096
     through the kernels, the plain attention and the SDPA yardstick, with
     peak memory, and a torch.profiler split of one step; one --arch lstm
-    step at flagship width;
+    step at flagship width; the trainer's run dir is phase 12's
+    transformer;
 11. time the flash kernels at the flagship layer call (B=8, H=8, T=2047,
     D=64, bf16) beside their plain versions, their bounds (the function's
     operations) and SDPA's forward and backward, after holding them against
     the plain versions there, and each kernel's rate on the products it
     does (2 forward, 3 dQ, 4 dK/dV) beside the charged bound; kernels and
     SDPA are timed in single calls (the kernels line) and in bursts of 10
-    calls (printed beside); print the kernels JSON line (eight rows);
-12. print {"ok": true, "device": {...}} as the last line.
+    calls (printed beside); print the kernels JSON line (nine rows: the
+    DFT log-mel kernel's launches are phase 3's, the front end at n_fft
+    1200 and 1000, the only path that selects it);
+12. token-LM serving at the flagship widths, on the card (the transformer
+    of phase 10b's run, fp32; an LSTM run dir of the trainer's format with
+    seeded weights): (a) prefill (B=8, per-row prompt ends) and 16
+    step_rows logits against the CPU within 1e-4 * max(1, max|logit|);
+    (b) top_k = 1 served tokens, each the CPU's argmax on the card's own
+    stream or within twice that of it (a near-tie), both archs; (c) the
+    key chain's uniforms bit-equal on CPU and card; (d) LMHTTPServer on
+    localhost: 12 concurrent /generate requests (mixed genres, prompt
+    lengths 0-200, n 1-4, length 512, two groups of sampling knobs):
+    shapes, token range, mean batch size > 1,
+    /healthz, and no kernel launch (the decode path has none); (e) at an
+    equal dispatch width a row's tokens do not depend on its position or
+    neighbours (gated), and the rows served alone that differ from the same
+    rows coalesced are printed, with the first step where each does (fp32
+    and bf16 KV, LSTM); (f) decode at B=64, prompt 0, L=512: ms/token,
+    tokens/s and the device's idle share at L=32 (fp32 KV, bf16 KV, LSTM);
+13. print {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -125,6 +151,7 @@ import re
 import subprocess
 import sys
 import shutil
+import tempfile
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
@@ -150,6 +177,8 @@ HIFIMUSIC = dict(mels=160, channels=(384, 384, 512, 512), kernel_sizes=(3, 3, 5,
                  fsq_levels=(8, 5, 5, 5), refiner_base_channels=96, refiner_depth=3,
                  refiner_hidden_proj_divisor=8)
 BENCH_B, BENCH_T = 64, 512
+# phase 3: the FSQ head at a row count off the 8 rows a warp reduces together
+FSQ_RAGGED_N = 4099
 # phase 3c, bf16: the pre mixer's kernel may flip at most this many times
 # the FSQ tokens (away from a midpoint) that the plain mixer summed in
 # another order flips
@@ -180,6 +209,12 @@ FLASH_REPLACES = {
 LM = dict(vocab_size=1003, num_genres=10, emb_dim=512, n_layers=6, n_heads=8,
           mlp_ratio=4)
 LM_CHUNKS = 20
+# phase 12, LM serving: the decode throughput shape, the HTTP traffic's
+# prompt grid (every prompt of 1..200 tokens shares one bucket, so that
+# mixed prompt lengths coalesce), and the logit gate card vs CPU
+SERVE_B, SERVE_L = 64, 512
+SERVE_PROMPT_GRID = 256
+LOGIT_TOL = 1e-4
 LM_SHAPES = ((8, 2048), (4, 4096))
 LM_ITERS = 3
 # phase 11 also times each flash kernel and SDPA over bursts of this many calls
@@ -206,6 +241,9 @@ def _kernel_variant(mangled: str):
     flash kernel, 'bf16 taps=5' for a mixer kernel, 'fp32' etc."""
     if "poly_stats" in mangled or "poly_fit" in mangled:
         return None  # no template arguments
+    if "fsq_head_kernel" in mangled:
+        d, vec = re.findall(r"Li(\d+)E", mangled)[:2]
+        return f"{'bf16' if 'nv_bfloat16' in mangled else 'fp32'} d={d} vec={vec}"
     if "mixer_kernel" in mangled or "poly_" in mangled:
         dtype = "bf16" if "nv_bfloat16" in mangled else "fp32"
         arg = re.search(r"Li(\d+)E", mangled)
@@ -219,6 +257,7 @@ def ptxas_summary(report: str) -> list:
     spill bytes loaded) of each mma.sync kernel and mixer kernel entry in
     the ptxas report."""
     kernels = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma", "conv_gemm_mma",
+               "fsq_head_kernel",
                "mel_mixer_kernel", "poly_minmax_kernel", "poly_stats_kernel",
                "poly_fit_nodes_kernel", "poly_fit_coef_kernel", "poly_eval_kernel")
     rows, entry = [], None
@@ -464,6 +503,61 @@ def compare_kernels(model, device, b, t, lengths, dtypes, tag="") -> dict:
     return errs
 
 
+def compare_fsq_head(model, device, tag="") -> float:
+    """Phase 3, the FSQ head at ragged N: the model's projection (fp32 and
+    bf16) at N = 1, FSQ_RAGGED_N (not a multiple of the 8 rows a warp
+    reduces together) and the main path's N = 64 * 512; h at an offset of
+    one element (not 16-byte aligned: the scalar-load instantiation); and
+    random projections to d = 1, 3 and 8 code dims. Indices may differ only
+    where the plain pre-round value lies within 1e-4 of a midpoint; returns
+    the largest index difference away from one (0)."""
+    import torch
+
+    from mqgan_tpu_torch.ops.fsq_kernels import (fsq_encode_head, fsq_encode_plain,
+                                                 fsq_head_constants)
+    from mqgan_tpu_torch.quant.fsq import FSQSpec
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    c = model.q_in_proj.weight.shape[1]
+    w = model.q_in_proj.weight.float().t().contiguous()
+    bias = model.q_in_proj.bias.float()
+    cases = []  # (label, h, w, bias, consts, codebook size)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (1, FSQ_RAGGED_N, BENCH_B * BENCH_T):
+            h = torch.randn((n, c), generator=gen, device=device).to(dtype)
+            cases.append((f"N={n} {str(dtype)[6:]}", h, w, bias, model.fsq_consts,
+                          model.codebook_size))
+        flat = torch.randn(FSQ_RAGGED_N * c + 1, generator=gen, device=device).to(dtype)
+        cases.append((f"N={FSQ_RAGGED_N} {str(dtype)[6:]} unaligned",
+                      flat[1:].view(FSQ_RAGGED_N, c), w, bias, model.fsq_consts,
+                      model.codebook_size))
+        for levels in ((8,), (8, 5, 5), (8, 5, 5, 5, 5, 5, 5, 5)):
+            d = len(levels)
+            spec = FSQSpec(levels)
+            wd = torch.randn((c, d), generator=gen, device=device) * (2.0 / c ** 0.5)
+            bd = torch.randn((d,), generator=gen, device=device) * 0.1
+            consts = torch.from_numpy(fsq_head_constants(spec)).to(device)
+            h = torch.randn((FSQ_RAGGED_N, c), generator=gen, device=device).to(dtype)
+            cases.append((f"N={FSQ_RAGGED_N} {str(dtype)[6:]} d={d}", h, wd, bd, consts,
+                          spec.codebook_size))
+    worst = 0
+    for label, h, wc, bc, consts, size in cases:
+        got = fsq_encode_head(h, wc, bc, consts)
+        want = fsq_encode_plain(h, wc, bc, consts)
+        near = _fsq_near_midpoint(h, wc, bc, consts)
+        mism = got != want
+        far_err = int((got - want)[~near].abs().max()) if bool((~near).any()) else 0
+        ok = far_err == 0 and int(got.min()) >= 0 and int(got.max()) < size
+        print(f"  {'fsq_head':15s} {tag}{label}: {int(mism.sum())} of {got.numel()} "
+              f"indices differ, {int((mism & near).sum())} of them within 1e-4 of a "
+              f"midpoint {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"fsq_head {tag}{label}: indices differ away from a midpoint or "
+                 f"leave [0, {size})")
+        worst = max(worst, far_err)
+    return float(worst)
+
+
 def compare_poly(model, device, b, t, lengths, tag="", main_path=False) -> float:
     """Phase 3: the Chebyshev kernels (the conv and min/max, the fit, the
     Clenshaw pass) against the plain
@@ -672,9 +766,11 @@ def log_mel_library(wav, window, fbank, n_fft: int, hop: int, win: int):
     return torch.log(torch.clamp(mel, min=1e-5))
 
 
-def compare_log_mel(device) -> float:
+def compare_log_mel(device) -> tuple:
     """Phase 3, log-mel: each kernel against its plain version (TF32 off);
-    returns the largest |kernel - plain|."""
+    returns the largest |kernel - plain| and the DFT kernel's launches (its
+    path: the front end at an even n_fft that is no power of two, counts
+    reset before each case and read after)."""
     import torch
 
     from mqgan_tpu_torch.core.config import SpectrogramConfig
@@ -685,7 +781,7 @@ def compare_log_mel(device) -> float:
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     floor = torch.log(torch.tensor(LOG_CLIP_VAL, device=device))
-    worst = 0.0
+    worst, dft_launches = 0.0, 0
     small = SpectrogramConfig(sampling_rate=16000, filter_length=512, hop_length=128,
                               win_length=512, n_mel_channels=80, mel_fmax=8000.0)
     odd = SpectrogramConfig(sampling_rate=16000, filter_length=1200, hop_length=300,
@@ -737,7 +833,8 @@ def compare_log_mel(device) -> float:
             fail(f"{kernel} {label} B={b}: max|k-p| {err:.3e}, silent exact {exact}, "
                  f"launches {launches}")
         worst = max(worst, err)
-    return worst
+        dft_launches += launches.get("log_mel_dft", 0)
+    return worst, dft_launches
 
 
 def _judge(label, got, want, dtype, zero=False) -> tuple:
@@ -933,7 +1030,7 @@ def _device_profile(fn):
     return [(k, ms) for k, ms in events if ms > 0], wall_ms
 
 
-def _report_profile(label, events, wall_ms, top=8) -> float:
+def _report_profile(label, events, wall_ms, top=8, note="profiler on") -> float:
     """Print device busy time, idle share, time by kernel group and the
     largest kernels; returns the busy ms (0.0: the profiler saw nothing)."""
     busy = sum(ms for _, ms in events)
@@ -947,7 +1044,7 @@ def _report_profile(label, events, wall_ms, top=8) -> float:
                       if any(s in low for s in subs)), "other")
         groups[group] = groups.get(group, 0.0) + ms
     print(f"  {label}: device busy {busy:.3f} ms of {wall_ms:.3f} ms wall "
-          f"(idle share {1 - busy / wall_ms:.3f}, profiler on)")
+          f"(idle share {1 - busy / wall_ms:.3f}, {note})")
     for group, ms in sorted(groups.items(), key=lambda g: -g[1]):
         print(f"    {group:22s} {ms:9.3f} ms  {100 * ms / busy:5.1f}%")
     for key, ms in sorted(events, key=lambda e: -e[1])[:top]:
@@ -1306,17 +1403,20 @@ def kernel_times(model, device) -> list:
 
     fsq_row = _KernelRow("fsq_head", "mqgan_tpu_torch/csrc/fsq_head.cu",
                          "mqgan_tpu/ops/fsq_kernels.py:84")
-    c = model.q_in_proj.weight.shape[1]
-    h = torch.randn((m, c), generator=gen, device=device).to(dt)
     w = model.q_in_proj.weight.float().t().contiguous()
     bias = model.q_in_proj.bias.float()
-    d = w.shape[1]
-    ms = time_ms(lambda: fsq_encode_head(h, w, bias, model.fsq_consts), 20)
+    ms, burst, kernel_ms, host_us, h = fsq_head_times(device, w, bias, model.fsq_consts)
+    c, d = w.shape
     pms = time_ms(lambda: fsq_encode_plain(h, w, bias, model.fsq_consts), 5)
-    bound = fsq_row.add(ms, pms, m * (2.0 * c * d + 8.0 * d), PEAK_FP32,
-                        2.0 * m * c + 4.0 * m + 4.0 * (c * d + 6 * d))
-    print(f"  fsq_head N={m} C={c}: {ms:.4f} ms, plain {pms:.4f} ms, "
-          f"bound {bound:.4f} ms")
+    nbytes = 2.0 * m * c + 4.0 * m + 4.0 * (c * d + 6 * d)
+    bound = fsq_row.add(ms, pms, m * (2.0 * c * d + 8.0 * d), PEAK_FP32, nbytes)
+    print(f"  fsq_head N={m} C={c} bf16: {ms:.4f} ms single calls ({nbytes / ms / 1e6:.1f} "
+          f"GB/s), bursts of 10 {burst:.4f} ms ({nbytes / burst / 1e6:.1f} GB/s), the "
+          f"kernel alone {kernel_ms:.4f} ms ({nbytes / kernel_ms / 1e6:.1f} GB/s; "
+          f"profiler), the host's wrapper {host_us:.1f} us a call; plain {pms:.4f} ms; "
+          f"bound {bound:.4f} ms ({fsq_row.bound_by}: {nbytes / 1e6:.1f} MB): "
+          f"{bound / ms:.3f} of it in single calls, {bound / burst:.3f} in bursts, "
+          f"{bound / kernel_ms:.3f} for the kernel alone")
 
     from mqgan_tpu_torch.core.config import SpectrogramConfig
     from mqgan_tpu_torch.ops.stft_kernels import (dft_mel_tables, log_mel,
@@ -1347,7 +1447,8 @@ def kernel_times(model, device) -> list:
     plain = log_mel_plain(wav, cos, sin, fbank, hop)
     chain = log_mel_library(wav, window, fbank, n_fft, hop, cfg.win_length)
     dft = log_mel_dft(wav, cos, sin, fbank, hop)
-    err, plain_err, chain_err = (float((x - ref).abs().max()) for x in (got, plain, chain))
+    err, plain_err, chain_err, dft_err = (float((x - ref).abs().max())
+                                          for x in (got, plain, chain, dft))
     gaps = [float((x - got).abs().max()) for x in (plain, chain, dft)]
     limit = max(1e-4, plain_err)
     print(f"  log_mel at B={AUDIO_B} x {AUDIO_SAMPLES} against the float64 plain "
@@ -1373,13 +1474,76 @@ def kernel_times(model, device) -> list:
     dense_flops = fft_flops + 2.0 * n * n_freq * n_mels
     nbytes = 4.0 * (wav.numel() + cfg.win_length + nnz + n * n_mels)
     bound = mel_row.add(ms, pms, flops, PEAK_FP32, nbytes)
+    dft_row = _KernelRow("log_mel_dft", "mqgan_tpu_torch/csrc/log_mel_dft.cu",
+                         "mqgan_tpu/ops/stft_kernels.py:95")
+    dft_row.add(dft_ms, pms, flops, PEAK_FP32, nbytes)
+    dft_row.max_abs_err, dft_row.library_ms = dft_err, mel_row.library_ms
     print(f"  log_mel N={n} n_fft={n_fft} F={n_freq} mels={n_mels}: {ms:.4f} ms "
           f"(roofline share {bound / ms:.3f}), the DFT kernel {dft_ms:.4f} ms, plain "
           f"{pms:.4f} ms, torch.stft chain {mel_row.library_ms:.4f} ms; bound "
           f"{bound:.4f} ms ({mel_row.bound_by}: {flops / 1e9:.2f} GFLOP counting the "
           f"filterbank's {nnz} nonzeros, {dense_flops / 1e9:.2f} counting F x n_mels "
           f"= {n_freq * n_mels} densely; {nbytes / 1e6:.1f} MB)")
-    return [blk_row, mix_row, poly_row, fsq_row, mel_row]
+    return [blk_row, mix_row, poly_row, fsq_row, mel_row, dft_row]
+
+
+def fsq_head_times(device, w, bias, consts):
+    """Phase 8, the FSQ head at the main path's shape (N = 64 * 512 rows of
+    C channels, bf16): (single-call ms, ms per call in bursts of 10, the
+    kernel's own device ms from torch.profiler over 20 calls, the host's
+    microseconds per call (100 calls enqueued, no sync), h). Imports
+    whatever ``mqgan_tpu_torch`` is first on the path, so ``--fsq-head-of``
+    times another checkout's kernel with the same code."""
+    import torch
+
+    from mqgan_tpu_torch.ops.fsq_kernels import fsq_encode_head
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    h = torch.randn((BENCH_B * BENCH_T, w.shape[0]), generator=gen,
+                    device=device).to(torch.bfloat16)
+
+    def call():
+        return fsq_encode_head(h, w, bias, consts)
+
+    ms = time_ms(call, 20)
+    burst = time_ms(call, 10, FLASH_BURST)
+    events, _ = _device_profile(lambda: [call() for _ in range(20)])
+    kernel_ms = sum(t for k, t in events if "fsq_head" in k) / 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        call()
+    host_us = 1e4 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return ms, burst, kernel_ms, host_us, h
+
+
+def fsq_head_of(root: str) -> None:
+    """``python3 chip_smoke.py --fsq-head-of DIR``: build the kernels of the
+    checkout at DIR and time its FSQ head as phase 8 times this one (the
+    flagship projection: seeded, C = 768, d = 4), to set a parent commit's
+    times beside this commit's within one call."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    sys.path.insert(0, os.path.abspath(root))
+    from mqgan_tpu_torch.ops import _cuda
+    from mqgan_tpu_torch.ops.fsq_kernels import fsq_head_constants
+    from mqgan_tpu_torch.quant.fsq import FSQSpec
+
+    if not _cuda.__file__.startswith(os.path.abspath(root)):
+        fail(f"mqgan_tpu_torch came from {_cuda.__file__}, not from {root}")
+    device = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    c, levels = 768, (8, 5, 5, 5)
+    w = (torch.randn((c, len(levels)), generator=gen) / c ** 0.5).to(device)
+    bias = torch.zeros(len(levels), device=device)
+    consts = torch.from_numpy(fsq_head_constants(FSQSpec(levels))).to(device)
+    ms, burst, kernel_ms, host_us, _ = fsq_head_times(device, w, bias, consts)
+    print(f"fsq_head of {root} N={BENCH_B * BENCH_T} C={c} bf16: {ms:.4f} ms single "
+          f"calls, bursts of 10 {burst:.4f} ms, the kernel alone {kernel_ms:.4f} ms, "
+          f"the host's wrapper {host_us:.1f} us a call [{card_line()}]")
 
 
 def lm_model(device, dtype, route: str, dropout: float = 0.0):
@@ -1482,34 +1646,32 @@ def _write_chunks(root, n: int, length: int, seed: int) -> str:
     return path
 
 
-def lm_trainer_cli(counters, device) -> dict:
+def lm_trainer_cli(counters, device, root) -> dict:
     """Phase 10b, the slice's main path: the trainer CLI (--arch transformer
     --flash_lm --bf16, flagship defaults) for one epoch over LM_CHUNKS chunks
     of 2047 tokens (input T = 2047): LM_CHUNKS - 2 train rows in steps of 8,
     2 val rows; 6 launches of each flash kernel per train step, 6 forward
-    launches per val step. Returns the launch counts."""
-    import tempfile
-
+    launches per val step. Its run dir, ``root``/run, is phase 12's
+    transformer. Returns the launch counts."""
     from mqgan_tpu_torch.train import lstm_trainer
 
     n_val = max(1, int(0.1 * LM_CHUNKS))
     steps = -(-(LM_CHUNKS - n_val) // 8)
     want = {"flash_fwd": 6 * (steps + 1), "flash_bwd_dq": 6 * steps,
             "flash_bwd_dkv": 6 * steps}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
-        mapping = _write_chunks(tmp, LM_CHUNKS, 2047, SEED + 14)
-        out = os.path.join(tmp, "run")
-        counters.reset()
-        t0 = time.perf_counter()
-        lstm_trainer.main([
-            "--chunks_dir", os.path.join(tmp, "chunks"), "--mapping_json", mapping,
-            "--vocab_size", str(LM["vocab_size"]), "--num_genres", str(LM["num_genres"]),
-            "--arch", "transformer", "--flash_lm", "--bf16", "--batch_size", "8",
-            "--epochs", "1", "--log_every", "1", "--out_dir", out, "--device", str(device)])
-        secs = time.perf_counter() - t0
-        launches = counters.snapshot()
-        with open(os.path.join(out, "best.json")) as f:
-            best = json.load(f)
+    mapping = _write_chunks(root, LM_CHUNKS, 2047, SEED + 14)
+    out = os.path.join(root, "run")
+    counters.reset()
+    t0 = time.perf_counter()
+    lstm_trainer.main([
+        "--chunks_dir", os.path.join(root, "chunks"), "--mapping_json", mapping,
+        "--vocab_size", str(LM["vocab_size"]), "--num_genres", str(LM["num_genres"]),
+        "--arch", "transformer", "--flash_lm", "--bf16", "--batch_size", "8",
+        "--epochs", "1", "--log_every", "1", "--out_dir", out, "--device", str(device)])
+    secs = time.perf_counter() - t0
+    launches = counters.snapshot()
+    with open(os.path.join(out, "best.json")) as f:
+        best = json.load(f)
     print(f"  trainer CLI: {steps} train + 1 val steps at B=8 L=2048 in {secs:.2f} s "
           f"(set-up included), val loss {best['val_loss']:.4f}; launches {launches} "
           f"(want {want})")
@@ -1679,6 +1841,328 @@ def flash_times(device, errs) -> list:
     return rows
 
 
+def lstm_run_dir(root) -> str:
+    """A run dir in the trainer's format (best.json naming a .pt
+    state_dict, the trainer's args) holding the flagship LSTM (the
+    trainer's defaults: emb 512, 2 layers of 1024) with seeded weights."""
+    import torch
+
+    from mqgan_tpu_torch.models.token_lm import build_token_lm
+    from mqgan_tpu_torch.train.lstm_trainer import parse_args
+    from mqgan_tpu_torch.utils.init import seeded_init_
+
+    out = os.path.join(root, "lstm_run")
+    os.makedirs(out)
+    args = vars(parse_args(["--vocab_size", str(LM["vocab_size"]), "--num_genres",
+                            str(LM["num_genres"]), "--arch", "lstm", "--out_dir", out]))
+    path = os.path.join(out, "model_seeded.pt")
+    torch.save(seeded_init_(build_token_lm(args), SEED + 21).state_dict(), path)
+    with open(os.path.join(out, "best.json"), "w") as f:
+        json.dump({"epoch": 0, "val_loss": None, "path": path, "args": args}, f)
+    return out
+
+
+def _serve_mask(device="cpu"):
+    """The served vocab mask: pad (0) and BOS (1) are never sampled."""
+    import torch
+
+    mask = torch.ones(LM["vocab_size"], dtype=torch.bool, device=device)
+    mask[:2] = False
+    return mask
+
+
+def _serve_rows(n: int, p: int, seed: int):
+    """n served rows: (genres, seeds, prompt (n, p), prompt lengths in
+    [0, p]), on the CPU."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randint(0, LM["num_genres"], (n,), generator=gen),
+            torch.arange(n) + 7919 * seed,
+            torch.randint(2, LM["vocab_size"], (n, p), generator=gen),
+            torch.randint(0, p + 1, (n,), generator=gen))
+
+
+def _served(model, rows, device, max_len, knobs=(1.0, 0, 0.0), **extra):
+    """The model's served sampler on ``rows`` (moved to ``device``), tokens
+    back on the CPU."""
+    from mqgan_tpu_torch.models.token_lm import served_sampler
+
+    genres, seeds, prompt, lens = (x.to(device) for x in rows)
+    return served_sampler(model)(model, genres, seeds, prompt, lens, *knobs,
+                                 _serve_mask(device), max_len=max_len, bos_id=1,
+                                 **extra).cpu()
+
+
+def compare_decode_logits(cpu, card, device) -> None:
+    """Phase 12a: the transformer's fp32 prefill (B=8, a 64-token prompt
+    bucket with per-row ends) and 16 step_rows calls on the card against the
+    same model on the CPU: every logit within 1e-4 * max(1, max|logit|)."""
+    import torch
+
+    from mqgan_tpu_torch.models.token_transformer import init_cache
+
+    b, p, steps = 8, 64, 16
+    genres, _, prompt, lens = _serve_rows(b, p, SEED + 30)
+    prefix = torch.cat([torch.ones((b, 1), dtype=torch.long), prompt], dim=1)
+    toks = torch.randint(2, LM["vocab_size"], (steps, b),
+                         generator=torch.Generator().manual_seed(SEED + 31))
+    out = {}
+    with torch.no_grad():
+        for label, model, dev in (("cpu", cpu, "cpu"), ("card", card, device)):
+            caches = init_cache(model, b, p + 1 + steps, torch.float32, dev)
+            logits, _ = model.prefill(prefix.to(dev), genres.to(dev), caches,
+                                      lens.to(dev))
+            got = [logits.cpu()]
+            for i in range(steps):
+                logits, _ = model.step_rows(toks[i].to(dev), genres.to(dev), caches,
+                                            (lens + 1 + i).to(dev))
+                got.append(logits.cpu())
+            out[label] = torch.stack(got)
+    err = float((out["card"] - out["cpu"]).abs().max())
+    limit = LOGIT_TOL * max(1.0, float(out["cpu"].abs().max()))
+    ok = err <= limit and bool(torch.isfinite(out["card"]).all())
+    print(f"  (a) fp32 prefill B={b} P={p} (prompt lengths {lens.tolist()}) + {steps} "
+          f"step_rows, card vs CPU: max|d logit| {err:.3e} (limit {limit:.3e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"decode logits card vs CPU: {err:.3e} > {limit:.3e}")
+
+
+def compare_key_chain(device) -> None:
+    """Phase 12c: the key chain's uniforms bit for bit on the CPU and the
+    card (seeds at the 32-bit edges, steps up to 2^20); the Gumbel-argmax
+    draws from the same logits are printed, not gated (log may round
+    differently)."""
+    import torch
+
+    from mqgan_tpu_torch.models.lm_sampling import KeyChain, row_seeds
+
+    seeds = torch.tensor([0, 1, 2**31 - 1, 2**31, 2**32 - 1, -5, 123456789, 42])
+    steps = torch.tensor([0, 1, 511, 7, 2**20, 3, 0, 99])
+    chains = {"cpu": KeyChain(row_seeds(seeds, 8), LM["vocab_size"]),
+              "card": KeyChain(row_seeds(seeds, 8, device), LM["vocab_size"])}
+    logits = torch.randn((8, LM["vocab_size"]),
+                         generator=torch.Generator().manual_seed(SEED + 32))
+    equal, draws = True, 0
+    for st in (0, 17, 511, steps):
+        card_st = st if isinstance(st, int) else st.to(device)
+        equal &= torch.equal(chains["cpu"].uniforms(st),
+                             chains["card"].uniforms(card_st).cpu())
+        draws += int((chains["cpu"].draw(logits, st)
+                      == chains["card"].draw(logits.to(device), card_st).cpu()).sum())
+    print(f"  (c) key chain uniforms, 8 rows x {LM['vocab_size']} ids x 4 steps: "
+          f"{'bit-equal' if equal else 'DIFFER'} on CPU and card; Gumbel-argmax draws "
+          f"equal {draws} of 32 {'ok' if equal else 'FAIL'}")
+    if not equal:
+        fail("key chain uniforms differ between the CPU and the card")
+
+
+def compare_greedy(name, cpu, card, device) -> None:
+    """Phase 12b: top_k = 1 served tokens (B=4, prompt lengths 0..16, 64
+    tokens) on the card against the CPU's. Streams may part at a logit
+    near-tie, so each card token is held, teacher-forced on the card's own
+    stream through the CPU model's forward, to be the CPU's argmax or within
+    2 * 1e-4 * max(1, max|logit|) of it; equal streams are counted."""
+    import torch
+
+    b, p, length = 4, 16, 64
+    rows = _serve_rows(b, p, SEED + 33)
+    genres, _, prompt, lens = rows
+    knobs = (1.0, 1, 0.0)
+    cpu_out = _served(cpu, rows, "cpu", length, knobs)
+    card_out = _served(card, rows, device, length, knobs)
+    equal = sum(torch.equal(cpu_out[i], card_out[i]) for i in range(b))
+    off_argmax, worst = 0, 0.0
+    mask = _serve_mask()
+    for i in range(b):
+        n = int(lens[i])
+        seq = torch.cat([torch.ones(1, dtype=torch.long), prompt[i, :n], card_out[i]])
+        with torch.no_grad():
+            logits = cpu(seq[None], genres[i:i + 1])[0, n:n + length].float()
+        logits = logits.masked_fill(~mask, float("-inf"))
+        top = logits.max(dim=-1).values
+        gap = top - logits.gather(-1, card_out[i][:, None])[:, 0]
+        off_argmax += int((gap > 0).sum())
+        worst = max(worst, float(gap.max()) / max(1.0, float(top.abs().max())))
+    ok = worst <= 2 * LOGIT_TOL
+    print(f"  (b) {name} top_k=1 served tokens, B={b} L={length}: {equal} of {b} "
+          f"streams equal the CPU's; teacher-forced, {off_argmax} card tokens are not "
+          f"the CPU's argmax, the largest gap {worst:.2e} of max(1, max|logit|) "
+          f"(near-tie limit {2 * LOGIT_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name} greedy tokens on the card leave the CPU's argmax by {worst:.2e}")
+
+
+def serve_lm_http(run, device, counters, card) -> None:
+    """Phase 12d: LMHTTPServer on localhost over the flagship transformer
+    run: 12 concurrent /generate requests (mixed genres, prompt lengths
+    0..200, n 1..4, length 512, two groups of sampling knobs), on shapes
+    not warmed up (the CPU tests cover the warm-up grid; on the card a
+    shape's first run compiles nothing); shapes, token range (pad and BOS
+    never drawn), mean batch size > 1, /healthz. The path runs none of the
+    hand-written kernels (JAX's decode attends through its plain
+    attention): the counts stay 0."""
+    import urllib.request
+    from io import BytesIO
+
+    from mqgan_tpu_torch.deploy.http_lm import LMHTTPServer, LMHTTPService
+
+    service = LMHTTPService(run, max_length=SERVE_L, prompt_grid=SERVE_PROMPT_GRID,
+                            max_delay_ms=500, device=device)
+    rng = np.random.default_rng(SEED + 34)
+    groups = (dict(temperature=1.0, top_k=0, top_p=0.9),
+              dict(temperature=0.8, top_k=50, top_p=0.0))
+    specs = []
+    for i, p_len in enumerate((0, 0, 17, 64, 130, 200, 0, 5, 33, 99, 150, 200)):
+        spec = dict(genre=i % LM["num_genres"], length=SERVE_L, n=1 + i % 4,
+                    seed=1000 + i, **groups[i // 6])
+        if p_len:
+            spec["prompt_tokens"] = rng.integers(2, LM["vocab_size"], p_len).tolist()
+        specs.append(spec)
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=300) as r:
+            return json.loads(r.read())
+
+    def post(url, spec):
+        req = urllib.request.Request(url + "/generate", data=json.dumps(spec).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return np.load(BytesIO(r.read()), allow_pickle=False)
+
+    counters.reset()
+    with LMHTTPServer(service) as srv:
+        health = get(srv.url + "/healthz")
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(specs)) as pool:
+            outs = list(pool.map(lambda spec: post(srv.url, spec), specs))
+        secs = time.perf_counter() - t0
+        stats = get(srv.url + "/statz")
+    launches = counters.snapshot()
+    rows = sum(spec["n"] for spec in specs)
+    ok_shapes = all(o.shape == (spec["n"], SERVE_L) and o.dtype == np.int32
+                    for o, spec in zip(outs, specs))
+    ok_range = all(int(o.min()) >= 2 and int(o.max()) < LM["vocab_size"] for o in outs)
+    ok = (ok_shapes and ok_range and health["ok"] and stats["mean_batch_size"] > 1
+          and launches == {})
+    print(f"  (d) HTTP: 12 concurrent requests, {rows} rows x {SERVE_L} tokens in "
+          f"{secs:.2f} s "
+          f"({rows * SERVE_L / secs:.1f} tokens/s); shapes {'ok' if ok_shapes else 'BAD'}, "
+          f"tokens in [2, {LM['vocab_size']}) {'ok' if ok_range else 'BAD'}; /healthz "
+          f"{health['ok']} ({health['arch']}, {health['device']}); /statz {stats}; kernel "
+          f"launches {launches} {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        fail("LM HTTP serving: bad responses, no coalescing or kernel launches")
+
+
+def served_determinism(name, model, device, **extra) -> int:
+    """Phase 12e: at an equal dispatch width (8), a row's tokens do not
+    depend on its batch position or its neighbours (gated: equal); a row
+    served alone (width 1) against the same row coalesced (width 8) is
+    printed: rows that differ and the first step where each does (cuBLAS
+    may pick another GEMM for another M). Returns the rows that differ."""
+    import torch
+
+    p, length = 64, 64
+    knobs = (1.0, 0, 0.95)
+    rows = _serve_rows(8, p, SEED + 35)
+    others = _serve_rows(4, p, SEED + 36)
+    base = _served(model, rows, device, length, knobs, **extra)
+    perm = [5, 2, 7, 0, 3, 6, 1, 4]
+    permuted = _served(model, [x[perm] for x in rows], device, length, knobs, **extra)
+    mixed = _served(model, [torch.cat([o, x[:4]]) for o, x in zip(others, rows)],
+                    device, length, knobs, **extra)
+    ok = torch.equal(permuted, base[perm]) and torch.equal(mixed[4:], base[:4])
+    diverged = []
+    for i in range(8):
+        solo = _served(model, [x[i:i + 1] for x in rows], device, length, knobs, **extra)
+        if not torch.equal(solo[0], base[i]):
+            diverged.append((i, int((solo[0] != base[i]).nonzero()[0])))
+    print(f"  (e) {name}: width 8, rows permuted and among other neighbours: "
+          f"{'equal' if ok else 'DIFFER'} {'ok' if ok else 'FAIL'}; solo (width 1) vs "
+          f"coalesced (width 8), L={length}: {len(diverged)} of 8 rows differ"
+          f"{'' if not diverged else ' (row, first step): ' + str(diverged)}")
+    if not ok:
+        fail(f"{name}: served rows depend on their batch position or neighbours")
+    return len(diverged)
+
+
+def decode_throughput(name, model, device, card, **extra) -> None:
+    """Phase 12f: one served dispatch at B=64, prompt 0, L=512 after an
+    L=32 warm-up: ms per decode step (a token for each of the 64 rows),
+    tokens/s, and the device's idle share: the profiler's device busy time
+    of an L=32 dispatch against the same dispatch unprofiled (a longer one
+    costs the profiler minutes: ~470 launches a step)."""
+    import torch
+
+    rows = (torch.arange(SERVE_B) % LM["num_genres"], torch.arange(SERVE_B),
+            torch.zeros((SERVE_B, 1), dtype=torch.long),
+            torch.zeros(SERVE_B, dtype=torch.long))
+    short = 32
+    _served(model, rows, device, short, **extra)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = _served(model, rows, device, SERVE_L, **extra)
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _served(model, rows, device, short, **extra)
+    short_ms = 1e3 * (time.perf_counter() - t0)
+    events, _ = _device_profile(lambda: _served(model, rows, device, short, **extra))
+    ok = (tuple(out.shape) == (SERVE_B, SERVE_L) and int(out.min()) >= 2
+          and int(out.max()) < LM["vocab_size"])
+    print(f"  (f) {name} decode B={SERVE_B} prompt 0 L={SERVE_L}: {secs:.3f} s, "
+          f"{1e3 * secs / SERVE_L:.3f} ms/token, {SERVE_B * SERVE_L / secs:.1f} tokens/s "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    _report_profile(f"{name} L={short}", events, short_ms, top=4,
+                    note="busy from the profiler, wall of the same dispatch unprofiled")
+    if not ok:
+        fail(f"{name} decode: bad output {tuple(out.shape)}")
+
+
+def lm_serving(tf_run, lstm_run, device, counters, card) -> None:
+    """Phase 12: token-LM serving at the flagship widths (the transformer of
+    phase 10b's run, the seeded LSTM), on the card."""
+    import torch
+
+    from mqgan_tpu_torch.deploy.export_lm import load_lm_from_run
+
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        seconds[part] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    tf_card, _ = load_lm_from_run(tf_run, device)
+    tf_cpu, _ = load_lm_from_run(tf_run, "cpu")
+    lstm_card, _ = load_lm_from_run(lstm_run, device)
+    lstm_cpu, _ = load_lm_from_run(lstm_run, "cpu")
+    lap("load")
+    compare_decode_logits(tf_cpu, tf_card, device)
+    lap("a")
+    compare_greedy("transformer", tf_cpu, tf_card, device)
+    compare_greedy("lstm", lstm_cpu, lstm_card, device)
+    lap("b")
+    compare_key_chain(device)
+    del tf_cpu, lstm_cpu
+    lap("c")
+    serve_lm_http(tf_run, device, counters, card)
+    lap("d")
+    diverged = [served_determinism("transformer fp32 KV", tf_card, device),
+                served_determinism("transformer bf16 KV", tf_card, device,
+                                   kv_dtype=torch.bfloat16),
+                served_determinism("lstm", lstm_card, device)]
+    print(f"  solo vs coalesced: {sum(diverged)} of 24 rows differ {diverged}")
+    lap("e")
+    decode_throughput("transformer fp32 KV", tf_card, device, card)
+    decode_throughput("transformer bf16 KV", tf_card, device, card,
+                      kv_dtype=torch.bfloat16)
+    decode_throughput("lstm", lstm_card, device, card)
+    lap("f")
+    print(f"  phase 12 seconds by part: {seconds}")
+
+
 def main() -> None:
     import torch
 
@@ -1691,6 +2175,10 @@ def main() -> None:
         fail(f"run from the root of a checkout of the repo ({e})")
     torch.set_grad_enabled(False)
     t_start = time.perf_counter()
+
+    def at() -> str:
+        return f"(at {time.perf_counter() - t_start:.0f} s)"
+
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     card = card_line()
@@ -1711,7 +2199,7 @@ def main() -> None:
     model = build_model(device, torch.bfloat16)
     state = {k: v.cpu() for k, v in model.state_dict().items()}
     print(f"[3] kernels vs plain versions, B={CMP_B} T={CMP_T} "
-          f"lengths {CMP_LENGTHS}")
+          f"lengths {CMP_LENGTHS} {at()}")
     errs = compare_kernels(model, device, CMP_B, CMP_T, CMP_LENGTHS,
                            (torch.float32, torch.bfloat16))
     music = build_model(device, torch.bfloat16, music=True)
@@ -1719,23 +2207,25 @@ def main() -> None:
                                        (torch.float32, torch.bfloat16),
                                        tag="hifimusic ").items():
         errs[kernel] = max(errs[kernel], err)
+    errs["fsq_head"] = max(errs["fsq_head"], compare_fsq_head(model, device),
+                           compare_fsq_head(music, device, tag="hifimusic "))
     errs["mel_mixer_poly"] = max(
         compare_poly(model, device, CMP_B, CMP_T, CMP_LENGTHS, main_path=True),
         compare_poly(music, device, CMP_B, CMP_T, CMP_LENGTHS, tag="hifimusic "))
     del music
     errs["residual_block"] = max(errs["residual_block"], compare_ragged_blocks(device))
-    print(f"[3c] FSQ tokens through the pre mixer's kernel, B={BENCH_B} T={BENCH_T}")
+    print(f"[3c] FSQ tokens through the pre mixer's kernel, B={BENCH_B} T={BENCH_T} {at()}")
     compare_pre_mixer_tokens(state, device)
-    errs["log_mel"] = compare_log_mel(device)
+    errs["log_mel"], dft_launches = compare_log_mel(device)
     compare_round_trip(state, device)
 
     counters = _cuda.COUNTERS
-    print("[4] serving (bf16, exact mixers)")
+    print(f"[4] serving (bf16, exact mixers) {at()}")
     launches = serve(model, device, counters)
     per_batch = {"residual_block": 6, "fsq_head": 1, "mel_mixer": 2}
 
     print(f"[5] round-trip throughput, B={BENCH_B} T={BENCH_T} bf16 "
-          f"[{card}]")
+          f"[{card}] {at()}")
     torch.cuda.reset_peak_memory_stats()
     exact, _ = throughput(model, device, counters, per_batch)
     poly = build_model(device, torch.bfloat16, poly_mixers="decode", state=state)
@@ -1754,40 +2244,48 @@ def main() -> None:
     profile_round_trip(poly, device, "poly-decode")
     del poly
 
-    print("[6] convert on the card (hifispeech spec)")
+    print(f"[6] convert on the card (hifispeech spec) {at()}")
     convert_on_card(counters)
 
     print(f"[7] audio round trip, {AUDIO_B} clips x {AUDIO_SAMPLES} samples, "
-          f"codec bf16 exact mixers, ISTFTNetGenerator() bf16 [{card}]")
+          f"codec bf16 exact mixers, ISTFTNetGenerator() bf16 [{card}] {at()}")
     torch.cuda.reset_peak_memory_stats()
-    launches.update(log_mel=audio_round_trip(model, device, counters, card)["log_mel"])
+    launches.update(log_mel=audio_round_trip(model, device, counters, card)["log_mel"],
+                    log_mel_dft=dft_launches)
 
-    print(f"[8] kernel times at B={BENCH_B} T={BENCH_T} [{card}]")
+    print(f"[8] kernel times at B={BENCH_B} T={BENCH_T} [{card}] {at()}")
     rows = kernel_times(model, device)
     del model
     torch.cuda.empty_cache()
 
     print(f"[9] flash-attention kernels vs plain versions, T {FLASH_TS}, "
-          f"D {FLASH_DS}, B=2 H=4")
+          f"D {FLASH_DS}, B=2 H=4 {at()}")
     errs.update(compare_flash(device))
     print("[9b] flash backward run twice: bit-identical dq, dk, dv")
     check_flash_determinism(device)
-    with torch.enable_grad():
-        print("[10] token-LM training slice (MusicTransformer flagship width)")
-        compare_lm_step(device)
-        launches.update(lm_trainer_cli(counters, device))
-        print(f"[10c] training throughput, bf16 [{card}]")
-        lm_throughput(device, counters, card)
-        print(f"[10e] --arch lstm [{card}]")
-        lstm_step(device, card)
-    print(f"[11] flash kernel times at the flagship layer call [{card}]")
-    rows += flash_times(device, errs)
+    lm_root = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    try:
+        with torch.enable_grad():
+            print(f"[10] token-LM training slice (MusicTransformer flagship width) {at()}")
+            compare_lm_step(device)
+            launches.update(lm_trainer_cli(counters, device, lm_root))
+            print(f"[10c] training throughput, bf16 [{card}] {at()}")
+            lm_throughput(device, counters, card)
+            print(f"[10e] --arch lstm [{card}]")
+            lstm_step(device, card)
+        print(f"[11] flash kernel times at the flagship layer call [{card}] {at()}")
+        rows += flash_times(device, errs)
+        print(f"[12] token-LM serving, flagship widths [{card}] {at()}")
+        lm_serving(os.path.join(lm_root, "run"), lstm_run_dir(lm_root), device,
+                   counters, card)
+    finally:
+        shutil.rmtree(lm_root, ignore_errors=True)
     kernels = []
     for row in rows:
         kernels.append({
             "name": row.name, "route": "cuda", "source": row.source,
             "replaces": row.replaces, "launches": launches.get(row.name, 0),
-            "max_abs_err": max(errs[row.name], row.max_abs_err),
+            "max_abs_err": max(errs.get(row.name, 0.0), row.max_abs_err),
             "ms": row.ms, "plain_ms": row.plain_ms, "bound_ms": row.bound_ms,
             "bound_by": row.bound_by, "library_ms": row.library_ms,
         })
@@ -1799,4 +2297,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--fsq-head-of":
+        fsq_head_of(sys.argv[2])
+    else:
+        main()

@@ -42,6 +42,10 @@ class ServerStats:
     batches: int = 0
     rows: int = 0
     latencies_ms: deque = field(default_factory=lambda: deque(maxlen=4096))
+    # the cold/warm split, for servers that know a request rode a dispatch
+    # shape's first run (deploy/http_lm.py)
+    cold_latencies_ms: deque = field(default_factory=lambda: deque(maxlen=1024))
+    warm_latencies_ms: deque = field(default_factory=lambda: deque(maxlen=4096))
 
     @staticmethod
     def _pct(lat, p):
@@ -49,7 +53,7 @@ class ServerStats:
 
     def summary(self) -> dict:
         lat = sorted(self.latencies_ms)
-        return {
+        out = {
             "requests": self.requests,
             "rejected": self.rejected,
             "queued": self.queued,
@@ -58,6 +62,17 @@ class ServerStats:
             "p50_latency_ms": round(self._pct(lat, 0.50), 2),
             "p95_latency_ms": round(self._pct(lat, 0.95), 2),
         }
+        if self.cold_latencies_ms or self.warm_latencies_ms:
+            cold = sorted(self.cold_latencies_ms)
+            warm = sorted(self.warm_latencies_ms)
+            out.update({
+                "cold_requests": len(cold),
+                "warm_requests": len(warm),
+                "p50_warm_latency_ms": round(self._pct(warm, 0.50), 2),
+                "p95_warm_latency_ms": round(self._pct(warm, 0.95), 2),
+                "p95_cold_latency_ms": round(self._pct(cold, 0.95), 2),
+            })
+        return out
 
 
 class CodecServer:

@@ -7,6 +7,10 @@ recurrence (one (B, L, E) @ (E, 4H) product for the whole sequence; the loop
 over time keeps only h @ W_h), dropout, vocab projection. Right-padded
 batches need no packing: padded steps are excluded from the loss.
 
+``MusicLSTM.step`` is one step of the recurrence for decoding (the
+counterpart of ``mqgan_tpu/models/lm_sampling.py`` ``_step_logits``: flax's
+``OptimizedLSTMCell`` on the same weights, zero initial carries).
+
 Parameter names are the JAX tree's: ``lstm_{i}`` layers whose gate Denses
 are ``ii/ig/if/io`` (input kernels, no bias) and ``hi/hg/hf/ho`` (hidden
 kernels with the biases), gate order i, g, f, o, so ``utils/params.py``
@@ -39,23 +43,41 @@ class HoistedLSTMLayer(nn.Module):
         for g in GATES:
             self.add_module(f"h{g}", Dense(features, features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, L, E) -> (B, L, H)
-        cdt = self.dtype or x.dtype
+    def gate_weights(self, cdt):
+        """(W_in (E, 4H), W_hid (H, 4H), bias (4H,)) in gate order i, g, f, o."""
         mods = self._modules
         w_in = torch.cat([mods[f"i{g}"].weight.t() for g in GATES], dim=1).to(cdt)
         w_hid = torch.cat([mods[f"h{g}"].weight.t() for g in GATES], dim=1).to(cdt)
         bias = torch.cat([mods[f"h{g}"].bias for g in GATES]).to(cdt)
+        return w_in, w_hid, bias
+
+    @staticmethod
+    def _cell(z: torch.Tensor, c: torch.Tensor):
+        zi, zg, zf, zo = z.chunk(4, dim=-1)
+        c = torch.sigmoid(zf) * c + torch.sigmoid(zi) * torch.tanh(zg)
+        return c, torch.sigmoid(zo) * torch.tanh(c)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, L, E) -> (B, L, H)
+        cdt = self.dtype or x.dtype
+        w_in, w_hid, bias = self.gate_weights(cdt)
         zx = x.to(cdt) @ w_in + bias  # (B, L, 4H), the whole sequence at once
         b = x.shape[0]
         c = torch.zeros((b, self.features), dtype=cdt, device=x.device)
         h = torch.zeros_like(c)
         ys = []
         for t in range(x.shape[1]):
-            zi, zg, zf, zo = torch.addmm(zx[:, t], h, w_hid).chunk(4, dim=-1)
-            c = torch.sigmoid(zf) * c + torch.sigmoid(zi) * torch.tanh(zg)
-            h = torch.sigmoid(zo) * torch.tanh(c)
+            c, h = self._cell(torch.addmm(zx[:, t], h, w_hid), c)
             ys.append(h)
         return torch.stack(ys, dim=1)
+
+    @staticmethod
+    def step(x: torch.Tensor, carry, weights):
+        """One step: x (B, E), carry (c, h), ``weights`` = gate_weights(...)
+        -> (carry, h)."""
+        w_in, w_hid, bias = weights
+        c, h = carry
+        c, h = HoistedLSTMLayer._cell(x @ w_in + h @ w_hid + bias, c)
+        return (c, h), h
 
 
 class MusicLSTM(nn.Module):
@@ -94,6 +116,38 @@ class MusicLSTM(nn.Module):
             seed = int(torch.randint(0, 2**62, (1,), generator=generator))
             gen = torch.Generator(device=x.device).manual_seed(seed)
         return self.proj(dropout(x, self.dropout, gen))
+
+    def zero_carries(self, batch: int, device=None) -> list:
+        """The initial (c, h) of every layer: zeros, fp32."""
+        z = torch.zeros((batch, self.lstm_hid), device=device)
+        return [(z, z) for _ in range(self.lstm_layers)]
+
+    def genre_vectors(self, genre_ids: torch.Tensor) -> torch.Tensor:
+        """(B,) genre ids -> (B, E) fp32 genre embeddings."""
+        return self.genre_emb.weight[genre_ids].float()
+
+    def step_weights(self) -> tuple:
+        """The fp32 weights ``step`` reads, gathered once per decode: each
+        layer's (W_in, W_hid, bias) and the projection's (W (H, V), b)."""
+        layers = [self._modules[f"lstm_{i}"].gate_weights(torch.float32)
+                  for i in range(self.lstm_layers)]
+        return layers, (self.proj.weight.t().float(), self.proj.bias.float())
+
+    def step(self, carries: list, token: torch.Tensor, genre_vec: torch.Tensor,
+             weights: tuple | None = None):
+        """One decode step in fp32, whatever the compute dtype (the JAX
+        sampler steps flax cells on the fp32 weights): token (B,) ->
+        (carries, logits (B, V)). ``weights``: ``step_weights()``, made
+        here when not given."""
+        layers, (w_out, b_out) = weights or self.step_weights()
+        x = self.tok_emb.weight[token].float()
+        x = torch.where((token == self.pad_id)[:, None], torch.zeros_like(x), x)
+        x = x + genre_vec
+        new = []
+        for carry, w in zip(carries, layers):
+            carry, x = HoistedLSTMLayer.step(x, carry, w)
+            new.append(carry)
+        return new, x @ w_out + b_out
 
 
 def masked_ce_loss(logits: torch.Tensor, targets: torch.Tensor,

@@ -53,6 +53,17 @@ def lm_arch(model) -> str:
     raise ValueError(f"not a token LM: {type(model).__name__}")
 
 
+def served_sampler(model):
+    """The per-row served sampler of a model's arch: both take (model,
+    genre_ids, seeds, prompt, prompt_lens, temperature, top_k, top_p,
+    vocab_mask, *, max_len, bos_id)."""
+    from mqgan_tpu_torch.models import lm_sampling
+
+    return (lm_sampling.generate_tokens_transformer_served
+            if lm_arch(model) == "transformer"
+            else lm_sampling.generate_tokens_served)
+
+
 def arch_config(model) -> dict:
     """The arch-specific hyperparameters that rebuild the model with
     ``build_token_lm``."""

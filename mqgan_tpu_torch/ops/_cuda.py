@@ -187,8 +187,11 @@ def launch(name: str, device: torch.device, *args) -> None:
     """Call one C entry point on ``device`` and PyTorch's current stream
     there; raise on a CUDA error."""
     fn = getattr(LIBRARY.load(), name)
-    with torch.cuda.device(device):
+    if device.index is None or device.index == torch.cuda.current_device():
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:  # the C entry launches on the current device
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

@@ -23,8 +23,9 @@ import torch
 from mqgan_tpu_torch.ops import _cuda
 from mqgan_tpu_torch.quant.fsq import FSQSpec, bound_constants
 
-MAX_D = 8  # the kernel keeps one accumulator per code dim in registers
-MAX_SMEM_FLOATS = 10240  # W in shared memory: C * d fp32 values
+MAX_D = 8  # the kernel keeps its accumulators per code dim in registers
+# W in shared memory: C * 4 * ceil(d / 4) fp32 values (d padded to float4s)
+MAX_SMEM_FLOATS = 40960
 
 
 def fsq_head_constants(spec: FSQSpec) -> np.ndarray:
@@ -57,9 +58,11 @@ def fsq_encode_head(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     _cuda.check(w, "w", dtype=torch.float32, shape=(c, d), device=dev)
     _cuda.check(b, "b", dtype=torch.float32, shape=(d,), device=dev)
     _cuda.check(consts, "consts", dtype=torch.float32, shape=(5, d), device=dev)
-    if d > MAX_D or c * d > MAX_SMEM_FLOATS:
-        raise ValueError(f"fsq_encode_head: d={d} (max {MAX_D}) and C*d="
-                         f"{c * d} (max {MAX_SMEM_FLOATS}) exceed the kernel")
+    smem_floats = c * 4 * -(-d // 4)
+    if not 1 <= d <= MAX_D or smem_floats > MAX_SMEM_FLOATS:
+        raise ValueError(f"fsq_encode_head: d={d} (1..{MAX_D}) and W's "
+                         f"{smem_floats} shared-memory floats (max "
+                         f"{MAX_SMEM_FLOATS}) exceed the kernel")
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return idx

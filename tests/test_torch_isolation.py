@@ -1,6 +1,7 @@
 """PyTorch port: the package imports no JAX, no flax and nothing of the JAX
 package, and its entry points never fall back to the CPU by themselves."""
 
+import ast
 import json
 import os
 import subprocess
@@ -59,7 +60,8 @@ def test_port_imports_nothing_of_jax_and_does_not_fall_back():
                  "models.istft_vocoder", "ops.flash_attention",
                  "models.token_transformer", "models.music_lstm",
                  "models.token_lm", "train.lstm_trainer", "utils.logging",
-                 "utils.npy", "nn.layers"):
+                 "utils.npy", "nn.layers", "models.lm_sampling",
+                 "deploy.http_lm", "deploy.http_server", "deploy.export_lm"):
         assert f"mqgan_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     assert result["trainer_device"] == "cuda"
@@ -70,3 +72,21 @@ def test_port_imports_nothing_of_jax_and_does_not_fall_back():
         assert "CUDA is not available" in result["default_device_error"]
         assert "CUDA is not available" in result["mel_device_error"]
         assert "CUDA is not available" in result["trainer_device_error"]
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """Every import statement of chip_smoke.py, at any depth (it imports
+    the port inside its functions), names no JAX module and nothing of the
+    JAX package."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "mqgan_tpu_torch.ops" in names  # it does import the port
+    bad = [n for n in names
+           if n.split(".")[0] in ("jax", "jaxlib", "flax", "mqgan_tpu")]
+    assert bad == []

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's codec serving path, its audio path, its
-token-LM training path and its token-LM serving path on one NVIDIA GPU
-(H100).
+token-LM training path, its token-LM serving path and its codec deployment
+path on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --fsq-head-of DIR   # time another checkout's FSQ head
@@ -139,7 +139,35 @@ printing no result, without one. Phases (any failure exits non-zero):
     rows coalesced are printed, with the first step where each does (fp32
     and bf16 KV, LSTM); (f) decode at B=64, prompt 0, L=512: ms/token,
     tokens/s and the device's idle share at L=32 (fp32 KV, bf16 KV, LSTM);
-13. print {"ok": true, "device": {...}} as the last line.
+13. codec deployment at flagship width, seeded weights. First its kernels
+    against their plain versions at the path's own shapes, fp32 and bf16 at
+    phase 3's gates: B=1 T=1024 (a streaming span, full and a short last
+    one) and B=7 T=1024 with ragged lengths (a server or re-encode batch at
+    the largest bucket): the six blocks, both exact mixers, the FSQ head,
+    and the Chebyshev kernel on the post mixer and on the pre mixer (poly
+    "encode"/True). Then the path (counts reset just before, read just
+    after; residual_block, mel_mixer, mel_mixer_poly and fsq_head must
+    launch, log-mel and flash must not): (a) three exports
+    through the export CLI at buckets 128/256/512/1024 (bf16 poly-decode,
+    the CLI default; fp32 exact and fp32 poly both, re-exported from the
+    first's manifest and weights.pt), each verified and reloaded with
+    ExportedPreEncoder(dir) on the card; the fp32 artifact's round trip
+    equals the in-memory model (tokens away from midpoints, mel within
+    1e-4 * max(1, max|x|)); the flips of poly both are counted; (b) the
+    re-encode CLI over 16 mels of 100-3000 frames (two chunked) through
+    the fp32 and the bf16 artifacts with mel-frames/s: files within one
+    bucket give a direct encode's tokens, the chunked files' dumped tokens
+    decoded through the chunk plan equal one full-length decode; (c)
+    token_stats on the dump; (d) StreamingDecoder (2,000 tokens in chunks
+    of 37, window 1024) equal to the offline decode, StreamingEncoder
+    equal to an offline pass over its windows, ms per B=1 span and a
+    profile of one; (e) StreamingHTTPServer on localhost: 12 concurrent
+    CodecClient clips and 2 duplex streams equal to direct runtime calls,
+    each op's mean batch size > 1. After the counts are read, one B=2
+    window of the bf16 poly-decode artifact against a CPU copy of its model
+    (the plain versions): the encoder trunk and the decode at the bf16 gate
+    (rel-L2 <= 2e-2), token flips counted;
+14. print {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -558,10 +586,11 @@ def compare_fsq_head(model, device, tag="") -> float:
     return float(worst)
 
 
-def compare_poly(model, device, b, t, lengths, tag="", main_path=False) -> float:
+def compare_poly(model, device, b, t, lengths, tag="", main_path=False,
+                 mixer="post") -> float:
     """Phase 3: the Chebyshev kernels (the conv and min/max, the fit, the
     Clenshaw pass) against the plain
-    poly_mixer_plain on the post mixer, fp32 (TF32 off) and bf16: ragged
+    poly_mixer_plain on the post mixer (or ``mixer``), fp32 (TF32 off) and bf16: ragged
     lengths, and a plane whose masked values are all equal (x = 0, every
     frame valid: half clamps to 1e-6); with ``main_path`` also ragged
     lengths at the main path's B=64 T=512 (BENCH_LENGTHS: a min/max over 64
@@ -575,7 +604,7 @@ def compare_poly(model, device, b, t, lengths, tag="", main_path=False) -> float
 
     gen = torch.Generator().manual_seed(SEED + 18)
     c = model.proj.weight.shape[0]
-    wts = model.post.kernel_weights()
+    wts = getattr(model, mixer).kernel_weights()
     # the seeded biases are 0, where g(0) = 0 and a plane of zeros would hold
     # rounding noise against rounding noise: the equal plane takes s = 0.37
     equal_wts = wts._replace(consts=torch.cat([torch.full_like(wts.consts[:1], 0.37),
@@ -603,12 +632,12 @@ def compare_poly(model, device, b, t, lengths, tag="", main_path=False) -> float
             ok = ok and pads_exact and launches == {"mel_mixer_poly": 1}
             if dtype != torch.float32:
                 worst = max(worst, max_abs)
-            print(f"  {'mel_mixer_poly':15s} {tag}post {case} {str(dtype)[6:]:8s} "
+            print(f"  {'mel_mixer_poly':15s} {tag}{mixer} {case} {str(dtype)[6:]:8s} "
                   f"{detail.strip()}, max|k-p| {max_abs:.3e}, pads "
                   f"{'== b2' if pads_exact else 'NOT b2'}, launches {launches} "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                fail(f"mel_mixer_poly {tag}{case} {dtype}: {detail}, pads exact "
+                fail(f"mel_mixer_poly {tag}{mixer} {case} {dtype}: {detail}, pads exact "
                      f"{pads_exact}, launches {launches}")
     return worst
 
@@ -2163,6 +2192,514 @@ def lm_serving(tf_run, lstm_run, device, counters, card) -> None:
     print(f"  phase 12 seconds by part: {seconds}")
 
 
+# phase 13, codec deployment: the export buckets, the re-encoded directory
+# (14 clips within the largest bucket, in batches of 7, then 2 chunked
+# ones), the streaming chunk and the HTTP traffic
+DEPLOY_BUCKETS = (128, 256, 512, 1024)
+REENCODE_LENGTHS = (100, 177, 256, 300, 384, 450, 512, 600, 700, 777, 900,
+                    1000, 1023, 1024, 2000, 3000)
+REENCODE_BATCH = 7
+# phase 13a's round trip through the artifact: a clip between two buckets
+ROUND_T = 700
+# the generator config written for the export CLI: {} is GeneratorConfig(),
+# the flagship
+DEPLOY_GENERATOR: dict = {}
+STREAM_T, STREAM_CHUNK = 2000, 37
+# phase 13's kernel checks at the path's own shapes (B, T, lengths): a
+# streaming span (the largest bucket is the window), full and a stream's
+# short last one, and a batch of REENCODE_BATCH at that bucket, ragged
+DEPLOY_CMP = ((1, DEPLOY_BUCKETS[-1], (DEPLOY_BUCKETS[-1],)),
+              (1, DEPLOY_BUCKETS[-1], (333,)),
+              (REENCODE_BATCH, DEPLOY_BUCKETS[-1], (1024, 1000, 777, 600, 384, 129, 1)))
+# (encode, decode, reencode) * 4: each op has two or more clips of a bucket
+HTTP_LENGTHS = (100, 130, 400, 120, 200, 450, 700, 256, 512, 900, 300, 1000)
+
+
+def _deploy_tol(want) -> float:
+    """The phase's fp32 mel gate: 1e-4 * max(1, max|x|)."""
+    return 1e-4 * max(1.0, float(np.abs(want).max()))
+
+
+def _near_midpoints(model, x, lengths):
+    """(B, T) bool: a token of mel x (B, T, mel) whose fp32 pre-round value
+    lies within 1e-4 of a rounding midpoint (model: the fp32 in-memory
+    generator), under the runtime's own padding."""
+    import torch
+
+    x = torch.from_numpy(np.ascontiguousarray(x)).to(model.fsq_consts.device)
+    lengths = torch.as_tensor(np.asarray(lengths), device=x.device)
+    pad = torch.arange(x.shape[1], device=x.device)[None, :] >= lengths[:, None]
+    h = model._encode_trunk(x, pad)
+    near = _fsq_near_midpoint(h.reshape(-1, h.shape[-1]), model.q_in_proj.weight.t(),
+                              model.q_in_proj.bias, model.fsq_consts)
+    return near.reshape(h.shape[:2]).cpu().numpy()
+
+
+def _check_tokens(label, got, want, near) -> int:
+    """Fail unless got == want wherever near is False; returns the flips."""
+    flips = got != want
+    if (flips & ~near).any():
+        fail(f"{label}: {int((flips & ~near).sum())} tokens differ away from a "
+             f"midpoint")
+    return int(flips.sum())
+
+
+def _padded_decode(model, tokens):
+    """One full-length fp32 decode of (T,) tokens, with the masked tail of
+    32 frames every window also has (the padded convention)."""
+    import torch
+
+    t = len(tokens)
+    idx = np.zeros((1, t + 32), np.int32)
+    idx[0, :t] = tokens
+    pad = torch.from_numpy(np.arange(t + 32)[None, :] >= t)
+    dev = model.fsq_consts.device
+    return model.decode(torch.from_numpy(idx).to(dev), pad.to(dev))[0, :t].float().cpu().numpy()
+
+
+def _stream(stream, data, chunk):
+    outs = [stream.feed(data[i:i + chunk]) for i in range(0, len(data), chunk)]
+    outs.append(stream.flush())
+    return np.concatenate(outs, axis=0)
+
+
+def _stream_windows(t, window, halo):
+    """The encoder stream's windows (start, stop, keep_lo, keep_hi):
+    [k * stride, k * stride + window), stride = window - 2 * halo, kept from
+    halo past the start (0 for the first) to halo before the end, the last
+    to the clip end."""
+    spans, emitted = [], 0
+    while emitted < t:
+        ws = max(0, emitted - halo)
+        we = min(t, ws + window)
+        up = t if we == t else we - halo
+        spans.append((ws, we, emitted, up))
+        emitted = up
+    return spans
+
+
+def _windowed_encode(rt, model, mel, spans):
+    """An offline encode over spans (each padded to the largest bucket):
+    (tokens, near-midpoint flags)."""
+    window = rt.buckets[-1]
+    out = np.zeros(len(mel), np.int32)
+    near = np.zeros(len(mel), bool)
+    for ws, we, lo, hi in spans:
+        x = np.zeros((1, window, MELS), np.float32)
+        x[0, :we - ws] = mel[ws:we]
+        out[lo:hi] = rt.encode(x, [we - ws])[0, lo - ws:hi - ws]
+        near[lo:hi] = _near_midpoints(model, x, [we - ws])[0, lo - ws:hi - ws]
+    return out, near
+
+
+class _SpanTimer:
+    """Wraps a streamer's window fn: counts the spans and their host-clock
+    time (the runtime returns numpy, so each span ends synchronised)."""
+
+    def __init__(self, fn):
+        self.fn, self.n, self.seconds = fn, 0, 0.0
+
+    def __call__(self, x, mask):
+        t0 = time.perf_counter()
+        out = self.fn(x, mask)
+        self.seconds += time.perf_counter() - t0
+        self.n += 1
+        return out
+
+    def ms(self) -> float:
+        return 1e3 * self.seconds / max(1, self.n)
+
+
+def deploy_export(root, state, fp32) -> dict:
+    """Phase 13a: three exports through the CLI (bf16 with the default
+    poly-decode mixers; fp32 exact and fp32 with both mixers Chebyshev, both
+    re-exported from the first artifact's manifest and weights), each
+    verified and reloaded on the card; the fp32 artifact's round trip
+    against the in-memory model."""
+    import torch
+
+    from mqgan_tpu_torch.deploy import export
+    from mqgan_tpu_torch.deploy.runtime import ExportedPreEncoder
+
+    cfg = os.path.join(root, "flagship.json")
+    with open(cfg, "w") as f:
+        json.dump({"model": {"mel_channels": MELS, "generator": DEPLOY_GENERATOR}}, f)
+    buckets = [str(b) for b in DEPLOY_BUCKETS]
+    dirs = {"bf16": os.path.join(root, "exp_bf16")}
+    export.main(["--config", cfg, "--seed", str(SEED), "--output", dirs["bf16"],
+                 "--bf16", "--buckets", *buckets])
+    weights = os.path.join(dirs["bf16"], "weights.pt")
+    for name, flags in (("fp32", ["--exact_mixers"]), ("both", ["--poly_mixers"])):
+        dirs[name] = os.path.join(root, f"exp_{name}")
+        export.main(["--manifest", dirs["bf16"], "--checkpoint", weights,
+                     "--output", dirs[name], "--buckets", *buckets, *flags])
+    saved = torch.load(weights, weights_only=True)
+    if set(saved) != set(state) or not all(torch.equal(saved[k], state[k]) for k in state):
+        fail("the exported weights are not the seeded flagship generator's")
+    rts = {}
+    for name, d in dirs.items():
+        export.verify_export(d)
+        rts[name] = ExportedPreEncoder(d)
+        m = rts[name].manifest
+        print(f"  export {name}: dtype {m['dtype']}, poly_mixers {m['poly_mixers']}, "
+              f"buckets {m['buckets']}, halos {m['halos']}, decoder_halos "
+              f"{m['decoder_halos']}, encoder_halo {m['encoder_halo']}, align "
+              f"{m['halo_align']}, device {rts[name].device}")
+    if rts["bf16"].device.type != "cuda":
+        fail("ExportedPreEncoder(dir) did not default to the card")
+
+    rng = np.random.default_rng(SEED + 20)
+    t = ROUND_T
+    lengths = np.array([t, 3 * t // 4, t // 2, 1], np.int32)
+    x = rng.standard_normal((4, t, MELS)).astype(np.float32)
+    rt = rts["fp32"]
+    tokens, mel = rt.reencode(x, lengths)
+    tb = rt.bucket_for(t)
+    xp = np.zeros((4, tb, MELS), np.float32)
+    xp[:, :t] = x
+    near = _near_midpoints(fp32, xp, lengths)[:, :t]
+    dev = fp32.fsq_consts.device
+    pad = torch.from_numpy(np.arange(tb)[None, :] >= lengths[:, None]).to(dev)
+    want_tokens = fp32.encode(torch.from_numpy(xp).to(dev), pad)[:, :t].cpu().numpy()
+    valid = np.arange(t)[None, :] < lengths[:, None]
+    flips = _check_tokens("artifact vs in-memory encode", tokens[valid],
+                          want_tokens[valid], near[valid])
+    idx = np.zeros((4, tb), np.int32)
+    idx[:, :t] = tokens
+    want = fp32.decode(torch.from_numpy(idx).to(dev), pad)[:, :t].cpu().numpy()
+    err = float(np.abs(mel - want)[valid].max())
+    print(f"  fp32 artifact vs in-memory model, B=4 T={t} lengths "
+          f"{lengths.tolist()}: {flips} token flips, decode max|err| {err:.3e} "
+          f"(limit {_deploy_tol(want):.3e})")
+    if err > _deploy_tol(want):
+        fail("the fp32 artifact's decode disagrees with the in-memory model")
+    both_tokens = rts["both"].encode(x, lengths)
+    print(f"  poly_mixers=True (the pre mixer through mel_mixer_poly), fp32: "
+          f"{int((both_tokens != tokens)[valid].sum())} of {int(valid.sum())} "
+          f"tokens differ from the exact export (counted, not gated)")
+    return rts
+
+
+def deploy_reencode(root, rts, fp32) -> str:
+    """Phase 13b/c: the re-encode CLI over a directory through the fp32 exact
+    artifact (gated) and the bf16 poly-decode one (timed), then token stats
+    on the dump; returns the dump's directory."""
+    import torch
+
+    from mqgan_tpu_torch.core.chunking import chunk_plan
+    from mqgan_tpu_torch.deploy import reencode, token_stats
+
+    src = os.path.join(root, "mels")
+    rng = np.random.default_rng(SEED + 21)
+    mels = {}
+    for i, n in enumerate(REENCODE_LENGTHS):
+        name = f"{'long' if n > DEPLOY_BUCKETS[-1] else 'clip'}_{i:02d}.npy"
+        mels[name] = rng.standard_normal((n, MELS)).astype(np.float32)
+        os.makedirs(os.path.join(src, "set"), exist_ok=True)
+        np.save(os.path.join(src, "set", name), mels[name])
+    frames = sum(REENCODE_LENGTHS)
+    toks_dir = os.path.join(root, "tokens")
+    for label, d in (("fp32 exact", "fp32"), ("bf16 poly-decode", "bf16")):
+        out = os.path.join(root, f"out_{d}")
+        args = ["--input_dir", src, "--output_dir", out, "--model_dir",
+                os.path.join(root, f"exp_{d}"), "--batch_size", str(REENCODE_BATCH)]
+        if d == "fp32":
+            args += ["--save_tokens", "--tokens_dir", toks_dir]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = reencode.main(args)
+        seconds = time.perf_counter() - t0
+        if result != {"processed": len(mels), "failed": 0, "frames": frames}:
+            fail(f"re-encode {label}: {result}")
+        for name, m in mels.items():
+            got = np.load(os.path.join(out, "set", name))
+            if got.shape != m.shape or not np.isfinite(got).all():
+                fail(f"re-encode {label}: {name} {got.shape}")
+        print(f"  re-encode CLI, {label}: {len(mels)} files, {frames} frames in "
+              f"{seconds:.3f} s: {frames / seconds:.1f} mel-frames/s (batch "
+              f"{REENCODE_BATCH}, the CLI's whole run: loading, windows, writes)")
+    rt = rts["fp32"]
+    dec_l, dec_r = rt.decoder_halos
+    window = rt.buckets[-1]
+    flips = 0
+    worst = 0.0
+    for name, m in mels.items():
+        toks = np.load(os.path.join(toks_dir, "set", name))
+        if len(m) <= window:  # within one bucket: a direct encode's tokens
+            want = rt.encode(m[None])[0]
+            tb = rt.bucket_for(len(m))
+            xp = np.zeros((1, tb, MELS), np.float32)
+            xp[0, :len(m)] = m
+            near = _near_midpoints(fp32, xp, [len(m)])[0, :len(m)]
+            flips += _check_tokens(f"re-encode {name} vs a direct encode",
+                                   toks.astype(np.int32), want, near)
+            continue
+        # chunked: the dumped tokens decoded through the decode-side chunk
+        # plan against one full-length decode
+        out = np.zeros((len(m), MELS), np.float32)
+        for s in chunk_plan(len(m), window, dec_l, dec_r, align=rt.halo_align):
+            idx = np.zeros((1, window), np.int32)
+            idx[0, :s.stop - s.start] = toks[s.start:s.stop]
+            seg = rt.decode(idx, [s.stop - s.start])[0]
+            out[s.keep_lo:s.keep_hi] = seg[s.local_lo:s.local_hi]
+        want = _padded_decode(fp32, toks.astype(np.int32))
+        err = float(np.abs(out - want).max())
+        worst = max(worst, err / _deploy_tol(want))
+        print(f"  {name} ({len(m)} frames): chunked decode of its tokens vs one "
+              f"full-length decode, max|err| {err:.3e} (limit {_deploy_tol(want):.3e})")
+        if err > _deploy_tol(want):
+            fail(f"chunked decode of {name} disagrees with the full-length decode")
+    print(f"  files within one bucket: tokens equal a direct encode ({flips} "
+          f"flips at midpoints)")
+    stats = token_stats.compute_token_stats(toks_dir, rt.codebook_size)
+    print(f"  token stats: {stats.n_files} files, {stats.n_tokens} tokens, "
+          f"{stats.used_codes}/{stats.codebook_size} codes, unigram "
+          f"{stats.unigram_entropy_bits:.2f} bits")
+    if (stats.n_tokens != frames or stats.n_files != len(mels) or stats.n_failed
+            or stats.out_of_range_tokens or stats.special_tokens):
+        fail(f"token stats disagree with the dump: {stats.summary()}")
+    return toks_dir
+
+
+def deploy_streaming(root, rts, fp32, toks_dir, card) -> None:
+    """Phase 13d: streaming decode and encode at B=1 through the fp32 exact
+    artifact (gated against offline), and the time a span takes there and
+    through the bf16 poly-decode artifact."""
+    from mqgan_tpu_torch.core.chunking import chunk_plan
+    from mqgan_tpu_torch.deploy.streaming import StreamingDecoder, StreamingEncoder
+
+    name = f"long_{REENCODE_LENGTHS.index(STREAM_T):02d}.npy"
+    tokens = np.load(os.path.join(toks_dir, "set", name)).astype(np.int32)
+    rt = rts["fp32"]
+    dec = StreamingDecoder.from_runtime(rt)
+    dec.fn = timer = _SpanTimer(dec.fn)
+    streamed = _stream(dec, tokens, STREAM_CHUNK)
+    want = _padded_decode(fp32, tokens)
+    err = float(np.abs(streamed - want).max())
+    print(f"  StreamingDecoder fp32 exact, window {dec.window}, {STREAM_T} tokens "
+          f"in chunks of {STREAM_CHUNK}: {timer.n} spans of (1, {dec.window}), "
+          f"{timer.ms():.3f} ms a span [{card}]; latency {dec.latency_frames} "
+          f"frames; vs the offline decode max|err| {err:.3e} (limit "
+          f"{_deploy_tol(want):.3e})")
+    if streamed.shape != want.shape or err > _deploy_tol(want):
+        fail("streamed decode disagrees with the offline decode")
+    fast = StreamingDecoder.from_runtime(rts["bf16"])
+    fast.fn = fast_timer = _SpanTimer(fast.fn)
+    out = _stream(fast, tokens, STREAM_CHUNK)
+    if out.shape != want.shape or not np.isfinite(out).all():
+        fail("bf16 poly-decode stream: bad output")
+    print(f"  StreamingDecoder bf16 poly-decode: {fast_timer.n} spans, "
+          f"{fast_timer.ms():.3f} ms a span [{card}]")
+
+    mel = np.random.default_rng(SEED + 22).standard_normal(
+        (STREAM_T, MELS)).astype(np.float32)
+    enc = StreamingEncoder.from_runtime(rt)
+    enc.fn = enc_timer = _SpanTimer(enc.fn)
+    got = _stream(enc, mel, STREAM_CHUNK)
+    halo, window = rt.encoder_halo, rt.buckets[-1]
+    want_tokens, near = _windowed_encode(rt, fp32, mel, _stream_windows(STREAM_T, window, halo))
+    flips = _check_tokens("streamed tokens vs the offline pass over the stream's "
+                          "windows", got, want_tokens, near)
+    plan = [(s.start, s.stop, s.keep_lo, s.keep_hi)
+            for s in chunk_plan(STREAM_T, window, halo, halo, align=1)]
+    plan_tokens, _ = _windowed_encode(rt, fp32, mel, plan)
+    print(f"  StreamingEncoder fp32 exact: {enc_timer.n} spans, {enc_timer.ms():.3f} "
+          f"ms a span [{card}]; latency {enc.latency_frames} frames; tokens equal "
+          f"the offline pass over its windows ({flips} flips at midpoints); "
+          f"{int((plan_tokens != want_tokens).sum())} of {STREAM_T} differ from "
+          f"chunk_plan's windows (CBAM statistics over other frames, printed)")
+
+    x = tokens[None, :window]
+    for name in ("fp32", "bf16"):
+        for _ in range(3):
+            rts[name].decode(x)
+        events, wall = _device_profile(lambda: rts[name].decode(x))
+        _report_profile(f"one B=1 decode span, {name} artifact [{card}]",
+                        events, wall, top=5)
+
+
+def deploy_http(rts, fp32) -> None:
+    """Phase 13e: StreamingHTTPServer on localhost over the fp32 exact
+    artifact: 12 concurrent whole clips (encode, decode and reencode) and 2
+    duplex streams, answers against direct runtime calls."""
+    from mqgan_tpu_torch.deploy.http_client import CodecClient
+    from mqgan_tpu_torch.deploy.http_streaming import (StreamingHTTPServer,
+                                                       StreamingHTTPService)
+    from mqgan_tpu_torch.deploy.streaming import StreamingDecoder, StreamingEncoder
+
+    rt = rts["fp32"]
+    rng = np.random.default_rng(SEED + 23)
+    ops = ("encode", "decode", "reencode") * 4
+    clips = [rng.standard_normal((n, MELS)).astype(np.float32) for n in HTTP_LENGTHS]
+    toks = [rng.integers(0, rt.codebook_size, n).astype(np.int32) for n in HTTP_LENGTHS]
+    duplex_mels = [rng.standard_normal((600, MELS)).astype(np.float32) for _ in range(2)]
+    service = StreamingHTTPService(runtime=rt, max_batch=64, max_delay_ms=300.0,
+                                   stream_max_batch=8, stream_max_delay_ms=20.0)
+    results = {}
+    with StreamingHTTPServer(service) as srv:
+        client = CodecClient(srv.url)
+
+        def clip(i):
+            op = ops[i]
+            results[i] = getattr(client, op)(toks[i] if op == "decode" else clips[i])
+
+        def duplex(j):
+            with client.open_duplex() as s:
+                results[f"duplex{j}"] = _stream(s, duplex_mels[j], 50)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(ops) + 2) as pool:
+            futures = [pool.submit(clip, i) for i in range(len(ops))]
+            futures += [pool.submit(duplex, j) for j in range(2)]
+            for f in futures:
+                f.result(timeout=600)
+        seconds = time.perf_counter() - t0
+        stats, stream_stats = client.stats(), client.stream_stats()
+        health = client.health()
+    if health["device"] != str(rt.device):
+        fail(f"HTTP health {health}")
+    flips = 0
+    for i, op in enumerate(ops):
+        got = results[i]
+        n = HTTP_LENGTHS[i]
+        if op == "decode":
+            want = rt.decode(toks[i][None])[0]
+            if got.shape != want.shape or np.abs(got - want).max() > _deploy_tol(want):
+                fail(f"HTTP decode of {n} tokens disagrees with the runtime")
+            continue
+        tb = rt.bucket_for(n)
+        xp = np.zeros((1, tb, MELS), np.float32)
+        xp[0, :n] = clips[i]
+        near = _near_midpoints(fp32, xp, [n])[0, :n]
+        want_tokens = rt.encode(clips[i][None])[0]
+        got_tokens = got[0] if op == "reencode" else got
+        flips += _check_tokens(f"HTTP {op} of {n} frames", got_tokens, want_tokens, near)
+        if op == "reencode":
+            want = rt.decode(got_tokens[None])[0]
+            if np.abs(got[1] - want).max() > _deploy_tol(want):
+                fail(f"HTTP reencode mel of {n} frames disagrees with the runtime")
+    for j in range(2):
+        solo_tokens = _stream(StreamingEncoder.from_runtime(rt), duplex_mels[j], 50)
+        want = _stream(StreamingDecoder.from_runtime(rt), solo_tokens, 50)
+        got = results[f"duplex{j}"]
+        err = float(np.abs(got - want).max()) if got.shape == want.shape else np.inf
+        print(f"  duplex stream {j}: {got.shape[0]} frames, vs the solo duplex "
+              f"max|err| {err:.3e} (limit {_deploy_tol(want):.3e})")
+        if err > _deploy_tol(want):
+            fail(f"duplex stream {j} disagrees with a solo duplex")
+    means = {op: stats[op]["mean_batch_size"] for op in stats}
+    spans = {k: stream_stats[k]["mean_batch_size"] for k in ("decode", "encode")}
+    print(f"  HTTP: {len(ops)} clips + 2 duplex streams in {seconds:.3f} s; "
+          f"mean batch size {means}, of the duplex spans {spans}; {flips} token "
+          f"flips at midpoints")
+    if not all(m > 1 for m in means.values()):
+        fail(f"HTTP clips were not batched: {means}")
+
+
+def deploy_kernel_checks(state, device) -> dict:
+    """Phase 13, before the path: every codec kernel of the deployment path
+    against its plain version at that path's own shapes (DEPLOY_CMP), fp32
+    and bf16 at phase 3's gates: the six blocks, both exact mixers, the FSQ
+    head, and the Chebyshev kernel on the post mixer (poly-decode) and the
+    pre mixer (poly "encode"/True). Returns each kernel's largest bf16
+    |kernel - plain|."""
+    import torch
+
+    model = build_model(device, torch.bfloat16, state=state)
+    errs = {}
+    for b, t, lengths in DEPLOY_CMP:
+        tag = f"B={b} T={t} "
+        found = compare_kernels(model, device, b, t, lengths,
+                                (torch.float32, torch.bfloat16), tag=tag)
+        found["mel_mixer_poly"] = max(
+            compare_poly(model, device, b, t, lengths, tag=tag, mixer=mixer)
+            for mixer in ("post", "pre"))
+        for kernel, err in found.items():
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+    return errs
+
+
+def compare_bf16_artifact(rt, state) -> None:
+    """Phase 13, after the path: one B=2 window (lengths the largest bucket
+    and ROUND_T) of the bf16 artifact (poly-decode, the CLI's default)
+    against a CPU copy of its model, which runs the plain versions: the
+    encoder trunk and the decode of the CPU's tokens through the artifact,
+    each at the bf16 kernel gate (rel-L2 <= 2e-2) over the valid frames;
+    token flips are counted, not gated (bf16 sums in another order flip
+    some, phase 3c)."""
+    import torch
+
+    t = rt.buckets[-1]
+    lengths = np.array([t, ROUND_T], np.int32)
+    x = np.random.default_rng(SEED + 24).standard_normal((2, t, MELS)).astype(np.float32)
+    pad = torch.from_numpy(np.arange(t)[None, :] >= lengths[:, None])
+    valid = ~pad
+    cpu = build_model("cpu", torch.bfloat16, poly_mixers=rt.model.poly_mixers, state=state)
+    xt = torch.from_numpy(x)
+    h_cpu = cpu._encode_trunk(xt, pad)
+    idx_cpu = cpu.encode(xt, pad)
+    mel_cpu = cpu.decode(idx_cpu, pad)
+    h_card = rt.model._encode_trunk(xt.to(rt.device), pad.to(rt.device)).cpu()
+    tokens = rt.encode(x, lengths)
+    mel = torch.from_numpy(rt.decode(idx_cpu.numpy(), lengths))
+    ok_h, _, det_h = _judge("encoder trunk", h_card[valid], h_cpu[valid], torch.bfloat16)
+    ok_m, _, det_m = _judge("decode", mel[valid], mel_cpu[valid], torch.bfloat16)
+    flips = int((torch.from_numpy(tokens) != idx_cpu)[valid].sum())
+    ok = ok_h and ok_m and mel.shape == mel_cpu.shape
+    print(f"  bf16 artifact ({rt.manifest['poly_mixers']}) vs a CPU copy (plain "
+          f"versions), B=2 T={t} lengths {lengths.tolist()}: {det_h.strip()}; "
+          f"{det_m.strip()}; {flips} of {int(valid.sum())} tokens differ (counted) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the bf16 artifact disagrees with its plain CPU copy: {det_h}; {det_m}")
+
+
+def codec_deployment(state, device, counters, card) -> dict:
+    """Phase 13: the codec deployment path at flagship width, seeded
+    weights: its kernels against their plain versions at its own shapes,
+    then export and reload, the re-encode CLI over a directory, token
+    stats, streaming at B=1, the HTTP servers (launches counted), and the
+    bf16 artifact against its plain CPU copy; returns each kernel's largest
+    bf16 |kernel - plain| of the phase."""
+    import torch
+
+    print(f"  [13k] kernels vs plain versions at the deployment path's shapes {DEPLOY_CMP}")
+    errs = deploy_kernel_checks(state, device)
+    root = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    fp32 = build_model(device, torch.float32, state=state)
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        seconds[part] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    try:
+        counters.reset()
+        rts = deploy_export(root, state, fp32)
+        lap("a")
+        toks_dir = deploy_reencode(root, rts, fp32)
+        lap("bc")
+        deploy_streaming(root, rts, fp32, toks_dir, card)
+        lap("d")
+        deploy_http(rts, fp32)
+        lap("e")
+        launches = counters.snapshot()
+        compare_bf16_artifact(rts["bf16"], state)
+        lap("bf16 vs CPU")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  launches in phase 13: {launches}")
+    for name in ("residual_block", "mel_mixer", "mel_mixer_poly", "fsq_head"):
+        if launches.get(name, 0) <= 0:
+            fail(f"phase 13: {name} was not launched on the deployment path")
+    for name in ("log_mel", "log_mel_dft", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches.get(name, 0):
+            fail(f"phase 13: {name} launched on the deployment path")
+    print(f"  phase 13 seconds by part: {seconds}")
+    return errs
+
+
 def main() -> None:
     import torch
 
@@ -2280,6 +2817,9 @@ def main() -> None:
                    counters, card)
     finally:
         shutil.rmtree(lm_root, ignore_errors=True)
+    print(f"[13] codec deployment, flagship width, seeded weights [{card}] {at()}")
+    for kernel, err in codec_deployment(state, device, counters, card).items():
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
     kernels = []
     for row in rows:
         kernels.append({

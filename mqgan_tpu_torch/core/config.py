@@ -4,15 +4,21 @@ defaults).
 ``GeneratorConfig`` is the flagship hifispeech generator
 (``configs/model_config_hifispeech.yaml``); ``SpectrogramConfig``,
 ``IOConfig`` and ``SpecConfig`` are the spec-config schema
-(``configs/spec_config_*.yaml``). Training-only generator fields (dropout
-rates, remat, chunk sizes) are kept so a config round-trips, and are ignored
-by the inference-only port. PyYAML is imported only inside
-``SpecConfig.from_yaml``: nothing else reads YAML, so a machine without it
-can still build every config in code.
+(``configs/spec_config_*.yaml``). ``TrainConfig`` is the model part of the
+model-config schema: ``model.mel_channels`` and ``model.generator``; the
+other sections (data, discriminators, training, logging) belong to the
+GAN-training slice and are ignored when read. Training-only
+generator fields (dropout rates, remat, chunk sizes) are kept so a config
+round-trips, and are ignored by the inference-only port. PyYAML is imported
+only inside the ``from_yaml`` methods: nothing else reads YAML, so a machine
+without it can still build every config in code or read one from JSON
+(``load_model_config``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Mapping
 
@@ -107,3 +113,46 @@ class GeneratorConfig:
         for level in self.fsq_levels:
             size *= level
         return size
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    mel_channels: int = 128
+    generator: GeneratorConfig = field(default_factory=GeneratorConfig)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The model part of the model-config schema (``configs/model_config_*.yaml``)."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+
+    @staticmethod
+    def from_dict(d: Mapping[str, Any]) -> "TrainConfig":
+        model_d = dict(d.get("model", {}))
+        gen_d = dict(model_d.get("generator", {}))
+        for k in ("channels", "kernel_sizes", "fsq_levels"):
+            if k in gen_d:
+                gen_d[k] = _tuple(gen_d[k])
+        names = {f.name for f in dataclasses.fields(GeneratorConfig)}
+        unknown = sorted(set(gen_d) - names)
+        if unknown:
+            raise ValueError(f"config: unknown model.generator key(s) {unknown}")
+        return TrainConfig(
+            model=ModelConfig(mel_channels=int(model_d.get("mel_channels", 128)),
+                              generator=GeneratorConfig(**gen_d)))
+
+    @staticmethod
+    def from_yaml(path: str) -> "TrainConfig":
+        import yaml
+
+        with open(path) as f:
+            return TrainConfig.from_dict(yaml.safe_load(f))
+
+
+def load_model_config(path: str) -> TrainConfig:
+    """A model config from ``.json`` (the stdlib) or YAML (PyYAML)."""
+    if path.endswith(".json"):
+        with open(path) as f:
+            return TrainConfig.from_dict(json.load(f))
+    return TrainConfig.from_yaml(path)

@@ -42,13 +42,15 @@ import time
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Optional
 
 import numpy as np
 import torch
 
-from mqgan_tpu_torch.deploy.http_server import _HTTPError, _npy_bytes
+from mqgan_tpu_torch.deploy.http_server import (HTTPServerThread, _HTTPError,
+                                                _npy_bytes,
+                                                serve_until_interrupted)
 from mqgan_tpu_torch.deploy.server import ServerStats
 
 MAX_SAMPLES = 16
@@ -415,47 +417,10 @@ class _LMHandler(BaseHTTPRequestHandler):
         self._reply(200, body, ctype)
 
 
-class _LMHTTPServer(ThreadingHTTPServer):
-    # the stdlib's listen backlog of 5 resets bursts of concurrent clients
-    # before accept(); widened on this class only, not on the stdlib's
-    request_queue_size = 128
-    daemon_threads = True
-
-
-class LMHTTPServer:
+class LMHTTPServer(HTTPServerThread):
     def __init__(self, service: LMHTTPService, host: str = "127.0.0.1",
                  port: int = 0):
-        self.service = service
-        handler = type("_BoundLMHandler", (_LMHandler,), {"service": service})
-        self._httpd = _LMHTTPServer((host, port), handler)
-        self._thread = None
-
-    @property
-    def url(self) -> str:
-        host, port = self._httpd.server_address[:2]
-        return f"http://{host}:{port}"
-
-    def start(self):
-        self._thread = threading.Thread(target=self._httpd.serve_forever,
-                                        daemon=True)
-        self._thread.start()
-        return self
-
-    def serve_forever(self):
-        self._httpd.serve_forever()
-
-    def close(self):
-        self._httpd.shutdown()
-        self._httpd.server_close()
-        if self._thread is not None:
-            self._thread.join()
-        self.service.close()
-
-    def __enter__(self):
-        return self.start()
-
-    def __exit__(self, *exc):
-        self.close()
+        super().__init__(_LMHandler, service, host, port)
 
 
 def main(argv=None):
@@ -492,12 +457,7 @@ def main(argv=None):
     server = LMHTTPServer(service, host=args.host, port=args.port)
     print(f"serving {service.arch} LM generation from {args.lm_run} on "
           f"{server.url} ({service.device})", flush=True)
-    try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
-    finally:
-        server.close()
+    serve_until_interrupted(server)
 
 
 if __name__ == "__main__":

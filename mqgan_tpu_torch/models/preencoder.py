@@ -27,7 +27,9 @@ from mqgan_tpu_torch.nn.unet import UNetRefiner
 from mqgan_tpu_torch.ops.fsq_kernels import fsq_encode_head, fsq_head_constants
 from mqgan_tpu_torch.quant.fsq import FSQSpec, indices_to_codes
 
-POLY_MIXER_MODES = (False, "decode")
+# False: both mixers exact; "decode": the post mixer through the Chebyshev
+# interpolant; "encode": the pre mixer; True or "both": both mixers
+POLY_MIXER_MODES = (False, True, "decode", "encode", "both")
 
 
 class PreEncoder(nn.Module):
@@ -35,22 +37,36 @@ class PreEncoder(nn.Module):
                  channels=(512, 512, 512, 768), kernel_sizes=(3, 3, 5, 7),
                  fsq_levels=(8, 5, 5, 5), refiner_base_channels: int = 128,
                  refiner_depth: int = 3, refiner_hidden_proj_divisor: int = 8,
-                 poly_mixers: bool | str = False,
+                 poly_mixers: bool | str = False, int8_refiner: bool = False,
                  dtype: torch.dtype = torch.float32):
-        """poly_mixers: False (both mixers exact) or "decode" (the post
-        mixer evaluates its MLP as a Chebyshev interpolant; the tokens stay
-        those of the exact path)."""
+        """poly_mixers: which mixers evaluate their MLP as a Chebyshev
+        interpolant (``POLY_MIXER_MODES``). "decode" keeps the tokens those
+        of the exact path; "encode", True and "both" put the pre mixer
+        through it too, which can flip an FSQ code whose pre-round value
+        sits on a rounding midpoint (each flip a whole code step of the
+        decode). int8_refiner: the JAX package's int8 refiner convs are
+        not ported; only False is accepted."""
         super().__init__()
         if poly_mixers not in POLY_MIXER_MODES:
             raise ValueError(f"poly_mixers must be one of {POLY_MIXER_MODES}")
+        if int8_refiner:
+            raise NotImplementedError(
+                "int8_refiner=True (the refiner's int8 convs) is not ported "
+                "to the H100: ROADMAP.md Queue 1 item 7")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be fp32 or bf16, got {dtype}")
         ch = tuple(channels)
         self.mel_channels = mel_channels
+        self.kernel_sizes = tuple(kernel_sizes)
+        self.refiner_depth = refiner_depth
+        self.poly_mixers = poly_mixers
+        self.int8_refiner = False
         self.dtype = dtype
+        poly_pre = poly_mixers in (True, "encode", "both")
+        poly_post = poly_mixers in (True, "decode", "both")
         self.spec = FSQSpec(tuple(fsq_levels))
         self.proj = Dense(mel_channels, ch[0])
-        self.pre = MelMixer2D(ch[0])
+        self.pre = MelMixer2D(ch[0], poly_approx=poly_pre)
         self.encoder_blocks = nn.ModuleList(
             ResidualBlock1D(ch[i], ch[i + 1], kernel_sizes[i], causal=False)
             for i in range(len(ch) - 1))
@@ -60,7 +76,7 @@ class PreEncoder(nn.Module):
         self.decoder_blocks = nn.ModuleList(
             ResidualBlock1D(rev_ch[i], rev_ch[i + 1], rev_ks[i], causal=True)
             for i in range(len(rev_ch) - 1))
-        self.post = MelMixer2D(ch[0], poly_approx=poly_mixers == "decode")
+        self.post = MelMixer2D(ch[0], poly_approx=poly_post)
         self.out_proj = Dense(ch[0], mel_channels)
         hidden = mel_channels // refiner_hidden_proj_divisor
         self.hidden_proj = Dense(ch[0], hidden)
@@ -84,6 +100,18 @@ class PreEncoder(nn.Module):
     @property
     def codebook_size(self) -> int:
         return self.spec.codebook_size
+
+    @property
+    def fsq_levels(self) -> tuple:
+        return self.spec.levels
+
+    @property
+    def bos_token_id(self) -> int:
+        return self.codebook_size + 1
+
+    @property
+    def eos_token_id(self) -> int:
+        return self.codebook_size + 2
 
     def _pad_mask(self, x, pad_mask):
         if pad_mask is None:
@@ -110,7 +138,7 @@ class PreEncoder(nn.Module):
         x_recon = self.out_proj(self.post(h, pad_mask))
         hidden = self.hidden_proj(h)
         residual = self.refiner(torch.cat([x_recon, hidden], dim=-1), pad_mask)
-        return x_recon, x_recon + residual
+        return x_recon, x_recon + residual, h
 
     @torch.no_grad()
     def encode(self, x: torch.Tensor,
@@ -121,9 +149,19 @@ class PreEncoder(nn.Module):
 
     @torch.no_grad()
     def decode(self, indices: torch.Tensor,
-               pad_mask: torch.Tensor | None = None) -> torch.Tensor:
-        """indices (B, T) -> refined mel (B, T, mel) in the compute dtype."""
-        return self._decode_tokens(indices, self._pad_mask(indices, pad_mask))[1]
+               pad_mask: torch.Tensor | None = None,
+               return_hidden: bool = False, return_recon: bool = False):
+        """indices (B, T) -> refined mel (B, T, mel) in the compute dtype.
+        return_hidden: also the decoder trunk's output (B, T, channels[0]),
+        as (x_post, hidden); else return_recon: also the pre-refiner
+        x_recon, as (x_post, x_recon)."""
+        x_recon, x_post, hidden = self._decode_tokens(
+            indices, self._pad_mask(indices, pad_mask))
+        if return_hidden:
+            return x_post, hidden
+        if return_recon:
+            return x_post, x_recon
+        return x_post
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
@@ -132,5 +170,5 @@ class PreEncoder(nn.Module):
         check_inference(deterministic)
         pad_mask = sequence_mask(x.shape[1], lengths)
         indices = self.encode(x, pad_mask)
-        x_recon, x_post = self._decode_tokens(indices, pad_mask)
+        x_recon, x_post, _ = self._decode_tokens(indices, pad_mask)
         return x_recon, x_post, indices

@@ -30,15 +30,19 @@ import numpy as np
 import torch
 
 from mqgan_tpu_torch.core.device import resolve_device
-from mqgan_tpu_torch.models.music_lstm import masked_ce_loss
+from mqgan_tpu_torch.models.music_lstm import MusicLSTM, masked_ce_loss
 from mqgan_tpu_torch.utils.logging import MetricsLogger
 from mqgan_tpu_torch.utils.npy import load_npy
+from mqgan_tpu_torch.utils.params import state_dict_from_jax, unflatten_tree
+from mqgan_tpu_torch.utils.torch_import import (import_music_lstm_params,
+                                                strip_module_prefix)
 
 LEN_BUCKETS = (64, 128, 256, 512, 1024, 2048)
-UNPORTED_CHECKPOINTS = ("orbax params dirs and the reference's .pth files are "
-                        "not read by this package yet (ROADMAP.md Queue 1 "
-                        "item 1); pass a .pt state_dict written by this "
-                        "trainer")
+PRETRAINED_SOURCES = ("pass a .pt state_dict written by this trainer, the "
+                      "reference MusicLSTM's .pth/.pt (--arch lstm), or an "
+                      ".npz of a flattened JAX param tree; orbax dirs need "
+                      "JAX to read: convert them with "
+                      "tools/jax_generator_to_npz.py")
 
 
 class MusicChunkDataset:
@@ -188,12 +192,23 @@ def make_lstm_step(model, tx: ClipAdamW, pad_id: int, train: bool):
 
 
 def load_pretrained(model, path: str) -> None:
-    """Warm start from a state_dict this trainer saved (``.pt``)."""
-    if not path.endswith(".pt"):
-        raise SystemExit(f"--pretrained {path}: {UNPORTED_CHECKPOINTS}")
+    """Warm start from a state_dict this trainer saved (``.pt``), from the
+    reference MusicLSTM's checkpoint (its ``model_state_dict`` when it has
+    one), or from an ``.npz`` of the JAX trainer's flattened params."""
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as flat:
+            model.load_state_dict(state_dict_from_jax(unflatten_tree(flat), model))
+        return
+    if not path.endswith((".pt", ".pth")):
+        raise SystemExit(f"--pretrained {path}: {PRETRAINED_SOURCES}")
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    if "model_state_dict" in sd:
-        raise SystemExit(f"--pretrained {path}: {UNPORTED_CHECKPOINTS}")
+    sd = strip_module_prefix(sd.get("model_state_dict", sd))
+    if set(sd) != set(model.state_dict()):
+        if not isinstance(model, MusicLSTM):
+            raise SystemExit(f"--pretrained {path}: not a state_dict of this "
+                             f"model; {PRETRAINED_SOURCES}")
+        tree = import_music_lstm_params(sd, lstm_layers=model.lstm_layers)
+        sd = state_dict_from_jax(tree, model)
     model.load_state_dict(sd)
 
 
@@ -239,7 +254,9 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--pretrained", default=None,
                    help="warm-start weights: a .pt state_dict saved by this "
-                        "trainer")
+                        "trainer, the reference MusicLSTM's .pth (--arch "
+                        "lstm), or an .npz of flattened JAX params "
+                        "(tools/jax_generator_to_npz.py converts orbax dirs)")
     p.add_argument("--pipe", type=int, default=0, metavar="N",
                    help="pipeline parallelism of the LSTM stack: not ported "
                         "yet (ROADMAP.md Queue 1 item 9)")

@@ -60,6 +60,19 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), value
 
 
+def unflatten_tree(flat) -> dict:
+    """A flattened tree (``/``-joined keys, as an ``.npz`` of JAX params
+    holds it) -> the nested tree ``state_dict_from_jax`` takes."""
+    tree: dict = {}
+    for key in flat:
+        node = tree
+        *parents, leaf = key.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = np.asarray(flat[key])
+    return tree
+
+
 def state_dict_from_jax(params: dict, module: nn.Module) -> dict:
     """Convert ``params`` for ``module`` (whose names mirror the JAX tree);
     returns a state_dict for ``module.load_state_dict``."""

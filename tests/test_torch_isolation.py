@@ -44,6 +44,43 @@ if not result["cuda"]:
         lstm_trainer.main(lm_args)
     except RuntimeError as e:
         result["trainer_device_error"] = str(e)
+import shutil, tempfile
+from mqgan_tpu_torch.core.config import GeneratorConfig
+from mqgan_tpu_torch.deploy import (export, http_server, http_streaming,
+                                    reencode, runtime)
+art = export.export_preencoder(model, GeneratorConfig(channels=(16, 24),
+                               kernel_sizes=(3,), refiner_base_channels=4,
+                               refiner_depth=1), tempfile.mkdtemp(),
+                               buckets=(16,), verify=False)
+cfg = art + "/model.json"
+with open(cfg, "w") as f:
+    json.dump({"model": {"mel_channels": 16, "generator": {
+        "channels": [16, 24], "kernel_sizes": [3], "refiner_base_channels": 4,
+        "refiner_depth": 1}}}, f)
+entries = {
+    "exported": lambda: runtime.ExportedPreEncoder(art),
+    "checkpoint_reencoder": lambda: reencode.CheckpointReencoder(
+        cfg, art + "/weights.pt"),
+    "http_server_main": lambda: http_server.main(["--model_dir", art]),
+    "http_streaming_main": lambda: http_streaming.main(["--model_dir", art]),
+    "reencode_main": lambda: reencode.main(["--input_dir", art, "--output_dir",
+                                            art + "/out", "--model_dir", art]),
+    "export_main": lambda: export.main(["--manifest", art, "--seed", "0",
+                                        "--output", art + "/again"]),
+}
+result["entries"] = {}
+for name, entry in entries.items():
+    if result["cuda"]:
+        dev = getattr(entry(), "device", None) if name in (
+            "exported", "checkpoint_reencoder") else "cuda"
+        result["entries"][name] = str(dev)
+        continue
+    try:
+        entry()
+        result["entries"][name] = "ran on the CPU"
+    except RuntimeError as e:
+        result["entries"][name] = str(e)
+shutil.rmtree(art, ignore_errors=True)
 print(json.dumps(result))
 """
 
@@ -61,14 +98,22 @@ def test_port_imports_nothing_of_jax_and_does_not_fall_back():
                  "models.token_transformer", "models.music_lstm",
                  "models.token_lm", "train.lstm_trainer", "utils.logging",
                  "utils.npy", "nn.layers", "models.lm_sampling",
-                 "deploy.http_lm", "deploy.http_server", "deploy.export_lm"):
+                 "deploy.http_lm", "deploy.http_server", "deploy.export_lm",
+                 "core.chunking", "utils.torch_import", "utils.checkpoint",
+                 "deploy.export", "deploy.reencode", "deploy.token_stats",
+                 "deploy.streaming", "deploy.streaming_server",
+                 "deploy.http_streaming", "deploy.http_client"):
         assert f"mqgan_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     assert result["trainer_device"] == "cuda"
+    assert len(result["entries"]) == 6
     if result["cuda"]:
         assert result["default_device"].startswith("cuda")
         assert result["mel_device"].startswith("cuda")
+        assert all(d.startswith("cuda") for d in result["entries"].values())
     else:
+        for name, error in result["entries"].items():
+            assert "CUDA is not available" in error, name
         assert "CUDA is not available" in result["default_device_error"]
         assert "CUDA is not available" in result["mel_device_error"]
         assert "CUDA is not available" in result["trainer_device_error"]

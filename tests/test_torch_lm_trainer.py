@@ -158,12 +158,12 @@ def test_cli_trains_writes_best_json_and_follows_the_jax_batch_order(
     for got, exp in zip(seen, want):
         np.testing.assert_array_equal(got, exp)
 
-    # warm start from the port's own checkpoint; other formats raise
+    # warm start from the port's own checkpoint; an orbax dir raises, naming
+    # the converter
     lstm_trainer.main(common + ["--epochs", "1", "--pretrained", best["path"],
                                 "--out_dir", str(tmp_path / "warm")])
     assert os.path.isfile(tmp_path / "warm" / "best.json")
-    for bad in (str(tmp_path / "orbax_dir"), str(tmp_path / "ref.pth")):
-        with pytest.raises(SystemExit, match="Queue 1 item 1"):
-            lstm_trainer.main(common + ["--pretrained", bad])
+    with pytest.raises(SystemExit, match="jax_generator_to_npz"):
+        lstm_trainer.main(common + ["--pretrained", str(tmp_path / "orbax_dir")])
     with pytest.raises(SystemExit, match="Queue 1 item 9"):
         lstm_trainer.main(common + ["--pipe", "2"])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's codec serving path, its audio path, its
-token-LM training path, its token-LM serving path and its codec deployment
-path on one NVIDIA GPU (H100).
+token-LM training path, its token-LM serving path, its codec deployment
+path and its codec training path on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --fsq-head-of DIR   # time another checkout's FSQ head
@@ -167,7 +167,31 @@ printing no result, without one. Phases (any failure exits non-zero):
     window of the bf16 poly-decode artifact against a CPU copy of its model
     (the plain versions): the encoder trunk and the decode at the bf16 gate
     (rel-L2 <= 2e-2), token flips counted;
-14. print {"ok": true, "device": {...}} as the last line.
+14. codec GAN training at flagship width (TrainConfig(): the
+    hifispeech config), TF32 off: (a) one fp32 warmup step and one fp32
+    GAN + feature-matching step on the card against the same steps on the
+    CPU, B=2 T=128, dropout inert, the discriminators' lr 0 (the G loss
+    runs through the updated discriminators, where Adam's +-lr moves of
+    rounding-level gradients would show): losses within 1e-5 * max(1,
+    |loss|), gradients within 1e-4 * max(1, max|g|) per model; (b) the
+    generator's training-branch forward against its eval forward through
+    the kernels, B=16 T=256 fp32 ragged: tokens equal away from midpoints,
+    recon_post within 2e-4 * max(1, max|x|); (c) the trainer CLI (bf16,
+    fast dropout) on 96 seeded mels of 150-1500 frames, batch 16, crops
+    256/192/128, epoch 1 warmup and epoch 2 GAN, eval and save every
+    epoch (counts reset just before, read just after): finite losses in
+    both phases, no kernel launch inside a train step, 6 residual_block,
+    2 mel_mixer and 1 fsq_head launches per eval batch; a third epoch
+    resumes from the checkpoint; the trained generator, saved and
+    exported (fp32, exact mixers), round-trips through ExportedPreEncoder
+    as the in-memory model does (tokens away from midpoints, mel within
+    1e-4 * max(1, max|x|)); (d) ms/step, trained mel-frames/s (B*T per
+    step) and peak memory of the warmup and the GAN step at B=16 T=256
+    bf16 for fast and exact dropout, --remat and grad_accum 2 (2 warm-up,
+    5 timed steps, CUDA events); (e) a profile of one fast-dropout GAN
+    step: kernel groups, elementwise and optimizer kernels, the device
+    span of each part of the step (gan/* ranges) and the idle share;
+15. print {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -2700,6 +2724,557 @@ def codec_deployment(state, device, counters, card) -> dict:
     return errs
 
 
+# phase 14, codec GAN training at flagship width: (a) steps card vs CPU,
+# (b) the training branch vs the kernel path, (c) the trainer on seeded
+# mels (lengths drawn from TRAIN_CLIP_FRAMES), (d) step times
+TRAIN_CMP_B, TRAIN_CMP_T = 2, 128
+TRAIN_B, TRAIN_T = 16, 256
+TRAIN_CLIPS, TRAIN_CLIP_FRAMES = 96, (150, 1500)
+TRAIN_WARM, TRAIN_ITERS = 2, 5
+TRAIN_EVAL_BATCH = {"residual_block": 6, "mel_mixer": 2, "fsq_head": 1}
+
+
+def gan_config(inert: bool, **training):
+    """The flagship config (TrainConfig()'s defaults are
+    configs/model_config_hifispeech.yaml's values, which the card's machine
+    cannot read: no PyYAML); ``inert``: dropout and FSQ noise at rate 0."""
+    import dataclasses
+
+    from mqgan_tpu_torch.core.config import TrainConfig
+
+    cfg = TrainConfig()
+    gen = cfg.model.generator
+    if inert:
+        gen = dataclasses.replace(gen, dropout=0.0, fsq_noise_dropout=0.0)
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, generator=gen),
+        training=dataclasses.replace(cfg.training, **training))
+
+
+def gan_state(cfg, device, dtype=None, weights=None, inert=False):
+    """A TrainState of seeded (or ``weights``') flagship models on device."""
+    from mqgan_tpu_torch.train.state import create_train_state
+    from mqgan_tpu_torch.train.step import build_models
+    from mqgan_tpu_torch.utils.init import seeded_init_
+
+    models = build_models(cfg, dtype)
+    for i, m in enumerate(models):
+        if weights is None:
+            seeded_init_(m, SEED + 40 + i)
+        else:
+            m.load_state_dict(weights[i])
+    state = create_train_state(*(m.to(device) for m in models), cfg.training,
+                               device)
+    if inert:
+        state.dropout_rng = state.fsq_rng = None
+    return state
+
+
+def _param_grads(state) -> dict:
+    """Every parameter's gradient on the CPU by model (0 where none reached
+    it: the generator's hidden_proj feeds only the detached refiner input)."""
+    import torch
+
+    return {name: [(torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
+                   for p in m.parameters()]
+            for name, m in (("gen", state.gen), ("patch", state.patch),
+                            ("multibin", state.multibin))}
+
+
+def compare_gan_steps(device) -> None:
+    """Phase 14a: one fp32 warmup step and one fp32 GAN + feature-matching
+    step of the flagship on the card against the same steps on the CPU
+    (plain versions), B=2 T=128 (one row of 97 frames), dropout inert, the
+    flagship learning rates: loss terms within 1e-5 * max(1, |loss|),
+    gradients within 1e-4 * max(1, max|g|) per model. The D update is held
+    on its own: the spectral stats it writes within 1e-5 * max(1, max|x|),
+    and each weight's update within lr_d / 10 of the CPU's where the D
+    gradient is not 0 up to the gradient gate (elsewhere Adam steps by
+    +-lr_d with the rounding's sign, ROADMAP.md Queue 3: within 2 lr_d).
+    Then the card's discriminators take the CPU's updated weights and
+    stats, so that the G loss and its gradients run through the same
+    discriminators on both sides."""
+    import torch
+
+    from mqgan_tpu_torch.train.step import make_train_step
+
+    cfg = gan_config(True, use_fm_loss=True)
+    lr_d = cfg.training.lr * cfg.training.lr_d_factor
+    gen = torch.Generator().manual_seed(SEED + 41)
+    mel = torch.randn((TRAIN_CMP_B, TRAIN_CMP_T, MELS), generator=gen)
+    lengths = torch.tensor([TRAIN_CMP_T, 97], dtype=torch.int32)
+
+    def discs(st):
+        return (("patch", st.patch), ("multibin", st.multibin))
+
+    for train_d in (False, True):
+        cpu = gan_state(cfg, torch.device("cpu"), inert=True)
+        weights = [{k: v.clone() for k, v in m.state_dict().items()}
+                   for m in (cpu.gen, cpu.patch, cpu.multibin)]
+        card = gan_state(cfg, device, weights=weights, inert=True)
+        card_d = {}  # the card's own D state after its update
+        card_d_step = card.disc_opt.step
+
+        def d_step_then_cpu_weights():
+            norm = card_d_step()
+            with torch.no_grad():
+                for (name, m), (_, src) in zip(discs(card), discs(cpu)):
+                    card_d[name] = {k: v.detach().cpu().clone()
+                                    for k, v in m.state_dict().items()}
+                    for k, v in m.state_dict().items():
+                        v.copy_(src.state_dict()[k])
+            return norm
+
+        card.disc_opt.step = d_step_then_cpu_weights
+        out = {}
+        for name, st, dev in (("cpu", cpu, "cpu"), ("card", card, device)):
+            m = make_train_step(cfg, train_d=train_d)(st, mel.to(dev), lengths.to(dev))
+            out[name] = ({k: float(v) for k, v in m.items()}, _param_grads(st))
+        loss_err = max(abs(out["card"][0][k] - v) / max(1.0, abs(v))
+                       for k, v in out["cpu"][0].items() if k.startswith("loss"))
+        ok = loss_err <= 1e-5
+        parts = []
+        for model, want in out["cpu"][1].items():
+            got = out["card"][1][model]
+            g_max = max(float(g.abs().max()) for g in want)
+            g_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            ok = ok and g_err <= 1e-4 * max(1.0, g_max)
+            parts.append(f"{model} max|dgrad| {g_err:.2e} (max|g| {g_max:.2e})")
+        if train_d:
+            upd_live = upd_rest = stat_err = 0.0
+            for i, (name, m) in enumerate(discs(cpu), 1):
+                grads = dict(m.named_parameters())
+                for k, v in m.state_dict().items():
+                    mine = card_d[name][k]
+                    if k not in grads:  # u, sigma
+                        err = float((mine - v).abs().max())
+                        stat_err = max(stat_err, err)
+                        ok = ok and err <= 1e-5 * max(1.0, float(v.abs().max()))
+                        continue
+                    g = grads[k].grad
+                    live = g.abs() > 1e-4 * max(1.0, float(g.abs().max()))
+                    d = ((mine - weights[i][k]) - (v - weights[i][k])).abs()
+                    upd_live = max(upd_live, float(d[live].max()) if live.any() else 0.0)
+                    upd_rest = max(upd_rest, float(d[~live].max()) if (~live).any() else 0.0)
+            ok = ok and upd_live <= lr_d / 10 and upd_rest <= 2 * lr_d
+            parts.append(f"D update: spectral stats max|d| {stat_err:.2e}, weight "
+                         f"updates max|d| {upd_live:.2e} (<= lr_d/10 = {lr_d / 10:.2e}) "
+                         f"where the D gradient is live, {upd_rest:.2e} "
+                         f"(<= 2 lr_d) elsewhere")
+        print(f"  14a {'GAN+FM' if train_d else 'warmup'} step fp32 B={TRAIN_CMP_B} "
+              f"T={TRAIN_CMP_T}: loss_g_total card {out['card'][0]['loss_g_total']:.6f} "
+              f"cpu {out['cpu'][0]['loss_g_total']:.6f}, loss_d "
+              f"{out['card'][0]['loss_d']:.6f}; max rel |dloss| {loss_err:.2e}; "
+              f"{'; '.join(parts)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("phase 14a: the GAN step on the card disagrees with the CPU")
+
+
+def compare_train_branch(device) -> None:
+    """Phase 14b: the generator's training-branch forward (fp32, dropout
+    inert) against its eval forward through the kernels, B=16 T=256 with
+    ragged lengths: tokens equal away from midpoints; recon_post within
+    2e-4 * max(1, max|x|) on the rows whose tokens all agree."""
+    import torch
+
+    from mqgan_tpu_torch.models.preencoder import PreEncoder
+    from mqgan_tpu_torch.utils.init import seeded_init_
+
+    cfg = gan_config(True)
+    model = PreEncoder.from_config(MELS, cfg.model.generator)
+    model = seeded_init_(model, SEED + 42).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 43)
+    mel = torch.randn((TRAIN_B, TRAIN_T, MELS), generator=gen, device=device)
+    lengths = torch.linspace(TRAIN_T, 100, TRAIN_B, device=device).int()
+    with torch.no_grad():
+        _, post_t, tok_t = model(mel, lengths, deterministic=False)
+        _, post_k, tok_k = model(mel, lengths)
+    near = _near_midpoints(model, mel.cpu().numpy(), lengths.cpu().numpy())
+    valid = (np.arange(TRAIN_T)[None, :] < lengths.cpu().numpy()[:, None])
+    flips = _check_tokens("14b tokens", tok_t.cpu().numpy() * valid,
+                          tok_k.cpu().numpy() * valid, near)
+    rows = ~((tok_t.cpu().numpy() != tok_k.cpu().numpy()) & valid).any(axis=1)
+    want = post_k.float().cpu().numpy()[rows]
+    err = float(np.abs(post_t.float().cpu().numpy()[rows] - want).max())
+    tol = 2e-4 * max(1.0, float(np.abs(want).max()))
+    print(f"  14b training branch vs kernel path fp32 B={TRAIN_B} T={TRAIN_T}: "
+          f"{flips} token flips near midpoints; recon_post max|d| {err:.2e} "
+          f"(gate {tol:.2e}, {int(rows.sum())} rows) {'ok' if err <= tol else 'FAIL'}")
+    if err > tol:
+        fail("phase 14b: the training branch disagrees with the kernel path")
+
+
+def trainer_cli(device, counters, card) -> dict:
+    """Phase 14c, the slice's main path: the trainer CLI, flagship config,
+    bf16, default fast dropout, on TRAIN_CLIPS seeded mels, epoch 1 warmup
+    and epoch 2 GAN, eval and save every epoch; no launch inside a train
+    step, TRAIN_EVAL_BATCH per eval batch; a third epoch resumes; the saved
+    generator exports (fp32 exact mixers) and round-trips through
+    ExportedPreEncoder like the in-memory model. Returns the launches."""
+    import dataclasses
+
+    import torch
+
+    from mqgan_tpu_torch.deploy import export
+    from mqgan_tpu_torch.deploy.runtime import ExportedPreEncoder
+    from mqgan_tpu_torch.models.preencoder import PreEncoder
+    from mqgan_tpu_torch.train import trainer as trainer_mod
+    from mqgan_tpu_torch.utils.checkpoint import save_generator_only
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_gan_")
+    rng = np.random.default_rng(SEED + 44)
+    os.makedirs(os.path.join(root, "mels"))
+    for i in range(TRAIN_CLIPS):
+        t = int(rng.integers(*TRAIN_CLIP_FRAMES))
+        np.save(os.path.join(root, "mels", f"m{i:03d}.npy"),
+                rng.standard_normal((t, MELS)).astype(np.float32))
+    cfg = dataclasses.asdict(gan_config(False, num_epochs=2,
+                                        discriminator_train_start_epoch=2))
+    cfg["data"].update(data_dir=os.path.join(root, "mels"),
+                       output_dir=os.path.join(root, "run"))
+    cfg["logging"].update(eval_interval=1, save_interval=1, num_plot_examples=1)
+    cfg_path = os.path.join(root, "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    seen = {"train": 0, "eval": 0, "step_launches": {}}
+    eval_inputs = []  # (mel, lengths) of each eval call of the first run
+    make_step, make_eval = trainer_mod.make_train_step, trainer_mod.make_eval_step
+
+    def counting_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, mel, lengths):
+            before = counters.snapshot()
+            out = step(state, mel, lengths)
+            for k, v in counters.snapshot().items():
+                if v != before.get(k, 0):
+                    seen["step_launches"][k] = v - before.get(k, 0)
+            seen["train"] += 1
+            return out
+        return run
+
+    def counting_eval(*a, **kw):
+        ev = make_eval(*a, **kw)
+
+        def run(gen, mel, lengths):
+            seen["eval"] += 1
+            if not seen.get("resumed"):
+                eval_inputs.append((mel.clone(), lengths.clone()))
+            return ev(gen, mel, lengths)
+        return run
+
+    args = ["--config", cfg_path, "--no_wandb", "--device", str(device)]
+    try:
+        trainer_mod.make_train_step, trainer_mod.make_eval_step = counting_step, counting_eval
+        counters.reset()
+        t0 = time.perf_counter()
+        trainer = trainer_mod.main(args)
+        secs = time.perf_counter() - t0
+        launches, n_eval, n_train = counters.snapshot(), seen["eval"], seen["train"]
+        cfg["training"]["num_epochs"] = 3
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        seen["resumed"] = True
+        resumed = trainer_mod.main(args)
+    finally:
+        trainer_mod.make_train_step, trainer_mod.make_eval_step = make_step, make_eval
+    with open(os.path.join(root, "run", "train_metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    by_epoch = {e: [r for r in recs if r.get("epoch") == e and "loss_g_total" in r]
+                for e in (1.0, 2.0, 3.0)}
+    want = {k: v * n_eval for k, v in TRAIN_EVAL_BATCH.items()}
+    finite = all(math.isfinite(v) for r in recs for v in r.values()
+                 if isinstance(v, float))
+    phases_ok = (by_epoch[1.0] and all(r["loss_d"] == 0.0 for r in by_epoch[1.0])
+                 and by_epoch[2.0] and all(r["loss_d"] > 0.0 for r in by_epoch[2.0]))
+    print(f"  14c trainer CLI: {n_train} train steps (B={cfg['data']['batch_size']}, crops "
+          f"256/192/128, bf16, fast dropout) and {n_eval} eval batches in "
+          f"{secs:.2f} s (set-up, eval and checkpoints included); last losses "
+          f"epoch 1 {by_epoch[1.0][-1]['loss_g_total']:.4f}, epoch 2 "
+          f"{by_epoch[2.0][-1]['loss_g_total']:.4f} (loss_d "
+          f"{by_epoch[2.0][-1]['loss_d']:.4f}); launches {launches} (want {want}); "
+          f"launches inside train steps {seen['step_launches']}")
+    if not finite or not phases_ok:
+        fail("phase 14c: non-finite losses or a phase missing")
+    if launches != want or seen["step_launches"]:
+        fail(f"phase 14c: launches {launches} != {want}, or a train step "
+             f"launched {seen['step_launches']}")
+    if resumed.start_epoch != 3 or not by_epoch[3.0]:
+        fail("phase 14c: the third epoch did not resume from the checkpoint")
+    print(f"  14c resumed at epoch {resumed.start_epoch}: {seen['train'] - n_train} "
+          f"more train steps, to step {resumed.state.step}")
+    compare_eval_kernels(trainer.state.gen, eval_inputs)
+    # the trained generator: export and round trip
+    gen_path = save_generator_only(root, trainer.state.gen.state_dict())
+    art = os.path.join(root, "artifact")
+    export.main(["--config", cfg_path, "--checkpoint", gen_path, "--output", art,
+                 "--buckets", "256", "512", "--exact_mixers", "--device", str(device)])
+    rt = ExportedPreEncoder(art, device=device)
+    model = PreEncoder.from_config(MELS, trainer.config.model.generator)
+    model.load_state_dict(torch.load(gen_path, weights_only=True))
+    model = model.to(device).eval()
+    mel = rng.standard_normal((2, 512, MELS)).astype(np.float32)
+    lengths = np.array([512, 300], np.int32)
+    tokens = rt.encode(mel, lengths)
+    x = torch.from_numpy(mel).to(device)
+    pad = torch.from_numpy(np.arange(512)[None, :] >= lengths[:, None]).to(device)
+    ref_tokens = model.encode(x, pad).cpu().numpy()
+    flips = _check_tokens("14c artifact tokens", tokens, ref_tokens,
+                          _near_midpoints(model, mel, lengths))
+    got = rt.decode(ref_tokens, lengths)
+    ref = model.decode(torch.from_numpy(ref_tokens).to(device), pad).float().cpu().numpy()
+    err = max(float(np.abs(got[i, :n] - ref[i, :n]).max()) for i, n in enumerate(lengths))
+    tol = _deploy_tol(ref)
+    print(f"  14c export of the trained generator: {flips} token flips near "
+          f"midpoints; decode max|d| {err:.2e} (gate {tol:.2e}) "
+          f"{'ok' if err <= tol else 'FAIL'}")
+    shutil.rmtree(root, ignore_errors=True)
+    if err > tol:
+        fail("phase 14c: the exported generator disagrees with the trained one")
+    return launches
+
+
+def compare_eval_kernels(gen, inputs) -> None:
+    """Phase 14c, after the counted runs: the trainer's own eval inputs
+    (each epoch's train-image batch, fill rows of length 0 included, and
+    each eval window at its bucket) through the trained bf16 generator's
+    eval step again, each kernel call held against its plain version on the
+    same arguments at phase 3's gates (bf16 rel-L2 <= 2e-2; FSQ indices
+    equal away from midpoints), and the padded frames of the block and the
+    mixer bit-equal to the plain version's."""
+    import torch
+
+    from mqgan_tpu_torch.models import preencoder
+    from mqgan_tpu_torch.nn import blocks, mixer2d
+    from mqgan_tpu_torch.ops.block_kernels import residual_block_plain
+    from mqgan_tpu_torch.ops.fsq_kernels import fsq_encode_plain
+    from mqgan_tpu_torch.ops.mixer_kernels import mel_mixer_plain
+    from mqgan_tpu_torch.train.step import make_eval_step
+
+    if not any(bool((lengths == 0).any()) for _, lengths in inputs):
+        fail("phase 14c: no eval input of the trainer holds a zero-length row")
+    found = {k: {"calls": 0, "max_abs": 0.0, "rel": 0.0, "bad": 0}
+             for k in TRAIN_EVAL_BATCH}
+
+    def note(kernel, ok, max_abs, rel=0.0):
+        f = found[kernel]
+        f["calls"] += 1
+        f["max_abs"] = max(f["max_abs"], max_abs)
+        f["rel"] = max(f["rel"], rel)
+        f["bad"] += not ok
+
+    def held(kernel, wrapper, plain):
+        def run(x, lengths, w, **kw):
+            got = wrapper(x, lengths, w, **kw)
+            want = plain(x, lengths, w, **kw)
+            ok, max_abs, _ = _judge("", got, want, x.dtype)
+            diff = (got.float() - want.float()).norm()
+            pad = torch.arange(x.shape[1], device=x.device)[None, :] >= lengths[:, None]
+            ok = ok and bool((got[pad] == want[pad]).all())
+            note(kernel, ok, max_abs,
+                 float(diff / want.float().norm().clamp_min(1e-30)))
+            return got
+        return run
+
+    def held_fsq(h, w, bias, consts):
+        got = _fsq_head(h, w, bias, consts)
+        want = fsq_encode_plain(h, w, bias, consts)
+        near = _fsq_near_midpoint(h, w, bias, consts)
+        far = (got - want)[~near]
+        far_err = int(far.abs().max()) if far.numel() else 0
+        note("fsq_head", far_err == 0, float(far_err))
+        return got
+
+    _block, _mixer, _fsq_head = (blocks.fused_residual_block, mixer2d.fused_mel_mixer,
+                                 preencoder.fsq_encode_head)
+    eval_step = make_eval_step()
+    try:
+        blocks.fused_residual_block = held("residual_block", _block, residual_block_plain)
+        mixer2d.fused_mel_mixer = held("mel_mixer", _mixer, mel_mixer_plain)
+        preencoder.fsq_encode_head = held_fsq
+        for mel, lengths in inputs:
+            eval_step(gen, mel, lengths)
+    finally:
+        blocks.fused_residual_block, mixer2d.fused_mel_mixer = _block, _mixer
+        preencoder.fsq_encode_head = _fsq_head
+    shapes = [f"B={m.shape[0]} T={m.shape[1]} shortest row {int(n.min())}"
+              for m, n in inputs]
+    print(f"  14c the trainer's {len(inputs)} eval inputs ({'; '.join(shapes)}) "
+          f"again, bf16, each kernel call vs its plain version:")
+    for kernel, f in found.items():
+        what = ("indices differ away from a midpoint by at most "
+                f"{f['max_abs']:.0f}" if kernel == "fsq_head" else
+                f"worst rel-L2 {f['rel']:.2e} (<= 2e-2), max|k-p| {f['max_abs']:.3e}, "
+                f"padded frames bit-equal")
+        print(f"    {kernel:15s} {f['calls']} calls: {what} "
+              + ("ok" if not f["bad"] else f"FAIL in {f['bad']}"))
+    want_calls = {k: v * len(inputs) for k, v in TRAIN_EVAL_BATCH.items()}
+    if {k: f["calls"] for k, f in found.items()} != want_calls:
+        fail(f"phase 14c: kernel calls compared {found} != {want_calls}")
+    if any(f["bad"] for f in found.values()):
+        fail("phase 14c: a kernel disagrees with its plain version on the "
+             "trainer's eval inputs")
+
+
+GAN_PARTS = ("gan/g_forward", "gan/d_forward", "gan/d_backward", "gan/d_optimizer",
+             "gan/g_loss", "gan/g_backward", "gan/g_optimizer")
+
+
+def _split_by_part(fn) -> dict:
+    """{part: [span ms, kernel ms, elementwise kernel ms]} of one call of
+    ``fn`` (a train step) in which each of the step's gan/* ranges
+    synchronises the card where it starts and where it ends, so that every
+    kernel runs within the host span of the range that launched it, the
+    ones that autograd's device thread launches for a backward included;
+    a kernel goes to the range whose span holds its start. The span is
+    host time: it holds the card's idle time while the host launches."""
+    import contextlib
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mqgan_tpu_torch.train import step as step_mod
+
+    real = step_mod.record_function
+
+    @contextlib.contextmanager
+    def synced(name):
+        torch.cuda.synchronize()
+        with real(name):
+            yield
+            torch.cuda.synchronize()
+
+    step_mod.record_function = synced
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        step_mod.record_function = real
+    events = prof.events()
+    spans = {e.name: (e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == DeviceType.CPU and e.name in GAN_PARTS}
+    out = {name: [(end - start) / 1e3, 0.0, 0.0] for name, (start, end) in spans.items()}
+    out["outside the ranges"] = [0.0, 0.0, 0.0]
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name.startswith("gan/"):
+            continue
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        owner = next((n for n, (a, b) in spans.items()
+                      if a <= e.time_range.start <= b), "outside the ranges")
+        out[owner][1] += ms
+        if "elementwise" in e.name.lower():
+            out[owner][2] += ms
+    return out
+
+
+def train_step_times(device, card) -> None:
+    """Phase 14d: ms/step and trained mel-frames/s (B * T per step) of the
+    warmup and the GAN step at B=16 T=256 bf16, flagship, for fast dropout
+    (the CLI default), exact dropout, --remat and --grad_accum 2:
+    TRAIN_WARM warm-up then TRAIN_ITERS timed steps (CUDA events), peak
+    device memory; then a profile of one fast-dropout GAN step by part."""
+    import dataclasses
+
+    import torch
+
+    from mqgan_tpu_torch.train.step import make_train_step
+
+    base = gan_config(False)
+    variants = (("fast dropout", {"fast_dropout": True}, 1),
+                ("exact dropout", {}, 1),
+                ("--remat", {"fast_dropout": True, "remat": True}, 1),
+                ("--grad_accum 2", {"fast_dropout": True}, 2))
+    gen = torch.Generator(device=device).manual_seed(SEED + 45)
+    data = [torch.randn((TRAIN_B, TRAIN_T, MELS), generator=gen, device=device)
+            for _ in range(TRAIN_WARM + TRAIN_ITERS)]
+    lengths = torch.full((TRAIN_B,), TRAIN_T, dtype=torch.int32, device=device)
+    for label, gen_kw, accum in variants:
+        cfg = dataclasses.replace(base, model=dataclasses.replace(
+            base.model, generator=dataclasses.replace(base.model.generator, **gen_kw)))
+        for train_d in (False, True):
+            state = gan_state(cfg, device, torch.bfloat16)
+            step = make_train_step(cfg, train_d=train_d, dtype=torch.bfloat16,
+                                   grad_accum=accum)
+            for mel in data[:TRAIN_WARM]:
+                step(state, mel, lengths)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: [step(state, mel, lengths)
+                                  for mel in data[TRAIN_WARM:]], 1) / TRAIN_ITERS
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            m = step(state, data[0], lengths)
+            loss = float(m["loss_g_total"])
+            print(f"  14d {label:15s} {'GAN   ' if train_d else 'warmup'}: "
+                  f"{ms:9.3f} ms/step, {TRAIN_B * TRAIN_T / (ms / 1e3):10.1f} "
+                  f"mel-frames/s, peak {peak:6.2f} GB, loss {loss:.4f} [{card}]")
+            if not math.isfinite(loss):
+                fail(f"phase 14d: {label} loss not finite")
+            if label == "fast dropout" and train_d:
+                profile_gan_step(lambda: step(state, data[1], lengths), ms, card)
+            del state, step
+            torch.cuda.empty_cache()
+
+
+def profile_gan_step(run, step_ms, card) -> None:
+    """Phase 14e: where one GAN step's time goes: the kernels of one
+    profiled step and the card's idle share against the unprofiled step
+    time, then the step by part from a second, synchronised pass
+    (_split_by_part)."""
+    events, wall = _device_profile(run)
+    # (the gan/* ranges' own device spans are not kernels)
+    events = [(k, ms) for k, ms in events if not k.startswith("gan/")]
+    print(f"[14e] where the time goes, one GAN step B={TRAIN_B} T={TRAIN_T} bf16 "
+          f"fast dropout [{card}]")
+    busy = _report_profile("GAN step", events, wall, top=10)
+    print(f"    device busy {busy:.3f} ms against the unprofiled {step_ms:.3f} ms "
+          f"step: idle share {1 - busy / step_ms:.3f}")
+    parts = _split_by_part(run)
+    print("    by part, a second pass that synchronises the card at each part's "
+          "start and end (span: the part's host time, the card's idle time "
+          "while the host launches included; kernels: the card's busy time):")
+    for name in GAN_PARTS + ("outside the ranges",):
+        span, kern, elem = parts.get(name, (0.0, 0.0, 0.0))
+        print(f"    {name:18s} " + (f"span {span:9.3f} ms, kernels {kern:9.3f} ms "
+                                     f"(elementwise {elem:8.3f} ms)" if kern else
+                                     "not measured (no kernel of its own)"))
+    kern = {n: parts.get(n, (0.0, 0.0, 0.0))[1] for n in GAN_PARTS}
+    total = sum(p[1] for p in parts.values())
+    print(f"    kernels by part: G forward {kern['gan/g_forward']:.3f} ms, G loss "
+          f"through the D's {kern['gan/g_loss']:.3f} ms, G backward "
+          f"{kern['gan/g_backward']:.3f} ms, D forward {kern['gan/d_forward']:.3f} ms, "
+          f"D backward {kern['gan/d_backward']:.3f} ms, optimizers "
+          f"{kern['gan/d_optimizer'] + kern['gan/g_optimizer']:.3f} ms, elementwise "
+          f"(all parts) {sum(p[2] for p in parts.values()):.3f} ms, of {total:.3f} ms")
+
+
+def codec_training(device, counters, card) -> dict:
+    """Phase 14: codec GAN training at flagship width (a)-(d); returns the
+    trainer CLI's launches."""
+    import torch
+
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        seconds[part] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    with torch.enable_grad():
+        compare_gan_steps(device)
+        lap("a")
+        compare_train_branch(device)
+        lap("b")
+        launches = trainer_cli(device, counters, card)
+        lap("c")
+        train_step_times(device, card)
+        lap("d")
+    print(f"  phase 14 seconds by part: {seconds}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2820,6 +3395,8 @@ def main() -> None:
     print(f"[13] codec deployment, flagship width, seeded weights [{card}] {at()}")
     for kernel, err in codec_deployment(state, device, counters, card).items():
         errs[kernel] = max(errs.get(kernel, 0.0), err)
+    print(f"[14] codec GAN training, flagship width [{card}] {at()}")
+    codec_training(device, counters, card)
     kernels = []
     for row in rows:
         kernels.append({

@@ -3,7 +3,7 @@ NVIDIA Hopper (sm_90a).
 
 Same module layout and names as ``mqgan_tpu`` (the JAX package, which stays
 the reference): ``core/``, ``nn/``, ``ops/``, ``quant/``, ``models/``,
-``deploy/``, ``utils/``. Public functions keep JAX's layouts: channels-last
+``losses/``, ``train/``, ``signal/``, ``deploy/``, ``utils/``. Public functions keep JAX's layouts: channels-last
 (B, T, C) activations and (B, T) bool pad masks with True = padded.
 
 This package imports ``torch`` and numpy only — never ``jax``, ``flax`` or

@@ -17,11 +17,3 @@ def resolve_device(device=None) -> torch.device:
         raise ValueError(f"unsupported device {dev}")
     return dev
 
-
-def check_inference(deterministic: bool) -> None:
-    """The port is inference-only so far; training paths raise."""
-    if not deterministic:
-        raise NotImplementedError(
-            "deterministic=False (dropout, FSQ noise, fast-dropout) belongs "
-            "to the GAN training slice, ROADMAP.md Queue 1 item 6; this "
-            "package runs inference only")

@@ -3,7 +3,7 @@
 
 The LM artifact of the JAX package (``export_music_lm``,
 ``ExportedMusicLM``, ``verify_lm_export`` and the export CLI) waits for the
-port's artifact design, ROADMAP.md Queue 1 item 4.
+port's artifact design, ROADMAP.md Queue 1 item 4b.
 """
 
 from __future__ import annotations
@@ -29,8 +29,8 @@ def load_lm_from_run(lm_run: str, device=None):
     if os.path.isdir(path) or not path.endswith(".pt"):
         raise NotImplementedError(
             f"{path}: orbax checkpoints of the JAX trainer are not read by "
-            f"this package yet (ROADMAP.md Queue 1 item 3, checkpoint "
-            f"import); serve a run of mqgan_tpu_torch.train.lstm_trainer")
+            f"this package yet (ROADMAP.md Queue 1 item 4b, the LM "
+            f"artifact); serve a run of mqgan_tpu_torch.train.lstm_trainer")
     args = best["args"]
     model = build_token_lm(args, dropout=0.0, for_inference=True)
     model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))

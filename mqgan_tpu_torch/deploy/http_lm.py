@@ -26,7 +26,7 @@ seed, seed + 1, ..., seed + n - 1. pad and BOS are never sampled.
 
 The service runs on CUDA unless given ``device="cpu"``. The LM artifact
 backend (``lm_export``) and codec decode (``codec_dir``) wait for the
-port's artifact design (ROADMAP.md Queue 1 item 4) and raise.
+port's artifact design (ROADMAP.md Queue 1 item 4b) and raise.
 
 CLI:  python -m mqgan_tpu_torch.deploy.http_lm --lm_run RUN_DIR
       [--port 8767] [--max_length 8192] [--max_batch 16]
@@ -55,7 +55,7 @@ from mqgan_tpu_torch.deploy.server import ServerStats
 
 MAX_SAMPLES = 16
 UNPORTED_ARTIFACTS = ("the LM artifact backend and codec decode wait for the "
-                      "port's artifact design (ROADMAP.md Queue 1 item 4); "
+                      "port's artifact design (ROADMAP.md Queue 1 item 4b); "
                       "serve a training run with lm_run")
 
 

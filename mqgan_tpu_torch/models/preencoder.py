@@ -9,7 +9,16 @@
 
 Channels-last (B, T, C) throughout; pad masks are (B, T) bool, True = pad.
 Parameters are fp32; the compute dtype is ``dtype`` (fp32 or bf16), FSQ
-math always fp32. Training (``deterministic=False``) is not in this port.
+math always fp32.
+
+Training (``forward(..., deterministic=False)``) returns (x_recon, x_post,
+indices) under autograd through the modules' training branches, as the JAX
+package trains through its XLA path: ``q_in_proj`` in the compute dtype and
+the ``FSQ`` module with straight-through rounding and noise dropout in
+place of the fused head; the refiner's input detached, so that only the
+refiner takes the GAN gradients. Dropout masks draw from ``generator``,
+FSQ noise from ``fsq_generator`` (both on the activations' device; a
+``None`` generator means no dropout).
 """
 
 from __future__ import annotations
@@ -18,14 +27,13 @@ import torch
 from torch import nn
 
 from mqgan_tpu_torch.core.config import GeneratorConfig
-from mqgan_tpu_torch.core.device import check_inference
 from mqgan_tpu_torch.core.masking import sequence_mask
 from mqgan_tpu_torch.nn.blocks import ResidualBlock1D
 from mqgan_tpu_torch.nn.conv import Dense
 from mqgan_tpu_torch.nn.mixer2d import MelMixer2D
 from mqgan_tpu_torch.nn.unet import UNetRefiner
 from mqgan_tpu_torch.ops.fsq_kernels import fsq_encode_head, fsq_head_constants
-from mqgan_tpu_torch.quant.fsq import FSQSpec, indices_to_codes
+from mqgan_tpu_torch.quant.fsq import FSQ, indices_to_codes
 
 # False: both mixers exact; "decode": the post mixer through the Chebyshev
 # interpolant; "encode": the pre mixer; True or "both": both mixers
@@ -38,14 +46,22 @@ class PreEncoder(nn.Module):
                  fsq_levels=(8, 5, 5, 5), refiner_base_channels: int = 128,
                  refiner_depth: int = 3, refiner_hidden_proj_divisor: int = 8,
                  poly_mixers: bool | str = False, int8_refiner: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.1,
+                 fsq_noise_dropout: float = 0.0, remat: bool = False,
+                 remat_refiner: bool = False, fast_dropout: bool = False,
+                 mixer_chunk_t: int = 32):
         """poly_mixers: which mixers evaluate their MLP as a Chebyshev
         interpolant (``POLY_MIXER_MODES``). "decode" keeps the tokens those
         of the exact path; "encode", True and "both" put the pre mixer
         through it too, which can flip an FSQ code whose pre-round value
         sits on a rounding midpoint (each flip a whole code step of the
         decode). int8_refiner: the JAX package's int8 refiner convs are
-        not ported; only False is accepted."""
+        not ported; only False is accepted. The rest are training knobs:
+        the blocks' dropout rate (the mixers' and the refiner's is 0.1),
+        FSQ noise dropout, ``remat`` (the mixers' pointwise MLP in
+        checkpointed chunks of ``mixer_chunk_t`` frames), ``remat_refiner``
+        (the refiner's ConvBlocks recomputed) and ``fast_dropout`` (the
+        mixers' moment-matched Gaussian)."""
         super().__init__()
         if poly_mixers not in POLY_MIXER_MODES:
             raise ValueError(f"poly_mixers must be one of {POLY_MIXER_MODES}")
@@ -64,24 +80,31 @@ class PreEncoder(nn.Module):
         self.dtype = dtype
         poly_pre = poly_mixers in (True, "encode", "both")
         poly_post = poly_mixers in (True, "decode", "both")
-        self.spec = FSQSpec(tuple(fsq_levels))
+        self.quantizer = FSQ(tuple(fsq_levels), noise_dropout=fsq_noise_dropout)
+        self.spec = self.quantizer.spec
+        chunk = mixer_chunk_t if remat else None
+        mixer_kw = dict(dropout=0.1, hidden_chunk_t=chunk,
+                        fast_dropout=fast_dropout)
         self.proj = Dense(mel_channels, ch[0])
-        self.pre = MelMixer2D(ch[0], poly_approx=poly_pre)
+        self.pre = MelMixer2D(ch[0], poly_approx=poly_pre, **mixer_kw)
         self.encoder_blocks = nn.ModuleList(
-            ResidualBlock1D(ch[i], ch[i + 1], kernel_sizes[i], causal=False)
+            ResidualBlock1D(ch[i], ch[i + 1], kernel_sizes[i], causal=False,
+                            dropout=dropout)
             for i in range(len(ch) - 1))
         self.q_in_proj = Dense(ch[-1], self.spec.codebook_dim)
         self.q_out_proj = Dense(self.spec.codebook_dim, ch[-1])
         rev_ch, rev_ks = ch[::-1], tuple(kernel_sizes)[::-1]
         self.decoder_blocks = nn.ModuleList(
-            ResidualBlock1D(rev_ch[i], rev_ch[i + 1], rev_ks[i], causal=True)
+            ResidualBlock1D(rev_ch[i], rev_ch[i + 1], rev_ks[i], causal=True,
+                            dropout=dropout)
             for i in range(len(rev_ch) - 1))
-        self.post = MelMixer2D(ch[0], poly_approx=poly_post)
+        self.post = MelMixer2D(ch[0], poly_approx=poly_post, **mixer_kw)
         self.out_proj = Dense(ch[0], mel_channels)
         hidden = mel_channels // refiner_hidden_proj_divisor
         self.hidden_proj = Dense(ch[0], hidden)
         self.refiner = UNetRefiner(mel_channels + hidden, refiner_base_channels,
-                                   refiner_depth, mel_channels)
+                                   refiner_depth, mel_channels, dropout=0.1,
+                                   remat=remat_refiner)
         self.register_buffer(
             "fsq_consts", torch.from_numpy(fsq_head_constants(self.spec)),
             persistent=False)
@@ -95,7 +118,11 @@ class PreEncoder(nn.Module):
                    refiner_base_channels=cfg.refiner_base_channels,
                    refiner_depth=cfg.refiner_depth,
                    refiner_hidden_proj_divisor=cfg.refiner_hidden_proj_divisor,
-                   poly_mixers=poly_mixers, dtype=dtype)
+                   poly_mixers=poly_mixers, dtype=dtype, dropout=cfg.dropout,
+                   fsq_noise_dropout=cfg.fsq_noise_dropout, remat=cfg.remat,
+                   remat_refiner=cfg.remat_refiner,
+                   fast_dropout=cfg.fast_dropout,
+                   mixer_chunk_t=cfg.mixer_chunk_t)
 
     @property
     def codebook_size(self) -> int:
@@ -163,12 +190,28 @@ class PreEncoder(nn.Module):
             return x_post, x_recon
         return x_post
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
-                deterministic: bool = True):
-        """Returns (x_recon, x_post, indices), like the JAX ``__call__``."""
-        check_inference(deterministic)
+                deterministic: bool = True,
+                generator: torch.Generator | None = None,
+                fsq_generator: torch.Generator | None = None):
+        """Returns (x_recon, x_post, indices), like the JAX ``__call__``:
+        the inference path (no grad, the kernels on a card) when
+        ``deterministic``, else the training branch."""
         pad_mask = sequence_mask(x.shape[1], lengths)
-        indices = self.encode(x, pad_mask)
-        x_recon, x_post, _ = self._decode_tokens(indices, pad_mask)
-        return x_recon, x_post, indices
+        if deterministic:
+            with torch.no_grad():
+                indices = self.encode(x, pad_mask)
+                x_recon, x_post, _ = self._decode_tokens(indices, pad_mask)
+            return x_recon, x_post, indices
+        h = self.pre(self.proj(x.to(self.dtype)), pad_mask, False, generator)
+        for block in self.encoder_blocks:
+            h = block(h, pad_mask, False, generator)
+        codes, indices = self.quantizer(self.q_in_proj(h), training=True,
+                                        generator=fsq_generator)
+        h = self.q_out_proj(codes)
+        for block in self.decoder_blocks:
+            h = block(h, pad_mask, False, generator)
+        x_recon = self.out_proj(self.post(h, pad_mask, False, generator))
+        refiner_in = torch.cat([x_recon, self.hidden_proj(h)], dim=-1)
+        residual = self.refiner(refiner_in.detach(), pad_mask, generator)
+        return x_recon, x_recon + residual, indices

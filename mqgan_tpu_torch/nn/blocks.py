@@ -3,11 +3,14 @@
 ("weight" norm, identity norms), trainable APTx ("taptx"), dilation 1:
 
 conv1 -> mask -> act -> conv2 -> [CBAM if non-causal] -> + residual
-(1x1 projection if channels change) -> mask -> act.
+(1x1 projection if channels change) -> mask -> act -> dropout.
 
-Inference only. The whole block runs as ``ops/block_kernels.py``
-``fused_residual_block``: the CUDA kernels for a CUDA tensor, the plain
-PyTorch version for a CPU tensor.
+At inference (``deterministic=True``) the whole block runs as
+``ops/block_kernels.py`` ``fused_residual_block``: the CUDA kernels for a
+CUDA tensor, the plain PyTorch version for a CPU tensor. Training
+(``deterministic=False``) runs the module-by-module composition under
+autograd, as the JAX package trains through its XLA path and not its
+kernel; dropout masks come from ``generator`` (None: no dropout).
 """
 
 from __future__ import annotations
@@ -15,19 +18,21 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mqgan_tpu_torch.core.device import check_inference
-from mqgan_tpu_torch.core.masking import lengths_from_mask
+from mqgan_tpu_torch.core.masking import apply_mask, lengths_from_mask
 from mqgan_tpu_torch.nn.activations import APTx
 from mqgan_tpu_torch.nn.attention import CBAM1D
 from mqgan_tpu_torch.nn.conv import WNConv1d
+from mqgan_tpu_torch.nn.layers import dropout
 from mqgan_tpu_torch.ops.block_kernels import BlockWeights, fused_residual_block
 
 
 class ResidualBlock1D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3, causal: bool = False):
+                 kernel_size: int = 3, causal: bool = False,
+                 dropout: float = 0.3):
         super().__init__()
         self.kernel_size = kernel_size
+        self.dropout = dropout
         self.causal = causal
         self.conv1 = WNConv1d(in_channels, out_channels, kernel_size,
                               causal=causal)
@@ -66,11 +71,22 @@ class ResidualBlock1D(nn.Module):
             **extra)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor | None = None,
-                deterministic: bool = True) -> torch.Tensor:
-        check_inference(deterministic)
+                deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         if pad_mask is None:
             pad_mask = torch.zeros(x.shape[:2], dtype=torch.bool,
                                    device=x.device)
+        if not deterministic:
+            return self._train_forward(x, pad_mask, generator)
         return fused_residual_block(
             x.contiguous(), lengths_from_mask(pad_mask),
             self.kernel_weights(x.dtype), causal=self.causal)
+
+    def _train_forward(self, x, pad_mask, generator):
+        residual = self.residual(x) if self.residual is not None else x
+        out = self.act(apply_mask(self.conv1(x), pad_mask))
+        out = self.conv2(out)
+        if self.cbam is not None:
+            out = self.cbam(out, pad_mask)
+        out = self.act(apply_mask(out + residual, pad_mask))
+        return dropout(out, self.dropout, generator)

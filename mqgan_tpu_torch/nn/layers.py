@@ -43,3 +43,28 @@ def dropout(x: torch.Tensor, rate: float,
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
+
+
+def checkpoint(fn, generator: torch.Generator | None, *args):
+    """``torch.utils.checkpoint`` of ``fn(*args, generator)`` whose backward
+    recompute draws the same random numbers as its forward. The stock
+    checkpoint replays only the global RNGs, so the call runs on a copy of
+    ``generator`` made from its state before the call, and ``generator``
+    then moves on to where the forward left the copy."""
+    from torch.utils.checkpoint import checkpoint as _checkpoint
+
+    if generator is None:
+        return _checkpoint(fn, *args, None, use_reentrant=False,
+                           preserve_rng_state=False)
+    start, end = generator.get_state(), {}
+
+    def run(*a):
+        gen = torch.Generator(device=generator.device)
+        gen.set_state(start)
+        out = fn(*a, gen)
+        end["state"] = gen.get_state()
+        return out
+
+    out = _checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+    generator.set_state(end["state"])
+    return out

@@ -60,10 +60,10 @@ class ISTFTNetFE:
                   example_frames: int = 600):
         raise NotImplementedError(
             "the vocoder artifact is a JAX StableHLO program; exporting and "
-            "loading belong to the export slice, ROADMAP.md Queue 1 item 4")
+            "loading belong to the export slice, ROADMAP.md Queue 1 item 4b")
 
     @classmethod
     def load_ts(cls, in_dir: str) -> "ISTFTNetFE":
         raise NotImplementedError(
             "the vocoder artifact is a JAX StableHLO program; exporting and "
-            "loading belong to the export slice, ROADMAP.md Queue 1 item 4")
+            "loading belong to the export slice, ROADMAP.md Queue 1 item 4b")

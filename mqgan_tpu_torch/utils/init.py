@@ -1,8 +1,9 @@
 """Seeded initialisation without JAX, after the JAX package's scheme (not
 its bits): lecun-normal kernels (truncated normal, variance 1/fan_in),
 weight-norm magnitudes g = ||v||, zero biases, APTx beta = 1, gamma = 0.5;
-and for the token LMs flax's embedding init (normal, variance 1/features)
-and LayerNorm scale 1, bias 0.
+for the token LMs flax's embedding init (normal, variance 1/features) and
+LayerNorm scale 1, bias 0; for the discriminators' spectrally normalized
+convs normal(0, 0.02) kernels, a standard-normal ``u`` and sigma = 1.
 """
 
 from __future__ import annotations
@@ -47,4 +48,10 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
         elif isinstance(sub, nn.LayerNorm):
             sub.weight.fill_(1.0)
             sub.bias.zero_()
+        elif hasattr(sub, "u") and hasattr(sub, "sigma"):  # SNConv2d
+            w = torch.empty(sub.weight.shape)
+            nn.init.normal_(w, 0.0, 0.02, generator=gen)
+            sub.weight.copy_(w)
+            sub.u.copy_(torch.randn(sub.u.shape, generator=gen))
+            sub.sigma.fill_(1.0)
     return module

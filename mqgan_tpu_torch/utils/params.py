@@ -4,12 +4,16 @@ The input is a nested dict of numpy arrays as ``PreEncoder.init(...)["params"]``
 gives it (or the subtree of one of its modules: a block, a mixer, the
 refiner), or as ``ISTFTNetGenerator.init(...)["params"]`` gives it (whose
 names the port's vocoder mirrors as they are), or as the token LMs'
-``MusicTransformer.init`` / ``MusicLSTM.init`` give it. Key paths map one to
-one onto the port's module names:
+``MusicTransformer.init`` / ``MusicLSTM.init`` give it, or a discriminator's
+``init(...)["params"]`` together with its ``["batch_stats"]`` (the spectral
+norms' ``u`` and ``sigma``, which become the port's buffers). Key paths map
+one to one onto the port's module names:
 
   encoder_blocks_i / decoder_blocks_i -> encoder_blocks.i / decoder_blocks.i
   down{i} / up{i} (refiner)           -> downs.i / ups.i
   block_{i} (transformer)             -> blocks.i
+  convs_{i}, discriminators_{i}       -> convs.i, discriminators.i
+  SpectralNorm_i / convs_i/kernel/u   -> convs.i.u (and sigma)
   APTx_0 (a block's activation)       -> act
   kernel, embedding (Embed),
   scale (LayerNorm)                   -> weight;  v, g, bias, beta, gamma as is
@@ -40,6 +44,7 @@ _RENAMES = (
     (re.compile(r"^up(\d+)$"), r"ups.\1"),
     (re.compile(r"^APTx_0$"), "act"),
     (re.compile(r"^block_(\d+)$"), r"blocks.\1"),
+    (re.compile(r"^(convs|discriminators)_(\d+)$"), r"\1.\2"),
 )
 _WEIGHT_LEAVES = ("kernel", "embedding", "scale")
 _LAYOUTS = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
@@ -73,12 +78,26 @@ def unflatten_tree(flat) -> dict:
     return tree
 
 
-def state_dict_from_jax(params: dict, module: nn.Module) -> dict:
-    """Convert ``params`` for ``module`` (whose names mirror the JAX tree);
-    returns a state_dict for ``module.load_state_dict``."""
+def _spectral_stats(batch_stats: dict):
+    """flax SpectralNorm stats -> (path, leaf): ``.../SpectralNorm_i/
+    convs_i/kernel/u`` becomes ``.../convs_i/u``."""
+    for path, leaf in _flatten(batch_stats):
+        *parents, _module, name = path
+        conv, _kernel, stat = name.split("/")
+        yield tuple(parents) + (conv, stat), leaf
+
+
+def state_dict_from_jax(params: dict, module: nn.Module,
+                        batch_stats: dict | None = None) -> dict:
+    """Convert ``params`` (and a discriminator's ``batch_stats``) for
+    ``module`` (whose names mirror the JAX tree); returns a state_dict for
+    ``module.load_state_dict``."""
     expected = module.state_dict()
     out = {}
-    for path, leaf in _flatten(params):
+    leaves = list(_flatten(params))
+    if batch_stats is not None:
+        leaves += list(_spectral_stats(batch_stats))
+    for path, leaf in leaves:
         arr = np.asarray(leaf, dtype=np.float32)
         name = path[-1]
         if name in ("kernel", "v") and arr.ndim in _LAYOUTS:

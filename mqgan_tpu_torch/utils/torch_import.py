@@ -16,8 +16,8 @@ Layout conversions (into the JAX tree's layouts):
   Linear  (O, I)         -> (I, O)
   weight-norm g (O, 1..) -> (O,)
 
-The discriminator importers belong to the GAN-training slice, which brings
-the modules they feed.
+The discriminator importers return (params, batch_stats) trees, which the
+bridge loads with ``state_dict_from_jax(params, module, batch_stats)``.
 """
 
 from __future__ import annotations
@@ -179,6 +179,61 @@ def validate_against_template(imported: Mapping[str, Any], template: Mapping[str
                 raise ValueError(
                     f"shape mismatch at {p}: imported {np.shape(iv)} vs template {np.shape(tv)}"
                 )
+
+
+def _sn_conv(sd: Mapping[str, np.ndarray], p: str):
+    """torch spectral-norm Conv2d -> (params, sigma, u).
+
+    torch stores weight_orig / weight_u / weight_v and divides by
+    u^T W v; flax's SpectralNorm re-runs one power-iteration step from the
+    stored u on every call, so u is stored as the EXACT top singular
+    vector (SVD, in flax's (kh * kw * in, out) matricization), the fixed
+    point of that step: the imported sigma is the true sigma_max, which a
+    trained torch checkpoint's converged u and v also give."""
+    kernel = _conv_kernel(sd[f"{p}.weight_orig"], "conv2d")
+    mat = kernel.reshape(-1, kernel.shape[-1])
+    _, s, qt = np.linalg.svd(mat, full_matrices=False)
+    return {"kernel": kernel, "bias": sd[f"{p}.bias"]}, float(s[0]), qt[0]
+
+
+def _se(sd, p: str) -> Dict[str, Any]:
+    return {"fc1": _linear(sd, f"{p}.fc1"), "fc2": _linear(sd, f"{p}.fc2")}
+
+
+def import_patch_discriminator_params(state_dict: Mapping[str, Any],
+                                      prefix: str = ""):
+    """Reference MelSpectrogramPatchDiscriminator2D state_dict ->
+    (params, batch_stats) trees of the JAX package's layout."""
+    sd = to_numpy_state_dict(strip_module_prefix(state_dict))
+    pfx = f"{prefix}." if prefix else ""
+    params: Dict[str, Any] = {"se_block": _se(sd, f"{pfx}se_block")}
+    stats: Dict[str, Any] = {}
+    i = 0
+    while f"{pfx}convs.{i}.weight_orig" in sd:
+        p, sigma, u = _sn_conv(sd, f"{pfx}convs.{i}")
+        params[f"convs_{i}"] = p
+        stats[f"SpectralNorm_{i}"] = {
+            f"convs_{i}/kernel/sigma": np.asarray(sigma, np.float32),
+            f"convs_{i}/kernel/u": u[None, :].astype(np.float32),
+        }
+        i += 1
+    if i == 0:
+        raise KeyError(f"no spectral-norm convs under '{pfx}convs'")
+    return params, stats
+
+
+def import_multibin_discriminator_params(state_dict: Mapping[str, Any],
+                                         n_bins: int):
+    """Reference MultiBinDiscriminator state_dict -> (params, batch_stats):
+    one patch discriminator per mel band."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for i in range(n_bins):
+        p, s = import_patch_discriminator_params(
+            state_dict, prefix=f"discriminators.{i}")
+        params[f"discriminators_{i}"] = p
+        stats[f"discriminators_{i}"] = s
+    return params, stats
 
 
 def import_music_lstm_params(state_dict: Mapping[str, Any], lstm_layers: int = 2) -> Dict[str, Any]:

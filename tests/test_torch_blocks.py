@@ -64,6 +64,19 @@ def test_cbam_module_matches_jax(rng):
 
 
 def test_block_training_mode_raises():
-    blk = ResidualBlock1D(8, 8, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        blk(torch.zeros(1, 4, 8), deterministic=False)
+    """Training mode is the autograd branch: dropout draws from the given
+    generator (a generator of another kind than the input's device raises),
+    and gradients reach every parameter."""
+    blk = ResidualBlock1D(8, 8, 3, dropout=0.5)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.normal_(0.0, 0.3)
+    x = torch.randn(2, 6, 8)
+    a = blk(x, deterministic=False, generator=torch.Generator().manual_seed(0))
+    b = blk(x, deterministic=False, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(a, b)
+    assert not torch.equal(a, blk(x, deterministic=False))
+    a.square().sum().backward()
+    assert all(p.grad is not None for p in blk.parameters())
+    with pytest.raises((RuntimeError, TypeError)):
+        blk(x, deterministic=False, generator=torch.Generator(device="meta"))

@@ -44,6 +44,14 @@ if not result["cuda"]:
         lstm_trainer.main(lm_args)
     except RuntimeError as e:
         result["trainer_device_error"] = str(e)
+from mqgan_tpu_torch.train import trainer as gan_trainer
+gan_args = ["--config", "no_such_config.json", "--no_wandb"]
+result["gan_trainer_device"] = gan_trainer.parse_args(gan_args)[1].device
+if not result["cuda"]:
+    try:
+        gan_trainer.main(gan_args)
+    except RuntimeError as e:
+        result["gan_trainer_device_error"] = str(e)
 import shutil, tempfile
 from mqgan_tpu_torch.core.config import GeneratorConfig
 from mqgan_tpu_torch.deploy import (export, http_server, http_streaming,
@@ -102,10 +110,14 @@ def test_port_imports_nothing_of_jax_and_does_not_fall_back():
                  "core.chunking", "utils.torch_import", "utils.checkpoint",
                  "deploy.export", "deploy.reencode", "deploy.token_stats",
                  "deploy.streaming", "deploy.streaming_server",
-                 "deploy.http_streaming", "deploy.http_client"):
+                 "deploy.http_streaming", "deploy.http_client", "nn.se",
+                 "models.discriminators", "losses.gan", "losses.recon",
+                 "quant.fsq", "train.state", "train.step", "train.data",
+                 "train.trainer", "utils.plotting"):
         assert f"mqgan_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     assert result["trainer_device"] == "cuda"
+    assert result["gan_trainer_device"] == "cuda"
     assert len(result["entries"]) == 6
     if result["cuda"]:
         assert result["default_device"].startswith("cuda")
@@ -117,6 +129,7 @@ def test_port_imports_nothing_of_jax_and_does_not_fall_back():
         assert "CUDA is not available" in result["default_device_error"]
         assert "CUDA is not available" in result["mel_device_error"]
         assert "CUDA is not available" in result["trainer_device_error"]
+        assert "CUDA is not available" in result["gan_trainer_device_error"]
 
 
 def test_chip_smoke_imports_nothing_of_jax():

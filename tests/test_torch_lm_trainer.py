@@ -165,5 +165,5 @@ def test_cli_trains_writes_best_json_and_follows_the_jax_batch_order(
     assert os.path.isfile(tmp_path / "warm" / "best.json")
     with pytest.raises(SystemExit, match="jax_generator_to_npz"):
         lstm_trainer.main(common + ["--pretrained", str(tmp_path / "orbax_dir")])
-    with pytest.raises(SystemExit, match="Queue 1 item 9"):
+    with pytest.raises(SystemExit, match="Queue 1 item 8"):
         lstm_trainer.main(common + ["--pipe", "2"])

@@ -101,9 +101,22 @@ def test_poly_mixer_module_matches_jax(rng):
 
 @pytest.mark.parametrize("poly", [False, True])
 def test_mixer_training_mode_raises(poly):
-    with pytest.raises(NotImplementedError):
-        MelMixer2D(4, poly_approx=poly)(torch.zeros(1, 4, 8),
-                                        deterministic=False)
+    """Training mode runs the exact pointwise MLP under autograd whatever
+    the serving mode (as JAX's non-deterministic calls do); a hidden width
+    outside the kernel still raises on the inference path."""
+    mix = MelMixer2D(4, poly_approx=poly)
+    exact = MelMixer2D(4)
+    with torch.no_grad():
+        for p in mix.parameters():
+            p.normal_(0.0, 0.5)
+    exact.load_state_dict(mix.state_dict())
+    x = torch.randn(1, 4, 8)
+    out = mix(x, deterministic=False)
+    assert torch.equal(out, exact(x, deterministic=False))
+    out.sum().backward()
+    assert all(p.grad is not None for p in mix.parameters())
+    with pytest.raises(ValueError, match="P="):
+        MelMixer2D(4096)(x)
 
 
 # --- the Chebyshev mode from the mixer's input, against JAX's module

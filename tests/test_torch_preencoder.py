@@ -2,6 +2,7 @@
 forward — against the JAX package at a narrow config (fp32, CPU), in exact
 and poly-decode mixer modes."""
 
+import dataclasses
 import functools
 
 import jax
@@ -89,7 +90,14 @@ def test_bf16_runs_and_keeps_tokens_in_range():
 
 
 def test_training_forward_raises():
+    """The training forward draws FSQ noise from ``fsq_generator``: with
+    noise dropout on and none given it raises; given one, it runs."""
     _, tree = narrow_jax_params()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port_model(tree)(torch.zeros(1, 8, MELS), torch.tensor([8]),
-                         deterministic=False)
+    model = port_model(tree)
+    model.quantizer.spec = dataclasses.replace(model.spec, noise_dropout=0.5)
+    x, lengths = torch.zeros(1, 8, MELS), torch.tensor([8])
+    with pytest.raises(ValueError, match="needs a generator"):
+        model(x, lengths, deterministic=False)
+    _, post, idx = model(x, lengths, deterministic=False,
+                         fsq_generator=torch.Generator().manual_seed(0))
+    assert post.shape == (1, 8, MELS) and idx.shape == (1, 8)

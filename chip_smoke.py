@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's codec serving path, its audio path, its
 token-LM training path, its token-LM serving path, its codec deployment
-path and its codec training path on one NVIDIA GPU (H100).
+path, its codec training path, its vocoder training path and its LM
+artifact with codec attach on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --fsq-head-of DIR   # time another checkout's FSQ head
@@ -191,7 +192,43 @@ printing no result, without one. Phases (any failure exits non-zero):
     5 timed steps, CUDA events); (e) a profile of one fast-dropout GAN
     step: kernel groups, elementwise and optimizer kernels, the device
     span of each part of the step (gan/* ranges) and the idle share;
-15. print {"ok": true, "device": {...}} as the last line.
+15. vocoder training at full width (the vocoder trainer CLI's defaults:
+    the hifispeech spec, B=16 segments of 32 frames, upsample 8 x 8 from
+    512 channels, iSTFT n_fft 16, MPD periods 2/3/5/7/11, MSD 3 scales),
+    TF32 off: (a) one fp32 spectral step and one adversarial step on the
+    card against the same steps on the CPU, B=2, the same log-mels: losses
+    within 1e-5 * max(1, |loss|), each update within lr / 10 of the CPU's
+    where the gradient is live and the two sides agree on it to 5% (the
+    adversarial step's D update on its own, then the card's discriminators
+    take the CPU's weights); printed: the generator's backward card vs CPU
+    beside the CPU's own spread, the MR-STFT gradient on noise;
+    (b) one SegmentSampler batch (16 x 16,384 samples) through the log-mel
+    kernel against its plain version in float64, one launch: the mel power
+    error relative to each frame's power no more than max(1e-6, the fp32
+    plain version's) (a resampled clip's empty top bands make the log
+    domain ill-conditioned at the 1e-5 floor); (c) the
+    trainer CLI on 12 seeded wavs, 3 spectral then 3 adversarial steps,
+    --export_dir (counts reset just before, read just after): finite losses
+    under the JAX metric keys, one log_mel launch per batch and none else,
+    checkpoints, ISTFTNetFE.load_ts vocoding 10 and 23 frames as the
+    in-memory wrapper does (1e-5 * max(1, max|x|)); (d) ms/step, trained
+    audio-s/s and peak memory, spectral and adversarial, fp32 and --bf16
+    (2 warm-up, 5 timed steps, CUDA events), no host synchronisation in a
+    step (CUDA sync debug mode; one torch.istft call's are printed); (e) a
+    profile of one fp32
+    adversarial step: kernel groups, idle share, kernel ms per voc/* range;
+16. the LM artifact and codec attach: the phase-10 transformer run and the
+    seeded LSTM run exported through the export_lm CLI (verified on the
+    card), each artifact's sampled and greedy tokens equal to its
+    in-process model's served sampler at the padded bucket and its scores
+    within 1e-5; then the codec's decode kernels (3 blocks, the Chebyshev
+    post mixer) against their plain versions at the traffic's decode
+    shapes, and LMHTTPServer over the transformer artifact with phase
+    13's bf16 poly-decode codec: 12 concurrent /generate requests with
+    decode true (counts reset just before, read just after): tokens in
+    [2, 1000), each mel equal to ExportedPreEncoder.decode of its tokens,
+    3 residual_block and 1 mel_mixer_poly launches per decode, no other;
+17. print {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -1085,7 +1122,9 @@ def _device_profile(fn):
 
 def _report_profile(label, events, wall_ms, top=8, note="profiler on") -> float:
     """Print device busy time, idle share, time by kernel group and the
-    largest kernels; returns the busy ms (0.0: the profiler saw nothing)."""
+    largest kernels; returns the busy ms (0.0: the profiler saw nothing).
+    ``wall_ms`` None: kernel times summed, no idle share (kernels that
+    overlap would count twice)."""
     busy = sum(ms for _, ms in events)
     if busy == 0:
         print(f"  {label}: the profiler saw no device time (not measured)")
@@ -1096,8 +1135,11 @@ def _report_profile(label, events, wall_ms, top=8, note="profiler on") -> float:
         group = next((g for g, subs in KERNEL_GROUPS
                       if any(s in low for s in subs)), "other")
         groups[group] = groups.get(group, 0.0) + ms
-    print(f"  {label}: device busy {busy:.3f} ms of {wall_ms:.3f} ms wall "
-          f"(idle share {1 - busy / wall_ms:.3f}, {note})")
+    if wall_ms is None:
+        print(f"  {label}: kernels summed {busy:.3f} ms ({note})")
+    else:
+        print(f"  {label}: device busy {busy:.3f} ms of {wall_ms:.3f} ms wall "
+              f"(idle share {1 - busy / wall_ms:.3f}, {note})")
     for group, ms in sorted(groups.items(), key=lambda g: -g[1]):
         print(f"    {group:22s} {ms:9.3f} ms  {100 * ms / busy:5.1f}%")
     for key, ms in sorted(events, key=lambda e: -e[1])[:top]:
@@ -2678,18 +2720,21 @@ def compare_bf16_artifact(rt, state) -> None:
         fail(f"the bf16 artifact disagrees with its plain CPU copy: {det_h}; {det_m}")
 
 
-def codec_deployment(state, device, counters, card) -> dict:
+def codec_deployment(state, device, counters, card, root=None) -> dict:
     """Phase 13: the codec deployment path at flagship width, seeded
     weights: its kernels against their plain versions at its own shapes,
     then export and reload, the re-encode CLI over a directory, token
     stats, streaming at B=1, the HTTP servers (launches counted), and the
     bf16 artifact against its plain CPU copy; returns each kernel's largest
-    bf16 |kernel - plain| of the phase."""
+    bf16 |kernel - plain| of the phase. With ``root`` the artifacts stay
+    there (exp_bf16 is phase 16's codec); without, a temporary directory
+    is removed."""
     import torch
 
     print(f"  [13k] kernels vs plain versions at the deployment path's shapes {DEPLOY_CMP}")
     errs = deploy_kernel_checks(state, device)
-    root = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    keep = root is not None
+    root = root or tempfile.mkdtemp(prefix="chip_smoke_deploy_")
     fp32 = build_model(device, torch.float32, state=state)
     seconds, t0 = {}, time.perf_counter()
 
@@ -2712,7 +2757,8 @@ def codec_deployment(state, device, counters, card) -> dict:
         compare_bf16_artifact(rts["bf16"], state)
         lap("bf16 vs CPU")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
     print(f"  launches in phase 13: {launches}")
     for name in ("residual_block", "mel_mixer", "mel_mixer_poly", "fsq_head"):
         if launches.get(name, 0) <= 0:
@@ -3120,23 +3166,41 @@ GAN_PARTS = ("gan/g_forward", "gan/d_forward", "gan/d_backward", "gan/d_optimize
              "gan/g_loss", "gan/g_backward", "gan/g_optimizer")
 
 
-def _split_by_part(fn) -> dict:
+def _union_ms(intervals) -> float:
+    """Total length in ms of the union of (start, end) intervals in us."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def _split_by_part(fn, module=None, parts=GAN_PARTS, union=False) -> dict:
     """{part: [span ms, kernel ms, elementwise kernel ms]} of one call of
-    ``fn`` (a train step) in which each of the step's gan/* ranges
-    synchronises the card where it starts and where it ends, so that every
-    kernel runs within the host span of the range that launched it, the
-    ones that autograd's device thread launches for a backward included;
-    a kernel goes to the range whose span holds its start. The span is
-    host time: it holds the card's idle time while the host launches."""
+    ``fn`` (a train step) in which each of the step's ranges (``parts``,
+    opened through ``module.record_function``; default the GAN step's
+    gan/* ranges) synchronises the card where it starts and where it ends,
+    so that every kernel runs within the host span of the range that
+    launched it, the ones that autograd's device thread launches for a
+    backward included; a kernel goes to the range whose span holds its
+    start. A range opened several times sums its spans. The span is host
+    time: it holds the card's idle time while the host launches. With
+    ``union`` a range's kernel ms is the union of its kernels' intervals
+    (kernels that overlap, as some of cuDNN's do, count once)."""
     import contextlib
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from mqgan_tpu_torch.train import step as step_mod
+    if module is None:
+        from mqgan_tpu_torch.train import step as module
 
-    real = step_mod.record_function
+    real = module.record_function
 
     @contextlib.contextmanager
     def synced(name):
@@ -3145,28 +3209,35 @@ def _split_by_part(fn) -> dict:
             yield
             torch.cuda.synchronize()
 
-    step_mod.record_function = synced
+    module.record_function = synced
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
     finally:
-        step_mod.record_function = real
+        module.record_function = real
     events = prof.events()
-    spans = {e.name: (e.time_range.start, e.time_range.end) for e in events
-             if e.device_type == DeviceType.CPU and e.name in GAN_PARTS}
-    out = {name: [(end - start) / 1e3, 0.0, 0.0] for name, (start, end) in spans.items()}
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == DeviceType.CPU and e.name in parts]
+    out = {name: [0.0, 0.0, 0.0] for name, _, _ in spans}
+    for name, start, end in spans:
+        out[name][0] += (end - start) / 1e3
     out["outside the ranges"] = [0.0, 0.0, 0.0]
+    intervals = {name: [] for name in out}
     for e in events:
-        if e.device_type != DeviceType.CUDA or e.name.startswith("gan/"):
+        if e.device_type != DeviceType.CUDA or e.name in parts:
             continue
         ms = (e.time_range.end - e.time_range.start) / 1e3
-        owner = next((n for n, (a, b) in spans.items()
-                      if a <= e.time_range.start <= b), "outside the ranges")
+        owner = next((n for n, a, b in spans if a <= e.time_range.start <= b),
+                     "outside the ranges")
         out[owner][1] += ms
+        intervals[owner].append((e.time_range.start, e.time_range.end))
         if "elementwise" in e.name.lower():
             out[owner][2] += ms
+    if union:
+        for name, iv in intervals.items():
+            out[name][1] = _union_ms(iv)
     return out
 
 
@@ -3275,6 +3346,705 @@ def codec_training(device, counters, card) -> dict:
     return launches
 
 
+# phase 15, vocoder training at full width (the vocoder trainer CLI's
+# defaults, benchmarks/probe_vocoder_adv.py's flagship step): the hifispeech
+# spec, B=16 segments of 32 frames (16,384 samples), upsample 8 x 8 from 512
+# channels, iSTFT n_fft 16 (hop 8), MPD periods 2/3/5/7/11, MSD 3 scales
+VOC_B, VOC_FRAMES = 16, 32
+VOC_CMP_B = 2
+VOC_LR = 2e-4
+VOC_CLIPS, VOC_CLIP_SECONDS = 12, (0.5, 3.0)
+VOC_CLI_STEPS, VOC_CLI_ADV_START = 6, 3
+VOC_WARM, VOC_ITERS = 2, 5
+VOC_PARTS = ("voc/sample", "voc/g_forward", "voc/stft_loss", "voc/d_forward",
+             "voc/d_backward", "voc/g_backward", "voc/optim")
+
+
+def vocoder_models(device, seed, bf16=False, adversarial=True):
+    """The CLI's generator (and discriminators) at full width, seeded, on
+    device: (gen, mpd, msd, istft_hop)."""
+    from mqgan_tpu_torch.core.config import SpectrogramConfig
+    from mqgan_tpu_torch.models.wave_discriminators import (MultiPeriodDiscriminator,
+                                                            MultiScaleDiscriminator)
+    from mqgan_tpu_torch.train.vocoder_trainer import build_generator
+    from mqgan_tpu_torch.utils.init import seeded_init_
+
+    spec = SpectrogramConfig()
+    gen = seeded_init_(build_generator(spec.n_mel_channels, (8, 8), 512, 16, bf16),
+                       seed).to(device).train()
+    mpd = msd = None
+    if adversarial:
+        mpd = seeded_init_(MultiPeriodDiscriminator(), seed + 1).to(device).train()
+        msd = seeded_init_(MultiScaleDiscriminator(), seed + 2).to(device).train()
+    return gen, mpd, msd, spec.hop_length // gen.total_upsample
+
+
+def _voc_wav(b, seed):
+    """(b, VOC_FRAMES * 512) fp32 segments: three sines and 10% noise per
+    row, peak 0.3 (the audio batch of phase 7)."""
+    rng = np.random.default_rng(seed)
+    n = VOC_FRAMES * 512
+    t = np.arange(n) / 44100.0
+    freq = 80.0 + 3920.0 * rng.random((b, 3, 1))
+    x = (rng.random((b, 3, 1)) * np.sin(2 * np.pi * freq * t)).sum(axis=1)
+    x = x + 0.1 * rng.standard_normal((b, n))
+    return (0.3 * x / np.abs(x).max(axis=1, keepdims=True)).astype(np.float32)
+
+
+class _RecordingAdamW:
+    """Wraps a ClipAdamW: keeps the gradients of its last update and, if
+    ``after`` is set, calls it once the update is done."""
+
+    def __init__(self, tx, after=None):
+        self.tx, self.after, self.last = tx, after, None
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def step_(self, params, grads, state, ok):
+        self.last = [g.detach().float().cpu() for g in grads]
+        self.tx.step_(params, grads, state, ok)
+        if self.after is not None:
+            self.after()
+
+
+def _voc_update_gate(before, cpu_after, card_after, cpu_grads, card_grads, lr):
+    """One update (after - before) of each weight (lists of CPU tensors),
+    card vs CPU: within lr / 10 where the CPU's gradient is live: above
+    1e-4 * max(1, max|g|) and the two sides agree on it to 5% (else Adam's
+    update of it can differ by more than lr / 10); within 2.01 lr elsewhere
+    (Adam's bias-corrected step is at most 1.0014 lr in a run's first two
+    steps, plus the weight decay). The MR-STFT's gradient is set by
+    rounding at the random generator's near-0 |STFT| bins (ROADMAP.md
+    Queue 3), so most generator weights are contested. Returns (ok, live
+    max|d|, rest max|d|, contested count, live count)."""
+    g_max = max(float(g.abs().max()) for g in cpu_grads)
+    live_d = rest_d = 0.0
+    n_live = n_cont = 0
+    for w0, wc, wk, g, gk in zip(before, cpu_after, card_after, cpu_grads, card_grads):
+        above = g.abs() > 1e-4 * max(1.0, g_max)
+        contested = above & (g.abs() * 0.05 < (gk - g).abs())
+        live = above & ~contested
+        n_live += int(live.sum())
+        n_cont += int(contested.sum())
+        d = ((wk - w0) - (wc - w0)).abs()
+        if live.any():
+            live_d = max(live_d, float(d[live].max()))
+        if (~live).any():
+            rest_d = max(rest_d, float(d[~live].max()))
+    ok = n_live > 0 and live_d <= lr / 10 and rest_d <= 2.01 * lr
+    return ok, live_d, rest_d, n_cont, n_live
+
+
+def _cpu_weights(model) -> list:
+    return [p.detach().float().cpu().clone() for p in model.parameters()]
+
+
+def compare_vocoder_steps(device) -> None:
+    """Phase 15a: one fp32 spectral step and one adversarial step of the
+    full-width vocoder on the card against the same steps on the CPU (plain
+    versions), B=2 x 32 frames, the CLI's learning rates, TF32 off, the
+    same log-mels on both sides: losses within 1e-5 * max(1, |loss|); each
+    update within lr / 10 of the CPU's where the gradient is live
+    (_voc_update_gate). Printed beside them: the generator + iSTFT backward
+    of a seeded cotangent, card vs CPU and the CPU against itself with its
+    input moved by 1e-6, and the MR-STFT's gradient on noise, card vs CPU
+    (the generator's 36 leaky-ReLU layers and the loss's near-0
+    |STFT| bins make both gradients move with the forward's rounding,
+    ROADMAP.md Queue 3). The adversarial
+    step's D update is held on its own, then the card's discriminators take
+    the CPU's updated weights, so that the G loss runs through the same
+    discriminators on both sides."""
+    import torch
+
+    from mqgan_tpu_torch.losses.stft_loss import multi_resolution_stft_loss
+    from mqgan_tpu_torch.signal.mel import MelFrontend
+    from mqgan_tpu_torch.core.config import SpectrogramConfig
+    from mqgan_tpu_torch.train import vocoder_trainer as vt
+    from mqgan_tpu_torch.train.state import ClipAdamW
+
+    wav = torch.from_numpy(_voc_wav(VOC_CMP_B, SEED + 50))
+    mel = MelFrontend(SpectrogramConfig(), "cpu")(wav)[:, :VOC_FRAMES].transpose(1, 2)
+    target = VOC_FRAMES * 512
+    sides = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", device)):
+        gen, mpd, msd, hop = vocoder_models(dev, SEED + 51)
+        sides[name] = dict(gen=gen, mpd=mpd, msd=msd, dev=dev,
+                           mel=mel.contiguous().to(dev), wav=wav.to(dev))
+    kw = dict(n_fft=16, istft_hop=hop, target_len=target)
+
+    # printed, not gated: the generator + iSTFT backward of one seeded
+    # cotangent beside the CPU's own spread (the same backward with the mel
+    # moved by 1e-6 relative), and the MR-STFT's gradient on two noise
+    # signals: both move with rounding at kinks and near-0 bins (ROADMAP.md
+    # Queue 3)
+    gen_cot = torch.Generator().manual_seed(SEED + 56)
+    cot = torch.randn((VOC_CMP_B, target - 8), generator=gen_cot)
+    moved = mel * (1 + 1e-6 * torch.randn(mel.shape, generator=gen_cot))
+    vjps = {}
+    for label, n, m in (("cpu", "cpu", mel), ("card", "card", mel), ("cpu moved", "cpu", moved)):
+        sd = sides[n]
+        pred = vt.synth(sd["gen"], m.to(sd["dev"]), 16, hop)[:, : cot.shape[1]]
+        vjps[label] = (pred.detach().cpu(), [g.float().cpu() for g in torch.autograd.grad(
+            pred, list(sd["gen"].parameters()), cot.to(sd["dev"]))])
+    g_max = max(float(g.abs().max()) for g in vjps["cpu"][1])
+
+    def spread(label):
+        return (float((vjps[label][0] - vjps["cpu"][0]).abs().max()),
+                max(float((a - b).abs().max()) for a, b in zip(vjps[label][1], vjps["cpu"][1])))
+
+    noise = torch.randn((2, VOC_CMP_B, target), generator=gen_cot)
+    loss_g = {}
+    for label, dev in (("cpu", "cpu"), ("card", device)):
+        x = noise[0].to(dev).requires_grad_(True)
+        multi_resolution_stft_loss(x, noise[1].to(dev)).backward()
+        loss_g[label] = x.grad.cpu()
+    (p_card, g_card), (p_moved, g_moved) = spread("card"), spread("cpu moved")
+    print(f"  15a fp32 B={VOC_CMP_B} x {target} samples (printed, not gated): generator "
+          f"+ iSTFT backward of a seeded cotangent, card vs CPU: output max|d| "
+          f"{p_card:.2e}, gradients max|d| {g_card:.2e} (max|g| {g_max:.2e}); the CPU "
+          f"against itself with the mel moved by 1e-6: output {p_moved:.2e}, "
+          f"gradients {g_moved:.2e}; MR-STFT dL/dx on noise, card vs CPU max|d| "
+          f"{float((loss_g['card'] - loss_g['cpu']).abs().max()):.2e} (max "
+          f"{float(loss_g['cpu'].abs().max()):.2e})")
+
+    ok = True
+    # the spectral step
+    res = {}
+    for name in ("cpu", "card"):
+        sd = sides[name]
+        sd["before"] = _cpu_weights(sd["gen"])
+        sd["tx"] = _RecordingAdamW(ClipAdamW(VOC_LR, float("inf")))
+        sd["opt"] = sd["tx"].init(sd["gen"].parameters())
+        step = vt.make_spectral_step(sd["gen"], sd["tx"], sd["opt"], **kw)
+        res[name] = float(step(sd["mel"], sd["wav"]))
+    loss_err = abs(res["card"] - res["cpu"]) / max(1.0, abs(res["cpu"]))
+    gate = _voc_update_gate(sides["cpu"]["before"], _cpu_weights(sides["cpu"]["gen"]),
+                            _cpu_weights(sides["card"]["gen"]), sides["cpu"]["tx"].last,
+                            sides["card"]["tx"].last, VOC_LR)
+    step_ok = loss_err <= 1e-5 and gate[0]
+    ok = ok and step_ok
+    print(f"  15a spectral step fp32: loss card {res['card']:.6f} cpu {res['cpu']:.6f} "
+          f"(rel {loss_err:.2e}); G update max|d| {gate[1]:.2e} where live "
+          f"({gate[4]} weights; <= lr/10 = {VOC_LR / 10:.1e}), {gate[2]:.2e} elsewhere "
+          f"(<= 2.01 lr), {gate[3]} contested {'ok' if step_ok else 'FAIL'}")
+
+    # the adversarial step, from the CPU's state after the spectral step
+    cpu, card = sides["cpu"], sides["card"]
+    with torch.no_grad():
+        for k, p in card["gen"].named_parameters():
+            p.copy_(dict(cpu["gen"].named_parameters())[k])
+        for key in ("mu", "nu"):
+            for a, b in zip(card["opt"][key], cpu["opt"][key]):
+                a.copy_(b)
+    d_state = {}
+
+    def d_params(sd):
+        return list(sd["mpd"].named_parameters()) + [
+            (f"msd.{k}", p) for k, p in sd["msd"].named_parameters()]
+
+    def cpu_after_d():
+        d_state["cpu"] = [p.detach().clone() for _, p in d_params(cpu)]
+
+    def card_after_d():
+        d_state["card"] = [p.detach().float().cpu().clone() for _, p in d_params(card)]
+        with torch.no_grad():
+            for (_, p), w in zip(d_params(card), d_state["cpu"]):
+                p.copy_(w)
+
+    metrics = {}
+    for name, after in (("cpu", cpu_after_d), ("card", card_after_d)):
+        sd = sides[name]
+        sd["before"] = _cpu_weights(sd["gen"])
+        sd["d_before"] = [p.detach().float().cpu().clone() for _, p in d_params(sd)]
+        sd["dtx"] = _RecordingAdamW(ClipAdamW(VOC_LR, float("inf")), after)
+        d_opt = sd["dtx"].init([p for _, p in d_params(sd)])
+        step = vt.make_adv_step(sd["gen"], sd["mpd"], sd["msd"], sd["tx"], sd["dtx"],
+                                sd["opt"], d_opt, **kw)
+        metrics[name] = {k: float(v) for k, v in step(sd["mel"], sd["wav"]).items()}
+    loss_err = max(abs(metrics["card"][k] - v) / max(1.0, abs(v))
+                   for k, v in metrics["cpu"].items())
+    # the D update on its own (the card's own update, before it took the CPU's)
+    d_gate = _voc_update_gate(cpu["d_before"], d_state["cpu"], d_state["card"],
+                              cpu["dtx"].last, card["dtx"].last, VOC_LR)
+    gate = _voc_update_gate(cpu["before"], _cpu_weights(cpu["gen"]),
+                            _cpu_weights(card["gen"]), cpu["tx"].last, card["tx"].last,
+                            VOC_LR)
+    adv_ok = loss_err <= 1e-5 and d_gate[0] and gate[0]
+    ok = ok and adv_ok
+    print(f"  15a adversarial step fp32: g_total card {metrics['card']['g_total']:.6f} "
+          f"cpu {metrics['cpu']['g_total']:.6f}, d_loss {metrics['card']['d_loss']:.6f}; "
+          f"max rel |dloss| {loss_err:.2e} over {sorted(metrics['cpu'])}; D update "
+          f"max|d| {d_gate[1]:.2e} where live ({d_gate[4]}), {d_gate[2]:.2e} elsewhere, "
+          f"{d_gate[3]} contested; G update max|d| {gate[1]:.2e} where live ({gate[4]}), "
+          f"{gate[2]:.2e} elsewhere, {gate[3]} contested {'ok' if adv_ok else 'FAIL'}")
+    if not ok:
+        fail("phase 15a: a vocoder step on the card disagrees with the CPU")
+
+
+def _voc_wav_dir(root) -> str:
+    """VOC_CLIPS seeded 44.1 kHz 16-bit wavs of 0.5-3 s: three sines and
+    noise each, one at 22.05 kHz (resampled on load), one shorter than a
+    segment (skipped)."""
+    rng = np.random.default_rng(SEED + 52)
+    d = os.path.join(root, "wavs")
+    os.makedirs(d)
+    for i in range(VOC_CLIPS):
+        sr = 22050 if i == 3 else 44100
+        secs = 0.2 if i == 5 else float(rng.uniform(*VOC_CLIP_SECONDS))
+        t = np.arange(int(sr * secs)) / sr
+        x = sum(rng.random() * np.sin(2 * np.pi * rng.uniform(80, 4000) * t)
+                for _ in range(3)) + 0.1 * rng.standard_normal(t.shape)
+        _write_wav(os.path.join(d, f"c{i:02d}.wav"), 0.3 * x / np.abs(x).max(), sr)
+    return d
+
+
+def compare_sampler_mels(wav_dir, device, counters) -> float:
+    """Phase 15b: one SegmentSampler batch at the CLI's shape (16 x 16,384
+    samples) through the log-mel kernel (one launch) against the plain
+    version in float64. A resampled clip has no energy above 11.025 kHz:
+    its top mel bands sit at the 1e-5 floor, where fp32 rounding of the
+    frame's loud bins (~1e-8 of its power) moves the log by up to ~0.4 in
+    any fp32 algorithm. So the gate is on the mel power, relative to each
+    frame's total: max |exp(k) - exp(p64)| / sum_m exp(p64) <= max(1e-6, the
+    fp32 plain version's own error); the log-domain errors are printed.
+    The segments must equal a CPU sampler's of the same seed."""
+    import torch
+
+    from mqgan_tpu_torch.core.config import SpecConfig
+    from mqgan_tpu_torch.ops.stft_kernels import dft_mel_tables, log_mel_plain
+    from mqgan_tpu_torch.train import vocoder_trainer as vt
+
+    cfg = SpecConfig().spectrogram
+    files = vt.find_wavs(wav_dir)
+    card = vt.SegmentSampler(files, SpecConfig(), VOC_FRAMES, SEED, device)
+    cpu = vt.SegmentSampler(files, SpecConfig(), VOC_FRAMES, SEED, "cpu")
+    counters.reset()
+    mel, wav = card.batch(VOC_B)
+    torch.cuda.synchronize()
+    launches = counters.snapshot()
+    _, wav_cpu = cpu.batch(VOC_B)
+
+    def frames(tables):
+        return log_mel_plain(wav.cpu(), *tables, cfg.hop_length)[:, :VOC_FRAMES]
+
+    ref = frames(dft_mel_tables(cfg, np.float64)).double()
+    plain = frames(dft_mel_tables(cfg)).double()
+    got = mel.cpu().transpose(1, 2).double()
+    total = ref.exp().sum(dim=2, keepdim=True)
+
+    def power_err(x):
+        return float(((x.exp() - ref.exp()).abs() / total).max())
+
+    err, plain_err = power_err(got), power_err(plain)
+    limit = max(1e-6, plain_err)
+    log_err, plain_log = (float((x - ref).abs().max()) for x in (got, plain))
+    same = torch.equal(wav.cpu(), wav_cpu)
+    ok = (err <= limit and same and launches == {"log_mel": 1}
+          and tuple(mel.shape) == (VOC_B, 128, VOC_FRAMES))
+    print(f"  15b sampler batch {tuple(wav.shape)} -> mel {tuple(mel.shape)}: log-mel "
+          f"kernel vs the float64 plain version, mel power error / frame power "
+          f"{err:.3e} (limit {limit:.3e} = max(1e-6, the fp32 plain's {plain_err:.3e})); "
+          f"log domain (not gated) max|k-p64| {log_err:.3e}, fp32 plain {plain_log:.3e}; "
+          f"launches {launches}; segments equal to a CPU sampler's {same} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("phase 15b: the sampler's log-mel kernel disagrees with its plain version")
+    return log_err
+
+
+def vocoder_trainer_cli(root, wav_dir, device, counters, card) -> dict:
+    """Phase 15c, the slice's main path: the trainer CLI at its defaults
+    (B=16, 32 frames, 8 x 8 from 512, iSTFT 16) on the seeded wavs,
+    VOC_CLI_ADV_START spectral steps then adversarial ones, --export_dir
+    (counts reset just before, read just after): finite losses under the
+    JAX keys, one log_mel launch per batch (its init batch and one a step)
+    and none else, checkpoints; then ISTFTNetFE.load_ts vocodes 10 and 23
+    frames as the in-memory wrapper does (1e-5 * max(1, max|x|))."""
+    import dataclasses
+
+    import torch
+
+    from mqgan_tpu_torch.core.config import SpecConfig
+    from mqgan_tpu_torch.models.istft_vocoder import build_vocoder_fe
+    from mqgan_tpu_torch.signal.vocoder import ISTFTNetFE
+    from mqgan_tpu_torch.train import vocoder_trainer as vt
+
+    spec_path = os.path.join(root, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump({"spectrogram": dataclasses.asdict(SpecConfig().spectrogram)}, f)
+    run, exp = os.path.join(root, "run"), os.path.join(root, "export")
+    counters.reset()
+    t0 = time.perf_counter()
+    gen = vt.main(["--wav_dir", wav_dir, "--spec_config", spec_path, "--out_dir", run,
+                   "--steps", str(VOC_CLI_STEPS), "--log_every", "1",
+                   "--save_every", str(VOC_CLI_STEPS), "--adversarial",
+                   "--adv_start_step", str(VOC_CLI_ADV_START), "--export_dir", exp])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = counters.snapshot()
+    with open(os.path.join(run, "vocoder_metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    keys = {"vocoder/loss", "steps_per_sec", "_time", "_step"}
+    adv_keys = keys | {f"vocoder/{k}" for k in ("g_total", "stft", "adv", "fm", "d_loss")}
+    keys_ok = [set(r) for r in recs] == ([keys] * VOC_CLI_ADV_START
+                                         + [adv_keys] * (VOC_CLI_STEPS - VOC_CLI_ADV_START))
+    finite = all(math.isfinite(v) for r in recs for v in r.values())
+    files_ok = {f"vocoder_step_{VOC_CLI_STEPS}.pt",
+                f"vocoder_disc_step_{VOC_CLI_STEPS}.pt"} <= set(os.listdir(run))
+    want = {"log_mel": VOC_CLI_STEPS + 1}
+    fe = ISTFTNetFE.load_ts(exp)
+    mem = build_vocoder_fe(gen, fe.stft.hop_length)
+    rng = np.random.default_rng(SEED + 53)
+    art_err, art_ok = 0.0, next(fe.gen.parameters()).device.type == "cuda"
+    for frames in (10, 23):
+        mel = rng.standard_normal((1, 128, frames)).astype(np.float32)
+        got, ref = fe(mel).cpu().numpy(), mem(mel).cpu().numpy()
+        err = float(np.abs(got - ref).max())
+        art_err = max(art_err, err)
+        # the iSTFT of 64 frames a mel frame, hop 8, n_fft 16: 512 t - 8 samples
+        art_ok = (art_ok and got.shape == ref.shape == (1, 1, frames * 512 - 8)
+                  and err <= 1e-5 * max(1.0, float(np.abs(ref).max())))
+    print(f"  15c trainer CLI: {VOC_CLI_STEPS} steps ({VOC_CLI_ADV_START} spectral, then "
+          f"adversarial) in {secs:.2f} s (set-up, 12 wav loads and checkpoints included); "
+          f"losses {[round(r['vocoder/loss'], 4) for r in recs]}; keys "
+          f"{'ok' if keys_ok else 'BAD'}; launches {launches} (want {want}); "
+          f"checkpoints {'ok' if files_ok else 'MISSING'}; artifact vs in-memory "
+          f"wrapper at 10 and 23 frames max|d| {art_err:.2e} [{card}]")
+    if not (keys_ok and finite and files_ok and launches == want and art_ok):
+        fail("phase 15c: the vocoder trainer CLI's run or its artifact is wrong")
+    return launches
+
+
+def _count_syncs(fn) -> int:
+    """Host synchronisations torch reports while ``fn`` runs (CUDA sync
+    debug mode "warn")."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def vocoder_step_times(wav_dir, device, card) -> None:
+    """Phase 15d: ms/step and trained audio-s/s (B x 16,384 samples per
+    step at 44.1 kHz) of the spectral and the adversarial step at the CLI's
+    shape, fp32 and --bf16: VOC_WARM warm-up then VOC_ITERS timed steps
+    (CUDA events) on batches drawn beforehand, peak device memory, the
+    sampler's ms per batch; a step must not synchronise the host (counted
+    in CUDA sync debug mode; one torch.istft call's are printed: its
+    envelope check reads back); then (e) a profile of one fp32 adversarial
+    step."""
+    import torch
+
+    from mqgan_tpu_torch.core.config import SpecConfig
+    from mqgan_tpu_torch.signal.stft import istft
+    from mqgan_tpu_torch.train import vocoder_trainer as vt
+    from mqgan_tpu_torch.train.state import ClipAdamW
+
+    sampler = vt.SegmentSampler(vt.find_wavs(wav_dir), SpecConfig(), VOC_FRAMES,
+                                SEED + 54, device)
+    sample_ms = time_ms(lambda: sampler.batch(VOC_B), 5)
+    data = [sampler.batch(VOC_B) for _ in range(VOC_WARM + VOC_ITERS)]
+    audio_s = VOC_B * VOC_FRAMES * 512 / 44100.0
+    mag = torch.rand((VOC_B, 9, VOC_FRAMES * 64 + 1), device=device)
+    syncs_istft = _count_syncs(lambda: istft(mag, mag, 16, 8, 16))
+    print(f"  15d sampler: {sample_ms:.3f} ms per batch of {VOC_B} (host draw, copy, "
+          f"one log-mel launch); torch.istft: {syncs_istft} host synchronisation(s) "
+          f"per call (the training path overlap-adds itself)")
+    for bf16 in (False, True):
+        for adversarial in (False, True):
+            gen, mpd, msd, hop = vocoder_models(device, SEED + 55, bf16, adversarial)
+            tx = ClipAdamW(VOC_LR, float("inf"))
+            opt = tx.init(gen.parameters())
+            kw = dict(n_fft=16, istft_hop=hop, target_len=VOC_FRAMES * 512)
+            if adversarial:
+                d_tx = ClipAdamW(VOC_LR, float("inf"))
+                d_opt = d_tx.init(list(mpd.parameters()) + list(msd.parameters()))
+                step = vt.make_adv_step(gen, mpd, msd, tx, d_tx, opt, d_opt, **kw)
+            else:
+                step = vt.make_spectral_step(gen, tx, opt, **kw)
+            for mel, wav in data[:VOC_WARM]:
+                step(mel, wav)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: [step(m, w) for m, w in data[VOC_WARM:]], 1) / VOC_ITERS
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            syncs = _count_syncs(lambda: step(*data[0]))
+            out = step(*data[1])
+            loss = float(out["g_total"] if adversarial else out)
+            label = f"{'bf16' if bf16 else 'fp32'} {'adversarial' if adversarial else 'spectral'}"
+            print(f"  15d {label:16s}: {ms:9.3f} ms/step, {audio_s / (ms / 1e3):8.2f} "
+                  f"audio-s/s trained, peak {peak:6.2f} GB, host syncs in a step "
+                  f"{syncs}, loss {loss:.4f} [{card}]")
+            if not math.isfinite(loss) or syncs:
+                fail(f"phase 15d: {label}: loss not finite, or the step synchronised "
+                     f"the host with the card")
+            if adversarial and not bf16:
+                profile_vocoder_step(lambda: step(*sampler.batch(VOC_B)), ms, card)
+            del gen, mpd, msd, step, tx, opt
+            torch.cuda.empty_cache()
+
+
+def _device_busy(fn):
+    """(kernel ms summed, the union of the kernels' intervals in ms, wall
+    ms) of one synchronised call of fn under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    iv = [(e.time_range.start, e.time_range.end) for e in prof.events()
+          if e.device_type == DeviceType.CUDA and e.name not in VOC_PARTS]
+    return sum(b - a for a, b in iv) / 1e3, _union_ms(iv), wall_ms
+
+
+def profile_vocoder_step(run, step_ms, card) -> None:
+    """Phase 15e: one fp32 adversarial step with its batch draw: kernel
+    groups (summed kernel times), the card's busy time as the union of the
+    kernels' intervals (some of cuDNN's overlap) and the idle share against
+    the unprofiled step time, then the kernel time per voc/* range (union
+    per range) from a second, synchronised pass."""
+    from mqgan_tpu_torch.train import vocoder_trainer as vt
+
+    events, wall = _device_profile(run)
+    events = [(k, ms) for k, ms in events if k not in VOC_PARTS]
+    print(f"[15e] where the time goes, one adversarial step B={VOC_B} x "
+          f"{VOC_FRAMES * 512} samples fp32 (its batch draw included) [{card}]")
+    _report_profile("vocoder step", events, None, top=10,
+                    note="profiler on; by group below")
+    summed, busy, wall = _device_busy(run)
+    print(f"    device busy (union of kernel intervals) {busy:.3f} ms, kernels summed "
+          f"{summed:.3f} ms, profiled wall {wall:.3f} ms; against the unprofiled "
+          f"{step_ms:.3f} ms step (without its draw): idle share "
+          f"{1 - busy / step_ms:.3f}")
+    parts = _split_by_part(run, vt, VOC_PARTS, union=True)
+    print("    by range, a second pass that synchronises the card at each range's "
+          "start and end (span: host time; kernels: the union of their intervals):")
+    for name in VOC_PARTS + ("outside the ranges",):
+        span, kern, elem = parts.get(name, (0.0, 0.0, 0.0))
+        print(f"    {name:18s} " + (f"span {span:9.3f} ms, kernels {kern:9.3f} ms "
+                                     f"(elementwise summed {elem:8.3f} ms)" if kern else
+                                     "not measured (no kernel of its own)"))
+
+
+def vocoder_training(device, counters, card) -> dict:
+    """Phase 15: vocoder training at full width, (a)-(e); returns the
+    trainer CLI's launches."""
+    import torch
+
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        seconds[part] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_voc_")
+    try:
+        with torch.enable_grad():
+            compare_vocoder_steps(device)
+            lap("a")
+            wav_dir = _voc_wav_dir(root)
+            compare_sampler_mels(wav_dir, device, counters)
+            lap("b")
+            launches = vocoder_trainer_cli(root, wav_dir, device, counters, card)
+            lap("c")
+            vocoder_step_times(wav_dir, device, card)
+            lap("de")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase 15 seconds by part: {seconds}")
+    return launches
+
+
+# phase 16, the LM artifact and codec attach: the export buckets, and the
+# HTTP traffic: 12 requests of (n, length), decode true, two lengths per
+# bucket of the codec artifact so that decodes run at a few shapes
+LM_EXPORT_BUCKETS = dict(gen=(128, 512), prompt=(1, 256), score=(512, 2048))
+LM_DECODE_REQUESTS = ((1, 100), (3, 100), (1, 120), (3, 128), (1, 400), (3, 400),
+                      (1, 512), (3, 480), (1, 100), (3, 400), (1, 512), (3, 100))
+
+
+def compare_lm_artifact(name, out, run, device) -> None:
+    """Phase 16a: the exported LM on the card against the in-process model
+    of its run: 8 rows (mixed prompt lengths 0-200, per-row seeds, length
+    300 in the 512 bucket) sampled (temperature 0.9, top-k 50, top-p 0.95)
+    and greedy give the served sampler's tokens at the padded bucket
+    (equal); score of 4 rows of 2,048 tokens within 1e-5 of score_tokens."""
+    import torch
+
+    from mqgan_tpu_torch.deploy.export_lm import ExportedMusicLM, load_lm_from_run
+    from mqgan_tpu_torch.models.lm_sampling import score_tokens
+    from mqgan_tpu_torch.models.token_lm import served_sampler
+
+    rt = ExportedMusicLM(out)
+    model, args = load_lm_from_run(run, device)
+    rng = np.random.default_rng(SEED + 60)
+    lens = [0, 0, 1, 17, 64, 130, 200, 5]
+    prompts = [None if n == 0 else rng.integers(2, args["vocab_size"], n) for n in lens]
+    genres = rng.integers(0, args["num_genres"], len(lens))
+    seeds = rng.integers(0, 2 ** 32, len(lens))
+    prompt = np.zeros((len(lens), rt.prompt_buckets[-1]), np.int64)
+    for i, p in enumerate(prompts):
+        if p is not None:
+            prompt[i, : len(p)] = p
+    forbidden = (args["pad_id"], args["bos_id"])
+    mask = torch.ones(args["vocab_size"], dtype=torch.bool)
+    mask[list(forbidden)] = False
+    ok, same = True, []
+    for knobs in ((0.9, 50, 0.95), (1.0, 1, 0.0)):
+        got = rt.generate_rows(genres, seeds, 300, prompts=prompts, temperature=knobs[0],
+                               top_k=knobs[1], top_p=knobs[2], forbidden=forbidden)
+        want = served_sampler(model)(
+            model, torch.from_numpy(genres).to(device), torch.from_numpy(seeds).to(device),
+            torch.from_numpy(prompt).to(device),
+            torch.tensor(lens, device=device), *knobs, mask.to(device),
+            max_len=rt._bucket(rt.gen_buckets, 300, "length"),
+            bos_id=args["bos_id"])[:, :300].cpu().numpy()
+        same.append(int((got == want).all(axis=1).sum()))
+        ok = ok and np.array_equal(got, want)
+    tokens = rng.integers(2, args["vocab_size"], (4, 2048))
+    tokens[:, 0] = args["bos_id"]
+    tokens[2, 1500:] = args["pad_id"]
+    nll, n = rt.score(tokens, genres[:4])
+    wn, wv = score_tokens(model, torch.from_numpy(tokens).to(device),
+                          torch.from_numpy(genres[:4]).to(device))
+    s_err = float(np.abs(nll - wn.cpu().numpy()).max())
+    ok = (ok and s_err <= 1e-5 * max(1.0, float(np.abs(nll).max()))
+          and np.array_equal(n, wv.cpu().numpy()) and rt.device.type == "cuda")
+    print(f"  16a {name} artifact ({rt.arch}, buckets {rt.gen_buckets}/{rt.prompt_buckets}/"
+          f"{rt.score_buckets}) vs the in-process model: rows equal sampled "
+          f"{same[0]}/8, greedy {same[1]}/8; score max|d| {s_err:.2e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"phase 16a: the {name} LM artifact disagrees with its model")
+
+
+def lm_artifacts(tf_run, lstm_run, codec_dir, device, counters, card) -> dict:
+    """Phase 16: export the phase-10 transformer and the seeded LSTM run
+    through the export CLI (verify_lm_export on the card), hold each
+    artifact against its model (16a), then (16b) LMHTTPServer over the
+    transformer artifact with the bf16 poly-decode codec artifact of phase
+    13: first the codec's decode kernels against their plain versions at
+    the shapes the traffic's decodes take, then 12 concurrent /generate
+    requests with decode true (counts reset just before, read just after):
+    3 residual_block and 1 mel_mixer_poly launches per decode and no other
+    kernel; tokens in [2, codebook size); each mel equal to
+    ExportedPreEncoder.decode of its tokens (1e-4 * max(1, max|x|)).
+    Returns the path's launches and the kernels' largest |kernel - plain|."""
+    import urllib.request
+    from io import BytesIO
+
+    import torch
+
+    from mqgan_tpu_torch.deploy import export_lm
+    from mqgan_tpu_torch.deploy.http_lm import LMHTTPServer, LMHTTPService
+    from mqgan_tpu_torch.deploy.runtime import ExportedPreEncoder
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_lm_export_")
+    try:
+        outs = {}
+        for name, run in (("transformer", tf_run), ("lstm", lstm_run)):
+            outs[name] = os.path.join(root, name)
+            t0 = time.perf_counter()
+            export_lm.main(["--lm_run", run, "--output", outs[name],
+                            "--gen_buckets", *map(str, LM_EXPORT_BUCKETS["gen"]),
+                            "--prompt_buckets", *map(str, LM_EXPORT_BUCKETS["prompt"]),
+                            "--score_buckets", *map(str, LM_EXPORT_BUCKETS["score"])])
+            print(f"  16a export of the {name} run with verify_lm_export: "
+                  f"{time.perf_counter() - t0:.2f} s")
+            compare_lm_artifact(name, outs[name], run, device)
+
+        codec = ExportedPreEncoder(codec_dir)
+        if codec.manifest["poly_mixers"] != "decode" or codec.manifest["dtype"] != "bfloat16":
+            fail("phase 16: the codec artifact is not phase 13's bf16 poly-decode one")
+        state = {k: v.cpu() for k, v in codec.model.state_dict().items()}
+        shortest = {}
+        for n, length in LM_DECODE_REQUESTS:
+            key = (n, codec.bucket_for(length))
+            shortest[key] = min(length, shortest.get(key, length))
+        shapes = sorted((n, t, length) for (n, t), length in shortest.items())
+        print(f"  16b codec decode kernels vs plain versions at the traffic's "
+              f"(B, T bucket, length) {shapes}")
+        model = build_model(device, torch.bfloat16, state=state)
+        errs = {}
+        for b, t, length in shapes:
+            tag = f"decode B={b} T={t} "
+            found = compare_kernels(model, device, b, t, (length,) * b,
+                                    (torch.float32, torch.bfloat16), tag=tag)
+            found["mel_mixer_poly"] = compare_poly(model, device, b, t, (length,) * b,
+                                                   tag=tag, mixer="post")
+            for k, v in found.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+        del model
+
+        service = LMHTTPService(lm_export=outs["transformer"], codec_dir=codec_dir,
+                                max_delay_ms=500)
+        specs = [dict(genre=i % LM["num_genres"], length=length, n=n, seed=2000 + i,
+                      temperature=1.0, top_k=0, top_p=0.9, decode=True)
+                 for i, (n, length) in enumerate(LM_DECODE_REQUESTS)]
+
+        def post(url, spec):
+            req = urllib.request.Request(url + "/generate",
+                                         data=json.dumps(spec).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                with np.load(BytesIO(r.read()), allow_pickle=False) as z:
+                    return dict(z)
+
+        counters.reset()
+        with LMHTTPServer(service) as srv:
+            with urllib.request.urlopen(srv.url + "/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(specs)) as pool:
+                answers = list(pool.map(lambda spec: post(srv.url, spec), specs))
+            secs = time.perf_counter() - t0
+            stats = service.stats()
+        torch.cuda.synchronize()
+        launches = counters.snapshot()
+        want = {"residual_block": 3 * len(specs), "mel_mixer_poly": len(specs)}
+        size = codec.codebook_size
+        tok_ok = all(a["tokens"].shape == (s["n"], s["length"]) and a["tokens"].min() >= 2
+                     and a["tokens"].max() < size for a, s in zip(answers, specs))
+        mel_err, mel_ok = 0.0, True
+        for a, s in zip(answers, specs):
+            ref = codec.decode(a["tokens"])
+            err = float(np.abs(a["mel"] - ref).max())
+            mel_err = max(mel_err, err)
+            mel_ok = (mel_ok and a["mel"].shape == (s["n"], s["length"], codec.mel_channels)
+                      and np.isfinite(a["mel"]).all() and err <= _deploy_tol(ref))
+        ok = (tok_ok and mel_ok and launches == want and health["has_codec"]
+              and health["codebook_size"] == size and stats["mean_batch_size"] > 1)
+        rows = sum(s["n"] for s in specs)
+        print(f"  16b HTTP over the transformer artifact + bf16 poly-decode codec: "
+              f"{len(specs)} concurrent requests, {rows} rows, decode true, in "
+              f"{secs:.2f} s; /healthz has_codec {health['has_codec']}, codebook "
+              f"{health['codebook_size']}, mel {health['mel_channels']}; tokens in "
+              f"[2, {size}) {'ok' if tok_ok else 'BAD'}; mel vs ExportedPreEncoder.decode "
+              f"max|d| {mel_err:.2e}; mean batch size {stats['mean_batch_size']:.2f}; "
+              f"launches {launches} (want {want}) {'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            fail("phase 16b: the LM server's codec attach is wrong")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, errs
+
+
 def main() -> None:
     import torch
 
@@ -3376,6 +4146,7 @@ def main() -> None:
     print("[9b] flash backward run twice: bit-identical dq, dk, dv")
     check_flash_determinism(device)
     lm_root = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    deploy_root = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
     try:
         with torch.enable_grad():
             print(f"[10] token-LM training slice (MusicTransformer flagship width) {at()}")
@@ -3388,15 +4159,28 @@ def main() -> None:
         print(f"[11] flash kernel times at the flagship layer call [{card}] {at()}")
         rows += flash_times(device, errs)
         print(f"[12] token-LM serving, flagship widths [{card}] {at()}")
-        lm_serving(os.path.join(lm_root, "run"), lstm_run_dir(lm_root), device,
-                   counters, card)
+        lstm_run = lstm_run_dir(lm_root)
+        lm_serving(os.path.join(lm_root, "run"), lstm_run, device, counters, card)
+        print(f"[13] codec deployment, flagship width, seeded weights [{card}] {at()}")
+        for kernel, err in codec_deployment(state, device, counters, card,
+                                            deploy_root).items():
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+        print(f"[14] codec GAN training, flagship width [{card}] {at()}")
+        codec_training(device, counters, card)
+        print(f"[15] vocoder training, full width (the trainer CLI's defaults) "
+              f"[{card}] {at()}")
+        voc_launches = vocoder_training(device, counters, card)
+        print(f"[16] the LM artifact and codec attach [{card}] {at()}")
+        lm_launches, lm_errs = lm_artifacts(os.path.join(lm_root, "run"), lstm_run,
+                                            os.path.join(deploy_root, "exp_bf16"),
+                                            device, counters, card)
+        for kernel, err in lm_errs.items():
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+        print(f"  launches on the new paths: vocoder trainer CLI {voc_launches}, "
+              f"LM server decodes {lm_launches}")
     finally:
         shutil.rmtree(lm_root, ignore_errors=True)
-    print(f"[13] codec deployment, flagship width, seeded weights [{card}] {at()}")
-    for kernel, err in codec_deployment(state, device, counters, card).items():
-        errs[kernel] = max(errs.get(kernel, 0.0), err)
-    print(f"[14] codec GAN training, flagship width [{card}] {at()}")
-    codec_training(device, counters, card)
+        shutil.rmtree(deploy_root, ignore_errors=True)
     kernels = []
     for row in rows:
         kernels.append({

@@ -1,15 +1,24 @@
 """HTTP generation server for the token LMs, with continuous batching
-(counterpart of ``mqgan_tpu/deploy/http_lm.py``, its training-run backend):
+(counterpart of ``mqgan_tpu/deploy/http_lm.py``):
 
-  GET  /healthz    -> JSON {ok, arch, vocab_size, num_genres, ...}
+  GET  /healthz    -> JSON {ok, arch, vocab_size, num_genres, has_codec, ...}
   GET  /statz      -> JSON continuous-batching stats
   POST /generate   JSON body:
       {"genre": 0, "length": 512,            # required
        "n": 1,                               # samples (n batched rows)
        "temperature": 1.0, "top_k": 0, "top_p": 0.0,
        "seed": 1234,                         # omit -> fresh entropy
-       "prompt_tokens": [..]}                # optional continuation prefix
-    -> .npy (n, length) int32 tokens
+       "prompt_tokens": [..],                # optional continuation prefix
+       "decode": false}                      # true needs a codec_dir
+    -> .npy (n, length) int32 tokens, or with "decode": true an .npz of
+       tokens and the codec's mel (n, length, mel_channels)
+
+Two backends: a training run dir of this package's trainer (``lm_run``) or
+an LM artifact (``lm_export``, ``deploy/export_lm.py``), whose buckets are
+then the dispatch grid. ``codec_dir``, a codec artifact
+(``deploy/runtime.py`` ``ExportedPreEncoder``), adds ids >= its codebook
+size to the forbidden set and answers ``"decode": true``; decodes are
+serialised by a lock.
 
 A background worker coalesces every pending request whose (prompt bucket,
 generation bucket, temperature, top_k, top_p) group matches into one
@@ -24,13 +33,12 @@ small; ``warmup`` runs each once before traffic, so that cuBLAS and the
 caching allocator settle. A request with n samples takes n rows with seeds
 seed, seed + 1, ..., seed + n - 1. pad and BOS are never sampled.
 
-The service runs on CUDA unless given ``device="cpu"``. The LM artifact
-backend (``lm_export``) and codec decode (``codec_dir``) wait for the
-port's artifact design (ROADMAP.md Queue 1 item 4b) and raise.
+The service runs on CUDA unless given ``device="cpu"``.
 
-CLI:  python -m mqgan_tpu_torch.deploy.http_lm --lm_run RUN_DIR
-      [--port 8767] [--max_length 8192] [--max_batch 16]
-      [--max_delay_ms 3] [--kv_bf16] [--device cuda|cpu]
+CLI:  python -m mqgan_tpu_torch.deploy.http_lm (--lm_run RUN_DIR |
+      --lm_export EXP) [--codec_dir CODEC] [--port 8767] [--max_length 8192]
+      [--length_grid 128] [--max_batch 16] [--max_delay_ms 3] [--kv_bf16]
+      [--no_prewarm] [--prewarm_lengths ...] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -49,14 +57,11 @@ import numpy as np
 import torch
 
 from mqgan_tpu_torch.deploy.http_server import (HTTPServerThread, _HTTPError,
-                                                _npy_bytes,
+                                                _npy_bytes, _npz_bytes,
                                                 serve_until_interrupted)
 from mqgan_tpu_torch.deploy.server import ServerStats
 
 MAX_SAMPLES = 16
-UNPORTED_ARTIFACTS = ("the LM artifact backend and codec decode wait for the "
-                      "port's artifact design (ROADMAP.md Queue 1 item 4b); "
-                      "serve a training run with lm_run")
 
 
 def pow2_at_least(n: int) -> int:
@@ -207,31 +212,54 @@ class LMHTTPService:
                  prompt_grid: int = 16, max_batch: int = MAX_SAMPLES,
                  max_delay_ms: float = 3.0, kv_bf16: bool = False,
                  device=None):
-        """Serve a training run dir of this package's trainer on ``device``
-        (None: CUDA). ``kv_bf16`` stores a transformer's KV cache in bf16
-        (streams are consistent within one cache dtype)."""
-        if lm_export is not None or codec_dir is not None:
-            raise NotImplementedError(
-                f"lm_export={lm_export!r}, codec_dir={codec_dir!r}: "
-                f"{UNPORTED_ARTIFACTS}")
-        if lm_run is None:
-            raise ValueError("pass lm_run, a run dir of "
-                             "mqgan_tpu_torch.train.lstm_trainer")
-        from mqgan_tpu_torch.deploy.export_lm import load_lm_from_run
-        from mqgan_tpu_torch.models.token_lm import lm_arch, served_sampler
-
-        self.model, self.lm_args = load_lm_from_run(lm_run, device)
-        self.device = next(self.model.parameters()).device
-        self.arch = lm_arch(self.model)
-        self._sampler = served_sampler(self.model)
+        """Serve a training run dir of this package's trainer (``lm_run``)
+        or an LM artifact (``lm_export``) on ``device`` (None: CUDA), with
+        an optional codec artifact (``codec_dir``) for decode. ``kv_bf16``
+        stores a run-dir transformer's KV cache in bf16 (an artifact
+        records its own cache dtype)."""
+        if (lm_run is None) == (lm_export is None):
+            raise ValueError("pass exactly one of lm_run (a run dir of "
+                             "mqgan_tpu_torch.train.lstm_trainer) and "
+                             "lm_export (an artifact of deploy.export_lm)")
+        self.exported = None
         self._kv = {}
-        if kv_bf16 and self.arch == "transformer":
-            self._kv = {"kv_dtype": torch.bfloat16}
+        if lm_export is not None:
+            from mqgan_tpu_torch.deploy.export_lm import ExportedMusicLM
+
+            self.exported = ExportedMusicLM(lm_export, device)
+            m = self.exported.manifest
+            self.arch = self.exported.arch
+            self.device = self.exported.device
+            self.lm_args = {"vocab_size": m["vocab_size"],
+                            "num_genres": m["num_genres"],
+                            "bos_id": m["bos_id"], "pad_id": m["pad_id"]}
+            # the artifact serves lengths up to its largest bucket
+            max_length = min(max_length, self.exported.gen_buckets[-1])
+        else:
+            from mqgan_tpu_torch.deploy.export_lm import load_lm_from_run
+            from mqgan_tpu_torch.models.token_lm import lm_arch, served_sampler
+
+            self.model, self.lm_args = load_lm_from_run(lm_run, device)
+            self.device = next(self.model.parameters()).device
+            self.arch = lm_arch(self.model)
+            self._sampler = served_sampler(self.model)
+            if kv_bf16 and self.arch == "transformer":
+                self._kv = {"kv_dtype": torch.bfloat16}
+        self.codec = None
+        self._codec_lock = threading.Lock()
+        if codec_dir:
+            from mqgan_tpu_torch.deploy.runtime import ExportedPreEncoder
+
+            self.codec = ExportedPreEncoder(codec_dir, device=self.device)
         self.length_grid = int(length_grid)
         self.prompt_grid = int(prompt_grid)
         self.max_length = int(max_length)
         a = self.lm_args
-        self.forbidden = tuple(sorted({a["pad_id"], a["bos_id"]}))
+        # with a codec attached, an id it cannot decode is never sampled
+        forbidden = {a["pad_id"], a["bos_id"]}
+        if self.codec is not None:
+            forbidden |= set(range(self.codec.codebook_size, a["vocab_size"]))
+        self.forbidden = tuple(sorted(forbidden))
         vocab_mask = torch.ones((a["vocab_size"],), dtype=torch.bool)
         vocab_mask[list(self.forbidden)] = False
         self._vocab_mask = vocab_mask.to(self.device)
@@ -239,7 +267,12 @@ class LMHTTPService:
                                   float(max_delay_ms) / 1e3)
 
     def _buckets_for(self, length: int, prompt_len: int) -> tuple[int, int]:
-        """(p_bucket, l_bucket) a request rides: the batcher's group axes."""
+        """(p_bucket, l_bucket) a request rides: the batcher's group axes
+        (an artifact's buckets, or the length and prompt grids)."""
+        if self.exported is not None:
+            rt = self.exported
+            return (rt._bucket(rt.prompt_buckets, max(prompt_len, 1), "prompt length"),
+                    rt._bucket(rt.gen_buckets, length, "length"))
         l_bucket = -(-length // self.length_grid) * self.length_grid
         p_bucket = (1 if prompt_len == 0 else
                     -(-prompt_len // self.prompt_grid) * self.prompt_grid)
@@ -249,6 +282,11 @@ class LMHTTPService:
                        temperature, top_k, top_p) -> np.ndarray:
         """The batcher's dispatch: per-row (genre, seed, prompt) rows at one
         (P, L) bucket pair and one sampling-params triple."""
+        if self.exported is not None:
+            return self.exported.generate_rows(
+                genres, seeds, l_bucket, prompts=prompts,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                forbidden=self.forbidden)
         b = genres.shape[0]
         p_lens = np.asarray([0 if p is None else len(p) for p in prompts],
                             np.int64)
@@ -265,13 +303,18 @@ class LMHTTPService:
             **self._kv)
         return out.cpu().numpy()
 
-    def warmup(self, lengths=None, prompt_lens=(0,), verbose: bool = False) -> int:
+    def warmup(self, lengths=None, prompt_lens=None, verbose: bool = False) -> int:
         """Run every dispatch shape once before traffic: each (prompt bucket,
-        generation bucket) of ``lengths`` (default: one ``length_grid``) and
-        ``prompt_lens``, at every power-of-two width up to the one
-        ``max_batch`` rows pad to. Returns the number of shapes run."""
+        generation bucket) of ``lengths`` (default: an artifact's generation
+        buckets, else one ``length_grid``) and ``prompt_lens`` (default:
+        none, plus an artifact's prompt buckets), at every power-of-two
+        width up to the one ``max_batch`` rows pad to. Returns the number of
+        shapes run."""
+        rt = self.exported
         if lengths is None:
-            lengths = (self.length_grid,)
+            lengths = (self.length_grid,) if rt is None else tuple(rt.gen_buckets)
+        if prompt_lens is None:
+            prompt_lens = (0,) if rt is None else (0,) + tuple(rt.prompt_buckets)
         widths = [1]
         while widths[-1] < self.batcher.max_batch:
             widths.append(widths[-1] * 2)
@@ -301,7 +344,7 @@ class LMHTTPService:
         return n
 
     def health(self) -> dict:
-        return {
+        out = {
             "ok": True,
             "arch": self.arch,
             "vocab_size": self.lm_args["vocab_size"],
@@ -309,10 +352,14 @@ class LMHTTPService:
             "bos_id": self.lm_args["bos_id"],
             "pad_id": self.lm_args["pad_id"],
             "max_length": self.max_length,
-            "has_codec": False,
-            "backend": "checkpoint",
+            "has_codec": self.codec is not None,
+            "backend": "checkpoint" if self.exported is None else "exported",
             "device": str(self.device),
         }
+        if self.codec is not None:
+            out["mel_channels"] = self.codec.mel_channels
+            out["codebook_size"] = self.codec.codebook_size
+        return out
 
     def stats(self) -> dict:
         return self.batcher.stats.summary()
@@ -343,8 +390,10 @@ class LMHTTPService:
                                   f"must be numbers: {e}")
         if not 1 <= n <= MAX_SAMPLES:
             raise _HTTPError(400, f"n {n} outside [1, {MAX_SAMPLES}]")
-        if spec.get("decode", False):
-            raise _HTTPError(400, f"decode requested: {UNPORTED_ARTIFACTS}")
+        decode = bool(spec.get("decode", False))
+        if decode and self.codec is None:
+            raise _HTTPError(400, "decode requested but the server has no "
+                                  "codec_dir attached")
         prompt_np = None
         if spec.get("prompt_tokens"):
             try:
@@ -358,12 +407,21 @@ class LMHTTPService:
             if not ((0 <= prompt_np)
                     & (prompt_np < self.lm_args["vocab_size"])).all():
                 raise _HTTPError(400, "prompt_tokens outside the vocab")
+            if (self.exported is not None
+                    and prompt_np.size > self.exported.prompt_buckets[-1]):
+                raise _HTTPError(413, f"prompt length {prompt_np.size} exceeds "
+                                      f"the largest exported prompt bucket "
+                                      f"{self.exported.prompt_buckets[-1]}")
         p_bucket, l_bucket = self._buckets_for(
             length, 0 if prompt_np is None else prompt_np.size)
         req = _GenReq(key=(p_bucket, l_bucket, temperature, top_k, top_p),
                       genre=genre, seed=seed & 0xFFFFFFFF, n=n, length=length,
                       prompt=prompt_np)
         tokens = self.batcher.submit(req).result()
+        if decode:
+            with self._codec_lock:
+                mel = self.codec.decode(tokens)
+            return _npz_bytes(tokens=tokens, mel=mel), "application/x-npz"
         return _npy_bytes(tokens), "application/x-npy"
 
     def close(self):
@@ -427,36 +485,52 @@ def main(argv=None):
     import argparse
 
     p = argparse.ArgumentParser(
-        description="Serve token-LM generation over HTTP with continuous "
-                    "batching.")
-    p.add_argument("--lm_run", required=True,
-                   help="run dir of mqgan_tpu_torch.train.lstm_trainer "
-                        "(best.json + the .pt it names)")
+        description="Serve token-LM generation (and codec decode) over HTTP "
+                    "with continuous batching.")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--lm_run",
+                     help="run dir of mqgan_tpu_torch.train.lstm_trainer "
+                          "(best.json + the .pt it names)")
+    src.add_argument("--lm_export",
+                     help="LM artifact dir of mqgan_tpu_torch.deploy.export_lm")
+    p.add_argument("--codec_dir", default=None,
+                   help="codec artifact dir (deploy.export): enables "
+                        "decode=true and masks undecodable ids out of sampling")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8767)
     p.add_argument("--max_length", type=int, default=8192)
+    p.add_argument("--length_grid", type=int, default=128)
     p.add_argument("--max_batch", type=int, default=MAX_SAMPLES,
                    help="max coalesced rows per generation dispatch")
     p.add_argument("--max_delay_ms", type=float, default=3.0,
                    help="linger before dispatching a short batch")
     p.add_argument("--kv_bf16", action="store_true",
-                   help="transformer: bf16 KV cache (halves its reads; "
+                   help="run-dir transformer: bf16 KV cache (halves its reads; "
                         "streams consistent within the dtype, not equal to "
-                        "fp32-cache streams)")
+                        "fp32-cache streams); an artifact records its own")
+    p.add_argument("--no_prewarm", action="store_true",
+                   help="skip running the dispatch-shape grid before traffic")
+    p.add_argument("--prewarm_lengths", type=int, nargs="+", default=None,
+                   help="generation lengths to warm (default: the artifact's "
+                        "buckets, or one --length_grid)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the plain paths)")
     args = p.parse_args(argv)
 
-    service = LMHTTPService(args.lm_run, max_length=args.max_length,
+    service = LMHTTPService(args.lm_run, args.codec_dir,
+                            length_grid=args.length_grid,
+                            max_length=args.max_length, lm_export=args.lm_export,
                             max_batch=args.max_batch,
                             max_delay_ms=args.max_delay_ms,
                             kv_bf16=args.kv_bf16, device=args.device)
-    t0 = time.monotonic()
-    n = service.warmup(verbose=True)
-    print(f"warmed {n} dispatch shapes in {time.monotonic() - t0:.1f}s")
+    if not args.no_prewarm:
+        t0 = time.monotonic()
+        n = service.warmup(lengths=args.prewarm_lengths, verbose=True)
+        print(f"warmed {n} dispatch shapes in {time.monotonic() - t0:.1f}s")
     server = LMHTTPServer(service, host=args.host, port=args.port)
-    print(f"serving {service.arch} LM generation from {args.lm_run} on "
-          f"{server.url} ({service.device})", flush=True)
+    print(f"serving {service.arch} LM generation from "
+          f"{args.lm_run or args.lm_export} on {server.url} ({service.device}; "
+          f"codec: {args.codec_dir or 'none'})", flush=True)
     serve_until_interrupted(server)
 
 

@@ -13,7 +13,9 @@ Submodule names mirror the JAX parameter tree (``conv_pre``, ``up_{i}``,
 ``mrf_{i}/conv_k{k}_d{d}`` and ``..._post``, ``conv_post``), so
 ``utils/params.py`` ``state_dict_from_jax`` maps an
 ``ISTFTNetGenerator.init(...)["params"]`` tree one to one. ``dtype`` is the
-compute dtype of the convolutions; the heads are always fp32.
+compute dtype of the convolutions; the heads are always fp32. The forward
+is differentiable (``train/vocoder_trainer.py`` trains it); inference
+through ``ISTFTNetFE`` runs without gradients.
 """
 
 from __future__ import annotations
@@ -70,7 +72,11 @@ class ISTFTNetGenerator(nn.Module):
         super().__init__()
         self.n_mels = n_mels
         self.upsample_rates = tuple(upsample_rates)
+        self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
+        self.upsample_initial_channel = upsample_initial_channel
         self.istft_n_fft = istft_n_fft
+        self.resblock_kernel_sizes = tuple(resblock_kernel_sizes)
+        self.resblock_dilations = tuple(resblock_dilations)
         self.dtype = dtype
         ch = upsample_initial_channel
         self.conv_pre = WNConv1d(n_mels, ch, 7)
@@ -85,7 +91,21 @@ class ISTFTNetGenerator(nn.Module):
     def total_upsample(self) -> int:
         return math.prod(self.upsample_rates)
 
-    @torch.no_grad()
+    def config(self) -> dict:
+        """The constructor's hyperparameters (dtype as its name or None),
+        which rebuild this generator: ``ISTFTNetGenerator(**config)`` after
+        ``dtype`` is mapped back."""
+        return {
+            "n_mels": self.n_mels,
+            "upsample_rates": list(self.upsample_rates),
+            "upsample_kernel_sizes": list(self.upsample_kernel_sizes),
+            "upsample_initial_channel": self.upsample_initial_channel,
+            "istft_n_fft": self.istft_n_fft,
+            "resblock_kernel_sizes": list(self.resblock_kernel_sizes),
+            "resblock_dilations": list(self.resblock_dilations),
+            "dtype": None if self.dtype is None else str(self.dtype).split(".")[-1],
+        }
+
     def forward(self, mel: torch.Tensor):
         """mel (B, n_mels, T) -> (spec, phase) each (B, n_fft//2+1, T')."""
         x = mel.transpose(1, 2)  # channels-last (B, T, n_mels)

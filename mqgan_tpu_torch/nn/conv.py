@@ -5,8 +5,10 @@ Parameters are kept in PyTorch's layouts — Conv1d (O, I, K), Conv2d
 magnitude, (O,)) and ``bias``. The effective kernel is g * v / ||v|| with
 the norm over every axis but O (torch ``weight_norm(dim=0)``, and the same
 quantity as JAX's norm over (K, I) of its (K, I, O) kernel). ``folded()``
-gives it for inference. Activations stay channels-last at the public
-functions; the 1-D conv transposes to (B, C, T) internally.
+gives it for inference. Both convs take stride, groups and explicit (lo, hi)
+padding per spatial dim, as the JAX ``WNConv`` does. The 1-D conv is
+channels-last at ``forward`` and transposes to (B, C, T) internally
+(``conv_nct`` takes (B, C, T) as it is); the 2-D conv runs on NCHW.
 """
 
 from __future__ import annotations
@@ -33,16 +35,28 @@ def same_padding_1d(kernel_size: int, causal: bool, dilation: int = 1) -> tuple:
 
 
 class WNConv1d(nn.Module):
-    """1-D conv over (B, T, C) with optional weight norm and dilation."""
+    """1-D conv over (B, T, C) with optional weight norm, dilation, stride,
+    groups and explicit padding (the JAX ``WNConv`` with one spatial dim).
+
+    ``padding``: None gives SAME (d*(k//2) on both sides) or, with
+    ``causal``, d*(k-1) on the left; a (lo, hi) pair pads the time axis
+    explicitly. The kernel is (O, I/groups, K): JAX's grouped (K, I/g, O)
+    transposed, normalised per O over (I/g, K) as JAX does over (K, I/g).
+    ``conv_nct`` runs the same conv on a channels-first (B, C, T) input."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  *, causal: bool = False, weight_norm: bool = True,
-                 bias: bool = True, dilation: int = 1):
+                 bias: bool = True, dilation: int = 1, stride: int = 1,
+                 groups: int = 1, padding: tuple | None = None):
         super().__init__()
-        shape = (out_channels, in_channels, kernel_size)
+        shape = (out_channels, in_channels // groups, kernel_size)
         self.kernel_size = kernel_size
         self.causal = causal
         self.dilation = dilation
+        self.stride = stride
+        self.groups = groups
+        self.padding = (same_padding_1d(kernel_size, causal, dilation)
+                        if padding is None else tuple(padding))
         self.weight_norm = weight_norm
         if weight_norm:
             self.v = nn.Parameter(torch.empty(shape))
@@ -52,16 +66,30 @@ class WNConv1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def folded(self) -> torch.Tensor:
-        """Effective (O, I, K) kernel in fp32."""
+        """Effective (O, I/groups, K) kernel in fp32."""
         if self.weight_norm:
             return weight_norm_kernel(self.v, self.g)
         return self.weight.float()
 
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        lo, hi = self.padding
+        if lo == hi:
+            return F.conv1d(x, self.folded().to(x.dtype), stride=self.stride,
+                            padding=lo, dilation=self.dilation,
+                            groups=self.groups)
+        return F.conv1d(F.pad(x, (lo, hi)), self.folded().to(x.dtype),
+                        stride=self.stride, dilation=self.dilation,
+                        groups=self.groups)
+
+    def conv_nct(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C_in, T) -> (B, C_out, T')."""
+        y = self._conv(x)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)[:, None]
+        return y
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        lo, hi = same_padding_1d(self.kernel_size, self.causal, self.dilation)
-        y = F.conv1d(F.pad(x.transpose(1, 2), (lo, hi)),
-                     self.folded().to(x.dtype), dilation=self.dilation)
-        y = y.transpose(1, 2)
+        y = self._conv(x.transpose(1, 2)).transpose(1, 2)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -76,14 +104,29 @@ class Dense(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
+def _pair(x) -> tuple:
+    return (x, x) if isinstance(x, int) else tuple(x)
+
+
 class WNConv2d(nn.Module):
-    """2-D SAME conv (odd square kernel, stride 1) over NCHW images."""
+    """2-D conv over NCHW images with optional weight norm, stride, groups
+    and explicit padding (the JAX ``WNConv`` with two spatial dims).
+
+    ``kernel_size`` and ``stride``: an int or an (h, w) pair. ``padding``:
+    None gives SAME for odd kernels (k//2 on both sides of each dim); a
+    ((lo, hi), (lo, hi)) pair pads each dim explicitly."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3, *, weight_norm: bool = True):
+                 kernel_size=3, *, weight_norm: bool = True, stride=1,
+                 groups: int = 1, padding=None):
         super().__init__()
-        shape = (out_channels, in_channels, kernel_size, kernel_size)
-        self.kernel_size = kernel_size
+        kh, kw = _pair(kernel_size)
+        shape = (out_channels, in_channels // groups, kh, kw)
+        self.kernel_size = (kh, kw)
+        self.stride = _pair(stride)
+        self.groups = groups
+        self.padding = (((kh // 2, kh // 2), (kw // 2, kw // 2)) if padding is None
+                        else tuple(tuple(p) for p in padding))
         self.weight_norm = weight_norm
         if weight_norm:
             self.v = nn.Parameter(torch.empty(shape))
@@ -99,5 +142,10 @@ class WNConv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.folded().to(x.dtype)
-        return F.conv2d(x, w, self.bias.to(x.dtype),
-                        padding=self.kernel_size // 2)
+        b = self.bias.to(x.dtype)
+        (h_lo, h_hi), (w_lo, w_hi) = self.padding
+        if h_lo == h_hi and w_lo == w_hi:
+            return F.conv2d(x, w, b, stride=self.stride, padding=(h_lo, w_lo),
+                            groups=self.groups)
+        return F.conv2d(F.pad(x, (w_lo, w_hi, h_lo, h_hi)), w, b,
+                        stride=self.stride, groups=self.groups)

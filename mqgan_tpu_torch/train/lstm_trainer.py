@@ -31,6 +31,7 @@ import torch
 
 from mqgan_tpu_torch.core.device import resolve_device
 from mqgan_tpu_torch.models.music_lstm import MusicLSTM, masked_ce_loss
+from mqgan_tpu_torch.train.state import ClipAdamW
 from mqgan_tpu_torch.utils.logging import MetricsLogger
 from mqgan_tpu_torch.utils.npy import load_npy
 from mqgan_tpu_torch.utils.params import state_dict_from_jax, unflatten_tree
@@ -105,58 +106,6 @@ def batches(ds: MusicChunkDataset, idxs, batch_size, pad_id,
             seqs += [np.zeros((0,), np.int64)] * deficit
             genres += [0] * deficit
         yield collate_music(seqs, genres, pad_id)
-
-
-class ClipAdamW:
-    """optax.chain(clip_by_global_norm(max_norm), adamw(lr)) with optax's
-    defaults (b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4 on every
-    parameter): the update is scaled by max_norm / g_norm only when
-    g_norm >= max_norm, Adam's bias corrections are fp32 powers of the step
-    count. State: {"count": int32 0-d, "mu": [...], "nu": [...]}."""
-
-    B1, B2, EPS, WEIGHT_DECAY = 0.9, 0.999, 1e-8, 1e-4
-
-    def __init__(self, lr: float, max_norm: float = 1.0):
-        self.lr, self.max_norm = lr, max_norm
-
-    def init(self, params) -> dict:
-        params = list(params)
-        return {"count": torch.zeros((), dtype=torch.int32, device=params[0].device),
-                "mu": [torch.zeros_like(p) for p in params],
-                "nu": [torch.zeros_like(p) for p in params]}
-
-    @torch.no_grad()
-    def step_(self, params, grads, state: dict, ok: torch.Tensor) -> None:
-        """Update params and state in place where ``ok`` (a 0-d bool on the
-        device) holds; where it does not, params, both moments and the count
-        keep their values. No host synchronisation."""
-        params = list(params)
-        zero = torch.zeros((), device=params[0].device)
-        grads = [torch.where(ok, g, zero) for g in grads]
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        clip = g_norm >= self.max_norm
-        grads = [torch.where(clip, g / g_norm * self.max_norm, g) for g in grads]
-        count = state["count"] + 1
-        mu = torch._foreach_add(torch._foreach_mul(grads, 1 - self.B1),
-                                torch._foreach_mul(state["mu"], self.B1))
-        nu = torch._foreach_add(
-            torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - self.B2),
-            torch._foreach_mul(state["nu"], self.B2))
-        powers = count.float()
-        bc1 = 1 - torch.pow(torch.tensor(self.B1, device=powers.device), powers)
-        bc2 = 1 - torch.pow(torch.tensor(self.B2, device=powers.device), powers)
-        den = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)),
-                                 self.EPS)
-        upd = torch._foreach_div(torch._foreach_div(mu, bc1), den)
-        upd = torch._foreach_add(upd, torch._foreach_mul(params, self.WEIGHT_DECAY))
-        new = torch._foreach_add(params, torch._foreach_mul(upd, -self.lr))
-        for p, n in zip(params, new):
-            p.copy_(torch.where(ok, n, p))
-        for old, n in zip(state["mu"], mu):
-            old.copy_(torch.where(ok, n, old))
-        for old, n in zip(state["nu"], nu):
-            old.copy_(torch.where(ok, n, old))
-        state["count"] = torch.where(ok, count, state["count"])
 
 
 def make_lstm_step(model, tx: ClipAdamW, pad_id: int, train: bool):

@@ -13,7 +13,9 @@ Optimizers, as the JAX package builds them with optax: clip by global norm,
 then Adam with no weight decay; G with the linear warmup
 lr * min((count + 1) / warmup_steps, 1) and betas (beta1, beta2), D with
 lr * lr_d_factor and betas (d_beta1, d_beta2), one optimizer over both
-discriminators.
+discriminators. ``ClipAdamW`` is optax's clip-then-adamw with its defaults
+(weight decay 1e-4), which the token-LM and vocoder trainers use, with the
+JAX trainers' in-graph NaN skip.
 """
 
 from __future__ import annotations
@@ -91,6 +93,61 @@ class ClipAdam:
                                  f"tensors for {len(dst)} parameters")
             for t, v in zip(dst, d[key]):
                 t.copy_(v)
+
+
+class ClipAdamW:
+    """optax.chain(clip_by_global_norm(max_norm), adamw(lr)) with optax's
+    defaults (b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4 on every
+    parameter): the update is scaled by max_norm / g_norm only when
+    g_norm >= max_norm, Adam's bias corrections are fp32 powers of the step
+    count. ``max_norm=float("inf")`` is ``optax.adamw(lr)`` alone. State:
+    {"count": int32 0-d, "mu": [...], "nu": [...]}."""
+
+    B1, B2, EPS, WEIGHT_DECAY = 0.9, 0.999, 1e-8, 1e-4
+
+    def __init__(self, lr: float, max_norm: float = 1.0):
+        self.lr, self.max_norm = lr, max_norm
+
+    def init(self, params) -> dict:
+        params = list(params)
+        return {"count": torch.zeros((), dtype=torch.int32, device=params[0].device),
+                "mu": [torch.zeros_like(p) for p in params],
+                "nu": [torch.zeros_like(p) for p in params]}
+
+    @torch.no_grad()
+    def step_(self, params, grads, state: dict, ok: torch.Tensor) -> None:
+        """Update params and state in place where ``ok`` (a 0-d bool on the
+        device) holds; where it does not, params, both moments and the count
+        keep their values. No host synchronisation."""
+        params = list(params)
+        zero = torch.zeros((), device=params[0].device)
+        grads = [torch.where(ok, g, zero) for g in grads]
+        if self.max_norm != float("inf"):  # inf: optax's adamw, no clip
+            g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            clip = g_norm >= self.max_norm
+            grads = [torch.where(clip, g / g_norm * self.max_norm, g) for g in grads]
+        count = state["count"] + 1
+        mu = torch._foreach_add(torch._foreach_mul(grads, 1 - self.B1),
+                                torch._foreach_mul(state["mu"], self.B1))
+        nu = torch._foreach_add(
+            torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - self.B2),
+            torch._foreach_mul(state["nu"], self.B2))
+        powers = count.float()
+        # (a Python base: no host-to-device copy, which would sync)
+        bc1 = 1 - torch.pow(self.B1, powers)
+        bc2 = 1 - torch.pow(self.B2, powers)
+        den = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)),
+                                 self.EPS)
+        upd = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+        upd = torch._foreach_add(upd, torch._foreach_mul(params, self.WEIGHT_DECAY))
+        new = torch._foreach_add(params, torch._foreach_mul(upd, -self.lr))
+        for p, n in zip(params, new):
+            p.copy_(torch.where(ok, n, p))
+        for old, n in zip(state["mu"], mu):
+            old.copy_(torch.where(ok, n, old))
+        for old, n in zip(state["nu"], nu):
+            old.copy_(torch.where(ok, n, old))
+        state["count"] = torch.where(ok, count, state["count"])
 
 
 def make_optimizers(cfg: TrainingConfig, gen_params, disc_params):

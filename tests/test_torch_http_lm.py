@@ -2,8 +2,8 @@
 CPU, over run dirs written by the port's own trainer: concurrent requests
 coalesce and each response equals the same request served alone, the
 health and stats endpoints, client errors, the warm-up grid, the listen
-backlog kept off the stdlib class, and the backends that are not ported
-yet."""
+backlog kept off the stdlib class, and the constructor's errors (the
+artifact backends are served in tests/test_torch_lm_export.py)."""
 
 import json
 import os
@@ -152,9 +152,16 @@ def test_listen_backlog_is_set_per_server(run_dir):
 
 
 def test_unported_backends_and_missing_card_raise(run_dir):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    """The artifact backends are ported (tests/test_torch_lm_export.py
+    serves them): one backend must be named, a run dir is not an artifact
+    of either kind, and without a card the default device raises."""
+    with pytest.raises(ValueError, match="exactly one"):
+        LMHTTPService(run_dir, lm_export=run_dir, device="cpu")
+    with pytest.raises(ValueError, match="exactly one"):
+        LMHTTPService(device="cpu")
+    with pytest.raises(FileNotFoundError, match="lm_manifest.json"):
         LMHTTPService(lm_export=run_dir, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(FileNotFoundError, match="manifest.json"):
         LMHTTPService(run_dir, codec_dir=run_dir, device="cpu")
     if torch.cuda.is_available():
         service = LMHTTPService(run_dir)

@@ -52,6 +52,14 @@ if not result["cuda"]:
         gan_trainer.main(gan_args)
     except RuntimeError as e:
         result["gan_trainer_device_error"] = str(e)
+from mqgan_tpu_torch.train import vocoder_trainer
+voc_args = ["--wav_dir", "no_such_dir", "--spec_config", "no_such_spec.json"]
+result["vocoder_trainer_device"] = vocoder_trainer.parse_args(voc_args).device
+if not result["cuda"]:
+    try:
+        vocoder_trainer.main(voc_args)
+    except RuntimeError as e:
+        result["vocoder_trainer_device_error"] = str(e)
 import shutil, tempfile
 from mqgan_tpu_torch.core.config import GeneratorConfig
 from mqgan_tpu_torch.deploy import (export, http_server, http_streaming,
@@ -65,8 +73,23 @@ with open(cfg, "w") as f:
     json.dump({"model": {"mel_channels": 16, "generator": {
         "channels": [16, 24], "kernel_sizes": [3], "refiner_base_channels": 4,
         "refiner_depth": 1}}}, f)
+from mqgan_tpu_torch.deploy import export_lm, http_lm
+from mqgan_tpu_torch.models.istft_vocoder import ISTFTNetGenerator, build_vocoder_fe
+from mqgan_tpu_torch.models.music_lstm import MusicLSTM
+from mqgan_tpu_torch.signal.vocoder import ISTFTNetFE
+voc = build_vocoder_fe(ISTFTNetGenerator(n_mels=16, upsample_initial_channel=8,
+                                         resblock_kernel_sizes=(3,),
+                                         resblock_dilations=(1,)), 8)
+voc_art = voc.export_ts(art + "/vocoder", 16000, mel_channels=16)
+lm_art = export_lm.export_music_lm(
+    MusicLSTM(vocab_size=8, num_genres=2, emb_dim=4, lstm_hid=4, lstm_layers=1),
+    art + "/lm", gen_buckets=(4,), prompt_buckets=(1,), score_buckets=(4,),
+    verify=False)
 entries = {
     "exported": lambda: runtime.ExportedPreEncoder(art),
+    "vocoder_artifact": lambda: ISTFTNetFE.load_ts(voc_art).gen,
+    "lm_artifact": lambda: export_lm.ExportedMusicLM(lm_art),
+    "http_lm_export": lambda: http_lm.LMHTTPService(lm_export=lm_art),
     "checkpoint_reencoder": lambda: reencode.CheckpointReencoder(
         cfg, art + "/weights.pt"),
     "http_server_main": lambda: http_server.main(["--model_dir", art]),
@@ -79,8 +102,16 @@ entries = {
 result["entries"] = {}
 for name, entry in entries.items():
     if result["cuda"]:
-        dev = getattr(entry(), "device", None) if name in (
-            "exported", "checkpoint_reencoder") else "cuda"
+        made = entry()
+        if name == "vocoder_artifact":
+            dev = next(made.parameters()).device
+        elif name in ("exported", "checkpoint_reencoder", "lm_artifact",
+                      "http_lm_export"):
+            dev = made.device
+        else:
+            dev = "cuda"
+        if name == "http_lm_export":
+            made.close()
         result["entries"][name] = str(dev)
         continue
     try:
@@ -113,12 +144,15 @@ def test_port_imports_nothing_of_jax_and_does_not_fall_back():
                  "deploy.http_streaming", "deploy.http_client", "nn.se",
                  "models.discriminators", "losses.gan", "losses.recon",
                  "quant.fsq", "train.state", "train.step", "train.data",
-                 "train.trainer", "utils.plotting"):
+                 "train.trainer", "utils.plotting", "losses.stft_loss",
+                 "models.wave_discriminators", "train.vocoder_trainer",
+                 "signal.vocoder"):
         assert f"mqgan_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     assert result["trainer_device"] == "cuda"
     assert result["gan_trainer_device"] == "cuda"
-    assert len(result["entries"]) == 6
+    assert result["vocoder_trainer_device"] == "cuda"
+    assert len(result["entries"]) == 9
     if result["cuda"]:
         assert result["default_device"].startswith("cuda")
         assert result["mel_device"].startswith("cuda")
@@ -130,6 +164,7 @@ def test_port_imports_nothing_of_jax_and_does_not_fall_back():
         assert "CUDA is not available" in result["mel_device_error"]
         assert "CUDA is not available" in result["trainer_device_error"]
         assert "CUDA is not available" in result["gan_trainer_device_error"]
+        assert "CUDA is not available" in result["vocoder_trainer_device_error"]
 
 
 def test_chip_smoke_imports_nothing_of_jax():

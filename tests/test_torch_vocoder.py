@@ -26,6 +26,7 @@ from mqgan_tpu_torch.models.istft_vocoder import ISTFTNetGenerator, build_vocode
 from mqgan_tpu_torch.nn.conv import WNConv1d
 from mqgan_tpu_torch.signal import griffin_lim as gl
 from mqgan_tpu_torch.signal.mel import MelFrontend
+from mqgan_tpu_torch.signal.vocoder import ISTFTNetFE
 from mqgan_tpu_torch.signal.stft import stft
 from mqgan_tpu_torch.utils.params import state_dict_from_jax
 from tests.test_torch_bridge import (MELS, max_err, narrow_jax_params, perturb,
@@ -84,7 +85,8 @@ def test_generator_matches_jax(rng):
     mel = _mel(rng)
     j_spec, j_phase = (np.asarray(a) for a in jax.jit(gen.apply)(
         {"params": tree}, jnp.asarray(mel)))
-    spec, phase = _port_gen(tree)(torch.from_numpy(mel))
+    with torch.no_grad():  # the forward is differentiable (training)
+        spec, phase = _port_gen(tree)(torch.from_numpy(mel))
     print(f"generator: spec max err {max_err(spec, j_spec):.2e}, phase "
           f"{max_err(phase, j_phase):.2e}")
     assert spec.shape == j_spec.shape == (2, 5, 12 * 16)
@@ -92,7 +94,7 @@ def test_generator_matches_jax(rng):
     np.testing.assert_allclose(phase.numpy(), j_phase, atol=GEN_TOL, rtol=GEN_TOL)
 
 
-def test_vocoder_fe_matches_jax(rng):
+def test_vocoder_fe_matches_jax(rng, tmp_path):
     gen, tree = _narrow_gen_tree()
     mel = _mel(rng, b=1, t=15)
     want = np.asarray(jax_build_vocoder_fe(gen, {"params": tree}, ISTFT_HOP)(
@@ -105,8 +107,11 @@ def test_vocoder_fe_matches_jax(rng):
     pcm, pcm_cpu = fe.infer(mel), fe.infer_cpuistft(mel)
     assert pcm.dtype == pcm_cpu.dtype == np.int16
     assert np.abs(pcm.astype(np.int32) - pcm_cpu).max() <= 1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        fe.export_ts("unused", 16000)
+    # the artifact (config.json + weights.pt) vocodes as the wrapper does
+    art = fe.export_ts(str(tmp_path / "voc"), 16000, mel_channels=16)
+    again = ISTFTNetFE.load_ts(art, device="cpu")
+    assert again.sampling_rate == 16000
+    np.testing.assert_array_equal(again(mel).numpy(), got)
 
 
 def test_generator_bf16_runs():

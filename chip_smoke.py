@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's codec serving path, its audio path, its
 token-LM training path, its token-LM serving path, its codec deployment
-path, its codec training path, its vocoder training path and its LM
-artifact with codec attach on one NVIDIA GPU (H100).
+path, its codec training path, its vocoder training path, its LM
+artifact with codec attach and its parallel codec serving on one NVIDIA
+GPU (H100).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --fsq-head-of DIR   # time another checkout's FSQ head
@@ -228,7 +229,30 @@ printing no result, without one. Phases (any failure exits non-zero):
     decode true (counts reset just before, read just after): tokens in
     [2, 1000), each mel equal to ExportedPreEncoder.decode of its tokens,
     3 residual_block and 1 mel_mixer_poly launches per decode, no other;
-17. print {"ok": true, "device": {...}} as the last line.
+17. parallel codec serving (flagship generator, seeded, TF32 off): (a) the
+    split residual_block launch of the three CBAM blocks (begin: conv
+    GEMMs and the pool over a frame range; finish: gate MLP, SAM, tail)
+    against the unsplit kernel with the range [0, length) and no
+    reduction at phase 3's shapes (max difference printed, expect 0), and
+    against its plain version on the 4 windows of a B=2 clip pair of
+    16,384 and 11,000 frames, statistics reduced over the windows, at
+    phase 3's gates; (b) seq-parallel re-encode (tokens, x_recon, x_post)
+    and decode of that pair on 4 windows of the card, fp32, against one
+    full-length pass (counts reset just before, read just after: tokens
+    equal away from midpoints, the mels within 1e-4 * max(1, max|x|) of a
+    full-length decode of the same tokens; residual_block_split,
+    residual_block, mel_mixer and fsq_head launched, mel_mixer_poly not),
+    the thread route against the stacked one, and ms and peak memory of
+    the bf16 seq-parallel call and of one full pass (2 warm-up, 5 timed,
+    CUDA events); (c) phase 13's fp32 exact and bf16 poly-decode artifacts
+    with data_parallel over [cuda:0, cuda:0] against one device on a
+    ragged batch of 7 (tokens equal; fp32 mels within 1e-4 * max(1,
+    max|x|), expect 0; bf16 poly-decode mels at the bf16 gate: each slice
+    fits its own Chebyshev range), and the re-encode CLI with
+    --seq_parallel over phase 13's mels (each file's tokens equal a
+    full-length encode away from midpoints); then the split launch's time
+    at the windows' shapes (row 1b of the kernels line);
+18. print {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -4045,6 +4069,348 @@ def lm_artifacts(tf_run, lstm_run, codec_dir, device, counters, card) -> dict:
     return launches, errs
 
 
+# phase 17, parallel serving: the clip pair that 17b re-encodes in windows,
+# their count (one card holds them all), and 17c's ragged batch
+SEQ_LENGTHS = (16_384, 11_000)
+SEQ_WINDOWS = 4
+DP_LENGTHS = (1000, 1000, 777, 600, 384, 129, 1)
+DP_T = 1000
+SEQ_ITERS = 5
+
+
+def _window_inputs(plan, lengths, device):
+    """Per window of ``plan`` (stacked along the batch axis, window-major):
+    lengths (clip(len - s, 0, w)) and the CBAM stats range (the window's
+    interior frames that are valid), int32 on ``device``."""
+    import torch
+
+    lens, lo, hi = [], [], []
+    for i in range(plan.n):
+        s, off = plan.geometry(i)
+        for n in lengths:
+            wl = min(max(n - s, 0), plan.window)
+            lens.append(wl)
+            lo.append(off)
+            hi.append(max(off, min(off + plan.chunk, wl)))
+    return tuple(torch.tensor(v, dtype=torch.int32, device=device)
+                 for v in (lens, lo, hi))
+
+
+def compare_split_kernel(model, device) -> float:
+    """Phase 17a: the split launch of the three CBAM blocks against the
+    unsplit kernel (the range [0, length), no reduction) at phase 3's
+    shapes, and against its plain version on the windows of the clip pair
+    (statistics reduced over the windows), fp32 and bf16 at phase 3's
+    gates; returns the largest bf16 |kernel - plain| of the windows."""
+    import torch
+
+    from mqgan_tpu_torch.ops.block_kernels import (
+        fused_residual_block, residual_block_plain_begin,
+        residual_block_plain_finish, split_residual_block)
+    from mqgan_tpu_torch.parallel.seqpar import _group_reduce, plan_seq_reencode
+
+    gen = torch.Generator().manual_seed(SEED + 30)
+    lens = torch.tensor(CMP_LENGTHS, dtype=torch.int32, device=device)
+    plan = plan_seq_reencode(max(SEQ_LENGTHS), SEQ_WINDOWS, model.kernel_sizes,
+                             model.refiner_depth)
+    wlens, lo, hi = _window_inputs(plan, SEQ_LENGTHS, device)
+    b = len(SEQ_LENGTHS)
+    reduce = _group_reduce(SEQ_WINDOWS, b, None, 0)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, blk in enumerate(model.encoder_blocks):
+            cin = blk.conv1.v.shape[1]
+            wts = blk.kernel_weights(dtype)
+            x = torch.randn((CMP_B, CMP_T, cin), generator=gen).to(device, dtype)
+            whole = fused_residual_block(x, lens, wts, causal=False)
+            split = split_residual_block(x, lens, wts, torch.zeros_like(lens), lens, None)
+            same = float((split.float() - whole.float()).abs().max())
+            ok_same, _, _ = _judge("", split, whole, dtype)
+            x = torch.randn((SEQ_WINDOWS * b, plan.window, cin), generator=gen).to(device, dtype)
+            got = split_residual_block(x, wlens, wts, lo, hi, reduce)
+            res, z, part = residual_block_plain_begin(x, wlens, wts, lo, hi)
+            count = (hi - lo).float()
+            s_, m_ = reduce(torch.cat([part[:, 1], count[:, None]], 1), part[:, 0])
+            want = residual_block_plain_finish(
+                x, wlens, wts, res, z, torch.stack([m_, s_[:, :-1]], 1), s_[:, -1])
+            ok, max_abs, detail = _judge("", got, want, dtype)
+            if dtype == torch.bfloat16:
+                worst = max(worst, max_abs)
+            print(f"  residual_block_split enc{i} {str(dtype)[6:]:8s} at B={CMP_B} "
+                  f"T={CMP_T}, range [0, length), no reduction: max|split - unsplit| "
+                  f"{same:.3e} (expect 0) {'ok' if ok_same else 'FAIL'}; {SEQ_WINDOWS} "
+                  f"windows of {plan.window} x B={b} (lengths {SEQ_LENGTHS}), reduced "
+                  f"statistics vs the plain split: {detail.strip()}, max|k-p| "
+                  f"{max_abs:.3e} {'ok' if ok else 'FAIL'}")
+            if not (ok and ok_same):
+                fail(f"residual_block_split enc{i} {dtype}: the split launch "
+                     f"disagrees (unsplit {same:.3e}; windows {detail})")
+    return worst
+
+
+def _seq_clip(model):
+    """The clip pair of 17b (seeded, a drifting mean and a burst: the
+    statistics differ window to window) padded to the plan, its lengths
+    and the plan."""
+    from mqgan_tpu_torch.parallel.seqpar import plan_seq_reencode
+
+    t = max(SEQ_LENGTHS)
+    plan = plan_seq_reencode(t, SEQ_WINDOWS, model.kernel_sizes, model.refiner_depth)
+    rng = np.random.default_rng(SEED + 31)
+    mel = rng.standard_normal((len(SEQ_LENGTHS), t, MELS)).astype(np.float32)
+    mel += np.linspace(-2.0, 2.0, t, dtype=np.float32)[None, :, None]
+    mel[:, t // 3:t // 3 + 400] += 3.0
+    return mel, np.asarray(SEQ_LENGTHS, np.int32), plan
+
+
+def _full_pass(model, mel, lengths, t_pad):
+    """One full-length pass at t_pad frames (the padded convention):
+    (tokens, x_recon, x_post, pad mask) on the card."""
+    import torch
+
+    dev = model.fsq_consts.device
+    x = torch.zeros((mel.shape[0], t_pad, MELS), device=dev)
+    x[:, :mel.shape[1]] = torch.as_tensor(mel).to(dev)
+    pad = torch.arange(t_pad, device=dev)[None, :] >= torch.as_tensor(lengths).to(dev)[:, None]
+    idx = model.encode(x, pad)
+    post, recon = model.decode(idx, pad, return_recon=True)
+    return idx, recon, post, pad
+
+
+def seq_parallel_check(state, device, counters) -> dict:
+    """Phase 17b: seq-parallel re-encode and decode of the clip pair on
+    SEQ_WINDOWS windows of the card (fp32, stacked) against one
+    full-length pass (counts reset just before the seq-parallel calls,
+    read just after); the thread route once, against the stacked one.
+    Returns the launches."""
+    import torch
+
+    from mqgan_tpu_torch.parallel.seqpar import seq_parallel_decode, seq_parallel_reencode
+
+    model = build_model(device, torch.float32, state=state)
+    mel, lengths, plan = _seq_clip(model)
+    devices = [device] * SEQ_WINDOWS
+    t = mel.shape[1]
+    f_idx, f_recon, f_post, pad = _full_pass(model, mel, lengths, plan.t_pad)
+    x = torch.zeros((mel.shape[0], plan.t_pad, MELS))
+    x[:, :t] = torch.from_numpy(mel)
+    near = _near_midpoints(model, x.numpy(), lengths)[:, :t]
+    torch.cuda.synchronize()
+    counters.reset()
+    idx, recon, post = seq_parallel_reencode(model, mel, lengths, devices,
+                                             return_recon=True)
+    dec = seq_parallel_decode(model, f_idx[:, :t], lengths, devices)
+    torch.cuda.synchronize()
+    launches = counters.snapshot()
+    valid = (np.arange(t)[None, :] < lengths[:, None])
+    flips = _check_tokens("seq-parallel re-encode vs the full pass",
+                          idx.cpu().numpy()[valid], f_idx[:, :t].cpu().numpy()[valid],
+                          near[valid])
+    # a token flipped at a midpoint moves its frames' decode by a code step:
+    # the mels are held against one full-length decode of the same tokens
+    own = torch.zeros_like(f_idx)
+    own[:, :t] = idx
+    o_post, o_recon = model.decode(own, pad, return_recon=True)
+    worst = {}
+    for name, got, want in (("x_post", post, o_post), ("x_recon", recon, o_recon),
+                            ("decode", dec, f_post)):
+        g, w = got.cpu().numpy()[valid], want[:, :t].cpu().numpy()[valid]
+        err = float(np.abs(g - w).max())
+        worst[name] = err
+        if err > _deploy_tol(w):
+            fail(f"seq-parallel {name} disagrees with the full pass: {err:.3e} > "
+                 f"{_deploy_tol(w):.3e}")
+    print(f"  seq-parallel re-encode of B={len(SEQ_LENGTHS)} lengths {SEQ_LENGTHS} on "
+          f"{SEQ_WINDOWS} windows of {device} (chunk {plan.chunk}, window {plan.window}, "
+          f"t_pad {plan.t_pad}, halos {plan.halo_l}/{plan.halo_r}, redundancy "
+          f"{plan.redundancy:.4f}) vs one full-length pass, fp32: {flips} token flips at "
+          f"midpoints; max|err| against a full-length decode of the same tokens: x_post "
+          f"{worst['x_post']:.3e}, x_recon {worst['x_recon']:.3e}; seq-parallel decode "
+          f"of the full pass's tokens {worst['decode']:.3e} (limit 1e-4 * max(1, "
+          f"max|x|)) ok")
+    print(f"  launches of the seq-parallel calls: {launches}")
+    for name in ("residual_block_split", "residual_block", "mel_mixer", "fsq_head"):
+        if launches.get(name, 0) <= 0:
+            fail(f"phase 17b: {name} was not launched on the seq-parallel path")
+    if launches.get("mel_mixer_poly", 0):
+        fail("phase 17b: mel_mixer_poly launched on the seq-parallel path")
+    t_idx, t_post = seq_parallel_reencode(model, mel, lengths, devices, stack=False)
+    err = float((t_post - post).abs().max())
+    print(f"  the thread route ({SEQ_WINDOWS} threads meeting at a barrier) vs the "
+          f"stacked route: {int((t_idx != idx).sum())} token flips, max|x_post diff| "
+          f"{err:.3e}")
+    if err > _deploy_tol(post.cpu().numpy()):
+        fail("phase 17b: the thread route disagrees with the stacked one")
+    return launches
+
+
+def seq_parallel_times(state, device, card) -> None:
+    """Phase 17b, timed: the bf16 seq-parallel re-encode of the clip pair
+    and one full-length pass (2 warm-up, SEQ_ITERS timed calls, CUDA
+    events), each with its peak device memory."""
+    import torch
+
+    from mqgan_tpu_torch.parallel.seqpar import seq_parallel_reencode
+
+    model = build_model(device, torch.bfloat16, state=state)
+    mel, lengths, plan = _seq_clip(model)
+    mel_dev = torch.from_numpy(mel).to(device)
+    lens_dev = torch.from_numpy(lengths).to(device)
+    calls = {
+        "seq-parallel": lambda: seq_parallel_reencode(
+            model, mel_dev, lens_dev, [device] * SEQ_WINDOWS, return_recon=True),
+        "full pass": lambda: _full_pass(model, mel_dev, lens_dev, plan.t_pad),
+    }
+    frames = int(lengths.sum())
+    for label, fn in calls.items():
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(fn, SEQ_ITERS)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"  {label} re-encode (tokens, x_recon, x_post), bf16, B=2 lengths "
+              f"{SEQ_LENGTHS}: {ms:.4f} ms ({frames / ms * 1e3:.1f} mel-frames/s), "
+              f"peak device memory {peak:.3f} GB [{card}]")
+    print(f"  plan redundancy {plan.redundancy:.4f} ({SEQ_WINDOWS} windows of "
+          f"{plan.window} frames for {plan.t_pad}); one card: not a speed claim")
+
+
+def data_parallel_check(root, state, device) -> None:
+    """Phase 17c: phase 13's fp32 exact and bf16 poly-decode artifacts with
+    data_parallel over [cuda:0, cuda:0] against single-device calls, a
+    ragged batch of 7; then the re-encode CLI with --seq_parallel over
+    phase 13's mels, each file's tokens against a full-length encode."""
+    import torch
+
+    from mqgan_tpu_torch.deploy import reencode
+    from mqgan_tpu_torch.deploy.runtime import ExportedPreEncoder
+
+    rng = np.random.default_rng(SEED + 32)
+    lengths = np.asarray(DP_LENGTHS, np.int32)
+    x = rng.standard_normal((len(lengths), DP_T, MELS)).astype(np.float32)
+    valid = np.arange(DP_T)[None, :] < lengths[:, None]
+    for name in ("fp32", "bf16"):
+        d = os.path.join(root, f"exp_{name}")
+        one = ExportedPreEncoder(d)
+        two = ExportedPreEncoder(d, data_parallel=True, devices=[device, device])
+        if two.n_devices != 2 or ExportedPreEncoder(d, data_parallel=True).n_devices != \
+                torch.cuda.device_count():
+            fail("phase 17c: ExportedPreEncoder(data_parallel=True) n_devices is wrong")
+        tok1, mel1 = one.reencode(x, lengths)
+        tok2, mel2 = two.reencode(x, lengths)
+        dec1, dec2 = one.decode(tok1, lengths), two.decode(tok1, lengths)
+        flips = int((tok1 != tok2)[valid].sum())
+        err = float(np.abs(mel1 - mel2)[valid].max())
+        derr = float(np.abs(dec1 - dec2)[valid].max())
+        poly = one.manifest["poly_mixers"]
+        if poly:  # each slice fits its own Chebyshev range
+            ok, _, detail = _judge("mel", torch.from_numpy(mel2[valid]),
+                                   torch.from_numpy(mel1[valid]), torch.bfloat16)
+        else:
+            ok = err <= _deploy_tol(mel1[valid]) and derr <= _deploy_tol(dec1[valid])
+            detail = f"limit {_deploy_tol(mel1[valid]):.1e}"
+        ok = ok and flips == 0
+        print(f"  data-parallel {name} ({one.manifest['dtype']}, poly_mixers {poly}) "
+              f"over [cuda:0, cuda:0] vs one device, B=7 T={DP_T} lengths "
+              f"{DP_LENGTHS}: {flips} token flips, max|mel diff| re-encode {err:.3e}, "
+              f"decode {derr:.3e} ({detail}; expect 0 for the exact mixers) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"phase 17c: data-parallel {name} disagrees with one device")
+    out, toks = os.path.join(root, "out_seq"), os.path.join(root, "tokens_seq")
+    src = os.path.join(root, "mels")
+    t0 = time.perf_counter()
+    result = reencode.main([
+        "--input_dir", src, "--output_dir", out, "--checkpoint",
+        os.path.join(root, "exp_fp32", "weights.pt"), "--config",
+        os.path.join(root, "flagship.json"), "--seq_parallel", "--save_tokens",
+        "--tokens_dir", toks, "--batch_size", str(REENCODE_BATCH)])
+    seconds = time.perf_counter() - t0
+    fp32 = build_model(device, torch.float32, state=state)
+    flips = 0
+    for rel in sorted(os.listdir(os.path.join(src, "set"))):
+        m = np.load(os.path.join(src, "set", rel))
+        got = np.load(os.path.join(toks, "set", rel)).astype(np.int32)
+        tp = -(-len(m) // 256) * 256
+        xp = np.zeros((1, tp, MELS), np.float32)
+        xp[0, :len(m)] = m
+        pad = torch.arange(tp, device=device)[None, :] >= len(m)
+        want = fp32.encode(torch.from_numpy(xp).to(device), pad)[0, :len(m)].cpu().numpy()
+        near = _near_midpoints(fp32, xp, [len(m)])[0, :len(m)]
+        flips += _check_tokens(f"--seq_parallel re-encode of {rel}", got, want, near)
+    print(f"  re-encode CLI --seq_parallel (checkpoint fp32, {torch.cuda.device_count()} "
+          f"card(s), whole files a call): {result['processed']} files in "
+          f"{seconds:.3f} s; tokens equal a full-length encode ({flips} flips at "
+          f"midpoints)")
+    if result["failed"] or result["processed"] != len(REENCODE_LENGTHS):
+        fail(f"phase 17c: re-encode --seq_parallel {result}")
+
+
+def split_kernel_times(model, device, errs) -> "_KernelRow":
+    """Phase 17, row 1b: the split launch of the three CBAM blocks at the
+    windows' shapes (SEQ_WINDOWS x B=2 windows of the plan, bf16, the
+    statistics reduced over the windows), the plain split beside it; the
+    bound counts the conv GEMMs' operations, as row 1 does."""
+    import torch
+
+    from mqgan_tpu_torch.ops.block_kernels import (
+        residual_block_plain_begin, residual_block_plain_finish,
+        split_residual_block)
+    from mqgan_tpu_torch.parallel.seqpar import _group_reduce, plan_seq_reencode
+
+    dt = torch.bfloat16
+    plan = plan_seq_reencode(max(SEQ_LENGTHS), SEQ_WINDOWS, model.kernel_sizes,
+                             model.refiner_depth)
+    wlens, lo, hi = _window_inputs(plan, SEQ_LENGTHS, device)
+    b = len(SEQ_LENGTHS)
+    reduce = _group_reduce(SEQ_WINDOWS, b, None, 0)
+    m = SEQ_WINDOWS * b * plan.window
+    gen = torch.Generator(device=device).manual_seed(SEED + 33)
+    row = _KernelRow("residual_block_split", "mqgan_tpu_torch/csrc/residual_block.cu",
+                     "mqgan_tpu/ops/block_kernels.py:161")
+    for i, blk in enumerate(model.encoder_blocks):
+        cin, cout, k = blk.conv1.v.shape[1], blk.conv1.v.shape[0], blk.kernel_size
+        x = torch.randn((SEQ_WINDOWS * b, plan.window, cin), generator=gen,
+                        device=device).to(dt)
+        wts = blk.kernel_weights(dt)
+
+        def plain():
+            res, z, part = residual_block_plain_begin(x, wlens, wts, lo, hi)
+            count = (hi - lo).float()
+            s_, m_ = reduce(torch.cat([part[:, 1], count[:, None]], 1), part[:, 0])
+            return residual_block_plain_finish(
+                x, wlens, wts, res, z, torch.stack([m_, s_[:, :-1]], 1), s_[:, -1])
+
+        ms = time_ms(lambda: split_residual_block(x, wlens, wts, lo, hi, reduce), 10)
+        pms = time_ms(plain, 3)
+        macs = k * cin * cout + k * cout * cout + (cin * cout if cin != cout else 0)
+        flops = 2.0 * m * macs
+        bound = row.add(ms, pms, flops, PEAK_BF16, 2.0 * (m * cin + m * cout + macs))
+        print(f"  residual_block_split enc{i} {cin}->{cout} k{k} at {SEQ_WINDOWS} x B={b} "
+              f"windows of {plan.window}: {ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{bound:.4f} ms ({flops / 1e9:.1f} GFLOP of conv GEMMs, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s over the split block's time)")
+    row.max_abs_err = errs
+    return row
+
+
+def parallel_serving(state, root, device, counters, card) -> tuple:
+    """Phase 17: returns (the seq-parallel path's launches, row 1b)."""
+    import torch
+
+    print(f"  [17a] the split launch vs the unsplit kernel and vs its plain version")
+    model = build_model(device, torch.float32, state=state)
+    err = compare_split_kernel(model, device)
+    print(f"  [17b] seq-parallel re-encode and decode vs one full-length pass [{card}]")
+    launches = seq_parallel_check(state, device, counters)
+    seq_parallel_times(state, device, card)
+    print(f"  [17c] data-parallel vs one device; re-encode CLI --seq_parallel [{card}]")
+    data_parallel_check(root, state, device)
+    row = split_kernel_times(model, device, err)
+    return launches, row
+
+
 def main() -> None:
     import torch
 
@@ -4178,6 +4544,11 @@ def main() -> None:
             errs[kernel] = max(errs.get(kernel, 0.0), err)
         print(f"  launches on the new paths: vocoder trainer CLI {voc_launches}, "
               f"LM server decodes {lm_launches}")
+        print(f"[17] parallel serving: seq-parallel and data-parallel codec [{card}] {at()}")
+        seq_launches, split_row = parallel_serving(state, deploy_root, device,
+                                                   counters, card)
+        rows.insert(1, split_row)
+        launches["residual_block_split"] = seq_launches["residual_block_split"]
     finally:
         shutil.rmtree(lm_root, ignore_errors=True)
         shutil.rmtree(deploy_root, ignore_errors=True)

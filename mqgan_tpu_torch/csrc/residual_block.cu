@@ -34,6 +34,16 @@
 // chain is three small memory-bound passes (a per-(b, c) reduction over
 // valid T, the tiny MLP, a per-frame reduction over C) and one elementwise
 // tail pass.
+//
+// The split launch (mqgan_residual_block_begin / _finish) runs a non-causal
+// block whose CBAM statistics are pooled over several windows of one clip
+// (sequence-parallel serving): `begin` runs the conv GEMMs and the same
+// pool kernel over a per-row frame range [lo, hi), writing the partial max
+// and sum in fp32; the caller reduces the windows' partials (sum, max) and
+// `finish` takes the reduced statistics with the frame counts and runs the
+// gate MLP, the SAM statistics (window-local: the halos cover its taps)
+// and the tail. With the range [0, length) and no reduction it computes
+// what the unsplit launch does, in the same order.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -341,18 +351,22 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSM) conv_gemm_mma(
 }
 
 // ---- CBAM ----
-// Per (b, c): max and mean of z over the row's valid frames. Block (64, 4):
-// 64 channels, 4 frame lanes; the max starts at the reference's -1e30 fill.
+// Per (b, c): max and mean of z over the row's valid frames [0, length);
+// or, with `lo` and `hi` (the split launch), max and sum over the frames
+// [lo[b], hi[b]). Block (64, 4): 64 channels, 4 frame lanes; the max starts
+// at the reference's -1e30 fill.
 template <typename T>
 __global__ void __launch_bounds__(256)
 cbam_channel_stats(const T* __restrict__ z, const int* __restrict__ lengths,
+                   const int* __restrict__ lo, const int* __restrict__ hi,
                    float* __restrict__ pooled, int t_len, int c_len) {
   __shared__ float smx[4][64], ssum[4][64];
   const int b = blockIdx.y, c = blockIdx.x * 64 + threadIdx.x;
-  const int len = min(lengths[b], t_len);
+  const int first = lo != nullptr ? max(lo[b], 0) : 0;
+  const int end = min(lo != nullptr ? hi[b] : lengths[b], t_len);
   float mx = round_to<T>(-1e30f), sum = 0.0f;
   if (c < c_len) {
-    for (int t = threadIdx.y; t < len; t += 4) {
+    for (int t = first + threadIdx.y; t < end; t += 4) {
       const float v = to_f32<T>(z[(static_cast<size_t>(b) * t_len + t) * c_len + c]);
       mx = fmaxf(mx, v);
       sum += v;
@@ -368,25 +382,29 @@ cbam_channel_stats(const T* __restrict__ z, const int* __restrict__ lengths,
     }
     float* pb = pooled + static_cast<size_t>(b) * 2 * c_len;
     pb[c] = mx;
-    pb[c_len + c] = sum / fmaxf(static_cast<float>(lengths[b]), 1.0f);
+    pb[c_len + c] = lo != nullptr ? sum : sum / fmaxf(static_cast<float>(lengths[b]), 1.0f);
   }
 }
 
 // Per b: hidden = relu(pooled . cw1 + cb1) for the max and the mean rows,
 // gate_c = sigmoid(sum over both rows of hidden . cw2 + cb2). Operands in
-// the compute dtype, accumulation in fp32.
+// the compute dtype, accumulation in fp32. With `counts` (the split
+// launch) the second row of `pooled` is a sum, and its mean is the sum
+// over max(count, 1).
 template <typename T>
 __global__ void __launch_bounds__(256)
-cbam_channel_gate(const float* __restrict__ pooled, const T* __restrict__ cw1,
-                  const float* __restrict__ cb1, const T* __restrict__ cw2,
-                  const float* __restrict__ cb2, T* __restrict__ gate,
-                  int c_len, int h_len) {
+cbam_channel_gate(const float* __restrict__ pooled, const float* __restrict__ counts,
+                  const T* __restrict__ cw1, const float* __restrict__ cb1,
+                  const T* __restrict__ cw2, const float* __restrict__ cb2,
+                  T* __restrict__ gate, int c_len, int h_len) {
   extern __shared__ float sm[];
   float* p = sm;               // (2, C)
   float* hid = sm + 2 * c_len;  // (2, H)
   const int b = blockIdx.x;
   for (int i = threadIdx.x; i < 2 * c_len; i += blockDim.x) {
-    p[i] = round_to<T>(pooled[static_cast<size_t>(b) * 2 * c_len + i]);
+    float v = pooled[static_cast<size_t>(b) * 2 * c_len + i];
+    if (counts != nullptr && i >= c_len) v = v / fmaxf(counts[b], 1.0f);
+    p[i] = round_to<T>(v);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < 2 * h_len; i += blockDim.x) {
@@ -484,22 +502,30 @@ cbam_tail(const T* __restrict__ z, const T* __restrict__ gate,
 }
 
 template <typename T>
-int run_cbam(const void* z, const int* lengths, const float* act,
-             const void* cw1, const float* cb1, const void* cw2,
-             const float* cb2, const float* sam_w, const void* res,
-             float* pooled, void* gate, float* stats, void* out, int b, int t,
-             int c, int h, int sam_k, cudaStream_t s) {
+int run_pool(const void* z, const int* lengths, const int* lo, const int* hi,
+             float* pooled, int b, int t, int c, cudaStream_t s) {
+  cbam_channel_stats<T><<<dim3((c + 63) / 64, b), dim3(64, 4), 0, s>>>(
+      static_cast<const T*>(z), lengths, lo, hi, pooled, t, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the gate MLP, the SAM statistics and the tail, from the pooled (B, 2, C)
+// statistics (a mean row, or with `counts` a sum row)
+template <typename T>
+int run_gate_tail(const void* z, const int* lengths, const float* act,
+                  const void* cw1, const float* cb1, const void* cw2,
+                  const float* cb2, const float* sam_w, const void* res,
+                  const float* pooled, const float* counts, void* gate,
+                  float* stats, void* out, int b, int t, int c, int h,
+                  int sam_k, cudaStream_t s) {
   const T* zt = static_cast<const T*>(z);
   T* gt = static_cast<T*>(gate);
-  cbam_channel_stats<T><<<dim3((c + 63) / 64, b), dim3(64, 4), 0, s>>>(
-      zt, lengths, pooled, t, c);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
   const size_t smem = (2 * static_cast<size_t>(c) + 2 * h) * sizeof(float);
   cbam_channel_gate<T><<<b, 256, smem, s>>>(
-      pooled, static_cast<const T*>(cw1), cb1, static_cast<const T*>(cw2),
-      cb2, gt, c, h);
-  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+      pooled, counts, static_cast<const T*>(cw1), cb1,
+      static_cast<const T*>(cw2), cb2, gt, c, h);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
   const int rows = b * t;
   sam_stats<T><<<(rows + 7) / 8, 256, 0, s>>>(zt, gt, lengths, stats, rows,
                                                t, c);
@@ -508,6 +534,51 @@ int run_cbam(const void* z, const int* lengths, const float* act,
                                     static_cast<const T*>(res), lengths, act,
                                     static_cast<T*>(out), t, c);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One k-tap conv GEMM with its epilogue: the mma.sync kernel in bf16, the
+// SIMT one in fp32.
+int conv_launch(const ConvArgs& a, int is_bf16, cudaStream_t s) {
+  const int m = a.b * a.t;
+  if (is_bf16) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv_gemm_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kGemmSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv_gemm_mma<<<dim3((a.cout + kBN - 1) / kBN, (m + kBM - 1) / kBM),
+                    kGemmThreads, kGemmSmem, s>>>(a);
+  } else {
+    conv_gemm_simt<<<dim3((a.cout + kSN - 1) / kSN, (m + kSM - 1) / kSM), 256,
+                     0, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The block's GEMMs: the projection into `res` when channels change, conv1
+// into `h`, conv2 into `z` (non-causal, plain epilogue) or, causal, with
+// the tail epilogue into `out`.
+int run_convs(const void* x, const int* len, const float* act, const void* w1,
+              const void* b1, const void* w2, const void* b2, const void* pw,
+              const void* pb, void* h, void* z, void* res, void* out, int b,
+              int t, int cin, int cout, int k, int causal, int is_bf16,
+              cudaStream_t s) {
+  const int lo = causal ? k - 1 : k / 2;
+  auto conv = [&](const void* in, const void* w, const void* bias, int c_in,
+                  int taps, int pad_lo, int epi, const void* r,
+                  void* dst) -> int {
+    const ConvArgs a{in, w, static_cast<const float*>(bias), r, len, act, dst,
+                     b, t, c_in, cout, taps, pad_lo, epi};
+    return conv_launch(a, is_bf16, s);
+  };
+  int err;
+  const void* residual = x;
+  if (pw != nullptr) {
+    if ((err = conv(x, pw, pb, cin, 1, 0, kPlain, nullptr, res))) return err;
+    residual = res;
+  }
+  if ((err = conv(x, w1, b1, cin, k, lo, kConv1, nullptr, h))) return err;
+  if (causal) return conv(h, w2, b2, cout, k, lo, kTail, residual, out);
+  return conv(h, w2, b2, cout, k, lo, kPlain, nullptr, z);
 }
 
 }  // namespace
@@ -523,48 +594,76 @@ extern "C" int mqgan_residual_block(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   const float* actf = static_cast<const float*>(act);
-  const int lo = causal ? k - 1 : k / 2;
-  const int m = b * t;
-
-  auto conv = [&](const void* in, const void* w, const void* bias, int c_in,
-                  int taps, int pad_lo, int epi, const void* r,
-                  void* dst) -> int {
-    ConvArgs a{in, w, static_cast<const float*>(bias), r, len, actf, dst,
-               b, t, c_in, cout, taps, pad_lo, epi};
-    if (is_bf16) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          conv_gemm_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(kGemmSmem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      conv_gemm_mma<<<dim3((cout + kBN - 1) / kBN, (m + kBM - 1) / kBM),
-                      kGemmThreads, kGemmSmem, s>>>(a);
-    } else {
-      conv_gemm_simt<<<dim3((cout + kSN - 1) / kSN, (m + kSM - 1) / kSM), 256,
-                       0, s>>>(a);
-    }
-    return static_cast<int>(cudaGetLastError());
-  };
-
-  int err;
-  const void* residual = x;
-  if (pw != nullptr) {
-    if ((err = conv(x, pw, pb, cin, 1, 0, kPlain, nullptr, res))) return err;
-    residual = res;
-  }
-  if ((err = conv(x, w1, b1, cin, k, lo, kConv1, nullptr, h))) return err;
-  if (causal) return conv(h, w2, b2, cout, k, lo, kTail, residual, out);
-  if ((err = conv(h, w2, b2, cout, k, lo, kPlain, nullptr, z))) return err;
+  int err = run_convs(x, len, actf, w1, b1, w2, b2, pw, pb, h, z, res, out, b,
+                      t, cin, cout, k, causal, is_bf16, s);
+  if (err || causal) return err;
+  const void* residual = pw != nullptr ? res : x;
+  float* pooledf = static_cast<float*>(pooled);
   const float* cb1f = static_cast<const float*>(cb1);
   const float* cb2f = static_cast<const float*>(cb2);
   const float* samf = static_cast<const float*>(sam_w);
-  float* pooledf = static_cast<float*>(pooled);
   float* statsf = static_cast<float*>(sam_stats_buf);
   if (is_bf16) {
-    return run_cbam<bf16>(z, len, actf, cw1, cb1f, cw2, cb2f, samf,
-                                   residual, pooledf, gate_c, statsf, out, b,
-                                   t, cout, hid, sam_k, s);
+    if ((err = run_pool<bf16>(z, len, nullptr, nullptr, pooledf, b, t, cout, s))) return err;
+    return run_gate_tail<bf16>(z, len, actf, cw1, cb1f, cw2, cb2f, samf, residual,
+                               pooledf, nullptr, gate_c, statsf, out, b, t, cout,
+                               hid, sam_k, s);
   }
-  return run_cbam<float>(z, len, actf, cw1, cb1f, cw2, cb2f, samf, residual,
-                         pooledf, gate_c, statsf, out, b, t, cout, hid, sam_k,
-                         s);
+  if ((err = run_pool<float>(z, len, nullptr, nullptr, pooledf, b, t, cout, s))) return err;
+  return run_gate_tail<float>(z, len, actf, cw1, cb1f, cw2, cb2f, samf, residual,
+                              pooledf, nullptr, gate_c, statsf, out, b, t, cout,
+                              hid, sam_k, s);
+}
+
+// The split launch of a non-causal block, first part: the conv GEMMs (the
+// projection into `res`, conv1 into `h`, conv2 into `z`), then per (b, c)
+// the max (row 0 of `partial`, (B, 2, C) fp32) and the sum (row 1) of z
+// over the frames [stats_lo[b], stats_hi[b]).
+extern "C" int mqgan_residual_block_begin(
+    const void* x, const void* lengths, const void* act, const void* w1,
+    const void* b1, const void* w2, const void* b2, const void* pw,
+    const void* pb, const void* stats_lo, const void* stats_hi, void* h,
+    void* z, void* res, void* partial, int b, int t, int cin, int cout, int k,
+    int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(lengths);
+  int err = run_convs(x, len, static_cast<const float*>(act), w1, b1, w2, b2,
+                      pw, pb, h, z, res, nullptr, b, t, cin, cout, k, 0,
+                      is_bf16, s);
+  if (err) return err;
+  const int* lo = static_cast<const int*>(stats_lo);
+  const int* hi = static_cast<const int*>(stats_hi);
+  float* pf = static_cast<float*>(partial);
+  return is_bf16 ? run_pool<bf16>(z, len, lo, hi, pf, b, t, cout, s)
+                 : run_pool<float>(z, len, lo, hi, pf, b, t, cout, s);
+}
+
+// The split launch, second part: from the reduced statistics `pooled`
+// ((B, 2, C) fp32: the max over all windows, then the sum) and `counts`
+// ((B,) fp32: the frames those sums cover), the gate MLP, the SAM
+// statistics and the tail into `out`. `residual` is x, or the projection
+// `begin` wrote.
+extern "C" int mqgan_residual_block_finish(
+    const void* z, const void* residual, const void* lengths, const void* act,
+    const void* cw1, const void* cb1, const void* cw2, const void* cb2,
+    const void* sam_w, const void* pooled, const void* counts, void* gate_c,
+    void* sam_stats_buf, void* out, int b, int t, int cout, int hid,
+    int sam_k, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(lengths);
+  const float* actf = static_cast<const float*>(act);
+  const float* cb1f = static_cast<const float*>(cb1);
+  const float* cb2f = static_cast<const float*>(cb2);
+  const float* samf = static_cast<const float*>(sam_w);
+  const float* pf = static_cast<const float*>(pooled);
+  const float* cf = static_cast<const float*>(counts);
+  float* statsf = static_cast<float*>(sam_stats_buf);
+  if (is_bf16) {
+    return run_gate_tail<bf16>(z, len, actf, cw1, cb1f, cw2, cb2f, samf, residual,
+                               pf, cf, gate_c, statsf, out, b, t, cout, hid,
+                               sam_k, s);
+  }
+  return run_gate_tail<float>(z, len, actf, cw1, cb1f, cw2, cb2f, samf, residual,
+                              pf, cf, gate_c, statsf, out, b, t, cout, hid,
+                              sam_k, s);
 }

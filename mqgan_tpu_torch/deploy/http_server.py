@@ -21,7 +21,10 @@ Endpoints:
 
 CLI:  python -m mqgan_tpu_torch.deploy.http_server --model_dir DIR
       [--port 8765] [--ops encode,decode,reencode] [--max_batch 64]
-      [--max_delay_ms 5] [--max_queue 1024] [--device cuda]
+      [--max_delay_ms 5] [--max_queue 1024] [--data_parallel] [--device cuda]
+
+``--data_parallel`` splits each coalesced batch over every visible card
+(deploy/runtime.py).
 """
 
 from __future__ import annotations
@@ -298,16 +301,21 @@ def main(argv=None):
     p.add_argument("--max_batch", type=int, default=64)
     p.add_argument("--max_delay_ms", type=float, default=5.0)
     p.add_argument("--max_queue", type=int, default=1024)
+    p.add_argument("--data_parallel", action="store_true",
+                   help="split each batch over every visible card")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
+    runtime = ExportedPreEncoder(args.model_dir, device=args.device,
+                                 data_parallel=args.data_parallel)
     service = CodecHTTPService(
-        args.model_dir, ops=tuple(args.ops.split(",")),
+        runtime=runtime, ops=tuple(args.ops.split(",")),
         max_batch=args.max_batch, max_delay_ms=args.max_delay_ms,
-        max_queue=args.max_queue, device=args.device)
+        max_queue=args.max_queue)
     server = CodecHTTPServer(service, host=args.host, port=args.port)
     print(f"serving {sorted(service.servers)} from {args.model_dir} on "
-          f"{server.url} ({service.runtime.device})", flush=True)
+          f"{server.url} ({runtime.device}, {runtime.n_devices} device(s))",
+          flush=True)
     serve_until_interrupted(server)
 
 

@@ -14,6 +14,14 @@ rejected: the caller chunks them (deploy/reencode.py).
 ``ExportedPreEncoder`` is the runtime of an exported artifact
 (deploy/export.py): the model rebuilt from its manifest and weights, plus
 the manifest's ``fsq_levels`` and BOS/EOS ids.
+
+Data parallelism (``devices``, or ``ExportedPreEncoder(data_parallel=True)``
+over every visible card): each distinct device holds a copy of the model
+(parallel/mesh.py); a batch is repeat-padded to a multiple of the device
+count and split into equal row slices, every slice's inputs are staged on
+its device, the slices are dispatched one after another without a host
+synchronisation between them (so the cards compute at once), and the
+results are gathered and trimmed to the caller's rows.
 """
 
 from __future__ import annotations
@@ -29,23 +37,29 @@ from mqgan_tpu_torch.core import chunking
 from mqgan_tpu_torch.core.config import TrainConfig
 from mqgan_tpu_torch.core.device import resolve_device
 from mqgan_tpu_torch.models.preencoder import PreEncoder
+from mqgan_tpu_torch.parallel.mesh import (local_devices, replicate,
+                                           repeat_pad_rows, split_rows)
 
 MANIFEST_NAME = "manifest.json"
 WEIGHTS_NAME = "weights.pt"
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-UNPORTED_PARALLEL = ("{} serving is not ported yet: ROADMAP.md Queue 1 item 8 "
-                     "(parallelism on torch.distributed)")
-
 
 class CodecRuntime:
     def __init__(self, model: PreEncoder, buckets=(128, 256, 512, 1024),
-                 device=None):
+                 device=None, devices=None):
         """model: a PreEncoder with its parameters loaded. device: None
         means CUDA (raises without a card); pass "cpu" explicitly to run the
-        plain versions on the CPU."""
+        plain versions on the CPU. devices: data parallelism over this list
+        (a device may repeat; the first is ``device``); None is ``device``
+        alone."""
+        if devices is not None:
+            devices = local_devices(devices)
+            device = devices[0]
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self._devices = devices or [self.device]
+        self._replicas = replicate(self.model, self._devices)
         self._policy = BucketPolicy(tuple(buckets))
         self.buckets = list(self._policy.buckets)
 
@@ -85,8 +99,8 @@ class CodecRuntime:
 
     @property
     def n_devices(self) -> int:
-        """Devices a batch is spread over: one (no data parallelism yet)."""
-        return 1
+        """Devices a batch is split over (1 without data parallelism)."""
+        return len(self._devices)
 
     def bucket_for(self, t: int) -> int:
         return self._policy.bucket_for(t)
@@ -104,26 +118,42 @@ class CodecRuntime:
             pad = np.full((b, tb - t) + arr.shape[2:], pad_value, arr.dtype)
             arr = np.concatenate([arr, pad], axis=1)
         pad_mask = np.arange(tb)[None, :] >= lengths[:, None]
-        return (torch.from_numpy(arr).to(self.device),
-                torch.from_numpy(pad_mask).to(self.device), t)
+        return arr, pad_mask, t
+
+    def _run(self, fn, arr: np.ndarray, pad_mask: np.ndarray) -> tuple:
+        """fn(model, x, pad_mask) -> a tuple of device tensors, over the
+        devices' row slices; the outputs as numpy, the caller's rows."""
+        n = len(self._devices)
+        parts = ([(arr, pad_mask)] if n == 1 else
+                 split_rows(repeat_pad_rows((arr, pad_mask), n), n))
+        staged = [(d, [torch.from_numpy(np.ascontiguousarray(a)).to(d)
+                       for a in part]) for d, part in zip(self._devices, parts)]
+        pending = [fn(self._replicas[d], *ins) for d, ins in staged]
+        b = arr.shape[0]
+        return tuple(np.concatenate([p[j].cpu().numpy() for p in pending])[:b]
+                     for j in range(len(pending[0])))
 
     def encode(self, spec, lengths=None) -> np.ndarray:
         """(B, T, mel) float -> (B, T) int32 FSQ indices."""
         x, pad_mask, t = self._prepare(np.asarray(spec, np.float32), lengths)
-        return self.model.encode(x, pad_mask)[:, :t].cpu().numpy()
+        return self._run(lambda m, x_, p_: (m.encode(x_, p_)[:, :t],),
+                         x, pad_mask)[0]
 
     def decode(self, indices, lengths=None) -> np.ndarray:
         """(B, T) int -> (B, T, mel) float32 refined mel."""
         idx, pad_mask, t = self._prepare(np.asarray(indices, np.int32), lengths)
-        out = self.model.decode(idx, pad_mask)[:, :t]
-        return out.float().cpu().numpy()
+        return self._run(lambda m, i_, p_: (m.decode(i_, p_)[:, :t].float(),),
+                         idx, pad_mask)[0]
 
     def reencode(self, spec, lengths=None):
         """(B, T, mel) -> (tokens (B, T), refined mel (B, T, mel))."""
         x, pad_mask, t = self._prepare(np.asarray(spec, np.float32), lengths)
-        idx = self.model.encode(x, pad_mask)
-        out = self.model.decode(idx, pad_mask)
-        return idx[:, :t].cpu().numpy(), out[:, :t].float().cpu().numpy()
+
+        def run(m, x_, p_):
+            idx = m.encode(x_, p_)
+            return idx[:, :t], m.decode(idx, p_)[:, :t].float()
+
+        return self._run(run, x, pad_mask)
 
 
 def read_manifest(path: str) -> dict:
@@ -145,12 +175,16 @@ class ExportedPreEncoder(CodecRuntime):
     """The runtime of an artifact directory written by deploy/export.py."""
 
     def __init__(self, model_dir: str, device=None,
-                 data_parallel: bool = False):
+                 data_parallel: bool = False, devices=None):
         """device: None means CUDA (raises without a card); "cpu" runs the
-        plain versions. data_parallel is not ported (raises)."""
-        if data_parallel:
-            raise NotImplementedError(UNPORTED_PARALLEL.format("data_parallel"))
+        plain versions. data_parallel: split each batch over ``devices``
+        (a list, which may repeat a device), by default every visible card;
+        with one card it is the single-device path."""
+        if devices is not None and not data_parallel:
+            raise ValueError("devices is the data_parallel device list")
         device = resolve_device(device)
+        if data_parallel and devices is None:
+            devices = local_devices() if device.type == "cuda" else [device]
         self.model_dir = model_dir
         self.manifest = read_manifest(model_dir)
         cfg = manifest_config(self.manifest)
@@ -162,7 +196,8 @@ class ExportedPreEncoder(CodecRuntime):
                                                             WEIGHTS_NAME))
         model.load_state_dict(torch.load(weights, map_location="cpu",
                                          weights_only=True))
-        super().__init__(model, buckets=self.manifest["buckets"], device=device)
+        super().__init__(model, buckets=self.manifest["buckets"], device=device,
+                         devices=devices)
 
     @property
     def fsq_levels(self) -> list:

@@ -145,10 +145,10 @@ class PreEncoder(nn.Module):
             return torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
         return pad_mask
 
-    def _encode_trunk(self, x, pad_mask):
+    def _encode_trunk(self, x, pad_mask, stats_mask=None, reduce=None):
         h = self.pre(self.proj(x.to(self.dtype)), pad_mask)
         for block in self.encoder_blocks:
-            h = block(h, pad_mask)
+            h = block(h, pad_mask, stats_mask=stats_mask, reduce=reduce)
         return h
 
     def _fsq_head(self, h):
@@ -168,11 +168,19 @@ class PreEncoder(nn.Module):
         return x_recon, x_recon + residual, h
 
     @torch.no_grad()
-    def encode(self, x: torch.Tensor,
-               pad_mask: torch.Tensor | None = None) -> torch.Tensor:
-        """mel (B, T, mel) -> packed FSQ indices (B, T) int32."""
+    def encode(self, x: torch.Tensor, pad_mask: torch.Tensor | None = None,
+               stats_mask: torch.Tensor | None = None,
+               reduce=None) -> torch.Tensor:
+        """mel (B, T, mel) -> packed FSQ indices (B, T) int32.
+
+        ``stats_mask`` / ``reduce`` (sequence parallelism, parallel/
+        seqpar.py): the encoder blocks' CBAM channel gates pool the frames
+        ``stats_mask`` leaves (one contiguous run a row) and combine the
+        windows' statistics with ``reduce(sum, max) -> (sum, max)``
+        (nn/pooling.py), so a windowed encode equals one full-length pass;
+        on the card each block runs the split launch."""
         pad_mask = self._pad_mask(x, pad_mask)
-        return self._fsq_head(self._encode_trunk(x, pad_mask))
+        return self._fsq_head(self._encode_trunk(x, pad_mask, stats_mask, reduce))
 
     @torch.no_grad()
     def decode(self, indices: torch.Tensor,

@@ -15,7 +15,8 @@ from torch import nn
 
 from mqgan_tpu_torch.core.masking import apply_mask
 from mqgan_tpu_torch.nn.conv import Dense, WNConv1d
-from mqgan_tpu_torch.nn.pooling import masked_avg_pool, masked_max_pool
+from mqgan_tpu_torch.nn.pooling import (Reduce, masked_avg_pool, masked_max_pool,
+                                        partial_pool, pooled_mean, reduce_pools)
 
 
 class CAM1D(nn.Module):
@@ -27,12 +28,24 @@ class CAM1D(nn.Module):
         self.mlp_0 = Dense(channels, hidden)
         self.mlp_2 = Dense(hidden, channels)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                stats_mask: torch.Tensor | None = None,
+                reduce: Reduce | None = None) -> torch.Tensor:
+        """``stats_mask`` / ``reduce`` make the gate exact under sequence
+        parallelism (JAX's ``stats_mask`` / ``seq_axis``): values stay
+        masked by ``pad_mask``, the pooled statistics leave out the
+        ``stats_mask`` frames (each clip frame counted in one window) and
+        ``reduce`` combines the windows' fp32 partials (nn/pooling.py)."""
         def mlp(v):
             return self.mlp_2(torch.relu(self.mlp_0(v)))
 
-        mx = masked_max_pool(x, pad_mask)
-        av = masked_avg_pool(x, pad_mask)
+        if stats_mask is None and reduce is None:
+            mx = masked_max_pool(x, pad_mask)
+            av = masked_avg_pool(x, pad_mask)
+        else:
+            total, mx, count = reduce_pools(*partial_pool(
+                x, pad_mask if stats_mask is None else stats_mask), reduce)
+            mx, av = mx.to(x.dtype), pooled_mean(total, count).to(x.dtype)
         gate = torch.sigmoid(mlp(mx) + mlp(av))[:, None, :]
         return apply_mask(gate * x, pad_mask)
 
@@ -63,7 +76,9 @@ class CBAM1D(nn.Module):
         self.channel_attention = CAM1D(channels, reduction_ratio)
         self.spatial_attention = SAM1D(sam_kernel_size)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
-        y = self.channel_attention(x, pad_mask)
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                stats_mask: torch.Tensor | None = None,
+                reduce: Reduce | None = None) -> torch.Tensor:
+        y = self.channel_attention(x, pad_mask, stats_mask, reduce)
         y = self.spatial_attention(y, pad_mask)
         return apply_mask(y + x, pad_mask)

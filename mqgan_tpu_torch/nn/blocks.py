@@ -1,16 +1,25 @@
 """ResidualBlock1D, the generator's core block (counterpart of
-``mqgan_tpu/nn/blocks.py``), in its generator form: weight-normed convs
-("weight" norm, identity norms), trainable APTx ("taptx"), dilation 1:
+``mqgan_tpu/nn/blocks.py``) with trainable APTx ("taptx") and dilation 1:
 
-conv1 -> mask -> act -> conv2 -> [CBAM if non-causal] -> + residual
-(1x1 projection if channels change) -> mask -> act -> dropout.
+conv1 -> norm1 -> mask -> act -> conv2 -> norm2 -> [CBAM if non-causal]
+-> + residual (1x1 projection if channels change) -> mask -> act -> dropout.
 
-At inference (``deterministic=True``) the whole block runs as
+``norm``: "weight" (the generator's: weight-normed convs, identity norms),
+"layer" or "instance" (plain convs with nn/norm.py's norms).
+
+At inference (``deterministic=True``) a "weight" block runs as
 ``ops/block_kernels.py`` ``fused_residual_block``: the CUDA kernels for a
 CUDA tensor, the plain PyTorch version for a CPU tensor. Training
-(``deterministic=False``) runs the module-by-module composition under
-autograd, as the JAX package trains through its XLA path and not its
-kernel; dropout masks come from ``generator`` (None: no dropout).
+(``deterministic=False``) and the other norms run the module-by-module
+composition, as the JAX package sends only "weight" blocks to its kernel
+and trains through its XLA path; dropout masks come from ``generator``
+(None: no dropout).
+
+``stats_mask`` / ``reduce`` (non-causal blocks, sequence parallelism):
+the CBAM channel gate pools the frames ``stats_mask`` leaves and combines
+the windows' statistics with ``reduce`` (nn/attention.py); on the kernel
+path that is the split launch, with each row's stats frames taken as one
+contiguous range.
 """
 
 from __future__ import annotations
@@ -23,21 +32,39 @@ from mqgan_tpu_torch.nn.activations import APTx
 from mqgan_tpu_torch.nn.attention import CBAM1D
 from mqgan_tpu_torch.nn.conv import WNConv1d
 from mqgan_tpu_torch.nn.layers import dropout
-from mqgan_tpu_torch.ops.block_kernels import BlockWeights, fused_residual_block
+from mqgan_tpu_torch.nn.norm import make_norm
+from mqgan_tpu_torch.nn.pooling import Reduce
+from mqgan_tpu_torch.ops.block_kernels import (BlockWeights, fused_residual_block,
+                                               split_residual_block)
+
+
+def stats_range(stats_mask: torch.Tensor) -> tuple:
+    """(B, T) stats mask (True = left out) -> (lo, hi) int32 (B,): the
+    first frame each row keeps and the end of its run (rows keep one
+    contiguous run of frames)."""
+    keep = ~stats_mask
+    count = keep.sum(dim=1, dtype=torch.int32)
+    lo = torch.where(count > 0, keep.int().argmax(dim=1).int(),
+                     torch.zeros_like(count))
+    return lo, lo + count
 
 
 class ResidualBlock1D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, causal: bool = False,
-                 dropout: float = 0.3):
+                 dropout: float = 0.3, norm: str = "weight"):
         super().__init__()
         self.kernel_size = kernel_size
         self.dropout = dropout
         self.causal = causal
+        self.norm = norm
+        wn = norm == "weight"
         self.conv1 = WNConv1d(in_channels, out_channels, kernel_size,
-                              causal=causal)
+                              causal=causal, weight_norm=wn)
         self.conv2 = WNConv1d(out_channels, out_channels, kernel_size,
-                              causal=causal)
+                              causal=causal, weight_norm=wn)
+        self.norm1 = make_norm(norm, out_channels)
+        self.norm2 = make_norm(norm, out_channels)
         self.residual = (WNConv1d(in_channels, out_channels, 1,
                                   weight_norm=False)
                          if in_channels != out_channels else None)
@@ -72,21 +99,33 @@ class ResidualBlock1D(nn.Module):
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor | None = None,
                 deterministic: bool = True,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                stats_mask: torch.Tensor | None = None,
+                reduce: Reduce | None = None) -> torch.Tensor:
         if pad_mask is None:
             pad_mask = torch.zeros(x.shape[:2], dtype=torch.bool,
                                    device=x.device)
-        if not deterministic:
-            return self._train_forward(x, pad_mask, generator)
-        return fused_residual_block(
-            x.contiguous(), lengths_from_mask(pad_mask),
-            self.kernel_weights(x.dtype), causal=self.causal)
+        if self.causal and (stats_mask is not None or reduce is not None):
+            raise NotImplementedError(
+                "causal CAM has no sequence-parallel variant (causal blocks "
+                "drop CBAM)")
+        if not deterministic or self.norm != "weight":
+            return self._module_forward(
+                x, pad_mask, None if deterministic else generator, stats_mask,
+                reduce)
+        x, lengths = x.contiguous(), lengths_from_mask(pad_mask)
+        weights = self.kernel_weights(x.dtype)
+        if stats_mask is None and reduce is None:
+            return fused_residual_block(x, lengths, weights, causal=self.causal)
+        lo, hi = stats_range(pad_mask if stats_mask is None else stats_mask)
+        return split_residual_block(x, lengths, weights, lo, hi, reduce)
 
-    def _train_forward(self, x, pad_mask, generator):
+    def _module_forward(self, x, pad_mask, generator, stats_mask, reduce):
         residual = self.residual(x) if self.residual is not None else x
-        out = self.act(apply_mask(self.conv1(x), pad_mask))
-        out = self.conv2(out)
+        out = self.norm1(self.conv1(x)).to(x.dtype)
+        out = self.act(apply_mask(out, pad_mask))
+        out = self.norm2(self.conv2(out)).to(x.dtype)
         if self.cbam is not None:
-            out = self.cbam(out, pad_mask)
+            out = self.cbam(out, pad_mask, stats_mask, reduce)
         out = self.act(apply_mask(out + residual, pad_mask))
         return dropout(out, self.dropout, generator)

@@ -51,6 +51,12 @@ _SIGNATURES = {
     # h, z, res, pooled, gate_c, sam_stats, out,
     # B, T, Cin, Cout, K, H, sam_k, causal, is_bf16, stream
     "mqgan_residual_block": (_PTR,) * 21 + (_INT,) * 9 + (_PTR,),
+    # x, lengths, act, w1, b1, w2, b2, pw, pb, stats_lo, stats_hi, h, z,
+    # res, partial, B, T, Cin, Cout, K, is_bf16, stream
+    "mqgan_residual_block_begin": (_PTR,) * 15 + (_INT,) * 6 + (_PTR,),
+    # z, residual, lengths, act, cw1, cb1, cw2, cb2, sam_w, pooled, counts,
+    # gate_c, sam_stats, out, B, T, Cout, H, sam_k, is_bf16, stream
+    "mqgan_residual_block_finish": (_PTR,) * 14 + (_INT,) * 6 + (_PTR,),
     # x, lengths, dwk, consts, w1, b1, w2, out, B, T, C, P, dw_k, is_bf16,
     # stream
     "mqgan_mel_mixer": (_PTR,) * 8 + (_INT,) * 6 + (_PTR,),

@@ -21,6 +21,18 @@ outside [0, T).
 ``fused_residual_block`` launches the CUDA kernels of
 ``csrc/residual_block.cu`` on a CUDA tensor and takes the plain PyTorch
 version ``residual_block_plain`` only for a CPU tensor.
+
+``split_residual_block(x, lengths, w, lo, hi, reduce)`` runs a
+non-causal block split at its CBAM statistics, for one window of a clip
+whose windows meet at the channel gate (parallel/seqpar.py):
+``residual_block_begin`` (the conv GEMMs, then
+the fp32 max and sum of z over each row's frames [lo, hi)), ``reduce`` over
+the windows (nn/pooling.py ``reduce_pools``: the count, hi - lo, rides as
+the sum's last column), and ``residual_block_finish`` (the gate MLP on the
+reduced max and sum / max(count, 1), the SAM statistics and the tail).
+``residual_block_plain_begin`` / ``_finish`` are their plain versions; the
+range [0, length) with no reduction is the unsplit block, in the same
+order of operations.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from mqgan_tpu_torch.nn.conv import same_padding_1d
+from mqgan_tpu_torch.nn.pooling import Reduce, reduce_pools
 from mqgan_tpu_torch.ops import _cuda
 
 _NEG_INF = -1e30  # masked max-pool fill
@@ -89,53 +102,81 @@ def plain_conv_stages(x: torch.Tensor, lengths: torch.Tensor,
     return res, h, _shifted_conv(h, w.w2, w.b2, causal).to(cdt)
 
 
-def residual_block_plain(x: torch.Tensor, lengths: torch.Tensor,
-                         w: BlockWeights, *, causal: bool) -> torch.Tensor:
+def _valid(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """(B, T, 1) bool: frame t of row b lies below its length."""
+    return (torch.arange(x.shape[1], device=x.device)[None, :]
+            < lengths[:, None])[..., None]
+
+
+def residual_block_plain_begin(x: torch.Tensor, lengths: torch.Tensor,
+                               w: BlockWeights, lo: torch.Tensor,
+                               hi: torch.Tensor) -> tuple:
+    """The split block's first part, non-causal: (res, z, partial), with
+    partial (B, 2, C) fp32 the max (row 0) and the sum (row 1) of z over
+    each row's frames [lo, hi)."""
+    res, _, z = plain_conv_stages(x, lengths, w, causal=False)
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    keep = ((pos >= lo[:, None]) & (pos < hi[:, None]))[..., None]
+    mx = torch.where(keep, z, torch.tensor(_NEG_INF, dtype=z.dtype,
+                                           device=x.device)).amax(dim=1)
+    total = (z * keep.to(z.dtype)).float().sum(dim=1)
+    return res, z, torch.stack([mx.float(), total], dim=1)
+
+
+def residual_block_plain_finish(x: torch.Tensor, lengths: torch.Tensor,
+                                w: BlockWeights, res: torch.Tensor,
+                                z: torch.Tensor, pooled: torch.Tensor,
+                                counts: torch.Tensor) -> torch.Tensor:
+    """The split block's second part: the CBAM gates and the tail from the
+    reduced pooled (B, 2, C) fp32 (max, sum) and counts (B,) fp32."""
     cdt = x.dtype
     t = x.shape[1]
     beta, gamma = w.act[0].to(cdt), w.act[1].to(cdt)
-    valid_b = (torch.arange(t, device=x.device)[None, :]
-               < lengths[:, None])[..., None]  # (B, T, 1) bool
+    valid_b = _valid(x, lengths)
     valid = valid_b.to(cdt)
-    res, _, z = plain_conv_stages(x, lengths, w, causal=causal)
+    mean = pooled[:, 1] / counts.clamp_min(1.0)[:, None]
+    pooled = torch.stack([pooled[:, 0], mean], dim=1).to(cdt)  # (B, 2, C)
+    hidden = torch.relu(pooled.float() @ w.cw1.float() + w.cb1)
+    mlp_out = hidden.to(cdt).float() @ w.cw2.float() + w.cb2
+    gate_c = torch.sigmoid(mlp_out[:, 0] + mlp_out[:, 1]).to(cdt)
 
-    if not causal:
-        mx = torch.where(valid_b, z, torch.tensor(_NEG_INF, dtype=cdt,
-                                                  device=x.device))
-        mx = mx.amax(dim=1).float()  # (B, C)
-        count = lengths.float().clamp_min(1.0)[:, None]
-        av = (z * valid).float().sum(dim=1) / count
-        pooled = torch.stack([mx, av], dim=1).to(cdt)  # (B, 2, C)
-        hidden = torch.relu(pooled.float() @ w.cw1.float() + w.cb1)
-        mlp_out = hidden.to(cdt).float() @ w.cw2.float() + w.cb2
-        gate_c = torch.sigmoid(mlp_out[:, 0] + mlp_out[:, 1]).to(cdt)
-
-        y = z * gate_c[:, None, :] * valid
-        valid_f = valid_b.float()
-        mx_t = y.amax(dim=2, keepdim=True).float() * valid_f
-        av_t = y.float().mean(dim=2, keepdim=True) * valid_f
-        sam_k = w.sam_w.shape[0]
-        pad = sam_k // 2
-        mxp = F.pad(mx_t, (0, 0, pad, pad))
-        avp = F.pad(av_t, (0, 0, pad, pad))
-        logits = torch.zeros_like(mx_t)
-        for j in range(sam_k):
-            logits = (logits + w.sam_w[j, 0] * mxp[:, j:j + t]
-                      + w.sam_w[j, 1] * avp[:, j:j + t])
-        logits = torch.where(valid_b, logits, torch.tensor(
-            _SAM_FILL, dtype=torch.float32, device=x.device))
-        gate_t = (torch.sigmoid(logits) * valid_f).to(cdt)
-        z = (y * gate_t + z) * valid
-
+    y = z * gate_c[:, None, :] * valid
+    valid_f = valid_b.float()
+    mx_t = y.amax(dim=2, keepdim=True).float() * valid_f
+    av_t = y.float().mean(dim=2, keepdim=True) * valid_f
+    sam_k = w.sam_w.shape[0]
+    pad = sam_k // 2
+    mxp = F.pad(mx_t, (0, 0, pad, pad))
+    avp = F.pad(av_t, (0, 0, pad, pad))
+    logits = torch.zeros_like(mx_t)
+    for j in range(sam_k):
+        logits = (logits + w.sam_w[j, 0] * mxp[:, j:j + t]
+                  + w.sam_w[j, 1] * avp[:, j:j + t])
+    logits = torch.where(valid_b, logits, torch.tensor(
+        _SAM_FILL, dtype=torch.float32, device=x.device))
+    gate_t = (torch.sigmoid(logits) * valid_f).to(cdt)
+    z = (y * gate_t + z) * valid
     return _aptx((z + res) * valid, beta, gamma)
 
 
-def fused_residual_block(x: torch.Tensor, lengths: torch.Tensor,
+def residual_block_plain(x: torch.Tensor, lengths: torch.Tensor,
                          w: BlockWeights, *, causal: bool) -> torch.Tensor:
-    """x (B, T, Cin) in the compute dtype, lengths (B,) int32 valid frames
-    (contiguous masks) -> (B, T, Cout) in the compute dtype."""
-    if x.device.type == "cpu":
-        return residual_block_plain(x, lengths, w, causal=causal)
+    if not causal:
+        lo = torch.zeros_like(lengths)
+        res, z, partial = residual_block_plain_begin(x, lengths, w, lo, lengths)
+        return residual_block_plain_finish(x, lengths, w, res, z, partial,
+                                           lengths.float())
+    cdt = x.dtype
+    beta, gamma = w.act[0].to(cdt), w.act[1].to(cdt)
+    valid = _valid(x, lengths).to(cdt)
+    res, _, z = plain_conv_stages(x, lengths, w, causal=causal)
+    return _aptx((z + res) * valid, beta, gamma)
+
+
+def _block_dims(x: torch.Tensor, lengths: torch.Tensor, w: BlockWeights,
+                causal: bool) -> tuple:
+    """Check a CUDA launch's arguments; returns (B, T, Cin, Cout, K, H,
+    sam_k, is_bf16)."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_residual_block: unsupported device {x.device}")
     b, t, cin = x.shape
@@ -185,7 +226,88 @@ def fused_residual_block(x: torch.Tensor, lengths: torch.Tensor,
         if sam_k % 2 == 0 or hid > cout:
             raise ValueError(f"fused_residual_block: SAM taps {sam_k} must be "
                              f"odd and the CBAM hidden {hid} <= {cout}")
+    return b, t, cin, cout, k, hid, sam_k, bf16
 
+
+def residual_block_begin(x: torch.Tensor, lengths: torch.Tensor,
+                         w: BlockWeights, lo: torch.Tensor,
+                         hi: torch.Tensor) -> tuple:
+    """The split launch's first part (see the module docstring): (res,
+    z, partial). A CPU tensor takes ``residual_block_plain_begin``."""
+    if x.device.type == "cpu":
+        return residual_block_plain_begin(x, lengths, w, lo, hi)
+    b, t, cin, cout, k, _, _, bf16 = _block_dims(x, lengths, w, False)
+    for name, r in (("stats_lo", lo), ("stats_hi", hi)):
+        _cuda.check(r, name, dtype=torch.int32, shape=(b,), device=x.device)
+    h = torch.empty((b, t, cout), dtype=x.dtype, device=x.device)
+    z = torch.empty_like(h)
+    res = torch.empty_like(h) if w.proj_w is not None else x
+    partial = torch.empty((b, 2, cout), dtype=torch.float32, device=x.device)
+    if h.numel() == 0:
+        return res, z, partial.zero_()
+    p = _cuda.ptr
+    _cuda.launch(
+        "mqgan_residual_block_begin", x.device,
+        p(x), p(lengths), p(w.act), p(w.w1), p(w.b1), p(w.w2), p(w.b2),
+        p(w.proj_w), p(w.proj_b), p(lo), p(hi), p(h), p(z),
+        p(res) if w.proj_w is not None else None, p(partial),
+        b, t, cin, cout, k, bf16)
+    _cuda.COUNTERS.add("residual_block_split")
+    return res, z, partial
+
+
+def residual_block_finish(x: torch.Tensor, lengths: torch.Tensor,
+                          w: BlockWeights, res: torch.Tensor, z: torch.Tensor,
+                          pooled: torch.Tensor,
+                          counts: torch.Tensor) -> torch.Tensor:
+    """The split launch's second part: pooled (B, 2, C) fp32 the reduced
+    (max, sum), counts (B,) fp32 the frames they cover. A CPU tensor takes
+    ``residual_block_plain_finish``."""
+    if x.device.type == "cpu":
+        return residual_block_plain_finish(x, lengths, w, res, z, pooled, counts)
+    b, t, _, cout, _, hid, sam_k, bf16 = _block_dims(x, lengths, w, False)
+    dev = x.device
+    _cuda.check(z, "z", dtype=x.dtype, shape=(b, t, cout), device=dev)
+    _cuda.check(res, "res", dtype=x.dtype, shape=(b, t, cout), device=dev)
+    _cuda.check(pooled, "pooled", dtype=torch.float32, shape=(b, 2, cout),
+                device=dev)
+    _cuda.check(counts, "counts", dtype=torch.float32, shape=(b,), device=dev)
+    out = torch.empty_like(z)
+    if out.numel() == 0:
+        return out
+    gate_c = torch.empty((b, cout), dtype=x.dtype, device=dev)
+    sam_stats = torch.empty((b, t, 2), dtype=torch.float32, device=dev)
+    p = _cuda.ptr
+    _cuda.launch(
+        "mqgan_residual_block_finish", dev,
+        p(z), p(res), p(lengths), p(w.act), p(w.cw1), p(w.cb1), p(w.cw2),
+        p(w.cb2), p(w.sam_w), p(pooled), p(counts), p(gate_c), p(sam_stats),
+        p(out), b, t, cout, hid, sam_k, bf16)
+    return out
+
+
+def split_residual_block(x: torch.Tensor, lengths: torch.Tensor,
+                         w: BlockWeights, lo: torch.Tensor, hi: torch.Tensor,
+                         reduce: Optional[Reduce]) -> torch.Tensor:
+    """A non-causal block whose CBAM statistics are the frames [lo, hi) of
+    each row, combined over the windows by ``reduce`` (None: this window
+    alone)."""
+    res, z, partial = residual_block_begin(x, lengths, w, lo, hi)
+    count = (hi - lo).clamp_min(0).float()
+    total, mx, count = reduce_pools(partial[:, 1], partial[:, 0], count, reduce)
+    pooled = torch.stack([mx, total], dim=1).contiguous()
+    return residual_block_finish(x, lengths, w, res, z, pooled,
+                                 count.contiguous())
+
+
+def fused_residual_block(x: torch.Tensor, lengths: torch.Tensor,
+                         w: BlockWeights, *, causal: bool) -> torch.Tensor:
+    """x (B, T, Cin) in the compute dtype, lengths (B,) int32 valid frames
+    (contiguous masks) -> (B, T, Cout) in the compute dtype."""
+    if x.device.type == "cpu":
+        return residual_block_plain(x, lengths, w, causal=causal)
+    b, t, cin, cout, k, hid, sam_k, bf16 = _block_dims(x, lengths, w, causal)
+    cdt, dev = x.dtype, x.device
     out = torch.empty((b, t, cout), dtype=cdt, device=dev)
     if out.numel() == 0:
         return out

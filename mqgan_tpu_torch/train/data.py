@@ -96,7 +96,7 @@ class MelLoader:
     each batch's crop length and each row's crop start) is a pure function
     of (seed, epoch, batch, row) over the file list, as the JAX loader's
     process-count-invariant plan is (the port runs one process: multi-host
-    loading is ROADMAP.md Queue 1 item 8). A short final batch (and a row
+    loading is ROADMAP.md Queue 1 item 8b). A short final batch (and a row
     whose file fails to load) becomes zero-length all-zero rows: every loss
     is masked by ``lengths``, so they weigh nothing, with one batch shape."""
 

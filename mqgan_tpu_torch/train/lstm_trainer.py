@@ -208,7 +208,7 @@ def parse_args(argv=None):
                         "(tools/jax_generator_to_npz.py converts orbax dirs)")
     p.add_argument("--pipe", type=int, default=0, metavar="N",
                    help="pipeline parallelism of the LSTM stack: not ported "
-                        "yet (ROADMAP.md Queue 1 item 8)")
+                        "yet (ROADMAP.md Queue 1 item 8b)")
     p.add_argument("--pipe_micro", type=int, default=4, metavar="M")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; no card is an error) or cpu")
@@ -222,7 +222,7 @@ def main(argv=None):
     args = parse_args(argv)
     if args.pipe:
         raise SystemExit("--pipe: the pipeline-parallel LSTM stack is not "
-                         "ported yet (ROADMAP.md Queue 1 item 8)")
+                         "ported yet (ROADMAP.md Queue 1 item 8b)")
     device = resolve_device(args.device)
     if args.flash_blocks:
         print(f"--flash_blocks {args.flash_blocks} recorded, not used: the "

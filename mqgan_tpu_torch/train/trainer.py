@@ -6,8 +6,10 @@ train step each (``train/step.py``: warmup epochs before
 ``discriminator_train_start_epoch`` run no discriminator), metrics every 10
 steps to ``{output_dir}/train_metrics.jsonl``, the train-image triptychs;
 every ``eval_interval`` epochs the eval set (full-length clips through the
-inference path, chunked into overlapping windows of at most 512 frames),
-every ``save_interval`` epochs a checkpoint of the whole state. A run
+inference path: with more than one device, one exact sequence-parallel
+call whose windows fit the largest eval bucket, else overlapping windows
+of at most 512 frames), every ``save_interval`` epochs a checkpoint of the
+whole state. A run
 resumes from the newest checkpoint in its output dir; SIGTERM or SIGINT
 finishes the current step, checkpoints and exits.
 
@@ -20,7 +22,7 @@ The trainer runs on CUDA unless ``--device cpu`` is given; without a card
 CUDA is an error. JAX's ``--compile_cache``, ``--rng_impl`` and
 ``--async_checkpoint`` are not accepted (XLA compile, JAX PRNG and orbax
 knobs); ``--multihost`` and ``--seq_par`` > 1 raise (ROADMAP.md Queue 1
-item 8).
+item 8b).
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ from mqgan_tpu_torch.core.buckets import BucketPolicy
 from mqgan_tpu_torch.core.chunking import chunk_plan, generator_halos, halo_align
 from mqgan_tpu_torch.core.config import TrainConfig, load_model_config
 from mqgan_tpu_torch.core.device import resolve_device
+from mqgan_tpu_torch.parallel.mesh import local_devices
+from mqgan_tpu_torch.parallel.seqpar import plan_seq_reencode, seq_parallel_reencode
 from mqgan_tpu_torch.train.data import (DevicePrefetcher, MelDataset, MelLoader,
                                         find_npy_files, split_train_eval)
 from mqgan_tpu_torch.train.state import create_train_state
@@ -81,6 +85,9 @@ class Trainer:
         self._collapse_warned = False
         self._steps: Dict[bool, callable] = {}
         self._eval_step = make_eval_step()
+        # the exact eval's devices: None is every visible card (the CPU
+        # alone for a CPU run); a list (which may repeat a device) overrides
+        self.eval_devices = None
         self._setup_data()
         self._setup_state()
         log_cfg = config.logging
@@ -263,12 +270,17 @@ class Trainer:
                 break
 
     def _eval_clip(self, mel: np.ndarray, gen=None):
-        """A full-length (T, C) clip through the inference path in
-        overlapping windows of at most the largest eval bucket, each with
-        the generator's receptive field as halo (core/chunking.py), padded
-        to its bucket; returns (pre, post, metrics)."""
+        """A full-length (T, C) clip through the inference path; returns
+        (pre, post, metrics). With more than one eval device, one exact
+        sequence-parallel call when its windows fit the largest eval
+        bucket (``_eval_clip_seq_parallel``); else overlapping windows of
+        at most that bucket, each with the generator's receptive field as
+        halo (core/chunking.py), padded to its bucket."""
         gen = self._eval_gen() if gen is None else gen
         policy = BucketPolicy(EVAL_BUCKETS)
+        exact = self._eval_clip_seq_parallel(mel, gen, policy.buckets[-1])
+        if exact is not None:
+            return exact
         gcfg = self.config.model.generator
         halo_l, halo_r = generator_halos(tuple(gcfg.kernel_sizes), gcfg.refiner_depth)
         pre_full = np.zeros(mel.shape, np.float32)
@@ -289,6 +301,37 @@ class Trainer:
         return pre_full, post_full, {
             "eval_recon_pre_mse": float(np.mean((pre_full - mel32) ** 2)),
             "eval_recon_post_mse": float(np.mean((post_full - mel32) ** 2)),
+        }
+
+    def _eval_clip_seq_parallel(self, mel: np.ndarray, gen, max_t: int):
+        """One exact full-length eval call with the clip's time axis in
+        windows over the eval devices (parallel/seqpar.py: the encoder's
+        CBAM statistics reduced over the windows); None with one device, or
+        when a window would exceed ``max_t`` (the chunked eval then bounds
+        memory). The length is padded (masked) to a 256-frame grid."""
+        devices = self.eval_devices
+        if devices is None:
+            devices = local_devices() if self.device.type == "cuda" else [self.device]
+        if len(devices) <= 1:
+            return None
+        gcfg = self.config.model.generator
+        t = mel.shape[0]
+        t_pad = -(-max(t, 1) // 256) * 256
+        plan = plan_seq_reencode(t_pad, len(devices), tuple(gcfg.kernel_sizes),
+                                 gcfg.refiner_depth)
+        if plan.window > max_t:
+            return None
+        batch = np.zeros((1, t_pad, mel.shape[1]), np.float32)
+        batch[0, :t] = mel
+        _, pre, post = seq_parallel_reencode(
+            gen, torch.from_numpy(batch).to(self.device),
+            torch.tensor([t]), devices, return_recon=True)
+        pre = pre[0, :t].float().cpu().numpy()
+        post = post[0, :t].float().cpu().numpy()
+        mel32 = mel.astype(np.float32)
+        return pre, post, {
+            "eval_recon_pre_mse": float(np.mean((pre - mel32) ** 2)),
+            "eval_recon_post_mse": float(np.mean((post - mel32) ** 2)),
         }
 
     def evaluate(self, epoch: int, num_examples: int | None = None):
@@ -434,9 +477,9 @@ def parse_args(argv=None):
                    help="each batch as N microbatches with one optimizer "
                         "update (the memory knob)")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported (ROADMAP.md Queue 1 item 8)")
+                   help="not ported (ROADMAP.md Queue 1 item 8b)")
     p.add_argument("--seq_par", type=int, default=1, metavar="N",
-                   help="not ported beyond 1 (ROADMAP.md Queue 1 item 8)")
+                   help="not ported beyond 1 (ROADMAP.md Queue 1 item 8b)")
     return p, p.parse_args(argv)
 
 
@@ -448,7 +491,7 @@ def main(argv=None):
                      "no-op: fast dropout is the default)")
     if args.multihost or args.seq_par > 1:
         raise SystemExit("--multihost and --seq_par > 1: multi-device training "
-                         "is not ported yet (ROADMAP.md Queue 1 item 8)")
+                         "is not ported yet (ROADMAP.md Queue 1 item 8b)")
     device = resolve_device(args.device)
     config = load_model_config(args.config)
     training, data, gen = config.training, config.data, config.model.generator

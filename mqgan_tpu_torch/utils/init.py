@@ -1,9 +1,10 @@
 """Seeded initialisation without JAX, after the JAX package's scheme (not
 its bits): lecun-normal kernels (truncated normal, variance 1/fan_in),
 weight-norm magnitudes g = ||v||, zero biases, APTx beta = 1, gamma = 0.5;
-for the token LMs flax's embedding init (normal, variance 1/features) and
-LayerNorm scale 1, bias 0; for the discriminators' spectrally normalized
-convs normal(0, 0.02) kernels, a standard-normal ``u`` and sigma = 1.
+for the token LMs flax's embedding init (normal, variance 1/features);
+LayerNorm and InstanceNorm scale 1, bias 0; for the discriminators'
+spectrally normalized convs normal(0, 0.02) kernels, a standard-normal
+``u`` and sigma = 1.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import math
 
 import torch
 from torch import nn
+
+from mqgan_tpu_torch.nn.norm import InstanceNorm1d
 
 # flax's truncated-normal stddev correction for truncation at +-2 sigma
 _TRUNC_STD = 0.87962566103423978
@@ -45,7 +48,7 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
             w = torch.empty(sub.weight.shape)
             nn.init.normal_(w, 0.0, math.sqrt(1.0 / w.shape[1]), generator=gen)
             sub.weight.copy_(w)
-        elif isinstance(sub, nn.LayerNorm):
+        elif isinstance(sub, (nn.LayerNorm, InstanceNorm1d)):
             sub.weight.fill_(1.0)
             sub.bias.zero_()
         elif hasattr(sub, "u") and hasattr(sub, "sigma"):  # SNConv2d

@@ -15,6 +15,7 @@ one to one onto the port's module names:
   convs_{i}, discriminators_{i}       -> convs.i, discriminators.i
   SpectralNorm_i / convs_i/kernel/u   -> convs.i.u (and sigma)
   APTx_0 (a block's activation)       -> act
+  LayerNorm_0 (a ChannelLayerNorm's)  -> ln
   kernel, embedding (Embed),
   scale (LayerNorm)                   -> weight;  v, g, bias, beta, gamma as is
   lstm_{i}/ii ... ho (LSTM gates)     as they are named
@@ -45,6 +46,7 @@ _RENAMES = (
     (re.compile(r"^APTx_0$"), "act"),
     (re.compile(r"^block_(\d+)$"), r"blocks.\1"),
     (re.compile(r"^(convs|discriminators)_(\d+)$"), r"\1.\2"),
+    (re.compile(r"^LayerNorm_0$"), "ln"),
 )
 _WEIGHT_LEAVES = ("kernel", "embedding", "scale")
 _LAYOUTS = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}

@@ -166,8 +166,8 @@ def test_cli_errors_and_cuda_default(tmp_path):
             export.main(base)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ExportedPreEncoder(str(tmp_path / "e"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ExportedPreEncoder(str(tmp_path / "e"), device="cpu", data_parallel=True)
+    with pytest.raises(ValueError, match="data_parallel device list"):
+        ExportedPreEncoder(str(tmp_path / "e"), device="cpu", devices=["cpu"] * 2)
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         PreEncoder(MELS, **NARROW, int8_refiner=True)
 

@@ -92,6 +92,10 @@ entries = {
     "http_lm_export": lambda: http_lm.LMHTTPService(lm_export=lm_art),
     "checkpoint_reencoder": lambda: reencode.CheckpointReencoder(
         cfg, art + "/weights.pt"),
+    "exported_data_parallel": lambda: runtime.ExportedPreEncoder(
+        art, data_parallel=True),
+    "seq_parallel_reencoder": lambda: reencode.CheckpointReencoder(
+        cfg, art + "/weights.pt", seq_parallel=True),
     "http_server_main": lambda: http_server.main(["--model_dir", art]),
     "http_streaming_main": lambda: http_streaming.main(["--model_dir", art]),
     "reencode_main": lambda: reencode.main(["--input_dir", art, "--output_dir",
@@ -106,7 +110,8 @@ for name, entry in entries.items():
         if name == "vocoder_artifact":
             dev = next(made.parameters()).device
         elif name in ("exported", "checkpoint_reencoder", "lm_artifact",
-                      "http_lm_export"):
+                      "http_lm_export", "exported_data_parallel",
+                      "seq_parallel_reencoder"):
             dev = made.device
         else:
             dev = "cuda"
@@ -146,13 +151,14 @@ def test_port_imports_nothing_of_jax_and_does_not_fall_back():
                  "quant.fsq", "train.state", "train.step", "train.data",
                  "train.trainer", "utils.plotting", "losses.stft_loss",
                  "models.wave_discriminators", "train.vocoder_trainer",
-                 "signal.vocoder"):
+                 "signal.vocoder", "parallel.mesh", "parallel.seqpar",
+                 "nn.norm", "nn.pooling", "signal.qc"):
         assert f"mqgan_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     assert result["trainer_device"] == "cuda"
     assert result["gan_trainer_device"] == "cuda"
     assert result["vocoder_trainer_device"] == "cuda"
-    assert len(result["entries"]) == 9
+    assert len(result["entries"]) == 11
     if result["cuda"]:
         assert result["default_device"].startswith("cuda")
         assert result["mel_device"].startswith("cuda")

@@ -167,9 +167,9 @@ def test_parallel_modes_and_the_cuda_default(tmp_path):
     cfg = str(tmp_path / "model.json")
     with open(cfg, "w") as f:
         json.dump({"model": {"mel_channels": MELS, "generator": NARROW}}, f)
-    for kw in ({"data_parallel": True}, {"seq_parallel": True}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            reencode.CheckpointReencoder(cfg, "unused.pt", **kw)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        reencode.CheckpointReencoder(cfg, "unused.pt", data_parallel=True,
+                                     seq_parallel=True)
     if not torch.cuda.is_available():
         _, tree = narrow_jax_params()
         model = PreEncoder(MELS, **NARROW)

@@ -2,8 +2,8 @@
 """Drive the PyTorch port's codec serving path, its audio path, its
 token-LM training path, its token-LM serving path, its codec deployment
 path, its codec training path, its vocoder training path, its LM
-artifact with codec attach and its parallel codec serving on one NVIDIA
-GPU (H100).
+artifact with codec attach, its parallel codec serving and its
+data-parallel and pipelined training on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --fsq-head-of DIR   # time another checkout's FSQ head
@@ -252,11 +252,45 @@ printing no result, without one. Phases (any failure exits non-zero):
     --seq_parallel over phase 13's mels (each file's tokens equal a
     full-length encode away from midpoints); then the split launch's time
     at the windows' shapes (row 1b of the kernels line);
-18. print {"ok": true, "device": {...}} as the last line.
+18. data-parallel and pipelined training at flagship width (TrainConfig(),
+    the LM trainer's LSTM; TF32 off): (a) two ranks (``parallel/
+    multihost.py`` ``launch``; gloo on the one card, NCCL where there are
+    two) against one process on the global batch, 3 fp32 GAN + feature-
+    matching steps, B=4 T=128 with lengths 128, 128 | 97, 0 (unequal
+    valid counts and a fill row on the two ranks), dropout inert: losses
+    within 1e-5 * max(1, |loss|) every step; after the first step (both
+    from the same weights, as phase 14a holds a step) the gradients within
+    1e-4 * max(1, max|g|) per model, LeCam and the spectral stats within
+    1e-5 * max(1, max|x|), updates within lr / 10 where the gradient is
+    live; the last step's printed; the ranks bit-equal; the same run with
+    rank-local denominators printed; (b) the trainer CLI under two ranks
+    on phase 14c's data and config (bf16, epoch 1 warmup, epoch 2 GAN,
+    eval and save each epoch): the ranks bit-equal, finite losses, no
+    launch inside a train step, rank 0's eval 6 residual_block, 2
+    mel_mixer and 1 fsq_head per eval batch and rank 1 none (counts reset
+    just before, read just after), rank 0 alone writing; then 4 epochs
+    with a SIGTERM on both ranks at epoch 3's first step (one checkpoint,
+    both exit 0) and a two-rank rerun that resumes at epoch 4; (c) ms/step
+    and peak memory per rank of the 2 x 8 bf16 GAN step against the 1 x 16
+    step at B=16 T=256 (2 warm-up, 5 timed, CUDA events), the all-reduce's
+    ms and bytes per step; (d) the flagship LSTM's stack pipelined, a
+    layer a stage x 4 microbatches on the card, against the serial stack
+    (fp32 within 1e-5 * max(1, max|x|), bf16 rel-L2 <= 2e-2, logits and
+    gradients), train-step tokens/s of both at B=8 L=256, and the LM
+    trainer CLI with and without --pipe (finite losses);
+19. print {"ok": true, "device": {...}} as the last line.
+
+A fatal signal prints every thread's Python stack (faulthandler). Once the
+last line is out, and every process the script started has been joined,
+the script leaves with os._exit(0): the interpreter's teardown runs the
+CUDA runtime's and the profiler's (CUPTI's) exit handlers, which can race
+and abort an otherwise finished run ("Fatal glibc error:
+pthread_mutex_lock ... assertion failed", exit code 134).
 """
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import math
 import os
@@ -1665,6 +1699,50 @@ def fsq_head_of(root: str) -> None:
           f"the host's wrapper {host_us:.1f} us a call [{card_line()}]")
 
 
+def lstm_step_of(root: str) -> None:
+    """``python3 chip_smoke.py --lstm-step-of DIR``: the flagship LSTM train
+    step of the checkout at DIR (emb 512, 2 layers of 1024, dropout 0.1,
+    ClipAdamW) at B=8 L=2048, bf16 and fp32 (TF32 off): ms/step (median of
+    LSTM_OF_ITERS after a warm-up step, CUDA events), tokens/s and peak
+    memory, to set a parent commit's times beside this commit's within one
+    call. No kernel is on this path."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    sys.path.insert(0, os.path.abspath(root))
+    from mqgan_tpu_torch.models import token_lm
+    from mqgan_tpu_torch.train.lstm_trainer import ClipAdamW, make_lstm_step
+    from mqgan_tpu_torch.utils.init import seeded_init_
+
+    if not token_lm.__file__.startswith(os.path.abspath(root)):
+        fail(f"mqgan_tpu_torch came from {token_lm.__file__}, not from {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device, (b, length) = torch.device("cuda"), LSTM_OF_SHAPE
+    data = lm_batch(device, b, length, SEED + 30)
+    for dtype in (torch.bfloat16, None):
+        model = seeded_init_(token_lm.build_token_lm(
+            dict(LM, arch="lstm", pad_id=0, **PIPE_LSTM), dropout=0.1, dtype=dtype),
+            SEED + 15).to(device)
+        tx = ClipAdamW(1e-3)
+        state = tx.init(model.parameters())
+        step = make_lstm_step(model, tx, 0, train=True)
+        gen = torch.Generator().manual_seed(SEED)
+        loss = float(step(state, *data, gen))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: step(state, *data, gen), LSTM_OF_ITERS)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not math.isfinite(loss):
+            fail(f"lstm step of {root}: loss {loss}")
+        print(f"lstm step of {root} B={b} L={length} "
+              f"{'bf16' if dtype else 'fp32'}: {ms:.3f} ms/step, "
+              f"{b * (length - 1) / (ms / 1e3):.1f} tokens/s, peak {peak:.2f} GB, "
+              f"first loss {loss:.4f} [{card_line()}]")
+        del model, state, step
+        torch.cuda.empty_cache()
+
+
 def lm_model(device, dtype, route: str, dropout: float = 0.0):
     """The flagship MusicTransformer (seeded) with its attention routed
     through the flash kernels ("kernels"), the naive materialised scores
@@ -2974,25 +3052,13 @@ def compare_train_branch(device) -> None:
         fail("phase 14b: the training branch disagrees with the kernel path")
 
 
-def trainer_cli(device, counters, card) -> dict:
-    """Phase 14c, the slice's main path: the trainer CLI, flagship config,
-    bf16, default fast dropout, on TRAIN_CLIPS seeded mels, epoch 1 warmup
-    and epoch 2 GAN, eval and save every epoch; no launch inside a train
-    step, TRAIN_EVAL_BATCH per eval batch; a third epoch resumes; the saved
-    generator exports (fp32 exact mixers) and round-trips through
-    ExportedPreEncoder like the in-memory model. Returns the launches."""
+def _trainer_run_config(root, rng):
+    """Phase 14c's run (and phase 18b's): TRAIN_CLIPS seeded mels of
+    TRAIN_CLIP_FRAMES frames under ``root``/mels, the flagship config for
+    epoch 1 warmup and epoch 2 GAN, eval and save every epoch, one plot;
+    returns (the config dict, its JSON path)."""
     import dataclasses
 
-    import torch
-
-    from mqgan_tpu_torch.deploy import export
-    from mqgan_tpu_torch.deploy.runtime import ExportedPreEncoder
-    from mqgan_tpu_torch.models.preencoder import PreEncoder
-    from mqgan_tpu_torch.train import trainer as trainer_mod
-    from mqgan_tpu_torch.utils.checkpoint import save_generator_only
-
-    root = tempfile.mkdtemp(prefix="chip_smoke_gan_")
-    rng = np.random.default_rng(SEED + 44)
     os.makedirs(os.path.join(root, "mels"))
     for i in range(TRAIN_CLIPS):
         t = int(rng.integers(*TRAIN_CLIP_FRAMES))
@@ -3006,6 +3072,27 @@ def trainer_cli(device, counters, card) -> dict:
     cfg_path = os.path.join(root, "cfg.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
+    return cfg, cfg_path
+
+
+def trainer_cli(device, counters, card) -> dict:
+    """Phase 14c, the slice's main path: the trainer CLI, flagship config,
+    bf16, default fast dropout, on TRAIN_CLIPS seeded mels, epoch 1 warmup
+    and epoch 2 GAN, eval and save every epoch; no launch inside a train
+    step, TRAIN_EVAL_BATCH per eval batch; a third epoch resumes; the saved
+    generator exports (fp32 exact mixers) and round-trips through
+    ExportedPreEncoder like the in-memory model. Returns the launches."""
+    import torch
+
+    from mqgan_tpu_torch.deploy import export
+    from mqgan_tpu_torch.deploy.runtime import ExportedPreEncoder
+    from mqgan_tpu_torch.models.preencoder import PreEncoder
+    from mqgan_tpu_torch.train import trainer as trainer_mod
+    from mqgan_tpu_torch.utils.checkpoint import save_generator_only
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_gan_")
+    rng = np.random.default_rng(SEED + 44)
+    cfg, cfg_path = _trainer_run_config(root, rng)
     seen = {"train": 0, "eval": 0, "step_launches": {}}
     eval_inputs = []  # (mel, lengths) of each eval call of the first run
     make_step, make_eval = trainer_mod.make_train_step, trainer_mod.make_eval_step
@@ -4411,6 +4498,579 @@ def parallel_serving(state, root, device, counters, card) -> tuple:
     return launches, row
 
 
+# phase 18, data-parallel and pipelined training at flagship width: (a) the
+# step of two ranks against one process on the global batch, (b) the trainer
+# CLI under two ranks, (c) step times, (d) the LSTM stack's pipeline
+DP_RANKS = 2
+DP_CMP_B, DP_CMP_T, DP_CMP_STEPS = 4, 128, 3
+# rank 0's rows hold 256 valid frames, rank 1's 97 and a zero-length fill row
+DP_CMP_LENGTHS = (128, 128, 97, 0)
+DP_PROBE = 2  # steps whose reductions are synchronised and timed
+DP_TIMEOUT_S = 600
+PIPE_B, PIPE_L, PIPE_MICRO, PIPE_ITERS = 8, 256, 4, 3
+PIPE_CHUNKS = 24
+PIPE_LSTM = dict(emb_dim=512, lstm_hid=1024, lstm_layers=2)  # the CLI's defaults
+LSTM_OF_SHAPE, LSTM_OF_ITERS = (8, 2048), 7  # --lstm-step-of: phase 10e's shape
+
+
+def _dp_devices():
+    """Phase 18's ranks: a card each where there are DP_RANKS cards (NCCL),
+    else DP_RANKS ranks on card 0 (gloo)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return [f"cuda:{i if n >= DP_RANKS else 0}" for i in range(DP_RANKS)]
+
+
+def _dp_batch(device, b, t, lengths, seed):
+    """A seeded (b, t, MELS) batch, zero past each row's length (as the
+    loader builds it), and its lengths."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mel = torch.randn((b, t, MELS), generator=gen, device=device)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=device)
+    mel = mel * (torch.arange(t, device=device)[None, :, None] < lengths[:, None, None])
+    return mel, lengths
+
+
+def _dp_tensors(state) -> dict:
+    """The parameters and buffers (spectral stats) of each model."""
+    return {name: dict(list(m.named_parameters()) + list(m.named_buffers()))
+            for name, m in (("gen", state.gen), ("patch", state.patch),
+                            ("multibin", state.multibin))}
+
+
+def _dp_checksum(state) -> str:
+    """A hash of every parameter, buffer, optimizer moment and LeCam value:
+    equal on two ranks only if their states are bit-equal."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in state.tensors():
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_run(cfg, device, mel, lengths, dp):
+    """DP_CMP_STEPS fp32 GAN + feature-matching steps of the seeded flagship
+    state (dropout inert; with ``dp``, rank 0's state replicated) on (mel,
+    lengths); returns (state, each step's losses, the first step's
+    gradients after the reduction)."""
+    import torch
+
+    from mqgan_tpu_torch.train.step import make_train_step
+
+    state = gan_state(cfg, device, inert=True)
+    if dp is not None:
+        state.replicate_()
+    step = make_train_step(cfg, train_d=True, dp=dp)
+    losses, grads, first = [], None, None
+    for i in range(DP_CMP_STEPS):
+        m = step(state, mel, lengths)
+        losses.append({k: float(v) for k, v in m.items() if k.startswith("loss")})
+        if i == 0:
+            grads = {name: {k: (torch.zeros_like(p) if p.grad is None
+                                else p.grad.detach().clone())
+                            for k, p in mod.named_parameters()}
+                     for name, mod in (("gen", state.gen), ("patch", state.patch),
+                                       ("multibin", state.multibin))}
+            first = _dp_snapshot(state)
+    return {"losses": losses, "grads": grads, "first": first,
+            "last": _dp_snapshot(state), "checksum": _dp_checksum(state)}
+
+
+def _dp_snapshot(state) -> dict:
+    """Copies of the models' parameters and buffers and of LeCam."""
+    import torch
+
+    out = {name: {k: v.detach().clone() for k, v in ts.items()}
+           for name, ts in _dp_tensors(state).items()}
+    out["lecam"] = {"ema": torch.stack([state.lecam.ema_real.detach(),
+                                        state.lecam.ema_fake.detach()])}
+    return out
+
+
+def _dp_compare(cfg, grads, mine, theirs, init) -> tuple:
+    """(LeCam and spectral stats max |d| / max(1, max|x|), each model's
+    largest update difference where the reference's first gradient is live,
+    in units of its first step's lr) of snapshot ``mine`` against
+    ``theirs``, both taken from ``init``."""
+    tr = cfg.training
+    lrs = {"gen": tr.lr * min(1.0, 1.0 / tr.warmup_steps),
+           "patch": tr.lr * tr.lr_d_factor, "multibin": tr.lr * tr.lr_d_factor}
+    a, b = mine["lecam"]["ema"], theirs["lecam"]["ema"]
+    stat = float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+    upd = {}
+    for name, want in grads.items():
+        upd[name] = 0.0
+        for k, t in theirs[name].items():
+            if k not in want:  # u, sigma
+                stat = max(stat, float((mine[name][k] - t).abs().max())
+                           / max(1.0, float(t.abs().max())))
+                continue
+            g = want[k]
+            live = g.abs() > 1e-4 * max(1.0, float(g.abs().max()))
+            if live.any():
+                d = ((mine[name][k] - init[name][k]) - (t - init[name][k])).abs()[live]
+                upd[name] = max(upd[name], float(d.max()) / lrs[name])
+    return stat, upd
+
+
+def _dp_errors(cfg, ref, got, init) -> dict:
+    """18a's measures of run ``got`` against the one-process ``ref``: the
+    losses' max |d| / max(1, |loss|) over the steps; after the first step
+    (both from the same weights, as phase 14a holds a step) each model's
+    gradients' max |d| / max(1, max|g|), LeCam's and the spectral stats'
+    max |d| / max(1, max|x|) and each model's update difference where the
+    gradient is live, in units of its lr; the same two after the last step
+    (printed: Adam turns a rounding-level difference into +-lr steps from
+    the second step on, ROADMAP.md Queue 3)."""
+    import torch
+
+    with torch.no_grad():
+        out = {"loss": max(abs(a[k] - b[k]) / max(1.0, abs(b[k]))
+                           for a, b in zip(got["losses"], ref["losses"]) for k in b)}
+        for name, want in ref["grads"].items():
+            g_max = max(float(g.abs().max()) for g in want.values())
+            out[f"grad/{name}"] = max(float((got["grads"][name][k] - g).abs().max())
+                                      for k, g in want.items()) / max(1.0, g_max)
+        for when in ("first", "last"):
+            stat, upd = _dp_compare(cfg, ref["grads"], got[when], ref[when], init)
+            out[f"stats/{when}"] = stat
+            out.update({f"update/{when}/{k}": v for k, v in upd.items()})
+    return out
+
+
+def _dp_gate(err) -> bool:
+    return (err["loss"] <= 1e-5 and err["stats/first"] <= 1e-5
+            and all(v <= 1e-4 for k, v in err.items() if k.startswith("grad/"))
+            and all(v <= 0.1 for k, v in err.items() if k.startswith("update/first/")))
+
+
+def _rank_local_dp():
+    """This rank's DataParallel as a DDP-style average computes the step:
+    each rank's loss denominators count its own rows, and the gradients
+    and loss metrics are averaged over the ranks (the error the global
+    counts avoid; 18a prints it)."""
+    import torch
+
+    from mqgan_tpu_torch.parallel import dp as dp_mod
+
+    class RankLocal(dp_mod.DataParallel):
+        def count_lengths(self, lengths):
+            return lengths
+
+        def reduce_grads_(self, params):
+            params = list(params)
+            nbytes = super().reduce_grads_(params)
+            torch._foreach_div_([p.grad for p in params], float(self.world))
+            return nbytes
+
+        def reduce_metrics_(self, tensors):
+            tensors = list(tensors)
+            nbytes = dp_mod.all_reduce_(tensors)
+            torch._foreach_div_(tensors, float(self.world))
+            return nbytes
+
+    return RankLocal.current()
+
+
+def _dp_step_rank(rank, world, device, times_b, times_t):
+    """Phase 18a and 18c on one rank."""
+    import torch
+
+    from mqgan_tpu_torch.parallel import dp as dp_mod
+    from mqgan_tpu_torch.parallel.mesh import batch_rows
+    from mqgan_tpu_torch.train.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, ref, init = {}, None, None
+    # (a) the global batch on every rank; each steps on its rows
+    cfg = gan_config(True, use_fm_loss=True)
+    mel, lengths = _dp_batch(device, DP_CMP_B, DP_CMP_T, DP_CMP_LENGTHS, SEED + 60)
+    rows = batch_rows(DP_CMP_B, rank, world)
+    if rank == 0:  # the one-process reference, on this card (no collective)
+        ref = _dp_run(cfg, device, mel, lengths, None)
+        init = {name: {k: v.detach().clone() for k, v in ts.items()}
+                for name, ts in _dp_tensors(gan_state(cfg, device, inert=True)).items()}
+    got = _dp_run(cfg, device, mel[rows], lengths[rows], dp_mod.DataParallel.current())
+    local = _dp_run(cfg, device, mel[rows], lengths[rows], _rank_local_dp())
+    out["checksum"] = got.pop("checksum")
+    if rank == 0:
+        out["errors"] = _dp_errors(cfg, ref, got, init)
+        out["local_errors"] = _dp_errors(cfg, ref, local, init)
+        out["losses"] = (ref["losses"][-1], got["losses"][-1], local["losses"][-1])
+    del ref, got, local
+    torch.cuda.empty_cache()
+    # (c) bf16 GAN steps of this rank's rows of a times_b x times_t batch
+    cfg = gan_config(False)
+    state = gan_state(cfg, device, dtype=torch.bfloat16)
+    state.replicate_()
+    step = make_train_step(cfg, train_d=True, dtype=torch.bfloat16,
+                           dp=dp_mod.DataParallel.current())
+    rows = batch_rows(times_b, rank, world)
+    batches = [tuple(x[rows] for x in _dp_batch(device, times_b, times_t,
+                                                [times_t] * times_b, SEED + 61 + i))
+               for i in range(TRAIN_WARM + TRAIN_ITERS + DP_PROBE)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mel, lengths in batches[:TRAIN_WARM]:
+        step(state, mel, lengths)
+    times = []
+    for mel, lengths in batches[TRAIN_WARM:TRAIN_WARM + TRAIN_ITERS]:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        m = step(state, mel, lengths)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    out["ms"] = times
+    out["finite"] = all(math.isfinite(float(v)) for v in m.values())
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    reduce, spent = dp_mod.all_reduce_, []
+
+    def timed(tensors, op=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = reduce(tensors, op)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0, nbytes))
+        return nbytes
+
+    dp_mod.all_reduce_ = timed
+    try:
+        for mel, lengths in batches[TRAIN_WARM + TRAIN_ITERS:]:
+            step(state, mel, lengths)
+    finally:
+        dp_mod.all_reduce_ = reduce
+    out["allreduce_ms"] = 1e3 * sum(s for s, _ in spent) / DP_PROBE
+    out["allreduce_bytes"] = sum(n for _, n in spent) / DP_PROBE
+    out["allreduce_calls"] = len(spent) / DP_PROBE
+    return out
+
+
+def _one_process_step_times(device, b, t) -> tuple:
+    """18c's reference: the bf16 GAN step of one process on the whole b x t
+    batch (ms per step, peak GB)."""
+    import torch
+
+    from mqgan_tpu_torch.train.step import make_train_step
+
+    cfg = gan_config(False)
+    state = gan_state(cfg, device, dtype=torch.bfloat16)
+    step = make_train_step(cfg, train_d=True, dtype=torch.bfloat16)
+    batches = [_dp_batch(device, b, t, [t] * b, SEED + 61 + i)
+               for i in range(TRAIN_WARM + TRAIN_ITERS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mel, lengths in batches[:TRAIN_WARM]:
+        step(state, mel, lengths)
+    times = []
+    for mel, lengths in batches[TRAIN_WARM:]:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        step(state, mel, lengths)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return times, peak
+
+
+def _dp_trainer_rank(rank, world, device, cfg_path, sig_cfg_path, resume):
+    """Phase 18b on one rank: the trainer CLI (``--multihost`` in the
+    launcher's group) with its launches counted, in train steps and in all;
+    then, run on to 4 epochs, a SIGTERM to this process at its first step
+    of epoch 3. With ``resume``: the rerun of that run."""
+    import signal
+
+    import torch
+
+    from mqgan_tpu_torch.ops import _cuda
+    from mqgan_tpu_torch.train import trainer as trainer_mod
+
+    counters = _cuda.COUNTERS
+    seen = {"eval": 0, "steps": 0, "step_launches": {}, "signal_at": None}
+    make_step, make_eval = trainer_mod.make_train_step, trainer_mod.make_eval_step
+
+    def counting_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, mel, lengths):
+            before = counters.snapshot()
+            out = step(state, mel, lengths)
+            for k, v in counters.snapshot().items():
+                if v != before.get(k, 0):
+                    seen["step_launches"][k] = v - before.get(k, 0)
+            seen["steps"] += 1
+            if seen["steps"] == seen["signal_at"]:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+        return run
+
+    def counting_eval(*a, **kw):
+        ev = make_eval(*a, **kw)
+
+        def run(gen, mel, lengths):
+            seen["eval"] += 1
+            return ev(gen, mel, lengths)
+        return run
+
+    def cli(path):
+        return trainer_mod.main(["--config", path, "--no_wandb", "--device",
+                                 str(device), "--multihost"])
+
+    trainer_mod.make_train_step, trainer_mod.make_eval_step = counting_step, counting_eval
+    try:
+        if resume:
+            t = cli(sig_cfg_path)
+            return {"start_epoch": t.start_epoch, "step": t.state.step}
+        counters.reset()
+        t = cli(cfg_path)
+        out = {"launches": counters.snapshot(), "eval": seen["eval"],
+               "steps": seen["steps"], "step_launches": dict(seen["step_launches"]),
+               "checksum": _dp_checksum(t.state), "logger": type(t.logger).__name__,
+               "files": sorted(os.listdir(t.config.data.output_dir))}
+        seen.update(steps=0, signal_at=1)
+        t = cli(sig_cfg_path)
+        out.update(stopped=t._stop_requested, stop_step=t.state.step,
+                   files_after_signal=sorted(os.listdir(t.config.data.output_dir)))
+        del t
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        trainer_mod.make_train_step, trainer_mod.make_eval_step = make_step, make_eval
+
+
+def dp_step_check(device, card) -> None:
+    """Phases 18a and 18c: DP_RANKS ranks (``launch``) against one process."""
+    from mqgan_tpu_torch.parallel import multihost
+
+    ref_ms, ref_peak = _one_process_step_times(device, TRAIN_B, TRAIN_T)
+    devices = _dp_devices()
+    t0 = time.perf_counter()
+    ranks = multihost.launch(_dp_step_rank, devices, (TRAIN_B, TRAIN_T),
+                             timeout_s=DP_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    r0 = ranks[0]
+    err, lerr = r0["errors"], r0["local_errors"]
+    same = all(r["checksum"] == r0["checksum"] for r in ranks)
+    ok = _dp_gate(err) and same
+    fmt = lambda e: ", ".join(f"{k} {v:.2e}" for k, v in e.items())  # noqa: E731
+    print(f"  18a {DP_RANKS} ranks ({multihost.choose_backend(devices)} on "
+          f"{devices}) vs one process, fp32 GAN+FM x {DP_CMP_STEPS}, B={DP_CMP_B} "
+          f"T={DP_CMP_T} lengths {DP_CMP_LENGTHS}: {fmt(err)} (gates: loss 1e-5 "
+          f"every step; after the first step grad 1e-4, stats 1e-5, update 0.1 lr "
+          f"where live; after the last, printed); ranks bit-equal {same} "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    ref_l, got_l, loc_l = r0["losses"]
+    print(f"  18a the same run with rank-local denominators (a DDP-style average): "
+          f"{fmt(lerr)}; last loss_g_total one process {ref_l['loss_g_total']:.6f}, "
+          f"global counts {got_l['loss_g_total']:.6f}, rank-local "
+          f"{loc_l['loss_g_total']:.6f}")
+    if not ok:
+        fail("phase 18a: the data-parallel step disagrees with one process")
+    ms = [r["ms"] for r in ranks]
+    print(f"  18c bf16 GAN step, B={TRAIN_B} T={TRAIN_T}: one process "
+          f"{np.median(ref_ms):.3f} ms/step (min {min(ref_ms):.3f}, max "
+          f"{max(ref_ms):.3f}), peak {ref_peak:.3f} GB; {DP_RANKS} x "
+          f"{TRAIN_B // DP_RANKS} ranks on {devices}: "
+          + "; ".join(f"rank {i} {np.median(m):.3f} ms/step (min {min(m):.3f}, max "
+                      f"{max(m):.3f}), peak {r['peak_gb']:.3f} GB"
+                      for i, (m, r) in enumerate(zip(ms, ranks)))
+          + f"; all-reduce {r0['allreduce_ms']:.3f} ms and "
+          f"{r0['allreduce_bytes'] / 1e6:.3f} MB in {r0['allreduce_calls']:.0f} "
+          f"calls per step (synchronised) [{card}]; {secs:.1f} s for the launch")
+    if not all(r["finite"] for r in ranks):
+        fail("phase 18c: a data-parallel step's metrics are not finite")
+
+
+def dp_trainer_check(device, card) -> dict:
+    """Phase 18b: the trainer CLI under DP_RANKS ranks on phase 14c's
+    dataset and config, then SIGTERM mid-run and a rerun; returns rank 0's
+    launches."""
+    from mqgan_tpu_torch.parallel import multihost
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        cfg, cfg_path = _trainer_run_config(root, np.random.default_rng(SEED + 44))
+        cfg["training"]["num_epochs"] = 4
+        sig_path = os.path.join(root, "cfg_4.json")
+        with open(sig_path, "w") as f:
+            json.dump(cfg, f)
+        devices = _dp_devices()
+        t0 = time.perf_counter()
+        ranks = multihost.launch(_dp_trainer_rank, devices,
+                                 (cfg_path, sig_path, False), timeout_s=DP_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        resumed = multihost.launch(_dp_trainer_rank, devices,
+                                   (cfg_path, sig_path, True), timeout_s=DP_TIMEOUT_S)
+        with open(os.path.join(root, "run", "train_metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0, r1 = ranks
+    want = {k: v * r0["eval"] for k, v in TRAIN_EVAL_BATCH.items()}
+    train_recs = [r for r in recs if "loss_g_total" in r and r.get("epoch") in (1.0, 2.0)]
+    finite = all(math.isfinite(v) for r in recs for v in r.values() if isinstance(v, float))
+    steps_per_epoch = r0["steps"] // 2
+    logged = sum(1 for n in range(1, steps_per_epoch + 1) if n == 1 or n % 10 == 0)
+    ckpts = [f for f in r0["files"] if f.startswith("checkpoint_epoch_")]
+    new = sorted(set(r0["files_after_signal"]) - set(r0["files"]))
+    print(f"  18b trainer CLI on {devices}: {r0['steps']} steps a rank (B="
+          f"{cfg['data']['batch_size']} global), {secs:.1f} s for both runs; rank 0 "
+          f"{r0['eval']} eval batches, launches {r0['launches']} (want {want}), rank 1 "
+          f"launches {r1['launches']} ({r1['eval']} eval batches); launches inside "
+          f"train steps {r0['step_launches']} / {r1['step_launches']}; ranks bit-equal "
+          f"{r0['checksum'] == r1['checksum']}; loggers {r0['logger']} / {r1['logger']}; "
+          f"{len(train_recs)} train records (want {2 * logged}), checkpoints {ckpts}")
+    print(f"  18b SIGTERM at each rank's first step of epoch 3: stopped "
+          f"{r0['stopped']} / {r1['stopped']} at step {r0['stop_step']} / "
+          f"{r1['stop_step']}, new files {new}; the rerun resumed at epoch "
+          f"{resumed[0]['start_epoch']} / {resumed[1]['start_epoch']} and ended at step "
+          f"{resumed[0]['step']} [{card}]")
+    ok = (finite and r0["checksum"] == r1["checksum"] and r0["launches"] == want
+          and not r1["launches"] and r1["eval"] == 0
+          and not r0["step_launches"] and not r1["step_launches"]
+          and r0["logger"] == "MetricsLogger" and r1["logger"] == "NullLogger"
+          and len(train_recs) == 2 * logged
+          and ckpts == ["checkpoint_epoch_001.pt", "checkpoint_epoch_002.pt"])
+    if not ok:
+        fail("phase 18b: the data-parallel trainer CLI's run is wrong")
+    if (not (r0["stopped"] and r1["stopped"]) or new != ["checkpoint_epoch_003.pt"]
+            or r0["stop_step"] != r1["stop_step"]
+            or [r["start_epoch"] for r in resumed] != [4, 4]):
+        fail("phase 18b: SIGTERM did not stop both ranks with one checkpoint, "
+             "or the rerun did not resume")
+    return r0["launches"]
+
+
+def pipeline_check(device, card) -> None:
+    """Phase 18d: the flagship LSTM (emb 512, 2 layers of 1024) with its
+    stack pipelined, one layer a stage, PIPE_MICRO microbatches, every
+    stage on this card: logits and gradients against the serial stack
+    (fp32 with TF32 off within 1e-5 * max(1, max|x|); bf16 rel-L2 <= 2e-2),
+    train-step tokens/s of both, and the LM trainer CLI with --pipe."""
+    import torch
+
+    from mqgan_tpu_torch.models.music_lstm import masked_ce_loss
+    from mqgan_tpu_torch.models.token_lm import build_token_lm
+    from mqgan_tpu_torch.parallel.pipeline import music_lstm_pipelined_logits
+    from mqgan_tpu_torch.train import lstm_trainer
+    from mqgan_tpu_torch.train.lstm_trainer import ClipAdamW, make_lstm_step
+    from mqgan_tpu_torch.utils.init import seeded_init_
+
+    args = dict(LM, arch="lstm", pad_id=0, **PIPE_LSTM)
+    stages = [device] * args["lstm_layers"]
+    tokens, genres, lengths = lm_batch(device, PIPE_B, PIPE_L, SEED + 70)
+    targets = torch.roll(tokens, -1, dims=1)
+    targets[:, -1] = 0
+    ok = True
+    for dtype in (None, torch.bfloat16):
+        model = seeded_init_(build_token_lm(args, dropout=0.1, dtype=dtype),
+                             SEED + 71).to(device)
+        outs = []
+        for piped in (False, True):
+            model.zero_grad()
+            logits = (music_lstm_pipelined_logits(model, tokens, genres, stages,
+                                                  PIPE_MICRO)
+                      if piped else model(tokens, genres))
+            masked_ce_loss(logits, targets)[0].backward()
+            outs.append([logits.detach().float()]
+                        + [p.grad.detach().float() for p in model.parameters()])
+        if dtype is None:
+            err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                      for a, b in zip(outs[1], outs[0]))
+            good, gate = err <= 1e-5, "1e-5 * max(1, max|x|)"
+        else:
+            err = max(float(torch.linalg.vector_norm(a - b)
+                            / torch.linalg.vector_norm(b).clamp_min(1e-30))
+                      for a, b in zip(outs[1], outs[0]))
+            good, gate = err <= 2e-2, "rel-L2 2e-2"
+        ok = ok and good
+        print(f"  18d pipelined vs serial LSTM stack, {len(stages)} stages x "
+              f"{PIPE_MICRO} microbatches on {[str(d) for d in stages]}, B={PIPE_B} "
+              f"L={PIPE_L} {'bf16' if dtype else 'fp32'}: logits and gradients "
+              f"{err:.2e} (gate {gate}) {'ok' if good else 'FAIL'}")
+        del model, outs
+    # train-step tokens/s, fp32 (the trainer's default), serial and pipelined
+    rates = {}
+    for name, pipe in (("serial", None), ("pipelined", stages)):
+        model = seeded_init_(build_token_lm(args, dropout=0.1), SEED + 71).to(device)
+        tx = ClipAdamW(1e-3)
+        state = tx.init(model.parameters())
+        step = make_lstm_step(model, tx, 0, train=True, pipe_devices=pipe,
+                              pipe_micro=PIPE_MICRO)
+        gen = torch.Generator().manual_seed(SEED)
+        step(state, tokens, genres, lengths, gen)
+        ms = time_ms(lambda: [step(state, tokens, genres, lengths, gen)
+                              for _ in range(PIPE_ITERS)], 1) / PIPE_ITERS
+        rates[name] = (ms, PIPE_B * (PIPE_L - 1) / (ms / 1e3))
+        del model, state, step
+    print(f"  18d LM train step fp32 B={PIPE_B} L={PIPE_L}: "
+          + "; ".join(f"{k} {ms:.3f} ms, {tps:.1f} tokens/s" for k, (ms, tps)
+                      in rates.items()) + f" [{card}]")
+    root = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
+    try:
+        mapping = _write_chunks(root, PIPE_CHUNKS, PIPE_L - 1, SEED + 72)
+        best = {}
+        pipe = ["--pipe", str(PIPE_LSTM["lstm_layers"]), "--pipe_micro", str(PIPE_MICRO)]
+        for name, extra in (("serial", []), ("pipelined", pipe)):
+            out = os.path.join(root, name)
+            t0 = time.perf_counter()
+            lstm_trainer.main([
+                "--chunks_dir", os.path.join(root, "chunks"), "--mapping_json", mapping,
+                "--vocab_size", str(LM["vocab_size"]), "--num_genres",
+                str(LM["num_genres"]), *(x for k, v in PIPE_LSTM.items()
+                                         for x in (f"--{k}", str(v))),
+                "--batch_size", str(PIPE_B), "--epochs", "1",
+                "--log_every", "1", "--out_dir", out, "--device", str(device), *extra])
+            secs = time.perf_counter() - t0
+            with open(os.path.join(out, "lstm_metrics.jsonl")) as f:
+                losses = [r["train/loss_step"] for r in map(json.loads, f)
+                          if "train/loss_step" in r]
+            with open(os.path.join(out, "best.json")) as f:
+                best[name] = json.load(f)["val_loss"]
+            ok = ok and bool(losses) and all(math.isfinite(x) for x in losses)
+            print(f"  18d LM trainer CLI {name}: {len(losses)} steps, losses "
+                  f"{[round(x, 4) for x in losses]}, val loss {best[name]:.4f}, "
+                  f"{secs:.2f} s with set-up")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not ok:
+        fail("phase 18d: the pipelined LSTM stack disagrees with the serial one, "
+             "or the --pipe trainer did not train")
+
+
+def parallel_training(device, card) -> dict:
+    """Phase 18: (a)-(d); returns rank 0's launches in the trainer CLI."""
+    import torch
+
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        seconds[part] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    with torch.enable_grad():
+        print(f"  [18a, 18c] the data-parallel step vs one process; step times")
+        dp_step_check(device, card)
+        lap("a+c")
+        print(f"  [18b] the trainer CLI under {DP_RANKS} ranks")
+        launches = dp_trainer_check(device, card)
+        lap("b")
+        print(f"  [18d] the pipelined LSTM stack")
+        pipeline_check(device, card)
+        lap("d")
+    print(f"  phase 18 seconds by part: {seconds}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -4549,6 +5209,9 @@ def main() -> None:
                                                    counters, card)
         rows.insert(1, split_row)
         launches["residual_block_split"] = seq_launches["residual_block_split"]
+        print(f"[18] data-parallel and pipelined training, flagship width [{card}] {at()}")
+        dp_launches = parallel_training(device, card)
+        print(f"  launches of the data-parallel trainer (rank 0's eval): {dp_launches}")
     finally:
         shutil.rmtree(lm_root, ignore_errors=True)
         shutil.rmtree(deploy_root, ignore_errors=True)
@@ -4569,7 +5232,15 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    faulthandler.enable(all_threads=True)
     if len(sys.argv) == 3 and sys.argv[1] == "--fsq-head-of":
         fsq_head_of(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--lstm-step-of":
+        lstm_step_of(sys.argv[2])
     else:
         main()
+    # reached only when the run succeeded (a failure raises SystemExit or
+    # an exception above): skip the teardown, as the docstring says
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)

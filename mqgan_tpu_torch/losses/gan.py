@@ -7,7 +7,12 @@ distances to them to the discriminator loss. The state is a value the train
 step passes in and gets back; its tensors stay on the device, so no update
 waits for the host.
 
-Masks in this file: True = VALID (the discriminators' patch masks).
+Masks in this file: True = VALID (the discriminators' patch masks). A
+``count`` given to a masked mean is its mask's valid count over the GLOBAL
+batch of a data-parallel step (``parallel/dp.py``): the rank's partial sum
+is divided by it, and the ranks' partial losses add up to the one-process
+loss. The real and fake halves of a discriminator call share their lengths,
+hence one count.
 """
 
 from __future__ import annotations
@@ -33,31 +38,34 @@ def _broadcast_mask(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return m.reshape(tuple(m.shape) + (1,) * (x.ndim - m.ndim))
 
 
-def _masked_mse(pred, target, valid_mask=None):
+def _masked_mse(pred, target, valid_mask=None, count=None):
     """Masked mean squared error; 0 when no element is valid."""
     err = torch.square(pred.float() - target.float())
     if valid_mask is None:
         return err.mean()
     m = valid_mask.float()
-    valid = m.sum() * (err.numel() / m.numel() if m.numel() != err.numel() else 1.0)
+    valid = (m.sum() if count is None else count) * (
+        err.numel() / m.numel() if m.numel() != err.numel() else 1.0)
     total = (err * _broadcast_mask(m, err)).sum()
     return torch.where(valid > 0, total / valid.clamp_min(1e-12),
                        torch.zeros((), device=err.device))
 
 
-def masked_sum_count(x, valid_mask=None):
+def masked_sum_count(x, valid_mask=None, count=None):
     """(sum, count) with ``_masked_mean(x, m) == sum / max(count, 1)``:
-    per-microbatch pairs add up to the masked mean of the whole batch."""
+    per-microbatch pairs add up to the masked mean of the whole batch.
+    ``count``: the mask's valid count to use instead of its own."""
     x = x.float()
     if valid_mask is None:
         return x.sum(), torch.tensor(float(x.numel()), device=x.device)
     m = valid_mask.float()
     scale = x.numel() / m.numel() if m.numel() != x.numel() else 1.0
-    return (x * _broadcast_mask(m, x)).sum(), m.sum() * scale
+    return (x * _broadcast_mask(m, x)).sum(), (m.sum() if count is None
+                                               else count) * scale
 
 
-def _masked_mean(x, valid_mask=None):
-    s, c = masked_sum_count(x, valid_mask)
+def _masked_mean(x, valid_mask=None, count=None):
+    s, c = masked_sum_count(x, valid_mask, count)
     return s / c.clamp_min(1.0)
 
 
@@ -81,13 +89,13 @@ def update_ema(state: LeCamState, real_out, fake_out, real_mask=None,
 
 
 def lecam_loss(state: LeCamState, real_out, fake_out, real_mask=None,
-               fake_mask=None):
+               fake_mask=None, count=None):
     """Hinge-squared distances to the (updated) EMAs."""
     ema_r, ema_f = state.ema_real.detach(), state.ema_fake.detach()
     term_r = _masked_mean(torch.square(torch.clamp_min(
-        real_out.float() - ema_f, 0.0)), real_mask)
+        real_out.float() - ema_f, 0.0)), real_mask, count)
     term_f = _masked_mean(torch.square(torch.clamp_min(
-        ema_r - fake_out.float(), 0.0)), fake_mask)
+        ema_r - fake_out.float(), 0.0)), fake_mask, count)
     return term_r + term_f
 
 
@@ -95,17 +103,17 @@ def discriminator_loss_fixed_ema(real_output, fake_output, real_mask=None,
                                  fake_mask=None, *, ema_state: LeCamState,
                                  real_label: float = 1.0,
                                  fake_label: float = 0.0,
-                                 use_lecam: bool = True):
-    """The LSGAN + LeCam loss with an already-updated LeCam state (gradient
-    accumulation passes one built from the whole batch)."""
+                                 use_lecam: bool = True, count=None):
+    """The LSGAN + LeCam loss with an already-updated LeCam state (the train
+    step passes one built from the whole batch's logit means)."""
     real_loss = _masked_mse(real_output, torch.full_like(real_output, real_label),
-                            real_mask)
+                            real_mask, count)
     fake_loss = _masked_mse(fake_output, torch.full_like(fake_output, fake_label),
-                            fake_mask)
+                            fake_mask, count)
     loss = 0.5 * (real_loss + fake_loss)
     if use_lecam:
         loss = loss + lecam_loss(ema_state, real_output, fake_output,
-                                 real_mask, fake_mask)
+                                 real_mask, fake_mask, count)
     return loss
 
 
@@ -123,6 +131,7 @@ def discriminator_loss(real_output, fake_output, real_mask=None,
     return loss, state
 
 
-def generator_loss(fake_output, fake_mask=None, real_label: float = 1.0):
+def generator_loss(fake_output, fake_mask=None, real_label: float = 1.0,
+                   count=None):
     return _masked_mse(fake_output, torch.full_like(fake_output, real_label),
-                       fake_mask)
+                       fake_mask, count)

@@ -141,6 +141,21 @@ class MelSpectrogramPatchDiscriminator2D(nn.Module):
     def spectral_convs(self):
         return list(self.convs)
 
+    def pad_masks(self, lengths: torch.Tensor, t: int) -> List[torch.Tensor]:
+        """The pad masks (B, F', T') of the input and after each conv, True
+        = padded: a function of the lengths alone, so that a data-parallel
+        step counts the valid patches of the global batch from its
+        lengths."""
+        mask = sequence_mask(t, lengths)[:, None, :].expand(
+            lengths.shape[0], self.mel_channels, t)
+        masks = [mask]
+        for conv in self.convs:
+            sh, sw = conv.stride
+            if sh > 1 or sw > 1:
+                mask = maxpool2d_ceil_bool(mask, sh, sw)
+            masks.append(mask)
+        return masks
+
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 return_features: bool = False, update_stats: bool = False):
         """x (B, T, F), lengths (B,) -> logits (B, F', T', 1), valid mask
@@ -148,7 +163,7 @@ class MelSpectrogramPatchDiscriminator2D(nn.Module):
         b, t, f = x.shape
         if f != self.mel_channels:
             raise ValueError(f"expected {self.mel_channels} mels, got {f}")
-        pad_mask = sequence_mask(t, lengths)[:, None, :].expand(b, f, t)
+        masks = self.pad_masks(lengths, t)
         out = x.transpose(1, 2)[:, None]
         if self.dtype is not None:
             out = out.to(self.dtype)
@@ -157,11 +172,9 @@ class MelSpectrogramPatchDiscriminator2D(nn.Module):
         last = len(self.convs) - 1
         for i, conv in enumerate(self.convs):
             if i == last:
-                out = self.se_block(out, pad_mask)
+                out = self.se_block(out, masks[i])
             out = F.leaky_relu(conv(out, update_stats), 0.2)
-            sh, sw = conv.stride
-            if sh > 1 or sw > 1:
-                pad_mask = maxpool2d_ceil_bool(pad_mask, sh, sw)
+            pad_mask = masks[i + 1]
             out = out.masked_fill(pad_mask[:, None], 0.0)
             if return_features and ret_map[i]:
                 features.append((out.permute(0, 2, 3, 1), pad_mask))

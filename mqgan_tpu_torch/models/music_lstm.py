@@ -59,16 +59,31 @@ class HoistedLSTMLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, L, E) -> (B, L, H)
         cdt = self.dtype or x.dtype
-        w_in, w_hid, bias = self.gate_weights(cdt)
-        zx = x.to(cdt) @ w_in + bias  # (B, L, 4H), the whole sequence at once
-        b = x.shape[0]
-        c = torch.zeros((b, self.features), dtype=cdt, device=x.device)
+        return self.scan(x.to(cdt), self.gate_weights(torch.float32))
+
+    @staticmethod
+    def scan(x: torch.Tensor, weights) -> torch.Tensor:
+        """The layer over a whole (B, L, E) sequence from zero carries, in
+        x's dtype, with the fp32 ``weights`` = gate_weights(torch.float32):
+        the input projection hoisted, the loop over time keeping h @ W_hid.
+        The loop uses W_hid detached; its gradient is one product over the
+        whole sequence (``_HiddenWeightGrad``)."""
+        w_in, w_hid, bias = weights
+        cdt = x.dtype
+        zx = x @ w_in.to(cdt) + bias.to(cdt)  # (B, L, 4H), the whole sequence at once
+        states: list = []
+        if torch.is_grad_enabled() and w_hid.requires_grad:
+            zx = _HiddenWeightGrad.apply(zx, w_hid, states)
+        w_h = w_hid.detach().to(cdt)
+        c = torch.zeros((x.shape[0], w_hid.shape[0]), dtype=cdt, device=x.device)
         h = torch.zeros_like(c)
         ys = []
         for t in range(x.shape[1]):
-            c, h = self._cell(torch.addmm(zx[:, t], h, w_hid), c)
+            c, h = HoistedLSTMLayer._cell(torch.addmm(zx[:, t], h, w_h), c)
             ys.append(h)
-        return torch.stack(ys, dim=1)
+        ys = torch.stack(ys, dim=1)
+        states.append((ys.detach(), ys._version))
+        return ys
 
     @staticmethod
     def step(x: torch.Tensor, carry, weights):
@@ -78,6 +93,34 @@ class HoistedLSTMLayer(nn.Module):
         c, h = carry
         c, h = HoistedLSTMLayer._cell(x @ w_in + h @ w_hid + bias, c)
         return (c, h), h
+
+
+class _HiddenWeightGrad(torch.autograd.Function):
+    """The identity on a scan's hoisted input products zx (B, L, 4H) whose
+    backward also gives W_hid its gradient. z_t = zx_t + h_{t-1} W_hid, so
+    the gradient reaching zx is dZ = dL/dz for every step at once, and
+    dL/dW_hid = sum_t h_{t-1}^T dz_t = H_prev^T dZ: ONE product over all
+    B * L rows, which accumulates in fp32 on tensor cores and rounds once,
+    in place of L products of K = B each summed into an (H, 4H) buffer in
+    the compute dtype (in bf16 both slow and inexact). ``states`` is the
+    list to which the scan appends its detached (B, L, H) outputs and
+    their version, read here: they must not change in place before the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, zx, w_hid, states):
+        ctx.states, ctx.w_dtype = states, w_hid.dtype
+        return zx.view_as(zx)
+
+    @staticmethod
+    def backward(ctx, dz):
+        ((ys, version),) = ctx.states
+        if ys._version != version:
+            raise RuntimeError("an LSTM scan's output was modified in place "
+                               "before its backward")
+        h_prev = torch.nn.functional.pad(ys[:, :-1], (0, 0, 1, 0))  # h_{-1} = 0
+        dw = h_prev.flatten(0, 1).t() @ dz.flatten(0, 1).to(h_prev.dtype)
+        return dz, dw.to(ctx.w_dtype), None
 
 
 class MusicLSTM(nn.Module):
@@ -102,13 +145,24 @@ class MusicLSTM(nn.Module):
         unused; dropout (before the projection) runs when ``deterministic``
         is False, from ``generator`` (CPU)."""
         del lengths
+        x = self.embed(tokens, genre_ids)
+        for i in range(self.lstm_layers):
+            x = self._modules[f"lstm_{i}"](x)
+        return self.head(x, deterministic, generator)
+
+    def embed(self, tokens: torch.Tensor, genre_ids: torch.Tensor) -> torch.Tensor:
+        """The stack's input: token embeddings (pad positions zeroed) plus
+        the genre embedding."""
         tok_e = self.tok_emb(tokens)
         tok_e = torch.where((tokens == self.pad_id)[..., None],
                             torch.zeros((), dtype=tok_e.dtype, device=tok_e.device),
                             tok_e)
-        x = tok_e + self.genre_emb(genre_ids)[:, None, :]
-        for i in range(self.lstm_layers):
-            x = self._modules[f"lstm_{i}"](x)
+        return tok_e + self.genre_emb(genre_ids)[:, None, :]
+
+    def head(self, x: torch.Tensor, deterministic: bool = True,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+        """Dropout (unless ``deterministic``; a seed drawn from the CPU
+        ``generator``) and the vocab projection of the stack's output."""
         gen = None
         if not deterministic and self.dropout > 0.0:
             if generator is None:

@@ -1,6 +1,6 @@
-"""Devices for parallel serving (counterpart of the serving part of
-``mqgan_tpu/parallel/mesh.py`` and of ``mqgan_tpu/core/buckets.py``
-``repeat_pad_rows``).
+"""Devices for parallel serving and the rows of data-parallel training
+(counterpart of ``mqgan_tpu/parallel/mesh.py`` and of
+``mqgan_tpu/core/buckets.py`` ``repeat_pad_rows``).
 
 JAX serves in parallel from one controller: a ``shard_map`` over the local
 devices, or one compiled copy of an exported program per device. The port
@@ -9,6 +9,11 @@ per distinct device: CUDA launches to different cards from one host thread
 run concurrently, since each launch returns before its kernels end. A list
 may name a device more than once, so that one card (or the CPU, in the
 tests) holds several windows or batch slices.
+
+Training runs one process a rank on ``torch.distributed``
+(``parallel/multihost.py``); ``batch_rows`` is each rank's share of a
+global batch, the counterpart of ``batch_axes`` / ``train_array_sharding``
+with the batch axis over the processes and no seq axis.
 """
 
 from __future__ import annotations
@@ -37,6 +42,18 @@ def local_devices(devices=None) -> list:
     if not out:
         raise ValueError("need at least one device")
     return out
+
+
+def batch_rows(global_batch: int, rank: int, world: int) -> slice:
+    """Rank ``rank``'s rows of a global batch of ``global_batch`` rows over
+    ``world`` ranks: [rank * lb, (rank + 1) * lb), lb = global_batch /
+    world, so that the ranks' rows concatenated in rank order are the
+    global batch."""
+    if global_batch % world:
+        raise ValueError(f"global batch {global_batch} does not divide over "
+                         f"{world} ranks")
+    lb = global_batch // world
+    return slice(rank * lb, (rank + 1) * lb)
 
 
 def replicate(model: torch.nn.Module, devices) -> dict:

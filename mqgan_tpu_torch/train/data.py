@@ -22,6 +22,7 @@ from typing import Iterator, List, Sequence
 import numpy as np
 import torch
 
+from mqgan_tpu_torch.parallel.mesh import batch_rows
 from mqgan_tpu_torch.utils.npy import find_npy_files, load_npy
 
 __all__ = ["find_npy_files", "split_train_eval", "Batch", "MelDataset",
@@ -94,16 +95,26 @@ def collate(items: List[tuple], crop_lens: Sequence[int],
 class MelLoader:
     """Shuffling, threaded batch iterator whose plan (the shuffle order,
     each batch's crop length and each row's crop start) is a pure function
-    of (seed, epoch, batch, row) over the file list, as the JAX loader's
-    process-count-invariant plan is (the port runs one process: multi-host
-    loading is ROADMAP.md Queue 1 item 8b). A short final batch (and a row
-    whose file fails to load) becomes zero-length all-zero rows: every loss
-    is masked by ``lengths``, so they weigh nothing, with one batch shape."""
+    of (seed, epoch, batch, row) over the whole file list, as the JAX
+    loader's is. ``batch_size`` is the GLOBAL batch: process
+    ``process_index`` of ``process_count`` (a data-parallel rank) builds
+    the same global plan and materialises only its rows [i * lb, (i + 1) *
+    lb) of each batch (``parallel/mesh.py`` ``batch_rows``), so the ranks'
+    rows concatenated are the one-process batch and every rank yields the
+    same number of batches. A short final batch (and a row whose file fails
+    to load) becomes zero-length all-zero rows: every loss is masked by
+    ``lengths``, so they weigh nothing, with one batch shape."""
 
     def __init__(self, dataset: MelDataset, batch_size: int,
                  crop_lens: Sequence[int], seed: int = 42,
                  num_threads: int = 8, drop_last: bool = False,
-                 mel_channels: int | None = None):
+                 mel_channels: int | None = None, process_index: int = 0,
+                 process_count: int = 1):
+        if process_count > 1 and mel_channels is None:
+            raise ValueError("a multi-process MelLoader needs mel_channels: a "
+                             "rank whose rows of the final batch are all "
+                             "padding still builds a batch of the right shape")
+        self.rows = batch_rows(batch_size, process_index, process_count)
         self.dataset = dataset
         self.batch_size = batch_size
         self.crop_lens = tuple(crop_lens)
@@ -131,6 +142,7 @@ class MelLoader:
         random.Random(self.seed + epoch).shuffle(order)
         n = len(order)
         bs = self.batch_size
+        lb = self.rows.stop - self.rows.start
         num_batches = n // bs if self.drop_last else -(-n // bs)
 
         def load(g: int):
@@ -139,15 +151,15 @@ class MelLoader:
         with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
             for b in range(num_batches):
                 tgt = self.crop_for_batch(epoch, b)
-                gidxs = [b * bs + i for i in range(bs)]
+                gidxs = [b * bs + i for i in range(self.rows.start, self.rows.stop)]
                 mels = list(pool.map(load, gidxs))
                 c = self.mel_channels
                 if c is None:
                     c = next((m.shape[1] for m in mels if m is not None), None)
                     if c is None:
                         continue  # the whole batch failed; channels unknown
-                mel = np.zeros((bs, tgt, c), np.float32)
-                lengths = np.zeros((bs,), np.int32)
+                mel = np.zeros((lb, tgt, c), np.float32)
+                lengths = np.zeros((lb,), np.int32)
                 names = []
                 for i, (g, m) in enumerate(zip(gidxs, mels)):
                     if m is None:

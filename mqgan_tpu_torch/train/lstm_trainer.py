@@ -14,7 +14,11 @@ Usage: python -m mqgan_tpu_torch.train.lstm_trainer --chunks_dir D
        [--arch transformer --flash_lm --bf16 ...]
 
 ``--flash_lm`` on a card runs the transformer's attention through the
-hand-written flash kernels (``csrc/flash_attention.cu``).
+hand-written flash kernels (``csrc/flash_attention.cu``). ``--pipe N
+--pipe_micro M`` pipelines the LSTM stack (``parallel/pipeline.py``: one
+layer a stage, N == --lstm_layers, a GPipe schedule of M microbatches;
+equal values and gradients); stage i runs on visible card i mod count, so
+one card holds every stage when there is one (``--device cpu``: the CPU).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from mqgan_tpu_torch.core.device import resolve_device
 from mqgan_tpu_torch.models.music_lstm import MusicLSTM, masked_ce_loss
+from mqgan_tpu_torch.parallel.pipeline import music_lstm_pipelined_logits
 from mqgan_tpu_torch.train.state import ClipAdamW
 from mqgan_tpu_torch.utils.logging import MetricsLogger
 from mqgan_tpu_torch.utils.npy import load_npy
@@ -108,17 +113,25 @@ def batches(ds: MusicChunkDataset, idxs, batch_size, pad_id,
         yield collate_music(seqs, genres, pad_id)
 
 
-def make_lstm_step(model, tx: ClipAdamW, pad_id: int, train: bool):
+def make_lstm_step(model, tx: ClipAdamW, pad_id: int, train: bool,
+                   pipe_devices=None, pipe_micro: int = 4):
     """One LM step for either arch. Train: ``step(opt_state, tokens, genres,
     lengths, generator) -> loss`` updates the model's parameters and
     ``opt_state`` in place (dropout from the CPU ``generator``). Eval:
     ``step(tokens, genres, lengths) -> (loss, n_valid)``. Tensors stay on
-    the device; nothing synchronises with the host."""
+    the device; nothing synchronises with the host. ``pipe_devices``: the
+    LSTM's stack pipelined over them (one layer each, ``pipe_micro``
+    microbatches)."""
 
     def loss_fn(tokens, genres, lengths, generator):
         inp, tgt = tokens[:, :-1], tokens[:, 1:]
-        logits = model(inp, genres, lengths - 1, deterministic=not train,
-                       generator=generator)
+        if pipe_devices is not None:
+            logits = music_lstm_pipelined_logits(
+                model, inp, genres, pipe_devices, pipe_micro,
+                deterministic=not train, generator=generator)
+        else:
+            logits = model(inp, genres, lengths - 1, deterministic=not train,
+                           generator=generator)
         return masked_ce_loss(logits, tgt, pad_id)
 
     if not train:
@@ -138,6 +151,15 @@ def make_lstm_step(model, tx: ClipAdamW, pad_id: int, train: bool):
         return loss.detach()
 
     return train_step
+
+
+def pipe_stage_devices(n_stages: int, device: torch.device) -> list:
+    """Stage i's device: visible card i mod count on CUDA (so one card
+    holds every stage when there is one), the CPU on the CPU."""
+    if device.type != "cuda":
+        return [device] * n_stages
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n_stages)]
 
 
 def load_pretrained(model, path: str) -> None:
@@ -207,9 +229,12 @@ def parse_args(argv=None):
                         "lstm), or an .npz of flattened JAX params "
                         "(tools/jax_generator_to_npz.py converts orbax dirs)")
     p.add_argument("--pipe", type=int, default=0, metavar="N",
-                   help="pipeline parallelism of the LSTM stack: not ported "
-                        "yet (ROADMAP.md Queue 1 item 8b)")
-    p.add_argument("--pipe_micro", type=int, default=4, metavar="M")
+                   help="pipeline parallelism of the LSTM stack: N stages "
+                        "(== --lstm_layers), stage i on visible card i mod "
+                        "count")
+    p.add_argument("--pipe_micro", type=int, default=4, metavar="M",
+                   help="microbatches of the --pipe schedule (divides "
+                        "--batch_size)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; no card is an error) or cpu")
     return p.parse_args(argv)
@@ -221,8 +246,16 @@ def main(argv=None):
 
     args = parse_args(argv)
     if args.pipe:
-        raise SystemExit("--pipe: the pipeline-parallel LSTM stack is not "
-                         "ported yet (ROADMAP.md Queue 1 item 8b)")
+        if args.arch != "lstm":
+            raise SystemExit("--pipe pipelines the LSTM stack: --arch "
+                             "transformer is not pipelined (as in the JAX "
+                             "trainer)")
+        if args.pipe != args.lstm_layers:
+            raise SystemExit(f"--pipe {args.pipe} must equal --lstm_layers "
+                             f"{args.lstm_layers} (one layer a stage)")
+        if args.batch_size % args.pipe_micro:
+            raise SystemExit(f"--batch_size {args.batch_size} not divisible by "
+                             f"--pipe_micro {args.pipe_micro}")
     device = resolve_device(args.device)
     if args.flash_blocks:
         print(f"--flash_blocks {args.flash_blocks} recorded, not used: the "
@@ -252,8 +285,19 @@ def main(argv=None):
 
     tx = ClipAdamW(args.lr, args.max_grad_norm)
     opt_state = tx.init(model.parameters())
-    train_step = make_lstm_step(model, tx, args.pad_id, train=True)
-    eval_step = make_lstm_step(model, tx, args.pad_id, train=False)
+    pipe_devices = None
+    if args.pipe:
+        pipe_devices = pipe_stage_devices(args.pipe, device)
+        print(f"pipeline parallel: {args.pipe} stages x {args.pipe_micro} "
+              f"microbatches on {[str(d) for d in pipe_devices]}"
+              + (" (stages share a device)"
+                 if len(set(pipe_devices)) < len(pipe_devices) else ""))
+    train_step = make_lstm_step(model, tx, args.pad_id, train=True,
+                                pipe_devices=pipe_devices,
+                                pipe_micro=args.pipe_micro)
+    eval_step = make_lstm_step(model, tx, args.pad_id, train=False,
+                               pipe_devices=pipe_devices,
+                               pipe_micro=args.pipe_micro)
     gen = torch.Generator().manual_seed(args.seed + 1)
 
     def on_device(batch):

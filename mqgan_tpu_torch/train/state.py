@@ -9,6 +9,13 @@ EMA on, a moving-average copy of the generator. ``state_dict`` /
 ``load_state_dict`` round-trip all of it, the generators' states included,
 so that a resumed run continues their streams.
 
+Data-parallel ranks (``parallel/dp.py``) start from rank 0's state
+(``TrainState.replicate_``) and fold their rank into the random
+generators' seeds (``rank_seed``), so that no two ranks draw the same
+dropout mask or FSQ noise for different rows; rank 0 draws what one
+process would. The draws therefore depend on the number of ranks, which
+JAX's (one key over the global batch) do not.
+
 Optimizers, as the JAX package builds them with optax: clip by global norm,
 then Adam with no weight decay; G with the linear warmup
 lr * min((count + 1) / warmup_steps, 1) and betas (beta1, beta2), D with
@@ -29,6 +36,16 @@ from torch import nn
 
 from mqgan_tpu_torch.core.config import TrainingConfig
 from mqgan_tpu_torch.losses.gan import LeCamState
+from mqgan_tpu_torch.parallel.multihost import replicate_
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """``seed`` on rank 0; another 63-bit seed a rank elsewhere."""
+    if rank == 0:
+        return seed
+    import numpy as np
+
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1, np.uint64)[0] >> 1)
 
 
 def warmup_schedule(lr: float, warmup_steps: int) -> Callable[[int], float]:
@@ -188,6 +205,35 @@ class TrainState:
                         else self.gen_ema.state_dict()),
         }
 
+    def tensors(self) -> list:
+        """Every tensor of the state that ranks must agree on: parameters,
+        buffers (spectral stats), optimizer moments, LeCam, the EMA."""
+        mods = [self.gen, self.patch, self.multibin]
+        if self.gen_ema is not None:
+            mods.append(self.gen_ema)
+        out = [t for m in mods for t in list(m.parameters()) + list(m.buffers())]
+        for opt in (self.gen_opt, self.disc_opt):
+            out += opt.mu + opt.nu
+        return out + [self.lecam.ema_real, self.lecam.ema_fake]
+
+    @torch.no_grad()
+    def replicate_(self) -> None:
+        """Rank 0's state on every rank (identity in one process)."""
+        init = self.lecam.initialized.float()
+        replicate_(self.tensors() + [init])
+        self.lecam = self.lecam._replace(initialized=init > 0)
+
+    def fork_streams(self, rank: int) -> None:
+        """Give rank ``rank`` > 0 random streams of its own, drawn from the
+        current ones (a restored checkpoint holds rank 0's)."""
+        if rank == 0:
+            return
+        for gen in (self.dropout_rng, self.fsq_rng):
+            if gen is not None:
+                seed = int(torch.randint(0, 2**62, (1,), generator=gen,
+                                         device=gen.device))
+                gen.manual_seed(rank_seed(seed, rank))
+
     def load_state_dict(self, d: dict) -> None:
         """Restore in place; a checkpoint without an EMA seeds the EMA (when
         on) from the restored generator, one with an EMA restores it only
@@ -214,15 +260,16 @@ def _rng_state(gen: torch.Generator | None):
 
 
 def create_train_state(gen: nn.Module, patch: nn.Module, multibin: nn.Module,
-                       cfg: TrainingConfig, device, ema: bool = False
-                       ) -> TrainState:
+                       cfg: TrainingConfig, device, ema: bool = False,
+                       rank: int = 0) -> TrainState:
     """The initial state around freshly built models (already on
-    ``device``); the generators are seeded from ``cfg.seed``."""
+    ``device``); the generators are seeded from ``cfg.seed`` (and ``rank``,
+    ``rank_seed``)."""
     gen_opt, disc_opt = make_optimizers(
         cfg, gen.parameters(),
         list(patch.parameters()) + list(multibin.parameters()))
-    dropout_rng = torch.Generator(device=device).manual_seed(cfg.seed)
-    fsq_rng = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    dropout_rng = torch.Generator(device=device).manual_seed(rank_seed(cfg.seed, rank))
+    fsq_rng = torch.Generator(device=device).manual_seed(rank_seed(cfg.seed + 1, rank))
     gen_ema = None
     if ema:
         gen_ema = copy.deepcopy(gen)

@@ -29,6 +29,17 @@ optimizer update per phase; the LeCam EMA chain is rebuilt from logit sums
 over ALL microbatches before any D gradient is taken, so that it equals
 the one-pass step's. It costs one extra generator forward and one extra
 discriminator forward per step.
+
+Data parallelism (``dp``, ``parallel/dp.py``): each rank runs the step on
+its rows of the global batch. Every masked mean divides the rank's partial
+sum by the global batch's valid count (``GlobalCounts``, from the global
+lengths); the LeCam chain is built from the (sum, count) pairs of the
+logits of every rank; the gradients are summed over the ranks before the
+clip and Adam, so every rank takes the same step; the loss metrics and the
+code histogram are summed too. These are the reductions GSPMD inserts into
+the JAX package's sharded step (``gan/allreduce`` ranges). ``grad_accum``
+composes: the local batch divides by it, so the ranks' microbatch i is
+the global microbatch i.
 """
 
 from __future__ import annotations
@@ -40,18 +51,72 @@ import torch
 from torch.profiler import record_function
 
 from mqgan_tpu_torch.core.config import TrainConfig
-from mqgan_tpu_torch.losses.gan import (discriminator_loss,
-                                        discriminator_loss_fixed_ema,
+from mqgan_tpu_torch.core.masking import sequence_mask
+from mqgan_tpu_torch.losses.gan import (LeCamState, discriminator_loss_fixed_ema,
                                         generator_loss, masked_sum_count,
                                         update_ema_from_means)
 from mqgan_tpu_torch.losses.recon import masked_mae, masked_mel_loss
 from mqgan_tpu_torch.models.discriminators import (
     MelSpectrogramPatchDiscriminator2D, MultiBinDiscriminator)
 from mqgan_tpu_torch.models.preencoder import PreEncoder
+from mqgan_tpu_torch.parallel.dp import DataParallel
 from mqgan_tpu_torch.train.state import TrainState
 from mqgan_tpu_torch.utils.logging import component
 
 Metrics = Dict[str, torch.Tensor | float]
+
+
+class GlobalCounts:
+    """The valid counts of a step's masked means over the global batch, from
+    its ``lengths`` (crop length ``t``): frames for the recon losses; the
+    patches of the patch discriminator's logits and of each feature map it
+    returns; the patches of bin 0's logits (every bin's losses use bin 0's
+    masks, the reference quirk) and of each bin's feature maps."""
+
+    def __init__(self, state: TrainState, lengths: torch.Tensor, t: int,
+                 discs: bool):
+        self.frames = (~sequence_mask(t, lengths)).sum()
+        self.patch_logits = self.bin_logits = None
+        self.patch_feats, self.bin_feats = [], []
+        if discs:
+            self.patch_logits, self.patch_feats = self._of(state.patch, lengths, t)
+            per_bin = [self._of(d, lengths, t)
+                       for d in state.multibin.discriminators]
+            self.bin_logits = per_bin[0][0]
+            self.bin_feats = [feats for _, feats in per_bin]
+
+    @staticmethod
+    def _of(disc, lengths, t):
+        masks = disc.pad_masks(lengths, t)[1:]  # after each conv
+        feats = [(~m).sum() for m, keep in zip(masks, disc.ret_features_map)
+                 if keep]
+        return (~masks[-1]).sum(), feats
+
+    def d_calls(self, n_bins: int) -> list:
+        """Per D loss call, in ``d_forward``'s order."""
+        return [self.patch_logits] + [self.bin_logits] * n_bins
+
+
+def lecam_sums(calls) -> torch.Tensor:
+    """(len(calls), 4): each D loss call's (real sum, real count, fake sum,
+    fake count) of its logits, detached, for the LeCam chain."""
+    rows = []
+    for r_l, f_l, r_m, f_m in calls:
+        sr, cr = masked_sum_count(r_l.detach(), r_m)
+        sf, cf = masked_sum_count(f_l.detach(), f_m)
+        rows.append(torch.stack([sr, cr, sf, cf]))
+    return torch.stack(rows)
+
+
+def lecam_chain(state: LeCamState, sums: torch.Tensor) -> list:
+    """The LeCam state after each D loss call: the EMAs chained through the
+    calls' logit means (sum / max(count, 1))."""
+    chain = []
+    for c in range(sums.shape[0]):
+        state = update_ema_from_means(state, sums[c, 0] / sums[c, 1].clamp_min(1.0),
+                                      sums[c, 2] / sums[c, 3].clamp_min(1.0))
+        chain.append(state)
+    return chain
 
 
 def build_models(cfg: TrainConfig, dtype: torch.dtype | None = None):
@@ -79,14 +144,17 @@ def codebook_metrics(usage: torch.Tensor) -> Metrics:
 
 def make_train_step(cfg: TrainConfig, *, train_d: bool,
                     dtype: torch.dtype | None = None, grad_accum: int = 1,
-                    ema_decay: float = 0.0, log_grad_norms: bool = False
+                    ema_decay: float = 0.0, log_grad_norms: bool = False,
+                    dp: DataParallel | None = None
                     ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Metrics]:
     """A step for one phase: ``step(state, mel, lengths)`` updates
     ``state`` in place and returns its metrics (device scalars, read by the
     caller when it logs). mel (B, T, mels) fp32 on the state's device,
     lengths (B,) int. ``log_grad_norms`` adds the gradients' global norms
     before clipping (G, D, and G per component); ``ema_decay`` > 0 updates
-    ``state.gen_ema`` after each G update."""
+    ``state.gen_ema`` after each G update. ``dp``: this rank's place in a
+    data-parallel step (mel and lengths are its rows of the global batch);
+    None is one process."""
     w = cfg.training.loss_weights
     use_fm = bool(cfg.training.use_fm_loss) and train_d
     n_bins = cfg.model.discriminator_multibin.n_bins
@@ -96,10 +164,29 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
     cb = cfg.model.generator.codebook_size
     lr, warmup = cfg.training.lr, cfg.training.warmup_steps
 
-    def recon(x, y, lengths):
-        return (masked_mel_loss(x, y, lengths, loss_type="mse")
+    def recon(x, y, lengths, count):
+        return (masked_mel_loss(x, y, lengths, loss_type="mse", count=count)
                 + 0.25 * masked_mel_loss(x, y, lengths, loss_type="mse",
-                                         group_size=group))
+                                         group_size=group, count=count))
+
+    def reduce(fn):
+        """Run ``fn``, a data-parallel reduction, in its profiler range;
+        nothing without dp."""
+        if dp is not None:
+            with record_function("gan/allreduce"):
+                fn()
+
+    def d_losses(calls, chain, counts):
+        """The D loss of a step or microbatch: patch + mean over the bins,
+        each call against its link of the LeCam chain."""
+        cs = counts.d_calls(n_bins) if counts is not None else [None] * n_calls
+        loss_mbd = torch.zeros((), device=calls[0][0].device)
+        for j in range(n_bins):
+            loss_mbd = loss_mbd + discriminator_loss_fixed_ema(
+                *calls[1 + j], ema_state=chain[1 + j], count=cs[1 + j])
+        return (discriminator_loss_fixed_ema(*calls[0], ema_state=chain[0],
+                                             count=cs[0])
+                + loss_mbd / n_bins)
 
     def d_forward(state, both, lengths2, b, update_stats):
         """Per D loss call (real logits, fake logits, real mask, fake mask)
@@ -112,13 +199,15 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
             calls.append((l2[i][:b], l2[i][b:], m2[0][:b], m2[0][b:]))
         return calls
 
-    def g_total_loss(state, r_pre, r_post, mel_t, mel_c, lengths):
+    def g_total_loss(state, r_pre, r_post, mel_t, mel_c, lengths, counts=None):
         """The G loss terms against the (already updated) discriminators;
         mel_t is the fp32 target, mel_c the compute-dtype input that
-        feature matching runs through the discriminators as 'real'."""
+        feature matching runs through the discriminators as 'real';
+        ``counts``: the global batch's (``GlobalCounts``) or None."""
         zero = torch.zeros((), device=mel_t.device)
-        loss_recon_pre = recon(r_pre, mel_t, lengths)
-        loss_recon_post = recon(r_post, mel_t, lengths)
+        c = counts
+        loss_recon_pre = recon(r_pre, mel_t, lengths, c and c.frames)
+        loss_recon_post = recon(r_post, mel_t, lengths, c and c.frames)
         loss_gan = loss_fm = zero
         if train_d:
             b = r_post.shape[0]
@@ -138,19 +227,23 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
                 g_l2, g_m2 = state.multibin(r_post, lengths)
             loss_gan_mbd = zero
             for i in range(n_bins):
-                loss_gan_mbd = loss_gan_mbd + generator_loss(g_l2[i], g_m2[0])
-            loss_gan = 0.5 * (generator_loss(g_logits, g_mask)
+                loss_gan_mbd = loss_gan_mbd + generator_loss(
+                    g_l2[i], g_m2[0], count=c and c.bin_logits)
+            loss_gan = 0.5 * (generator_loss(g_logits, g_mask,
+                                             count=c and c.patch_logits)
                               + loss_gan_mbd / n_bins)
             if use_fm:
                 loss_fm_d1 = zero
-                for rf, rmask, ff in pairs:
-                    loss_fm_d1 = loss_fm_d1 + masked_mae(ff, rf, rmask)
+                for j, (rf, rmask, ff) in enumerate(pairs):
+                    loss_fm_d1 = loss_fm_d1 + masked_mae(
+                        ff, rf, rmask, count=c and c.patch_feats[j])
                 if pairs:
                     loss_fm_d1 = loss_fm_d1 / len(pairs)
                 loss_fm_mbd = zero
-                for fs in pairs2:
-                    for rf, rmask, ff in fs:
-                        loss_fm_mbd = loss_fm_mbd + masked_mae(ff, rf, rmask)
+                for k, fs in enumerate(pairs2):
+                    for j, (rf, rmask, ff) in enumerate(fs):
+                        loss_fm_mbd = loss_fm_mbd + masked_mae(
+                            ff, rf, rmask, count=c and c.bin_feats[k][j])
                     if fs:  # reference quirk: compounding division
                         loss_fm_mbd = loss_fm_mbd / len(fs)
                 if pairs2:
@@ -197,46 +290,60 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
         metrics.update(codebook_metrics(usage))
         return metrics
 
+    def reduce_g(state, losses, usage):
+        """After the G backward: the G gradients, the loss metrics and the
+        code histogram summed over the ranks."""
+        if dp is None:
+            return losses, usage
+        with record_function("gan/allreduce"):
+            dp.reduce_grads_(state.gen_opt.params)
+            keys = list(losses)
+            vec = torch.stack([losses[k] for k in keys])
+            hist = usage.float()
+            dp.reduce_metrics_([vec, hist])
+        return dict(zip(keys, vec.unbind())), hist
+
     def step(state: TrainState, mel: torch.Tensor, lengths: torch.Tensor
              ) -> Metrics:
         # the record_function ranges name the step's parts in a profile
         mel_c = mel.to(dtype) if dtype is not None else mel
+        counts = (None if dp is None else
+                  GlobalCounts(state, dp.count_lengths(lengths), mel.shape[1], train_d))
         with record_function("gan/g_forward"):
             r_pre, r_post, indices = gen_forward(state, mel_c, lengths)
         metrics: Metrics = {}
+        loss_d = torch.zeros((), device=mel.device)
         if train_d:
             with record_function("gan/d_forward"):
                 b = mel.shape[0]
                 both = torch.cat([mel_c, r_post.detach()])
                 calls = d_forward(state, both, torch.cat([lengths, lengths]), b,
                                   update_stats=True)
-                loss_d1, lecam = discriminator_loss(*calls[0], state=state.lecam)
-                loss_mbd = torch.zeros((), device=mel.device)
-                for i in range(n_bins):
-                    li, lecam = discriminator_loss(*calls[1 + i], state=lecam)
-                    loss_mbd = loss_mbd + li
-                loss_d = loss_d1 + loss_mbd / n_bins
+                sums = lecam_sums(calls)
+                reduce(lambda: dp.reduce_sums_([sums]))
+                chain = lecam_chain(state.lecam, sums)
+                loss_d = d_losses(calls, chain, counts)
             with record_function("gan/d_backward"):
                 state.disc_opt.zero_grad()
                 loss_d.backward(inputs=state.disc_opt.params)
+            reduce(lambda: dp.reduce_grads_(state.disc_opt.params))
             with record_function("gan/d_optimizer"):
                 d_norm = state.disc_opt.step()
-            state.lecam = lecam
-            metrics["loss_d"] = loss_d.detach()
+            state.lecam = chain[-1]
             if log_grad_norms:
                 metrics["grad_norm/disc"] = d_norm
-        else:
-            metrics["loss_d"] = torch.zeros((), device=mel.device)
         with record_function("gan/g_loss"):
-            total, g_metrics = g_total_loss(state, r_pre, r_post, mel, mel_c,
-                                            lengths)
+            total, losses = g_total_loss(state, r_pre, r_post, mel, mel_c,
+                                         lengths, counts)
         with record_function("gan/g_backward"):
             state.gen_opt.zero_grad()
             total.backward(inputs=state.gen_opt.params)
+        losses, usage = reduce_g(state, {"loss_d": loss_d.detach(), **losses},
+                                 usage_of(indices))
         with record_function("gan/g_optimizer"):
             g_norm = state.gen_opt.step()
-            metrics.update(g_metrics)
-            return finish(state, metrics, g_norm, usage_of(indices))
+            metrics.update(losses)
+            return finish(state, metrics, g_norm, usage)
 
     def step_accum(state: TrainState, mel: torch.Tensor, lengths: torch.Tensor
                    ) -> Metrics:
@@ -245,7 +352,21 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
         if big_b % n:
             raise ValueError(f"batch {big_b} not divisible by grad_accum {n}")
         b = big_b // n
-        stripe = torch.arange(big_b, device=mel.device).reshape(b, n).t().reshape(-1)
+
+        def striped(rows):
+            return torch.arange(rows, device=mel.device).reshape(rows // n, n).t().reshape(-1)
+
+        # each microbatch's counts: with dp, of the global microbatch (the
+        # local batch divides by n, so the ranks' microbatch i is the
+        # global microbatch i)
+        counts = [None] * n
+        if dp is not None:
+            cl = dp.count_lengths(lengths)
+            cl = cl[striped(cl.shape[0])]
+            bg = cl.shape[0] // n
+            counts = [GlobalCounts(state, cl[i * bg:(i + 1) * bg], mel.shape[1],
+                                   train_d) for i in range(n)]
+        stripe = striped(big_b)
         mel, lengths = mel[stripe], lengths[stripe]
         mel_c_full = mel.to(dtype) if dtype is not None else mel
         zero = torch.zeros((), device=mel.device)
@@ -256,6 +377,7 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
         gens = [g for g in (state.dropout_rng, state.fsq_rng) if g is not None]
         starts = []  # each microbatch's generator states, replayed by pass 3
         metrics: Metrics = {}
+        loss_d = zero
         if train_d:
             # pass 1, forward only: the fakes, and the per-call logit
             # (sum, count) pairs of the whole batch for the LeCam chain
@@ -269,18 +391,10 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
                     len_i = micro(lengths, i)
                     calls = d_forward(state, torch.cat([micro(mel_c_full, i), post]),
                                       torch.cat([len_i, len_i]), b, False)
-                    rows = []
-                    for r_l, f_l, r_m, f_m in calls:
-                        sr, cr = masked_sum_count(r_l, r_m)
-                        sf, cf = masked_sum_count(f_l, f_m)
-                        rows.append(torch.stack([sr, cr, sf, cf]))
-                    sums += torch.stack(rows)
+                    sums += lecam_sums(calls)
                     fakes.append(post)
-            chain, s = [], state.lecam
-            for c in range(n_calls):
-                s = update_ema_from_means(s, sums[c, 0] / sums[c, 1].clamp_min(1.0),
-                                          sums[c, 2] / sums[c, 3].clamp_min(1.0))
-                chain.append(s)
+            reduce(lambda: dp.reduce_sums_([sums]))
+            chain = lecam_chain(state.lecam, sums)
             # pass 2: D gradients summed over microbatches, then averaged
             state.disc_opt.zero_grad()
             loss_sum = zero
@@ -288,28 +402,22 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
                 len_i = micro(lengths, i)
                 calls = d_forward(state, torch.cat([micro(mel_c_full, i), fakes[i]]),
                                   torch.cat([len_i, len_i]), b, False)
-                loss_mbd = zero
-                for j in range(n_bins):
-                    loss_mbd = loss_mbd + discriminator_loss_fixed_ema(
-                        *calls[1 + j], ema_state=chain[1 + j])
-                loss_i = (discriminator_loss_fixed_ema(*calls[0], ema_state=chain[0])
-                          + loss_mbd / n_bins)
+                loss_i = d_losses(calls, chain, counts[i])
                 loss_i.backward(inputs=state.disc_opt.params)
                 loss_sum = loss_sum + loss_i.detach()
             with torch.no_grad():
                 torch._foreach_div_([p.grad for p in state.disc_opt.params
                                      if p.grad is not None], n)
+            reduce(lambda: dp.reduce_grads_(state.disc_opt.params))
             # the power iteration depends only on the (old) weights and u:
             # the one update the one-pass step's D forward writes
             for conv in state.patch.spectral_convs() + state.multibin.spectral_convs():
                 conv.update_stats()
             d_norm = state.disc_opt.step()
-            state.lecam = s
-            metrics["loss_d"] = loss_sum / n
+            state.lecam = chain[-1]
+            loss_d = loss_sum / n
             if log_grad_norms:
                 metrics["grad_norm/disc"] = d_norm
-        else:
-            metrics["loss_d"] = zero
         # pass 3: G gradients against the UPDATED discriminators; each
         # microbatch replays pass 1's draws, so its outputs are the fakes
         # the D update saw
@@ -323,7 +431,8 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
             r_pre, r_post, idx = gen_forward(state, micro(mel_c_full, i),
                                              micro(lengths, i))
             total, g_metrics = g_total_loss(state, r_pre, r_post, micro(mel, i),
-                                            micro(mel_c_full, i), micro(lengths, i))
+                                            micro(mel_c_full, i), micro(lengths, i),
+                                            counts[i])
             total.backward(inputs=state.gen_opt.params)
             for k, v in g_metrics.items():
                 sums_g[k] = sums_g.get(k, zero) + v
@@ -331,8 +440,11 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
         with torch.no_grad():
             torch._foreach_div_([p.grad for p in state.gen_opt.params
                                      if p.grad is not None], n)
+        losses, usage = reduce_g(state, {"loss_d": loss_d,
+                                         **{k: v / n for k, v in sums_g.items()}},
+                                 usage)
         g_norm = state.gen_opt.step()
-        metrics.update({k: v / n for k, v in sums_g.items()})
+        metrics.update(losses)
         return finish(state, metrics, g_norm, usage)
 
     return step_accum if grad_accum > 1 else step

@@ -17,12 +17,25 @@ CLI:  python -m mqgan_tpu_torch.train.trainer --config model.yaml
       [--device cuda|cpu] [--fp32] [--pretrained CKPT] [--output_dir DIR]
       [--no_wandb] [--ema DECAY] [--keep_best] [--grad_accum N] [--remat]
       [--remat_refiner] [--exact_dropout] [--profile N] [--watch N]
+      [--multihost [--coordinator HOST:PORT --num_processes N
+      --process_id I]]
 
 The trainer runs on CUDA unless ``--device cpu`` is given; without a card
-CUDA is an error. JAX's ``--compile_cache``, ``--rng_impl`` and
-``--async_checkpoint`` are not accepted (XLA compile, JAX PRNG and orbax
-knobs); ``--multihost`` and ``--seq_par`` > 1 raise (ROADMAP.md Queue 1
-item 8b).
+CUDA is an error. Data parallelism follows JAX's "every local device": with
+more than one visible card and no ``--multihost`` it starts one rank per
+card itself (NCCL, ``spawn_ranks``: a signal to that process reaches the
+ranks as a request to stop, and it waits for their checkpoint). ``--multihost``
+joins a group instead: from ``--coordinator --num_processes --process_id``,
+or from a launcher's environment (``torchrun --nproc_per_node N -m
+mqgan_tpu_torch.train.trainer --multihost``). ``batch_size`` is global; each
+rank trains on its rows of every batch and the step's reductions make it
+the one-process step (``train/step.py``, ``parallel/dp.py``). Only rank 0
+writes metrics, plots and checkpoints and runs the eval, on its own card,
+while the others wait; a signal on any rank stops every rank at the next
+step that logs (or the epoch's end), as one decision. JAX's
+``--compile_cache``, ``--rng_impl`` and ``--async_checkpoint`` are not
+accepted (XLA compile, JAX PRNG and orbax knobs); ``--seq_par`` > 1 raises
+(sequence-parallel training is ROADMAP.md Queue 1 item 8c).
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ import dataclasses
 import json
 import os
 import signal
+import sys
 import time
 from typing import Dict
 
@@ -42,6 +56,8 @@ from mqgan_tpu_torch.core.buckets import BucketPolicy
 from mqgan_tpu_torch.core.chunking import chunk_plan, generator_halos, halo_align
 from mqgan_tpu_torch.core.config import TrainConfig, load_model_config
 from mqgan_tpu_torch.core.device import resolve_device
+from mqgan_tpu_torch.parallel import multihost
+from mqgan_tpu_torch.parallel.dp import DataParallel, any_flag, barrier, world
 from mqgan_tpu_torch.parallel.mesh import local_devices
 from mqgan_tpu_torch.parallel.seqpar import plan_seq_reencode, seq_parallel_reencode
 from mqgan_tpu_torch.train.data import (DevicePrefetcher, MelDataset, MelLoader,
@@ -50,7 +66,7 @@ from mqgan_tpu_torch.train.state import create_train_state
 from mqgan_tpu_torch.train.step import build_models, make_eval_step, make_train_step
 from mqgan_tpu_torch.utils import checkpoint as ckpt_utils
 from mqgan_tpu_torch.utils.init import seeded_init_
-from mqgan_tpu_torch.utils.logging import MetricsLogger, tree_stats
+from mqgan_tpu_torch.utils.logging import MetricsLogger, NullLogger, tree_stats
 
 # the eval windows: the JAX trainer's first six inference buckets
 EVAL_BUCKETS = (64, 128, 192, 256, 384, 512)
@@ -78,23 +94,34 @@ class Trainer:
         self._profiler = None
         self.watch_interval = watch_interval
         self.start_epoch = 1
+        # data parallelism: this process's rank in its group (one process:
+        # no reductions, self.dp None)
+        self.rank, self.world = world()
+        self.dp = DataParallel(self.rank, self.world) if self.world > 1 else None
+        self.is_primary = self.rank == 0
         # set by SIGTERM/SIGINT: the epoch stops at the next step boundary
-        # and train() checkpoints before it returns
-        self._stop_requested = False
+        # (with ranks, the next one where they agree) and train()
+        # checkpoints before it returns. _signalled: this process had a
+        # signal (a second one force-quits); with ranks, _stop_requested
+        # may also be the group's decision
+        self._stop_requested = self._signalled = False
         self._collapse_streak = 0
         self._collapse_warned = False
         self._steps: Dict[bool, callable] = {}
         self._eval_step = make_eval_step()
         # the exact eval's devices: None is every visible card (the CPU
-        # alone for a CPU run); a list (which may repeat a device) overrides
-        self.eval_devices = None
+        # alone for a CPU run); a list (which may repeat a device) overrides;
+        # with ranks, rank 0's own device (the other cards train)
+        self.eval_devices = [self.device] if self.dp is not None else None
         self._setup_data()
         self._setup_state()
         log_cfg = config.logging
-        self.logger = MetricsLogger(
-            config.data.output_dir,
-            wandb_project=log_cfg.wandb.project if use_wandb else None,
-            wandb_entity=log_cfg.wandb.entity, config=config.to_dict())
+        self.logger = NullLogger()
+        if self.is_primary:
+            self.logger = MetricsLogger(
+                config.data.output_dir,
+                wandb_project=log_cfg.wandb.project if use_wandb else None,
+                wandb_entity=log_cfg.wandb.entity, config=config.to_dict())
 
     def _setup_data(self):
         cfg = self.config
@@ -105,10 +132,20 @@ class Trainer:
             files, cfg.data.validation_split, cfg.training.seed)
         print(f"Dataset: {len(files)} files -> {len(train_files)} train / "
               f"{len(eval_files)} eval")
+        if self.dp is not None:
+            if cfg.data.batch_size % (self.world * self.grad_accum):
+                raise ValueError(f"batch_size {cfg.data.batch_size} does not "
+                                 f"divide over {self.world} ranks x grad_accum "
+                                 f"{self.grad_accum}")
+            print(f"data parallel: rank {self.rank} of {self.world}, local batch "
+                  f"{cfg.data.batch_size // self.world}")
+        # every rank keeps the whole file list and builds the same global
+        # plan; it loads its rows of each batch
         self.train_loader = MelLoader(
             MelDataset(train_files), batch_size=cfg.data.batch_size,
             crop_lens=cfg.crop_lens, seed=cfg.training.seed,
-            mel_channels=cfg.model.mel_channels)
+            mel_channels=cfg.model.mel_channels, process_index=self.rank,
+            process_count=self.world)
         self.eval_dataset = MelDataset(eval_files)
 
     def _setup_state(self):
@@ -119,12 +156,15 @@ class Trainer:
             seeded_init_(model, seed + i)
         self.state = create_train_state(
             gen.to(self.device), patch.to(self.device), mb.to(self.device),
-            cfg.training, self.device, ema=self.ema_decay > 0)
+            cfg.training, self.device, ema=self.ema_decay > 0, rank=self.rank)
+        self.state.replicate_()
+        # every rank reads the same checkpoint or warm start
         latest = ckpt_utils.latest_checkpoint(cfg.data.output_dir)
         if latest is not None:
             path, epoch = latest
             print(f"Resuming from {path} (epoch {epoch})")
             ckpt_utils.restore_checkpoint(path, self.state)
+            self.state.fork_streams(self.rank)
             self.start_epoch = epoch + 1
         elif cfg.training.pretrained:
             path = cfg.training.pretrained
@@ -144,8 +184,16 @@ class Trainer:
             self._steps[train_d] = make_train_step(
                 self.config, train_d=train_d, dtype=self.dtype,
                 grad_accum=self.grad_accum, ema_decay=self.ema_decay,
-                log_grad_norms=bool(self.watch_interval))
+                log_grad_norms=bool(self.watch_interval), dp=self.dp)
         return self._steps[train_d]
+
+    def _agree_stop(self) -> bool:
+        """Whether to stop here: in one process the signal flag; with ranks
+        one collective decision (any rank's signal stops every rank at the
+        same step; a MAX reduction)."""
+        if self.dp is not None:
+            self._stop_requested = any_flag(self._stop_requested, self.device)
+        return self._stop_requested
 
     def _eval_gen(self):
         """The weights that eval, plots and --keep_best use: the EMA's when
@@ -162,19 +210,22 @@ class Trainer:
         t0 = time.time()
         try:
             for mel, lengths, host_batch in it:
-                if self.profile_steps and epoch == self.start_epoch:
+                if self.profile_steps and epoch == self.start_epoch and self.is_primary:
                     self._maybe_profile(n)
                 metrics = step_fn(self.state, mel, lengths)
                 n += 1
-                frames += mel.shape[0] * mel.shape[1]
+                # the global batch's frames: every rank's rows have this shape
+                frames += mel.shape[0] * mel.shape[1] * self.world
                 last_batch = host_batch
-                if self.watch_interval and n % self.watch_interval == 0:
+                if (self.watch_interval and n % self.watch_interval == 0
+                        and self.is_primary):
                     watch = tree_stats(self.state.gen.named_parameters(),
                                        prefix="param/gen")
                     watch.update({k: float(v) for k, v in metrics.items()
                                   if k.startswith("grad_norm")})
                     self.logger.log(watch, step=self.state.step)
-                if n % 10 == 0 or n == 1:
+                logged = n % 10 == 0 or n == 1
+                if logged:
                     last = {k: float(v) for k, v in metrics.items()}
                     bad = [k for k, v in last.items() if not np.isfinite(v)]
                     if bad:
@@ -184,7 +235,9 @@ class Trainer:
                     last["frames_per_sec"] = frames / max(time.time() - t0, 1e-9)
                     last["epoch"] = epoch
                     self.logger.log(last, step=self.state.step)
-                if self._stop_requested:
+                # with ranks, decide only where the metrics read above has
+                # synchronised the host already: no new sync inside a step
+                if (self.dp is None or logged) and self._agree_stop():
                     break
         finally:
             it.close()
@@ -254,8 +307,9 @@ class Trainer:
 
     def _log_train_images(self, epoch: int, batch):
         """Original / pre / post triptychs of the last train batch's rows,
-        through the live generator."""
-        if batch is None or self.config.logging.num_plot_examples <= 0:
+        through the live generator (rank 0's rows, on rank 0)."""
+        if (batch is None or self.config.logging.num_plot_examples <= 0
+                or not self.is_primary):
             return
         mel = torch.from_numpy(batch.mel).to(self.device)
         lengths = torch.from_numpy(batch.lengths).to(self.device)
@@ -392,20 +446,30 @@ class Trainer:
 
     def _install_signal_handlers(self):
         """SIGTERM/SIGINT -> finish the current step, checkpoint, exit; a
-        second signal raises KeyboardInterrupt. Returns the previous
-        handlers, or None off the main thread (signals cannot be set)."""
+        second signal raises KeyboardInterrupt. SIGUSR1 (what the spawning
+        parent of ``launch`` sends when it is signalled) stops alike and
+        never force-quits. Returns the previous handlers, or None off the
+        main thread (signals cannot be set)."""
 
         def request_stop(signum, frame):
-            if self._stop_requested:
+            if self._signalled:
                 raise KeyboardInterrupt
-            self._stop_requested = True
+            self._signalled = self._stop_requested = True
             print(f"signal {signum}: finishing the current step, then "
                   "checkpointing and exiting (signal again to force-quit)")
 
+        def parent_stop(signum, frame):
+            if not self._stop_requested:
+                print(f"signal {signum} from the launching process: finishing "
+                      "the current step, then checkpointing and exiting")
+            self._stop_requested = True
+
         prev = {}
-        for sig in (signal.SIGTERM, signal.SIGINT):
+        for sig, handler in ((signal.SIGTERM, request_stop),
+                             (signal.SIGINT, request_stop),
+                             (signal.SIGUSR1, parent_stop)):
             try:
-                prev[sig] = signal.signal(sig, request_stop)
+                prev[sig] = signal.signal(sig, handler)
             except ValueError:
                 return None
         return prev
@@ -417,7 +481,7 @@ class Trainer:
             for epoch in range(self.start_epoch, cfg.training.num_epochs + 1):
                 last = self.train_epoch(epoch)
                 print(f"Epoch {epoch}: {last}")
-                if self._stop_requested:
+                if self._agree_stop():
                     # tagged with the interrupted epoch: a resume starts at
                     # epoch + 1 and skips the tail of this one
                     self.save(epoch)
@@ -425,7 +489,10 @@ class Trainer:
                           "partial); checkpoint written.")
                     break
                 if epoch % cfg.logging.eval_interval == 0 and len(self.eval_dataset):
-                    self._maybe_save_best(epoch, self.evaluate(epoch))
+                    # rank 0 alone, on its own device; the others wait
+                    if self.is_primary:
+                        self._maybe_save_best(epoch, self.evaluate(epoch))
+                    barrier(self.device)
                 if epoch % cfg.logging.save_interval == 0:
                     self.save(epoch)
         finally:
@@ -477,10 +544,33 @@ def parse_args(argv=None):
                    help="each batch as N microbatches with one optimizer "
                         "update (the memory knob)")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported (ROADMAP.md Queue 1 item 8b)")
+                   help="join a data-parallel process group (torch.distributed): "
+                        "from --coordinator/--num_processes/--process_id, or "
+                        "from a launcher's RANK, WORLD_SIZE, MASTER_ADDR, "
+                        "MASTER_PORT (torchrun); batch_size is global. Without "
+                        "it, more than one visible card starts a rank per card")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="rank 0's address for --multihost")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--seq_par", type=int, default=1, metavar="N",
-                   help="not ported beyond 1 (ROADMAP.md Queue 1 item 8b)")
+                   help="sequence-parallel training: not ported beyond 1 "
+                        "(ROADMAP.md Queue 1 item 8c)")
     return p, p.parse_args(argv)
+
+
+def _rank_main(rank: int, world_size: int, device, argv) -> None:
+    """One rank of the trainer's own spawn (``launch``)."""
+    main(list(argv) + ["--multihost", "--device", str(device)])
+
+
+def spawn_ranks(devices, argv) -> None:
+    """The CLI ``argv`` as one rank a device of ``devices`` from this
+    process (``launch``, no time limit): the default over several cards.
+    A signal to this process reaches the ranks as a request to stop, and
+    it returns once they have checkpointed and exited."""
+    print(f"data parallel over {len(devices)} devices: one rank each")
+    multihost.launch(_rank_main, devices, (list(argv),), timeout_s=None)
 
 
 def main(argv=None):
@@ -489,10 +579,20 @@ def main(argv=None):
         parser.error("--fast_dropout and --exact_dropout request opposite "
                      "mixer-dropout semantics; drop one (--fast_dropout is a "
                      "no-op: fast dropout is the default)")
-    if args.multihost or args.seq_par > 1:
-        raise SystemExit("--multihost and --seq_par > 1: multi-device training "
-                         "is not ported yet (ROADMAP.md Queue 1 item 8b)")
+    if args.seq_par > 1:
+        raise SystemExit("--seq_par > 1: sequence-parallel training is not "
+                         "ported yet (ROADMAP.md Queue 1 item 8c)")
     device = resolve_device(args.device)
+    if (not args.multihost and device.type == "cuda" and device.index is None
+            and torch.cuda.device_count() > 1):
+        # JAX's default: data parallel over every local device
+        spawn_ranks(local_devices(), argv if argv is not None else sys.argv[1:])
+        return None
+    created = False
+    if args.multihost:
+        created = multihost.initialize(args.coordinator, args.num_processes,
+                                       args.process_id, device=device)
+        device = multihost.rank_device(device, world()[0])
     config = load_model_config(args.config)
     training, data, gen = config.training, config.data, config.model.generator
     if args.pretrained:
@@ -506,15 +606,19 @@ def main(argv=None):
     config = dataclasses.replace(
         config, training=training, data=data,
         model=dataclasses.replace(config.model, generator=gen))
-    trainer = Trainer(config, device=device, use_wandb=not args.no_wandb,
-                      dtype=torch.float32 if args.fp32 else torch.bfloat16,
-                      profile_steps=args.profile, watch_interval=args.watch,
-                      grad_accum=args.grad_accum, keep_best=args.keep_best,
-                      ema_decay=args.ema)
     try:
-        trainer.train()
+        trainer = Trainer(config, device=device, use_wandb=not args.no_wandb,
+                          dtype=torch.float32 if args.fp32 else torch.bfloat16,
+                          profile_steps=args.profile, watch_interval=args.watch,
+                          grad_accum=args.grad_accum, keep_best=args.keep_best,
+                          ema_decay=args.ema)
+        try:
+            trainer.train()
+        finally:
+            trainer.logger.close()
     finally:
-        trainer.logger.close()
+        if created:
+            multihost.shutdown()
     return trainer
 
 

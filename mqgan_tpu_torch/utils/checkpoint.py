@@ -34,6 +34,7 @@ from mqgan_tpu_torch.core.config import ModelConfig
 from mqgan_tpu_torch.models.discriminators import (
     MelSpectrogramPatchDiscriminator2D, MultiBinDiscriminator)
 from mqgan_tpu_torch.models.preencoder import PreEncoder
+from mqgan_tpu_torch.parallel.dp import barrier, world
 from mqgan_tpu_torch.utils.params import state_dict_from_jax, unflatten_tree
 from mqgan_tpu_torch.utils.torch_import import (
     import_generator_params, import_multibin_discriminator_params,
@@ -99,15 +100,21 @@ def save_checkpoint(output_dir: str, state, epoch: int,
     """The whole ``TrainState`` (``state.state_dict()``: models, spectral
     stats, optimizers, LeCam, step, the random generators' states, EMA) as
     ``output_dir/checkpoint_epoch_{epoch:03d}.pt``; the config beside it as
-    ``config.json``."""
-    os.makedirs(output_dir, exist_ok=True)
+    ``config.json``. In a data-parallel group (one shared ``output_dir``)
+    rank 0 writes and every rank waits for it at a barrier, so that any
+    rank may read the checkpoint once this returns; every rank restores the
+    same file."""
     path = os.path.abspath(os.path.join(output_dir,
                                         f"checkpoint_epoch_{epoch:03d}.pt"))
-    _atomic_save({"epoch": epoch, "state": state.state_dict()}, path)
-    if config_dict is not None:
-        with open(os.path.join(output_dir, "config.json"), "w") as f:
-            json.dump({"epoch": epoch, "config": config_dict}, f, indent=2,
-                      default=str)
+    rank, _ = world()
+    if rank == 0:
+        os.makedirs(output_dir, exist_ok=True)
+        _atomic_save({"epoch": epoch, "state": state.state_dict()}, path)
+        if config_dict is not None:
+            with open(os.path.join(output_dir, "config.json"), "w") as f:
+                json.dump({"epoch": epoch, "config": config_dict}, f, indent=2,
+                          default=str)
+    barrier(state.lecam.ema_real.device)
     return path
 
 

@@ -65,6 +65,20 @@ class MetricsLogger:
             self._wandb.finish()
 
 
+class NullLogger:
+    """The metrics sink of a data-parallel rank other than 0: only rank 0
+    writes ``train_metrics.jsonl`` and mirrors to wandb."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def log_image(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def component(name: str) -> str:
     """A parameter's top-level component, named as in the JAX tree
     (``encoder_blocks.0.conv1.v`` -> ``encoder_blocks_0``)."""

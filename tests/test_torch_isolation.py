@@ -152,7 +152,8 @@ def test_port_imports_nothing_of_jax_and_does_not_fall_back():
                  "train.trainer", "utils.plotting", "losses.stft_loss",
                  "models.wave_discriminators", "train.vocoder_trainer",
                  "signal.vocoder", "parallel.mesh", "parallel.seqpar",
-                 "nn.norm", "nn.pooling", "signal.qc"):
+                 "nn.norm", "nn.pooling", "signal.qc", "parallel.dp",
+                 "parallel.multihost", "parallel.pipeline"):
         assert f"mqgan_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     assert result["trainer_device"] == "cuda"

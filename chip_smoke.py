@@ -2,11 +2,13 @@
 """Drive the PyTorch port's codec serving path, its audio path, its
 token-LM training path, its token-LM serving path, its codec deployment
 path, its codec training path, its vocoder training path, its LM
-artifact with codec attach, its parallel codec serving and its
-data-parallel and pipelined training on one NVIDIA GPU (H100).
+artifact with codec attach, its parallel codec serving, its
+data-parallel and pipelined training and its sequence-parallel training
+on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --fsq-head-of DIR   # time another checkout's FSQ head
+    python3 chip_smoke.py --seq-training      # phase 19 alone, no result line
 
 Run from the root of a checkout. It needs one CUDA card and exits non-zero,
 printing no result, without one. Phases (any failure exits non-zero):
@@ -278,7 +280,25 @@ printing no result, without one. Phases (any failure exits non-zero):
     (fp32 within 1e-5 * max(1, max|x|), bf16 rel-L2 <= 2e-2, logits and
     gradients), train-step tokens/s of both at B=8 L=256, and the LM
     trainer CLI with and without --pipe (finite losses);
-19. print {"ok": true, "device": {...}} as the last line.
+19. sequence-parallel training at flagship width (TF32 off): (a) seq ranks
+    (``launch``; gloo on the one card) against one process on the whole
+    crop at 18a's gates, with cuDNN's deterministic algorithms, fp32 GAN +
+    feature matching x 3, B=4: 2 seq ranks at T=128 (lengths 128, 40, 97,
+    0: a row ending inside seq rank 0's shard and a fill row) and at T=40
+    (20-frame shards, off the discriminators' 8-frame stride grid), and a
+    data 2 x seq 2 grid of four ranks at T=128; the ranks bit-equal; the
+    same run with each shard zero-padded at its edges (no exchange) must
+    break the gates; (b) the trainer CLI with --seq_par 2 (bf16, epoch 1
+    warmup, epoch 2 GAN, eval and save each epoch): the ranks bit-equal,
+    finite losses, no launch inside a train step, rank 0's plots and eval
+    (on its own card) launching residual_block, mel_mixer and fsq_head,
+    rank 1 none; SIGTERM at epoch 3's first step (one checkpoint) and a
+    rerun that resumes at epoch 4; (c) ms/step, peak and held memory per
+    rank of the bf16 GAN step with B=16 T=256 over 2 seq ranks against one
+    process, and the halo exchanges' calls, bytes and ms in a synchronised
+    step. These launch counts are printed on their own line and stay out
+    of the kernels line, as phase 18's do;
+20. print {"ok": true, "device": {...}} as the last line.
 
 A fatal signal prints every thread's Python stack (faulthandler). Once the
 last line is out, and every process the script started has been joined,
@@ -3052,16 +3072,16 @@ def compare_train_branch(device) -> None:
         fail("phase 14b: the training branch disagrees with the kernel path")
 
 
-def _trainer_run_config(root, rng):
-    """Phase 14c's run (and phase 18b's): TRAIN_CLIPS seeded mels of
-    TRAIN_CLIP_FRAMES frames under ``root``/mels, the flagship config for
-    epoch 1 warmup and epoch 2 GAN, eval and save every epoch, one plot;
-    returns (the config dict, its JSON path)."""
+def _trainer_run_config(root, rng, clips=TRAIN_CLIPS, frames=TRAIN_CLIP_FRAMES):
+    """Phase 14c's run (and phase 18b's and 19b's): ``clips`` seeded mels of
+    ``frames`` frames under ``root``/mels, the flagship config for epoch 1
+    warmup and epoch 2 GAN, eval and save every epoch, one plot; returns
+    (the config dict, its JSON path)."""
     import dataclasses
 
     os.makedirs(os.path.join(root, "mels"))
-    for i in range(TRAIN_CLIPS):
-        t = int(rng.integers(*TRAIN_CLIP_FRAMES))
+    for i in range(clips):
+        t = int(rng.integers(*frames))
         np.save(os.path.join(root, "mels", f"m{i:03d}.npy"),
                 rng.standard_normal((t, MELS)).astype(np.float32))
     cfg = dataclasses.asdict(gan_config(False, num_epochs=2,
@@ -4552,11 +4572,11 @@ def _dp_checksum(state) -> str:
     return h.hexdigest()
 
 
-def _dp_run(cfg, device, mel, lengths, dp):
+def _dp_run(cfg, device, mel, lengths, dp, seq=None):
     """DP_CMP_STEPS fp32 GAN + feature-matching steps of the seeded flagship
     state (dropout inert; with ``dp``, rank 0's state replicated) on (mel,
-    lengths); returns (state, each step's losses, the first step's
-    gradients after the reduction)."""
+    lengths), with ``seq`` this rank's seq group; returns (state, each
+    step's losses, the first step's gradients after the reduction)."""
     import torch
 
     from mqgan_tpu_torch.train.step import make_train_step
@@ -4564,7 +4584,7 @@ def _dp_run(cfg, device, mel, lengths, dp):
     state = gan_state(cfg, device, inert=True)
     if dp is not None:
         state.replicate_()
-    step = make_train_step(cfg, train_d=True, dp=dp)
+    step = make_train_step(cfg, train_d=True, dp=dp, seq=seq)
     losses, grads, first = [], None, None
     for i in range(DP_CMP_STEPS):
         m = step(state, mel, lengths)
@@ -4781,11 +4801,12 @@ def _one_process_step_times(device, b, t) -> tuple:
     return times, peak
 
 
-def _dp_trainer_rank(rank, world, device, cfg_path, sig_cfg_path, resume):
-    """Phase 18b on one rank: the trainer CLI (``--multihost`` in the
-    launcher's group) with its launches counted, in train steps and in all;
-    then, run on to 4 epochs, a SIGTERM to this process at its first step
-    of epoch 3. With ``resume``: the rerun of that run."""
+def _dp_trainer_rank(rank, world, device, cfg_path, sig_cfg_path, resume, extra=()):
+    """Phase 18b (and 19b, with ``extra`` CLI arguments) on one rank: the
+    trainer CLI (``--multihost`` in the launcher's group) with its launches
+    counted, in train steps and in all; then, run on to 4 epochs, a SIGTERM
+    to this process at its first step of epoch 3. With ``resume``: the
+    rerun of that run."""
     import signal
 
     import torch
@@ -4822,7 +4843,7 @@ def _dp_trainer_rank(rank, world, device, cfg_path, sig_cfg_path, resume):
 
     def cli(path):
         return trainer_mod.main(["--config", path, "--no_wandb", "--device",
-                                 str(device), "--multihost"])
+                                 str(device), "--multihost", *extra])
 
     trainer_mod.make_train_step, trainer_mod.make_eval_step = counting_step, counting_eval
     try:
@@ -5071,6 +5092,398 @@ def parallel_training(device, card) -> dict:
     return launches
 
 
+# phase 19, sequence-parallel codec GAN training at flagship width: (a) the
+# step of seq ranks against one process on the whole crop, (b) the trainer
+# CLI with --seq_par 2, (c) step times, peak memory and the halo exchanges
+SEQ_CMP = {  # label: (seq ranks, ranks, T, lengths), B = DP_CMP_B
+    # 40 valid frames end inside seq rank 0's shard; a zero-length fill row
+    "seq2": (2, 2, 128, (128, 40, 97, 0)),
+    # 20-frame shards: off the 8-frame grids of both discriminators' time
+    # strides and of the refiner's pools
+    "seq2_t40": (2, 2, 40, (40, 13, 27, 0)),
+    "data2_seq2": (2, 4, 128, (128, 40, 97, 0)),
+}
+SEQ_TEETH = "seq2"
+SEQ_TRAIN_CLIPS, SEQ_CLIP_FRAMES = 50, (150, 400)  # 49 train clips, 1 eval clip
+# rank 0's plots and eval on its own card, as in a data-parallel run
+SEQ_EVAL_KERNELS = ("residual_block", "mel_mixer", "fsq_head")
+SEQ_PROBE = 1  # steps whose exchanges are synchronised and timed
+
+
+def _seq_devices(n):
+    """n ranks: a card each where there are n cards, else all on card 0."""
+    import torch
+
+    k = torch.cuda.device_count()
+    return [f"cuda:{i if k >= n else 0}" for i in range(n)]
+
+
+def _no_exchange(group):
+    """``group`` with each shard zero-padded at its edges: a window's frames
+    that the rank does not own are zeros (19a's teeth)."""
+    import torch.nn.functional as F
+
+    from mqgan_tpu_torch.parallel.seqtrain import SeqGroup
+
+    class NoExchange(SeqGroup):
+        def fetch(self, x, dim, bounds, need):
+            a, e = need[self.index]
+            start, stop = bounds[self.index], bounds[self.index + 1]
+            lo = min(max(start, a), e)
+            hi = max(min(stop, e), lo)
+            own = x.narrow(dim, lo - start, hi - lo)
+            return F.pad(own.movedim(dim, -1), (lo - a, e - hi)).movedim(-1, dim)
+
+    return NoExchange(group.index, group.size, group.group)
+
+
+def _count_exchanges(group) -> list:
+    """The bytes of each collective ``group`` issues from now on (its
+    ``all_reduce_`` wrapped)."""
+    sent, reduce = [], group.all_reduce_
+
+    def counted(t, op=None):
+        sent.append(t.numel() * t.element_size())
+        return reduce(t, op)
+
+    group.all_reduce_ = counted
+    return sent
+
+
+def _timed_steps(step, state, batches):
+    """(ms of each step after TRAIN_WARM warm-up steps, peak GB, GB held
+    between steps (weights, gradients, Adam moments), finite metrics)."""
+    import torch
+
+    for mel, lengths in batches[:TRAIN_WARM]:
+        step(state, mel, lengths)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for mel, lengths in batches[TRAIN_WARM:]:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        m = step(state, mel, lengths)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    finite = all(math.isfinite(float(v)) for v in m.values())
+    return times, torch.cuda.max_memory_allocated() / 1e9, base, finite
+
+
+def _seq_step_times(rank, world, device, b, t):
+    """19c on one rank: the bf16 GAN step with the b x t batch's time axis
+    over the ``world`` ranks; then SEQ_PROBE steps whose exchanges are
+    synchronised and timed."""
+    import torch
+
+    from mqgan_tpu_torch.parallel import multihost
+    from mqgan_tpu_torch.parallel.dp import DataParallel
+    from mqgan_tpu_torch.parallel.mesh import frame_range
+    from mqgan_tpu_torch.parallel.seqtrain import SeqGroup
+    from mqgan_tpu_torch.train.step import make_train_step
+
+    cfg = gan_config(False)
+    state = gan_state(cfg, device, dtype=torch.bfloat16)
+    state.replicate_()
+    group = SeqGroup.create(rank, world, world, multihost.group_timeout_s())
+    step = make_train_step(cfg, train_d=True, dtype=torch.bfloat16,
+                           dp=DataParallel(rank, world, world), seq=group)
+    frames = frame_range(t, rank, world)
+    batches = [(mel[:, frames].contiguous(), lengths) for mel, lengths in
+               (_dp_batch(device, b, t, [t] * b, SEED + 61 + i)
+                for i in range(TRAIN_WARM + TRAIN_ITERS + SEQ_PROBE))]
+    times, peak, base, finite = _timed_steps(step, state,
+                                             batches[:TRAIN_WARM + TRAIN_ITERS])
+    reduce, spent = group.all_reduce_, []
+
+    def timed(tensor, op=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(tensor, op)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0, tensor.numel() * tensor.element_size()))
+        return out
+
+    group.all_reduce_ = timed
+    for mel, lengths in batches[TRAIN_WARM + TRAIN_ITERS:]:
+        step(state, mel, lengths)
+    group.all_reduce_ = reduce
+    return {"ms": times, "peak_gb": peak, "base_gb": base, "finite": finite,
+            "exchange_ms": 1e3 * sum(x for x, _ in spent) / SEQ_PROBE,
+            "exchange_bytes": sum(n for _, n in spent) / SEQ_PROBE,
+            "exchange_calls": len(spent) / SEQ_PROBE}
+
+
+def _worst_grad(ref, got) -> tuple:
+    """(model.parameter, max |d| / max(1, the model's max|g|)) of the
+    first-step gradient furthest from ``ref``'s."""
+    import torch
+
+    worst = ("", 0.0)
+    with torch.no_grad():
+        for name, want in ref["grads"].items():
+            g_max = max(1.0, max(float(g.abs().max()) for g in want.values()))
+            for k, g in want.items():
+                d = float((got["grads"][name][k] - g).abs().max()) / g_max
+                if d > worst[1]:
+                    worst = (f"{name}.{k}", d)
+    return worst
+
+
+def _seq_step_rank(rank, world, device, labels, times_b, times_t):
+    """Phases 19a (the SEQ_CMP cells ``labels``) and 19c (with
+    ``times_b``) on one rank."""
+    import torch
+
+    from mqgan_tpu_torch.parallel import multihost
+    from mqgan_tpu_torch.parallel.dp import DataParallel
+    from mqgan_tpu_torch.parallel.mesh import batch_rows, frame_range, train_grid
+    from mqgan_tpu_torch.parallel.seqtrain import SeqGroup
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's nondeterministic weight-gradient algorithms move the
+    # one-process reference itself between two runs; with deterministic ones
+    # it repeats bit for bit within a run (printed)
+    torch.backends.cudnn.deterministic = True
+    out, init = {}, None
+    cfg = gan_config(True, use_fm_loss=True)
+    for label in labels:
+        n_seq, _, t, lengths = SEQ_CMP[label]
+        group = SeqGroup.create(rank, world, n_seq, multihost.group_timeout_s())
+        data, n_data, s = train_grid(rank, world, n_seq)
+        mel, lens = _dp_batch(device, DP_CMP_B, t, lengths, SEED + 80)
+        rows, frames = batch_rows(DP_CMP_B, data, n_data), frame_range(t, s, n_seq)
+        x, lx = mel[rows][:, frames].contiguous(), lens[rows]
+        dp = DataParallel(rank, world, n_seq)
+        ref = repeat = None
+        if rank == 0:  # the one-process reference on the whole crop
+            ref = _dp_run(cfg, device, mel, lens, None)
+            if label == SEQ_TEETH:  # the reference run again: does it repeat?
+                repeat = _worst_grad(ref, _dp_run(cfg, device, mel, lens, None))
+            if init is None:
+                init = {name: {k: v.detach().clone() for k, v in ts.items()}
+                        for name, ts in _dp_tensors(gan_state(cfg, device,
+                                                              inert=True)).items()}
+        sent = _count_exchanges(group)
+        got = _dp_run(cfg, device, x, lx, dp, group)
+        res = {"checksum": got.pop("checksum"), "calls": len(sent) / DP_CMP_STEPS,
+               "bytes": sum(sent) / DP_CMP_STEPS}
+        if rank == 0:
+            res["errors"] = _dp_errors(cfg, ref, got, init)
+            res["losses"] = (ref["losses"][-1], got["losses"][-1])
+            res["worst"], res["repeat"] = _worst_grad(ref, got), repeat
+        if label == SEQ_TEETH:
+            bad = _dp_run(cfg, device, x, lx, dp, _no_exchange(group))
+            if rank == 0:
+                res["teeth"] = _dp_errors(cfg, ref, bad, init)
+            del bad
+        out[label] = res
+        del ref, got
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    if times_b:
+        out["times"] = _seq_step_times(rank, world, device, times_b, times_t)
+    return out
+
+
+def _seq_reference_times(device, b, t):
+    """19c's reference: the bf16 GAN step of one process on the whole b x t
+    batch."""
+    import torch
+
+    from mqgan_tpu_torch.train.step import make_train_step
+
+    cfg = gan_config(False)
+    state = gan_state(cfg, device, dtype=torch.bfloat16)
+    step = make_train_step(cfg, train_d=True, dtype=torch.bfloat16)
+    batches = [_dp_batch(device, b, t, [t] * b, SEED + 61 + i)
+               for i in range(TRAIN_WARM + TRAIN_ITERS)]
+    out = _timed_steps(step, state, batches)
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def seq_step_check(device, card) -> None:
+    """Phases 19a and 19c: seq ranks (``launch``, gloo on one card) against
+    one process."""
+    from mqgan_tpu_torch.parallel import multihost
+
+    ref_ms, ref_peak, ref_base, ref_finite = _seq_reference_times(device, TRAIN_B,
+                                                                  TRAIN_T)
+    fmt = lambda e: ", ".join(f"{k} {v:.2e}" for k, v in e.items())  # noqa: E731
+    ok, times = ref_finite, None
+    for world in (2, 4):
+        labels = [k for k, v in SEQ_CMP.items() if v[1] == world]
+        devices = _seq_devices(world)
+        t0 = time.perf_counter()
+        ranks = multihost.launch(_seq_step_rank, devices,
+                                 (labels, TRAIN_B if world == 2 else 0, TRAIN_T),
+                                 timeout_s=DP_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        times = ranks if world == 2 else times
+        for label in labels:
+            n_seq, _, t, lengths = SEQ_CMP[label]
+            r0 = ranks[0][label]
+            same = all(r[label]["checksum"] == r0["checksum"] for r in ranks)
+            good = _dp_gate(r0["errors"]) and same
+            ok = ok and good
+            ref_l, got_l = r0["losses"]
+            print(f"  19a {label}: {world // n_seq} data x {n_seq} seq ranks "
+                  f"({multihost.choose_backend(devices)} on {devices}) vs one process, "
+                  f"fp32 GAN+FM x {DP_CMP_STEPS}, B={DP_CMP_B} T={t} lengths {lengths}: "
+                  f"{fmt(r0['errors'])} (cuDNN deterministic; gates: loss 1e-5 every "
+                  f"step; after the first step grad 1e-4, stats 1e-5, update 0.1 lr "
+                  f"where live; after the last, printed); ranks bit-equal {same}; last "
+                  f"loss_g_total "
+                  f"{ref_l['loss_g_total']:.6f} / {got_l['loss_g_total']:.6f}; "
+                  f"{r0['calls']:.0f} seq collectives and {r0['bytes'] / 1e6:.3f} MB "
+                  f"a step {'ok' if good else 'FAIL'} [{card}]")
+            name, err = r0["worst"]
+            print(f"  19a {label}: the furthest first-step gradient {name} {err:.2e}"
+                  + ("" if r0["repeat"] is None else
+                     f"; the one-process reference run twice: furthest "
+                     f"{r0['repeat'][0] or '(none)'} {r0['repeat'][1]:.2e}"))
+            if "teeth" in r0:
+                broke = not _dp_gate(r0["teeth"])
+                ok = ok and broke
+                print(f"  19a {label} with each shard zero-padded at its edges (no "
+                      f"exchange): {fmt(r0['teeth'])}; breaks the gates {broke}")
+        print(f"  19a {secs:.1f} s for the launch of {world} ranks")
+    if not ok:
+        fail("phase 19a: the sequence-parallel step disagrees with one process, or "
+             "the run without exchange passed the gates")
+    tr = [r["times"] for r in times]
+    act = lambda peak, base: peak - base  # noqa: E731
+    print(f"  19c bf16 GAN step, B={TRAIN_B} T={TRAIN_T}: one process "
+          f"{np.median(ref_ms):.3f} ms/step (min {min(ref_ms):.3f}, max "
+          f"{max(ref_ms):.3f}), peak {ref_peak:.3f} GB of which {ref_base:.3f} GB "
+          f"held between steps (activations {act(ref_peak, ref_base):.3f} GB); "
+          f"2 seq ranks on {_seq_devices(2)}: "
+          + "; ".join(f"rank {i} {np.median(r['ms']):.3f} ms/step (min "
+                      f"{min(r['ms']):.3f}, max {max(r['ms']):.3f}), peak "
+                      f"{r['peak_gb']:.3f} GB, held {r['base_gb']:.3f} GB "
+                      f"(activations {act(r['peak_gb'], r['base_gb']):.3f} GB, "
+                      f"{act(r['peak_gb'], r['base_gb']) / act(ref_peak, ref_base):.3f}"
+                      f" of one process's)" for i, r in enumerate(tr))
+          + f"; exchanges a step (synchronised): {tr[0]['exchange_calls']:.0f} calls, "
+          f"{tr[0]['exchange_bytes'] / 1e6:.3f} MB, {tr[0]['exchange_ms']:.3f} ms "
+          f"[{card}]")
+    if not all(r["finite"] for r in tr):
+        fail("phase 19c: a sequence-parallel step's metrics are not finite")
+
+
+def seq_trainer_check(device, card) -> dict:
+    """Phase 19b: the trainer CLI with --seq_par 2 on SEQ_TRAIN_CLIPS mels,
+    SIGTERM mid-run and a rerun; returns rank 0's launches."""
+    from mqgan_tpu_torch.parallel import multihost
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_seq_")
+    extra = ("--seq_par", "2")
+    try:
+        cfg, cfg_path = _trainer_run_config(root, np.random.default_rng(SEED + 45),
+                                            SEQ_TRAIN_CLIPS, SEQ_CLIP_FRAMES)
+        cfg["training"]["num_epochs"] = 4
+        sig_path = os.path.join(root, "cfg_4.json")
+        with open(sig_path, "w") as f:
+            json.dump(cfg, f)
+        devices = _seq_devices(2)
+        t0 = time.perf_counter()
+        ranks = multihost.launch(_dp_trainer_rank, devices,
+                                 (cfg_path, sig_path, False, extra),
+                                 timeout_s=DP_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        resumed = multihost.launch(_dp_trainer_rank, devices,
+                                   (cfg_path, sig_path, True, extra),
+                                   timeout_s=DP_TIMEOUT_S)
+        with open(os.path.join(root, "run", "train_metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0, r1 = ranks
+    train_recs = [r for r in recs if "loss_g_total" in r and r.get("epoch") in (1.0, 2.0)]
+    finite = all(math.isfinite(v) for r in recs for v in r.values() if isinstance(v, float))
+    steps_per_epoch = r0["steps"] // 2
+    logged = sum(1 for n in range(1, steps_per_epoch + 1) if n == 1 or n % 10 == 0)
+    ckpts = [f for f in r0["files"] if f.startswith("checkpoint_epoch_")]
+    new = sorted(set(r0["files_after_signal"]) - set(r0["files"]))
+    evals = [r for r in recs if "eval_recon_post_mse" in r]
+    print(f"  19b trainer CLI --seq_par 2 on {devices}: {r0['steps']} steps a rank (B="
+          f"{cfg['data']['batch_size']}, crops {cfg['data']['crop_len']}, each rank "
+          f"half of every crop), {secs:.1f} s for both runs; rank 0 launches "
+          f"{r0['launches']} ({r0['eval']} eval-step calls: plot batches and eval "
+          f"clips; {len(evals)} evals logged), "
+          f"rank 1 launches {r1['launches']}; launches inside train steps "
+          f"{r0['step_launches']} / {r1['step_launches']}; ranks bit-equal "
+          f"{r0['checksum'] == r1['checksum']}; loggers {r0['logger']} / "
+          f"{r1['logger']}; {len(train_recs)} train records (want {2 * logged}), "
+          f"checkpoints {ckpts}")
+    print(f"  19b SIGTERM at each rank's first step of epoch 3: stopped "
+          f"{r0['stopped']} / {r1['stopped']} at step {r0['stop_step']} / "
+          f"{r1['stop_step']}, new files {new}; the rerun resumed at epoch "
+          f"{resumed[0]['start_epoch']} / {resumed[1]['start_epoch']} and ended at step "
+          f"{resumed[0]['step']} [{card}]")
+    ok = (finite and r0["checksum"] == r1["checksum"] and evals
+          and all(r0["launches"].get(k, 0) > 0 for k in SEQ_EVAL_KERNELS)
+          and not r1["launches"] and r1["eval"] == 0
+          and not r0["step_launches"] and not r1["step_launches"]
+          and r0["logger"] == "MetricsLogger" and r1["logger"] == "NullLogger"
+          and len(train_recs) == 2 * logged
+          and ckpts == ["checkpoint_epoch_001.pt", "checkpoint_epoch_002.pt"])
+    if not ok:
+        fail("phase 19b: the sequence-parallel trainer CLI's run is wrong")
+    if (not (r0["stopped"] and r1["stopped"]) or new != ["checkpoint_epoch_003.pt"]
+            or r0["stop_step"] != r1["stop_step"]
+            or [r["start_epoch"] for r in resumed] != [4, 4]):
+        fail("phase 19b: SIGTERM did not stop both ranks with one checkpoint, "
+             "or the rerun did not resume")
+    return r0["launches"]
+
+
+def seq_parallel_training(device, card) -> dict:
+    """Phase 19: (a)-(c); returns rank 0's launches in the trainer CLI."""
+    import torch
+
+    seconds, t0 = {}, time.perf_counter()
+    with torch.enable_grad():
+        print("  [19a, 19c] the sequence-parallel step vs one process; step times")
+        seq_step_check(device, card)
+        seconds["a+c"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        print("  [19b] the trainer CLI with --seq_par 2")
+        launches = seq_trainer_check(device, card)
+        seconds["b"] = round(time.perf_counter() - t0, 1)
+    print(f"  phase 19 seconds by part: {seconds}")
+    return launches
+
+
+def seq_training_alone() -> None:
+    """``python3 chip_smoke.py --seq-training``: phase 19 alone (the kernels
+    built first, since rank 0's eval launches them), for a quick check of
+    the sequence-parallel path; prints no result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mqgan_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    card = card_line()
+    _cuda.LIBRARY.load()
+    print(f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}; kernels "
+          f"built in {_cuda.LIBRARY.build_seconds:.1f} s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    launches = seq_parallel_training(torch.device("cuda"), card)
+    print(f"  launches of the sequence-parallel trainer: {launches}; total "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     import torch
 
@@ -5212,6 +5625,10 @@ def main() -> None:
         print(f"[18] data-parallel and pipelined training, flagship width [{card}] {at()}")
         dp_launches = parallel_training(device, card)
         print(f"  launches of the data-parallel trainer (rank 0's eval): {dp_launches}")
+        print(f"[19] sequence-parallel training, flagship width [{card}] {at()}")
+        seq_train_launches = seq_parallel_training(device, card)
+        print(f"  launches of the sequence-parallel trainer (rank 0's plots and "
+              f"eval; none in a step): {seq_train_launches}")
     finally:
         shutil.rmtree(lm_root, ignore_errors=True)
         shutil.rmtree(deploy_root, ignore_errors=True)
@@ -5237,6 +5654,8 @@ if __name__ == "__main__":
         fsq_head_of(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "--lstm-step-of":
         lstm_step_of(sys.argv[2])
+    elif sys.argv[1:] == ["--seq-training"]:
+        seq_training_alone()
     else:
         main()
     # reached only when the run succeeded (a failure raises SystemExit or

@@ -7,10 +7,14 @@
 
 A ``count`` is the mask's valid count over the GLOBAL batch of a
 data-parallel step (``parallel/dp.py``): frames for ``masked_mel_loss``,
-unmasked positions of ``pad_mask`` for ``masked_mae``.
+unmasked positions of ``pad_mask`` for ``masked_mae``. Under
+sequence-parallel training the tensors hold a rank's frames and the
+lengths its local prefix of them (``SeqShard.local_lengths``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -51,6 +55,6 @@ def masked_mae(pred: torch.Tensor, target: torch.Tensor, pad_mask: torch.Tensor,
     diff = diff.masked_fill(m, 0.0)
     if count is None:
         valid = (~m).sum().float()
-    else:
-        valid = count * (diff.numel() // pad_mask.numel())
+    else:  # count x the trailing axes (a rank may hold no frame of a map)
+        valid = count * math.prod(diff.shape[pad_mask.ndim:])
     return diff.sum() / (valid + eps)

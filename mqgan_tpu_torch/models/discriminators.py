@@ -23,6 +23,15 @@ back only when the call passes ``update_stats=True`` (once per
 discriminator update in the train step). ``torch.nn.utils.spectral_norm``
 updates ``u`` on every training-mode forward and keeps its own ``v``, so it
 is not used.
+
+Under sequence-parallel training (``seq``, ``parallel/seqtrain.py``) x
+holds this rank's frames of a crop whose rows have the global ``lengths``:
+each conv exchanges its time halos and keeps the output frames whose
+anchor (the first input frame at its stride) is the rank's, the SE block's
+statistics reduce over the seq group, and every mask is the one-pass
+mask's frames, pooled from the global lengths (so a ceil-mode tail that
+straddles two ranks is the full pass's). The power iteration reads the
+weights only, so it is the same on every rank.
 """
 
 from __future__ import annotations
@@ -86,9 +95,17 @@ class SNConv2d(nn.Module):
         ``update_stats=True`` does, without a forward."""
         self.normalized_weight(update_stats=True)
 
-    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, update_stats: bool = False,
+                seq=None) -> torch.Tensor:
+        """x (B, C, F, T); ``seq``: T is this rank's shard of time."""
         w = self.normalized_weight(update_stats).to(x.dtype)
-        return F.conv2d(x, w, self.bias.to(x.dtype), self.stride, self.padding)
+        b = self.bias.to(x.dtype)
+        if seq is None:
+            return F.conv2d(x, w, b, self.stride, self.padding)
+        y, _ = seq.conv(x, 3, w.shape[3], lambda xw: F.conv2d(
+            xw, w, b, self.stride, (self.padding[0], 0)), stride=self.stride[1],
+            pad=(self.padding[1], self.padding[1]))
+        return y
 
 
 def _pair(k) -> tuple:
@@ -157,13 +174,23 @@ class MelSpectrogramPatchDiscriminator2D(nn.Module):
         return masks
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
-                return_features: bool = False, update_stats: bool = False):
+                return_features: bool = False, update_stats: bool = False,
+                seq=None):
         """x (B, T, F), lengths (B,) -> logits (B, F', T', 1), valid mask
-        (B, F', T') [, features: [(map (B, F', T', C), pad mask)]]."""
+        (B, F', T') [, features: [(map (B, F', T', C), pad mask)]].
+        ``seq``: x and every output hold this rank's frames of each level."""
         b, t, f = x.shape
         if f != self.mel_channels:
             raise ValueError(f"expected {self.mel_channels} mels, got {f}")
-        masks = self.pad_masks(lengths, t)
+        shards = [seq] * (len(self.convs) + 1)
+        if seq is None:
+            masks = self.pad_masks(lengths, t)
+        else:
+            for i, conv in enumerate(self.convs):
+                k, st, p = conv.weight.shape[3], conv.stride[1], conv.padding[1]
+                shards[i + 1] = shards[i].window(k, st, (p, p))[0]
+            masks = [sh.take(m, 2) for sh, m in
+                     zip(shards, self.pad_masks(lengths, seq.total))]
         out = x.transpose(1, 2)[:, None]
         if self.dtype is not None:
             out = out.to(self.dtype)
@@ -172,8 +199,8 @@ class MelSpectrogramPatchDiscriminator2D(nn.Module):
         last = len(self.convs) - 1
         for i, conv in enumerate(self.convs):
             if i == last:
-                out = self.se_block(out, masks[i])
-            out = F.leaky_relu(conv(out, update_stats), 0.2)
+                out = self.se_block(out, masks[i], shards[i])
+            out = F.leaky_relu(conv(out, update_stats, shards[i]), 0.2)
             pad_mask = masks[i + 1]
             out = out.masked_fill(pad_mask[:, None], 0.0)
             if return_features and ret_map[i]:
@@ -213,13 +240,13 @@ class MultiBinDiscriminator(nn.Module):
         return [c for d in self.discriminators for c in d.convs]
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
-                return_features: bool = False, update_stats: bool = False
-                ) -> Tuple[list, ...]:
+                return_features: bool = False, update_stats: bool = False,
+                seq=None) -> Tuple[list, ...]:
         """x (B, T, F) -> per bin: logits, masks [, features] (lists)."""
         outs, masks, feats = [], [], []
         for i, disc in enumerate(self.discriminators):
             sub = x[..., i * self.bin_size:(i + 1) * self.bin_size]
-            res = disc(sub, lengths, return_features, update_stats)
+            res = disc(sub, lengths, return_features, update_stats, seq)
             outs.append(res[0])
             masks.append(res[1])
             if return_features:

@@ -18,7 +18,11 @@ the ``FSQ`` module with straight-through rounding and noise dropout in
 place of the fused head; the refiner's input detached, so that only the
 refiner takes the GAN gradients. Dropout masks draw from ``generator``,
 FSQ noise from ``fsq_generator`` (both on the activations' device; a
-``None`` generator means no dropout).
+``None`` generator means no dropout). Under sequence-parallel training
+(``seq``, ``parallel/seqtrain.py``) x holds this rank's frames of each row
+and ``lengths`` the rows' global lengths: the convs over time exchange
+their halos, the CBAM statistics reduce over the seq group, and FSQ and the
+projections run per frame.
 """
 
 from __future__ import annotations
@@ -201,25 +205,32 @@ class PreEncoder(nn.Module):
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 deterministic: bool = True,
                 generator: torch.Generator | None = None,
-                fsq_generator: torch.Generator | None = None):
+                fsq_generator: torch.Generator | None = None, seq=None):
         """Returns (x_recon, x_post, indices), like the JAX ``__call__``:
         the inference path (no grad, the kernels on a card) when
-        ``deterministic``, else the training branch."""
-        pad_mask = sequence_mask(x.shape[1], lengths)
+        ``deterministic``, else the training branch. ``seq``: this rank's
+        shard of the crop's time axis (training only)."""
+        if seq is not None:
+            if deterministic:
+                raise ValueError("sequence parallelism is a training branch")
+            pad_mask = seq.pad_mask(lengths)
+        else:
+            pad_mask = sequence_mask(x.shape[1], lengths)
         if deterministic:
             with torch.no_grad():
                 indices = self.encode(x, pad_mask)
                 x_recon, x_post, _ = self._decode_tokens(indices, pad_mask)
             return x_recon, x_post, indices
-        h = self.pre(self.proj(x.to(self.dtype)), pad_mask, False, generator)
+        h = self.pre(self.proj(x.to(self.dtype)), pad_mask, False, generator, seq)
         for block in self.encoder_blocks:
-            h = block(h, pad_mask, False, generator)
+            h = block(h, pad_mask, False, generator, seq=seq)
         codes, indices = self.quantizer(self.q_in_proj(h), training=True,
                                         generator=fsq_generator)
         h = self.q_out_proj(codes)
         for block in self.decoder_blocks:
-            h = block(h, pad_mask, False, generator)
-        x_recon = self.out_proj(self.post(h, pad_mask, False, generator))
+            h = block(h, pad_mask, False, generator, seq=seq)
+        x_recon = self.out_proj(self.post(h, pad_mask, False, generator, seq))
         refiner_in = torch.cat([x_recon, self.hidden_proj(h)], dim=-1)
-        residual = self.refiner(refiner_in.detach(), pad_mask, generator)
+        residual = self.refiner(refiner_in.detach(), pad_mask, generator, seq,
+                                lengths)
         return x_recon, x_recon + residual, indices

@@ -6,6 +6,11 @@ blocks drop CBAM.
 These modules hold the CBAM parameters of a ``ResidualBlock1D``; inside the
 block the gate chain runs in ``ops/block_kernels.py``. Their own forward is
 the module-by-module form of the same function.
+
+Under sequence-parallel training (``seq``, ``parallel/seqtrain.py``) the
+CAM's masked sum, count and max are reduced over the seq group, with
+their gradients (the max's split over the tied frames of every rank), and
+the SAM's conv over time exchanges its halos.
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ from torch import nn
 from mqgan_tpu_torch.core.masking import apply_mask
 from mqgan_tpu_torch.nn.conv import Dense, WNConv1d
 from mqgan_tpu_torch.nn.pooling import (Reduce, masked_avg_pool, masked_max_pool,
-                                        partial_pool, pooled_mean, reduce_pools)
+                                        partial_pool, pooled_mean, reduce_pools,
+                                        seq_pools)
 
 
 class CAM1D(nn.Module):
@@ -30,16 +36,20 @@ class CAM1D(nn.Module):
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
                 stats_mask: torch.Tensor | None = None,
-                reduce: Reduce | None = None) -> torch.Tensor:
+                reduce: Reduce | None = None, seq=None) -> torch.Tensor:
         """``stats_mask`` / ``reduce`` make the gate exact under sequence
         parallelism (JAX's ``stats_mask`` / ``seq_axis``): values stay
         masked by ``pad_mask``, the pooled statistics leave out the
         ``stats_mask`` frames (each clip frame counted in one window) and
-        ``reduce`` combines the windows' fp32 partials (nn/pooling.py)."""
+        ``reduce`` combines the windows' fp32 partials (nn/pooling.py).
+        ``seq`` (training): the same reductions over the seq group, with
+        gradients."""
         def mlp(v):
             return self.mlp_2(torch.relu(self.mlp_0(v)))
 
-        if stats_mask is None and reduce is None:
+        if seq is not None:
+            mx, av = seq_pools(x, pad_mask, seq)
+        elif stats_mask is None and reduce is None:
             mx = masked_max_pool(x, pad_mask)
             av = masked_avg_pool(x, pad_mask)
         else:
@@ -58,10 +68,11 @@ class SAM1D(nn.Module):
         super().__init__()
         self.conv = WNConv1d(2, 1, kernel_size, weight_norm=False, bias=False)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                seq=None) -> torch.Tensor:
         mx = apply_mask(x.amax(dim=-1, keepdim=True), pad_mask)
         av = apply_mask(x.mean(dim=-1, keepdim=True), pad_mask)
-        logits = self.conv(torch.cat([mx, av], dim=-1))
+        logits = self.conv(torch.cat([mx, av], dim=-1), seq)
         logits = apply_mask(logits, pad_mask, fill_value=-1e4)
         gate = apply_mask(torch.sigmoid(logits), pad_mask)
         return apply_mask(gate * x, pad_mask)
@@ -78,7 +89,7 @@ class CBAM1D(nn.Module):
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
                 stats_mask: torch.Tensor | None = None,
-                reduce: Reduce | None = None) -> torch.Tensor:
-        y = self.channel_attention(x, pad_mask, stats_mask, reduce)
-        y = self.spatial_attention(y, pad_mask)
+                reduce: Reduce | None = None, seq=None) -> torch.Tensor:
+        y = self.channel_attention(x, pad_mask, stats_mask, reduce, seq)
+        y = self.spatial_attention(y, pad_mask, seq)
         return apply_mask(y + x, pad_mask)

@@ -20,6 +20,10 @@ the CBAM channel gate pools the frames ``stats_mask`` leaves and combines
 the windows' statistics with ``reduce`` (nn/attention.py); on the kernel
 path that is the split launch, with each row's stats frames taken as one
 contiguous range.
+
+``seq`` (training, ``parallel/seqtrain.py``): x holds this rank's frames
+of a time-sharded crop; the convs over time exchange their halos and the
+CBAM's statistics reduce over the seq group.
 """
 
 from __future__ import annotations
@@ -101,7 +105,11 @@ class ResidualBlock1D(nn.Module):
                 deterministic: bool = True,
                 generator: torch.Generator | None = None,
                 stats_mask: torch.Tensor | None = None,
-                reduce: Reduce | None = None) -> torch.Tensor:
+                reduce: Reduce | None = None, seq=None) -> torch.Tensor:
+        if seq is not None and (deterministic or self.norm == "instance"
+                                or stats_mask is not None or reduce is not None):
+            raise ValueError("sequence parallelism is a training branch of a "
+                             "block without instance norm or window statistics")
         if pad_mask is None:
             pad_mask = torch.zeros(x.shape[:2], dtype=torch.bool,
                                    device=x.device)
@@ -112,7 +120,7 @@ class ResidualBlock1D(nn.Module):
         if not deterministic or self.norm != "weight":
             return self._module_forward(
                 x, pad_mask, None if deterministic else generator, stats_mask,
-                reduce)
+                reduce, seq)
         x, lengths = x.contiguous(), lengths_from_mask(pad_mask)
         weights = self.kernel_weights(x.dtype)
         if stats_mask is None and reduce is None:
@@ -120,12 +128,13 @@ class ResidualBlock1D(nn.Module):
         lo, hi = stats_range(pad_mask if stats_mask is None else stats_mask)
         return split_residual_block(x, lengths, weights, lo, hi, reduce)
 
-    def _module_forward(self, x, pad_mask, generator, stats_mask, reduce):
+    def _module_forward(self, x, pad_mask, generator, stats_mask, reduce,
+                        seq=None):
         residual = self.residual(x) if self.residual is not None else x
-        out = self.norm1(self.conv1(x)).to(x.dtype)
+        out = self.norm1(self.conv1(x, seq)).to(x.dtype)
         out = self.act(apply_mask(out, pad_mask))
-        out = self.norm2(self.conv2(out)).to(x.dtype)
+        out = self.norm2(self.conv2(out, seq)).to(x.dtype)
         if self.cbam is not None:
-            out = self.cbam(out, pad_mask, stats_mask, reduce)
+            out = self.cbam(out, pad_mask, stats_mask, reduce, seq)
         out = self.act(apply_mask(out + residual, pad_mask))
         return dropout(out, self.dropout, generator)

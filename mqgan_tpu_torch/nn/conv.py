@@ -9,6 +9,12 @@ gives it for inference. Both convs take stride, groups and explicit (lo, hi)
 padding per spatial dim, as the JAX ``WNConv`` does. The 1-D conv is
 channels-last at ``forward`` and transposes to (B, C, T) internally
 (``conv_nct`` takes (B, C, T) as it is); the 2-D conv runs on NCHW.
+
+Under sequence-parallel training (``parallel/seqtrain.py``) ``forward``
+takes ``seq``, this rank's shard of the time axis (the 1-D conv's T, the
+2-D conv's H): the halo exchange gives the window the rank's outputs
+need, zero-filled past the crop's ends as the padding is, and the conv runs
+unpadded along time.
 """
 
 from __future__ import annotations
@@ -88,8 +94,17 @@ class WNConv1d(nn.Module):
             y = y + self.bias.to(y.dtype)[:, None]
         return y
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self._conv(x.transpose(1, 2)).transpose(1, 2)
+    def forward(self, x: torch.Tensor, seq=None) -> torch.Tensor:
+        if seq is None:
+            y = self._conv(x.transpose(1, 2)).transpose(1, 2)
+        else:
+            w = self.folded().to(x.dtype)
+            y, _ = seq.conv(
+                x, 1, self.kernel_size,
+                lambda xw: F.conv1d(xw.transpose(1, 2), w, stride=self.stride,
+                                    dilation=self.dilation,
+                                    groups=self.groups).transpose(1, 2),
+                stride=self.stride, pad=self.padding, dilation=self.dilation)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -140,10 +155,16 @@ class WNConv2d(nn.Module):
             return weight_norm_kernel(self.v, self.g)
         return self.weight.float()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq=None) -> torch.Tensor:
+        """``seq``: x's H (dim 2) is time, sharded (module docstring)."""
         w = self.folded().to(x.dtype)
         b = self.bias.to(x.dtype)
         (h_lo, h_hi), (w_lo, w_hi) = self.padding
+        if seq is not None:
+            y, _ = seq.conv(x, 2, self.kernel_size[0], lambda xw: F.conv2d(
+                F.pad(xw, (w_lo, w_hi)), w, b, stride=self.stride,
+                groups=self.groups), stride=self.stride[0], pad=(h_lo, h_hi))
+            return y
         if h_lo == h_hi and w_lo == w_hi:
             return F.conv2d(x, w, b, stride=self.stride, padding=(h_lo, w_lo),
                             groups=self.groups)

@@ -16,7 +16,9 @@ under autograd, as the JAX package trains through its XLA path: the
 ``fast_dropout`` the moment-matched Gaussian on the contraction
 (``fast_dropout_contract``); with ``hidden_chunk_t`` the pointwise MLP runs
 in checkpointed time chunks so that the hidden never exists whole (the
-remat mode). Draws come from ``generator`` (None: no dropout).
+remat mode). Draws come from ``generator`` (None: no dropout). Under
+sequence-parallel training (``seq``, ``parallel/seqtrain.py``) the 5x5
+depthwise conv exchanges its two-frame halos; the rest is per frame.
 """
 
 from __future__ import annotations
@@ -80,13 +82,17 @@ class MelMixer2D(nn.Module):
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor | None = None,
                 deterministic: bool = True,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """x (B, T, C) -> (B, T, C) in x's dtype."""
+                generator: torch.Generator | None = None,
+                seq=None) -> torch.Tensor:
+        """x (B, T, C) -> (B, T, C) in x's dtype. ``seq``: x holds this
+        rank's frames of a time-sharded crop (training only)."""
         if pad_mask is None:
             pad_mask = torch.zeros(x.shape[:2], dtype=torch.bool,
                                    device=x.device)
         if not deterministic:
-            return self._train_forward(x, pad_mask, generator)
+            return self._train_forward(x, pad_mask, generator, seq)
+        if seq is not None:
+            raise ValueError("sequence parallelism is a training branch")
         mixer = fused_poly_mixer if self.poly_approx else fused_mel_mixer
         return mixer(x.contiguous(), lengths_from_mask(pad_mask),
                      self.kernel_weights())
@@ -101,9 +107,9 @@ class MelMixer2D(nn.Module):
             return fast_dropout_contract(h, w2, generator, 1.0 - self.dropout) + b2
         return dropout(h, self.dropout, generator) @ w2 + b2
 
-    def _train_forward(self, x, pad_mask, generator):
+    def _train_forward(self, x, pad_mask, generator, seq=None):
         cdt = x.dtype
-        s = self.dw(x[:, None])[:, 0].masked_fill(pad_mask[..., None], 0.0)
+        s = self.dw(x[:, None], seq)[:, 0].masked_fill(pad_mask[..., None], 0.0)
         w = (self.pw.folded().reshape(-1).to(cdt), self.pw.bias.to(cdt),
              self.conv_out.weight.reshape(-1).to(cdt),
              self.conv_out.bias.to(cdt)[0])

@@ -9,7 +9,9 @@ count, ``reduce_pools`` combines the windows' partials with the caller's
 over the mesh axis; the count rides as the sum's last column, as JAX psums
 the (total, count) pair), and the mean is the reduced sum over the reduced
 count, clamped to >= 1 only after the reduction (JAX ``masked_avg_pool``
-with ``axis_name``)."""
+with ``axis_name``). Sequence-parallel training (``seq_pools``) reduces the
+same partials over a seq group with their gradients
+(``parallel/seqtrain.py``)."""
 
 from __future__ import annotations
 
@@ -58,3 +60,24 @@ def reduce_pools(total: torch.Tensor, mx: torch.Tensor, count: torch.Tensor,
 def pooled_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
     """The mean from a (reduced) sum and count, the count clamped to >= 1."""
     return total / count.clamp_min(1.0)[:, None]
+
+
+def seq_pools(x: torch.Tensor, pad_mask: torch.Tensor, seq) -> tuple:
+    """(masked max, masked mean) (B, C) in x's dtype over the valid frames
+    of every rank of ``seq``'s group, x (B, T, C) this rank's frames: the
+    fp32 sum and count summed over the group, the max taken over it, both
+    with their gradients."""
+    keep = (~pad_mask)[..., None]
+    mx = seq.max(x.masked_fill(~keep, _NEG_INF), 1)
+    return mx, seq_masked_mean(x, keep, 1, seq)
+
+
+def seq_masked_mean(x: torch.Tensor, keep: torch.Tensor, dims, seq) -> torch.Tensor:
+    """(B, C) in x's dtype: the mean of x (B, C, ...) over ``dims`` where
+    ``keep`` (broadcast to x, size 1 on C) holds, over every rank of
+    ``seq``'s group: the fp32 sum and count (the count as the sum's last
+    column) summed over the group with their gradient, the count clamped
+    to >= 1 after the reduction."""
+    s = seq.sum(torch.cat([(x * keep.to(x.dtype)).float().sum(dim=dims),
+                           keep.float().sum(dim=dims)], dim=1))
+    return pooled_mean(s[:, :-1], s[:, -1]).to(x.dtype)

@@ -16,6 +16,13 @@ Internally the image is NCHW (B, planes, T, F) in channels-last memory
 format; the convs go to cuDNN on the card, as the JAX package leaves them
 to XLA. The JAX package's packed-W and int8 variants are TPU layout tricks
 and are not ported.
+
+Under sequence-parallel training (``seq`` with the rows' global
+``lengths``, ``parallel/seqtrain.py``) x holds this rank's frames: the
+crop is padded to a multiple of 2**depth globally, the pad frames the last
+rank's; each 3x3 conv exchanges its one-frame halos; a pool's pair or an
+upsample's source frame may sit on the neighbour, and is fetched; every
+level's mask is the one-pass mask's frames (built from the lengths).
 """
 
 from __future__ import annotations
@@ -44,10 +51,10 @@ class ConvBlock(nn.Module):
         self.conv1 = WNConv2d(c_in, c_out, 3)
         self.conv2 = WNConv2d(c_out, c_out, 3)
 
-    def forward(self, x, m=None, generator=None):
+    def forward(self, x, m=None, generator=None, seq=None):
         x = _mask4(x, m)
-        y = dropout(aptx(self.conv1(x)), self.dropout, generator)
-        y = dropout(aptx(self.conv2(y)), self.dropout, generator)
+        y = dropout(aptx(self.conv1(x, seq)), self.dropout, generator)
+        y = dropout(aptx(self.conv2(y, seq)), self.dropout, generator)
         if self.residual:
             y = y + x
         return _mask4(y, m)
@@ -72,14 +79,19 @@ class UNetRefiner(nn.Module):
         self.post = WNConv2d(chs[0], 1, 3)
         self.reproj = Dense(in_features, out_features, bias=False)
 
-    def _block(self, block, h, m, generator):
+    def _block(self, block, h, m, generator, seq=None):
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(block, generator, h, m)
-        return block(h, m, generator)
+            return checkpoint(lambda h_, m_, g_: block(h_, m_, g_, seq),
+                              generator, h, m)
+        return block(h, m, generator, seq)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """x (B, T, F) -> (B, T, out_features), in x's dtype."""
+                generator: torch.Generator | None = None, seq=None,
+                lengths: torch.Tensor | None = None) -> torch.Tensor:
+        """x (B, T, F) -> (B, T, out_features), in x's dtype. ``seq``: x
+        holds this rank's frames of a crop whose rows have ``lengths``."""
+        if seq is not None:
+            return self._seq_forward(x, pad_mask, generator, seq, lengths)
         original_len = x.shape[1]
         pad_len = (-original_len) % (1 << self.depth)
         img = F.pad(x[:, None], (0, 0, 0, pad_len))
@@ -111,4 +123,40 @@ class UNetRefiner(nn.Module):
         out = self.post(_mask4(h, m))[:, 0, :original_len]  # (B, T, F)
         if pad_mask is not None:
             out = out.masked_fill(pad_mask[..., None], 0.0)
+        return self.reproj(out)
+
+    def _seq_forward(self, x, pad_mask, generator, seq, lengths):
+        total = seq.total
+        t_pad = -(-total // (1 << self.depth)) * (1 << self.depth)
+        shard = seq.padded(t_pad)
+        img = F.pad(x[:, None], (0, 0, 0, t_pad - total if seq.is_last else 0))
+        img = img.contiguous(memory_format=torch.channels_last)
+        # the one-pass masks of every level, in its order (pools down, then
+        # repeats up), each cut to this rank's frames at that level
+        m = F.pad(torch.arange(total, device=x.device)[None, :] >= lengths[:, None],
+                  (0, t_pad - total), value=True)
+        shards = [shard]
+        masks = [m]
+        for _ in range(self.depth):
+            m = m.reshape(m.shape[0], -1, 2).any(dim=-1)
+            masks.append(m)
+            shards.append(shards[-1].window(2, 2)[0])
+
+        h = self._block(self.pre, img, shard.take(masks[0], 1), generator, shard)
+        skips = []
+        for i, down in enumerate(self.downs):
+            skips.append(h)
+            h, _ = shards[i].conv(h, 2, 2, lambda w: F.avg_pool2d(w, (2, 1)), stride=2)
+            h = self._block(down, h, shards[i + 1].take(masks[i + 1], 1),
+                            generator, shards[i + 1])
+        level = self.depth
+        h = self._block(self.mid, h, shards[level].take(m, 1), generator, shards[level])
+        for up in self.ups:
+            h = shards[level].upsample2(h, 2, shards[level - 1])
+            m = m.repeat_interleave(2, dim=1)
+            level -= 1
+            h = self._block(up, torch.cat([h, skips.pop()], dim=1),
+                            shards[level].take(m, 1), generator, shards[level])
+        out = self.post(_mask4(h, shards[0].take(m, 1)), shard)[:, 0, :seq.local]
+        out = out.masked_fill(pad_mask[..., None], 0.0)
         return self.reproj(out)

@@ -16,6 +16,14 @@ ranks. Averaging rank-local means, which is what DistributedDataParallel
 computes, over-weights the rows of a rank whose rows are short (and a
 short final batch's zero-length fill rows).
 
+Under sequence parallelism (``parallel/seqtrain.py``) the world is a
+data x seq grid, seq innermost (``parallel/mesh.py`` ``train_grid``): the
+seq ranks of one data rank hold the same rows, each its frames of them.
+The rule extends to the time axis: each rank's partial sums over its rows
+AND frames are divided by the global counts, and gradients, loss metrics
+and the code histogram are summed over the whole world. Only the global
+lengths are gathered over the data ranks alone.
+
 Only ``all_reduce`` and ``broadcast`` are used, so that gloo reduces CUDA
 tensors too (ranks that share one card). Every function is the identity
 in one process.
@@ -29,7 +37,7 @@ from typing import Iterable, List
 import torch
 import torch.distributed as dist
 
-from mqgan_tpu_torch.parallel.mesh import batch_rows
+from mqgan_tpu_torch.parallel.mesh import batch_rows, train_grid
 
 
 def world() -> tuple:
@@ -85,16 +93,19 @@ def all_reduce_grads_(params: Iterable[torch.Tensor]) -> int:
     return all_reduce_([p.grad for p in params])
 
 
-def global_lengths(lengths: torch.Tensor) -> torch.Tensor:
-    """The global batch's lengths from each rank's (lb,) rows: every rank
-    fills its own rows of a zero (lb * world,) vector and one SUM reduction
-    completes it (in fp32, exact for any length below 2**24)."""
+def global_lengths(lengths: torch.Tensor, n_seq: int = 1) -> torch.Tensor:
+    """The global batch's lengths from each data rank's (lb,) rows: the
+    first seq rank of every data rank fills its rows of a zero (lb *
+    data ranks,) vector and one SUM reduction over the world completes it
+    (in fp32, exact for any length below 2**24)."""
     rank, n = world()
     if n == 1:
         return lengths
+    data, n_data, seq = train_grid(rank, n, n_seq)
     lb = lengths.shape[0]
-    buf = torch.zeros((lb * n,), dtype=torch.float32, device=lengths.device)
-    buf[batch_rows(lb * n, rank, n)] = lengths.float()
+    buf = torch.zeros((lb * n_data,), dtype=torch.float32, device=lengths.device)
+    if seq == 0:
+        buf[batch_rows(lb * n_data, data, n_data)] = lengths.float()
     all_reduce_([buf])
     return buf.to(lengths.dtype)
 
@@ -118,13 +129,14 @@ def barrier(device) -> None:
 
 @dataclass(frozen=True)
 class DataParallel:
-    """This process's place in a data-parallel train step, its rank and the
-    world size, and the step's reductions: loss denominators count the
-    global batch, so that summed partial gradients and losses are the
-    one-process step's."""
+    """This process's place in a data-parallel train step, its rank, the
+    world size and the seq ranks per data rank, and the step's reductions:
+    loss denominators count the global batch, so that summed partial
+    gradients and losses are the one-process step's."""
 
     rank: int = 0
     world: int = 1
+    n_seq: int = 1
 
     @classmethod
     def current(cls) -> "DataParallel":
@@ -132,8 +144,8 @@ class DataParallel:
 
     def count_lengths(self, lengths: torch.Tensor) -> torch.Tensor:
         """The lengths that a step's loss denominators count: the global
-        batch's."""
-        return global_lengths(lengths)
+        batch's (``lengths`` are this rank's rows' own)."""
+        return global_lengths(lengths, self.n_seq)
 
     def reduce_grads_(self, params) -> int:
         return all_reduce_grads_(params)

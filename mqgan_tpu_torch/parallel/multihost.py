@@ -20,7 +20,10 @@ the port runs one process per rank, each on one device, joined by a
   parent asks the ranks to stop (SIGUSR1) and waits for them; a second
   one kills them.
 * ``host_info``, ``shard_files_for_host`` and ``replicate_`` (broadcast
-  from rank 0: the counterpart of ``globalize_tree`` / ``replicate_tree``).
+  from rank 0: the counterpart of ``globalize_tree`` / ``replicate_tree``);
+  ``host_names`` (every rank's host, for the rule that a seq group sits
+  inside one host) and ``group_timeout_s`` (the group's timeout, which the
+  seq groups made from it keep).
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ from mqgan_tpu_torch.parallel.dp import broadcast_, world
 
 GROUP_TIMEOUT_S = 600.0
 ENV_KEYS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+HOST_NAME_BYTES = 64
+_timeout_s = [GROUP_TIMEOUT_S]  # of the group ``initialize`` made last
 
 
 def choose_backend(devices: Sequence) -> str:
@@ -115,7 +120,31 @@ def initialize(coordinator_address: str | None = None,
     dist.init_process_group(backend, init_method=url, rank=rank,
                             world_size=size,
                             timeout=datetime.timedelta(seconds=timeout_s))
+    _timeout_s[0] = float(timeout_s)
     return True
+
+
+def group_timeout_s() -> float:
+    """The timeout of the group ``initialize`` made."""
+    return _timeout_s[0]
+
+
+def host_name() -> str:
+    return socket.gethostname()
+
+
+def host_names(device) -> list:
+    """Every rank's ``host_name()`` (its first HOST_NAME_BYTES bytes), in
+    rank order: each rank writes its own row of a zero table and one SUM
+    reduction completes it."""
+    rank, n = world()
+    raw = host_name().encode()[:HOST_NAME_BYTES]
+    table = torch.zeros((n, HOST_NAME_BYTES), dtype=torch.int32, device=device)
+    table[rank, :len(raw)] = torch.tensor(list(raw), dtype=torch.int32)
+    if n > 1:
+        dist.all_reduce(table)
+    return [bytes(int(c) for c in row if c).decode(errors="replace")
+            for row in table.cpu().tolist()]
 
 
 def shutdown() -> None:

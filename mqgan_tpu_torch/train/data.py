@@ -22,7 +22,7 @@ from typing import Iterator, List, Sequence
 import numpy as np
 import torch
 
-from mqgan_tpu_torch.parallel.mesh import batch_rows
+from mqgan_tpu_torch.parallel.mesh import batch_rows, frame_range
 from mqgan_tpu_torch.utils.npy import find_npy_files, load_npy
 
 __all__ = ["find_npy_files", "split_train_eval", "Batch", "MelDataset",
@@ -103,18 +103,26 @@ class MelLoader:
     rows concatenated are the one-process batch and every rank yields the
     same number of batches. A short final batch (and a row whose file fails
     to load) becomes zero-length all-zero rows: every loss is masked by
-    ``lengths``, so they weigh nothing, with one batch shape."""
+    ``lengths``, so they weigh nothing, with one batch shape.
+
+    Under sequence parallelism, ``process_index`` / ``process_count`` are
+    the DATA rank and the data ranks, and the ``seq_count`` ranks of one
+    data rank build the same rows; rank ``seq_index`` keeps its frames
+    [s * T / n, (s + 1) * T / n) of them (``parallel/mesh.py``
+    ``frame_range``; every crop length divides by n). ``lengths`` stay the
+    rows' global lengths, which every rank of the group knows."""
 
     def __init__(self, dataset: MelDataset, batch_size: int,
                  crop_lens: Sequence[int], seed: int = 42,
                  num_threads: int = 8, drop_last: bool = False,
                  mel_channels: int | None = None, process_index: int = 0,
-                 process_count: int = 1):
+                 process_count: int = 1, seq_index: int = 0, seq_count: int = 1):
         if process_count > 1 and mel_channels is None:
             raise ValueError("a multi-process MelLoader needs mel_channels: a "
                              "rank whose rows of the final batch are all "
                              "padding still builds a batch of the right shape")
         self.rows = batch_rows(batch_size, process_index, process_count)
+        self.seq_index, self.seq_count = seq_index, seq_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.crop_lens = tuple(crop_lens)
@@ -175,6 +183,9 @@ class MelLoader:
                         mel[i, :full] = m
                         lengths[i] = full
                     names.append(os.path.basename(self.dataset.files[order[g]]))
+                if self.seq_count > 1:
+                    mel = np.ascontiguousarray(
+                        mel[:, frame_range(tgt, self.seq_index, self.seq_count)])
                 yield Batch(mel=mel, lengths=lengths, filenames=names)
 
 

@@ -40,6 +40,15 @@ code histogram are summed too. These are the reductions GSPMD inserts into
 the JAX package's sharded step (``gan/allreduce`` ranges). ``grad_accum``
 composes: the local batch divides by it, so the ranks' microbatch i is
 the global microbatch i.
+
+Sequence parallelism (``seq``, ``parallel/seqtrain.py``, with ``dp``): a
+rank's ``mel`` holds its frames of its data rank's rows (the crop of T
+frames split evenly over the seq group) and ``lengths`` the rows' global
+lengths. The generator and both discriminators run on the rank's frames,
+their convs exchanging halos and their pools reducing over the seq group;
+the counts are those of the global batch at the global T; the recon losses
+mask the rank's frames by its local lengths. Microbatches of
+``grad_accum`` split rows, so each stays time-sharded.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from mqgan_tpu_torch.models.discriminators import (
     MelSpectrogramPatchDiscriminator2D, MultiBinDiscriminator)
 from mqgan_tpu_torch.models.preencoder import PreEncoder
 from mqgan_tpu_torch.parallel.dp import DataParallel
+from mqgan_tpu_torch.parallel.seqtrain import SeqGroup
 from mqgan_tpu_torch.train.state import TrainState
 from mqgan_tpu_torch.utils.logging import component
 
@@ -145,7 +155,7 @@ def codebook_metrics(usage: torch.Tensor) -> Metrics:
 def make_train_step(cfg: TrainConfig, *, train_d: bool,
                     dtype: torch.dtype | None = None, grad_accum: int = 1,
                     ema_decay: float = 0.0, log_grad_norms: bool = False,
-                    dp: DataParallel | None = None
+                    dp: DataParallel | None = None, seq: SeqGroup | None = None
                     ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Metrics]:
     """A step for one phase: ``step(state, mel, lengths)`` updates
     ``state`` in place and returns its metrics (device scalars, read by the
@@ -154,7 +164,10 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
     before clipping (G, D, and G per component); ``ema_decay`` > 0 updates
     ``state.gen_ema`` after each G update. ``dp``: this rank's place in a
     data-parallel step (mel and lengths are its rows of the global batch);
-    None is one process."""
+    None is one process. ``seq``: this rank's seq group (needs ``dp``); mel
+    then holds the rank's frames of its rows."""
+    if seq is not None and dp is None:
+        raise ValueError("a sequence-parallel step needs its DataParallel")
     w = cfg.training.loss_weights
     use_fm = bool(cfg.training.use_fm_loss) and train_d
     n_bins = cfg.model.discriminator_multibin.n_bins
@@ -188,43 +201,46 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
                                              count=cs[0])
                 + loss_mbd / n_bins)
 
-    def d_forward(state, both, lengths2, b, update_stats):
+    def d_forward(state, both, lengths2, b, update_stats, shard=None):
         """Per D loss call (real logits, fake logits, real mask, fake mask)
         in the reference's order [patch, bin 0..n-1], every bin with bin
         0's masks."""
-        logits, mask = state.patch(both, lengths2, False, update_stats)
+        logits, mask = state.patch(both, lengths2, False, update_stats, shard)
         calls = [(logits[:b], logits[b:], mask[:b], mask[b:])]
-        l2, m2 = state.multibin(both, lengths2, False, update_stats)
+        l2, m2 = state.multibin(both, lengths2, False, update_stats, shard)
         for i in range(n_bins):
             calls.append((l2[i][:b], l2[i][b:], m2[0][:b], m2[0][b:]))
         return calls
 
-    def g_total_loss(state, r_pre, r_post, mel_t, mel_c, lengths, counts=None):
+    def g_total_loss(state, r_pre, r_post, mel_t, mel_c, lengths, counts=None,
+                     shard=None):
         """The G loss terms against the (already updated) discriminators;
         mel_t is the fp32 target, mel_c the compute-dtype input that
         feature matching runs through the discriminators as 'real';
-        ``counts``: the global batch's (``GlobalCounts``) or None."""
+        ``counts``: the global batch's (``GlobalCounts``) or None;
+        ``shard``: the rank's frames of a time-sharded crop."""
         zero = torch.zeros((), device=mel_t.device)
         c = counts
-        loss_recon_pre = recon(r_pre, mel_t, lengths, c and c.frames)
-        loss_recon_post = recon(r_post, mel_t, lengths, c and c.frames)
+        own = lengths if shard is None else shard.local_lengths(lengths)
+        loss_recon_pre = recon(r_pre, mel_t, own, c and c.frames)
+        loss_recon_post = recon(r_post, mel_t, own, c and c.frames)
         loss_gan = loss_fm = zero
         if train_d:
             b = r_post.shape[0]
             if use_fm:
                 lengths2 = torch.cat([lengths, lengths])
                 both_g = torch.cat([r_post, mel_c])
-                gl, gm, gf = state.patch(both_g, lengths2, True)
+                gl, gm, gf = state.patch(both_g, lengths2, True, seq=shard)
                 g_logits, g_mask = gl[:b], gm[:b]
                 pairs = [(f[b:].detach(), m[b:], f[:b]) for f, m in gf]
-                l2g, m2g, f2g = state.multibin(both_g, lengths2, True)
+                l2g, m2g, f2g = state.multibin(both_g, lengths2, True, seq=shard)
                 g_l2 = [t[:b] for t in l2g]
                 g_m2 = [t[:b] for t in m2g]
                 pairs2 = [[(f[b:].detach(), m[b:], f[:b]) for f, m in fs]
                           for fs in f2g]
             else:
-                g_logits, g_mask = state.patch(r_post, lengths)
-                g_l2, g_m2 = state.multibin(r_post, lengths)
+                g_logits, g_mask = state.patch(r_post, lengths, seq=shard)
+                g_l2, g_m2 = state.multibin(r_post, lengths, seq=shard)
             loss_gan_mbd = zero
             for i in range(n_bins):
                 loss_gan_mbd = loss_gan_mbd + generator_loss(
@@ -259,10 +275,15 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
                        "loss_gan": loss_gan.detach(),
                        "loss_fm": loss_fm.detach()}
 
-    def gen_forward(state, mel_c, lengths):
+    def gen_forward(state, mel_c, lengths, shard=None):
         return state.gen(mel_c, lengths, deterministic=False,
                          generator=state.dropout_rng,
-                         fsq_generator=state.fsq_rng)
+                         fsq_generator=state.fsq_rng, seq=shard)
+
+    def global_t(mel):
+        """The crop's frames, and this rank's shard of them (or None)."""
+        t = mel.shape[1] * (1 if seq is None else seq.size)
+        return t, None if seq is None else seq.shard(t)
 
     def usage_of(indices):
         return torch.bincount(indices.reshape(-1).long(), minlength=cb)
@@ -307,10 +328,11 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
              ) -> Metrics:
         # the record_function ranges name the step's parts in a profile
         mel_c = mel.to(dtype) if dtype is not None else mel
+        t, shard = global_t(mel)
         counts = (None if dp is None else
-                  GlobalCounts(state, dp.count_lengths(lengths), mel.shape[1], train_d))
+                  GlobalCounts(state, dp.count_lengths(lengths), t, train_d))
         with record_function("gan/g_forward"):
-            r_pre, r_post, indices = gen_forward(state, mel_c, lengths)
+            r_pre, r_post, indices = gen_forward(state, mel_c, lengths, shard)
         metrics: Metrics = {}
         loss_d = torch.zeros((), device=mel.device)
         if train_d:
@@ -318,7 +340,7 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
                 b = mel.shape[0]
                 both = torch.cat([mel_c, r_post.detach()])
                 calls = d_forward(state, both, torch.cat([lengths, lengths]), b,
-                                  update_stats=True)
+                                  True, shard)
                 sums = lecam_sums(calls)
                 reduce(lambda: dp.reduce_sums_([sums]))
                 chain = lecam_chain(state.lecam, sums)
@@ -334,7 +356,7 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
                 metrics["grad_norm/disc"] = d_norm
         with record_function("gan/g_loss"):
             total, losses = g_total_loss(state, r_pre, r_post, mel, mel_c,
-                                         lengths, counts)
+                                         lengths, counts, shard)
         with record_function("gan/g_backward"):
             state.gen_opt.zero_grad()
             total.backward(inputs=state.gen_opt.params)
@@ -360,12 +382,13 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
         # local batch divides by n, so the ranks' microbatch i is the
         # global microbatch i)
         counts = [None] * n
+        t, shard = global_t(mel)
         if dp is not None:
             cl = dp.count_lengths(lengths)
             cl = cl[striped(cl.shape[0])]
             bg = cl.shape[0] // n
-            counts = [GlobalCounts(state, cl[i * bg:(i + 1) * bg], mel.shape[1],
-                                   train_d) for i in range(n)]
+            counts = [GlobalCounts(state, cl[i * bg:(i + 1) * bg], t, train_d)
+                      for i in range(n)]
         stripe = striped(big_b)
         mel, lengths = mel[stripe], lengths[stripe]
         mel_c_full = mel.to(dtype) if dtype is not None else mel
@@ -387,10 +410,10 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
                 for i in range(n):
                     starts.append([g.get_state() for g in gens])
                     _, post, _ = gen_forward(state, micro(mel_c_full, i),
-                                             micro(lengths, i))
+                                             micro(lengths, i), shard)
                     len_i = micro(lengths, i)
                     calls = d_forward(state, torch.cat([micro(mel_c_full, i), post]),
-                                      torch.cat([len_i, len_i]), b, False)
+                                      torch.cat([len_i, len_i]), b, False, shard)
                     sums += lecam_sums(calls)
                     fakes.append(post)
             reduce(lambda: dp.reduce_sums_([sums]))
@@ -401,7 +424,7 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
             for i in range(n):
                 len_i = micro(lengths, i)
                 calls = d_forward(state, torch.cat([micro(mel_c_full, i), fakes[i]]),
-                                  torch.cat([len_i, len_i]), b, False)
+                                  torch.cat([len_i, len_i]), b, False, shard)
                 loss_i = d_losses(calls, chain, counts[i])
                 loss_i.backward(inputs=state.disc_opt.params)
                 loss_sum = loss_sum + loss_i.detach()
@@ -429,10 +452,10 @@ def make_train_step(cfg: TrainConfig, *, train_d: bool,
                 for g, st in zip(gens, starts[i]):
                     g.set_state(st)
             r_pre, r_post, idx = gen_forward(state, micro(mel_c_full, i),
-                                             micro(lengths, i))
+                                             micro(lengths, i), shard)
             total, g_metrics = g_total_loss(state, r_pre, r_post, micro(mel, i),
                                             micro(mel_c_full, i), micro(lengths, i),
-                                            counts[i])
+                                            counts[i], shard)
             total.backward(inputs=state.gen_opt.params)
             for k, v in g_metrics.items():
                 sums_g[k] = sums_g.get(k, zero) + v

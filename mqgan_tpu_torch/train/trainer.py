@@ -17,8 +17,8 @@ CLI:  python -m mqgan_tpu_torch.train.trainer --config model.yaml
       [--device cuda|cpu] [--fp32] [--pretrained CKPT] [--output_dir DIR]
       [--no_wandb] [--ema DECAY] [--keep_best] [--grad_accum N] [--remat]
       [--remat_refiner] [--exact_dropout] [--profile N] [--watch N]
-      [--multihost [--coordinator HOST:PORT --num_processes N
-      --process_id I]]
+      [--seq_par N] [--multihost [--coordinator HOST:PORT
+      --num_processes N --process_id I]]
 
 The trainer runs on CUDA unless ``--device cpu`` is given; without a card
 CUDA is an error. Data parallelism follows JAX's "every local device": with
@@ -32,10 +32,20 @@ rank trains on its rows of every batch and the step's reductions make it
 the one-process step (``train/step.py``, ``parallel/dp.py``). Only rank 0
 writes metrics, plots and checkpoints and runs the eval, on its own card,
 while the others wait; a signal on any rank stops every rank at the next
-step that logs (or the epoch's end), as one decision. JAX's
-``--compile_cache``, ``--rng_impl`` and ``--async_checkpoint`` are not
-accepted (XLA compile, JAX PRNG and orbax knobs); ``--seq_par`` > 1 raises
-(sequence-parallel training is ROADMAP.md Queue 1 item 8c).
+step that logs (or the epoch's end), as one decision.
+
+``--seq_par N`` splits each crop's time axis over N ranks
+(``parallel/seqtrain.py``): the ranks form a data x seq grid, seq
+innermost, and the N seq ranks of a data rank load the same rows and keep
+their frames of them; the step is the one-process step on the whole crop
+(``train/step.py``). Every crop length must divide by N, and under
+``--multihost`` every seq group must sit inside one host (the JAX
+trainer's rules). Without ``--multihost`` the trainer spawns the grid
+itself: a rank per card when N divides the visible cards, else N ranks
+sharing the cards (gloo); with ``--device cpu``, N CPU ranks. Rank 0
+evaluates on its own card alone, as a data-parallel run does.
+JAX's ``--compile_cache``, ``--rng_impl`` and ``--async_checkpoint`` are
+not accepted (XLA compile, JAX PRNG and orbax knobs).
 """
 
 from __future__ import annotations
@@ -58,8 +68,10 @@ from mqgan_tpu_torch.core.config import TrainConfig, load_model_config
 from mqgan_tpu_torch.core.device import resolve_device
 from mqgan_tpu_torch.parallel import multihost
 from mqgan_tpu_torch.parallel.dp import DataParallel, any_flag, barrier, world
-from mqgan_tpu_torch.parallel.mesh import local_devices
+from mqgan_tpu_torch.parallel.mesh import (check_seq_crops, check_seq_hosts,
+                                           local_devices, train_devices, train_grid)
 from mqgan_tpu_torch.parallel.seqpar import plan_seq_reencode, seq_parallel_reencode
+from mqgan_tpu_torch.parallel.seqtrain import SeqGroup
 from mqgan_tpu_torch.train.data import (DevicePrefetcher, MelDataset, MelLoader,
                                         find_npy_files, split_train_eval)
 from mqgan_tpu_torch.train.state import create_train_state
@@ -77,7 +89,8 @@ class Trainer:
     def __init__(self, config: TrainConfig, *, device="cuda",
                  use_wandb: bool = True, dtype=torch.bfloat16, profile_steps: int = 0,
                  watch_interval: int = 0, grad_accum: int = 1,
-                 keep_best: bool = False, ema_decay: float = 0.0):
+                 keep_best: bool = False, ema_decay: float = 0.0,
+                 seq_par: int = 1):
         if not 0.0 <= ema_decay < 1.0:
             raise ValueError(f"ema_decay must be in [0, 1), got {ema_decay}")
         if grad_accum > 1 and config.data.batch_size % grad_accum:
@@ -94,10 +107,25 @@ class Trainer:
         self._profiler = None
         self.watch_interval = watch_interval
         self.start_epoch = 1
-        # data parallelism: this process's rank in its group (one process:
-        # no reductions, self.dp None)
+        # data x seq parallelism: this process's rank in its group, its
+        # place in the grid (one process: no reductions, self.dp and
+        # self.seq None)
         self.rank, self.world = world()
-        self.dp = DataParallel(self.rank, self.world) if self.world > 1 else None
+        self.seq_par = int(seq_par)
+        if self.seq_par > 1:
+            check_seq_crops(config.crop_lens, self.seq_par)
+            if self.world == 1:
+                raise ValueError(f"--seq_par {self.seq_par} needs a group of "
+                                 f"ranks; this process has none")
+        self.data_rank, self.n_data, self.seq_index = train_grid(
+            self.rank, self.world, self.seq_par)
+        self.dp = (DataParallel(self.rank, self.world, self.seq_par)
+                   if self.world > 1 else None)
+        self.seq = None
+        if self.seq_par > 1:
+            check_seq_hosts(multihost.host_names(self.device), self.seq_par)
+            self.seq = SeqGroup.create(self.rank, self.world, self.seq_par,
+                                       multihost.group_timeout_s())
         self.is_primary = self.rank == 0
         # set by SIGTERM/SIGINT: the epoch stops at the next step boundary
         # (with ranks, the next one where they agree) and train()
@@ -111,7 +139,8 @@ class Trainer:
         self._eval_step = make_eval_step()
         # the exact eval's devices: None is every visible card (the CPU
         # alone for a CPU run); a list (which may repeat a device) overrides;
-        # with ranks, rank 0's own device (the other cards train)
+        # with ranks, rank 0's own device (the other cards train), so the
+        # eval does not depend on --seq_par
         self.eval_devices = [self.device] if self.dp is not None else None
         self._setup_data()
         self._setup_state()
@@ -133,19 +162,23 @@ class Trainer:
         print(f"Dataset: {len(files)} files -> {len(train_files)} train / "
               f"{len(eval_files)} eval")
         if self.dp is not None:
-            if cfg.data.batch_size % (self.world * self.grad_accum):
+            if cfg.data.batch_size % (self.n_data * self.grad_accum):
                 raise ValueError(f"batch_size {cfg.data.batch_size} does not "
-                                 f"divide over {self.world} ranks x grad_accum "
-                                 f"{self.grad_accum}")
-            print(f"data parallel: rank {self.rank} of {self.world}, local batch "
-                  f"{cfg.data.batch_size // self.world}")
+                                 f"divide over {self.n_data} data ranks x "
+                                 f"grad_accum {self.grad_accum}")
+            print(f"data parallel: rank {self.rank} of {self.world} (data rank "
+                  f"{self.data_rank} of {self.n_data}, seq rank {self.seq_index} "
+                  f"of {self.seq_par}), local batch "
+                  f"{cfg.data.batch_size // self.n_data}")
         # every rank keeps the whole file list and builds the same global
-        # plan; it loads its rows of each batch
+        # plan; it loads its data rank's rows of each batch (and keeps its
+        # frames of them)
         self.train_loader = MelLoader(
             MelDataset(train_files), batch_size=cfg.data.batch_size,
             crop_lens=cfg.crop_lens, seed=cfg.training.seed,
-            mel_channels=cfg.model.mel_channels, process_index=self.rank,
-            process_count=self.world)
+            mel_channels=cfg.model.mel_channels, process_index=self.data_rank,
+            process_count=self.n_data, seq_index=self.seq_index,
+            seq_count=self.seq_par)
         self.eval_dataset = MelDataset(eval_files)
 
     def _setup_state(self):
@@ -184,7 +217,7 @@ class Trainer:
             self._steps[train_d] = make_train_step(
                 self.config, train_d=train_d, dtype=self.dtype,
                 grad_accum=self.grad_accum, ema_decay=self.ema_decay,
-                log_grad_norms=bool(self.watch_interval), dp=self.dp)
+                log_grad_norms=bool(self.watch_interval), dp=self.dp, seq=self.seq)
         return self._steps[train_d]
 
     def _agree_stop(self) -> bool:
@@ -214,7 +247,8 @@ class Trainer:
                     self._maybe_profile(n)
                 metrics = step_fn(self.state, mel, lengths)
                 n += 1
-                # the global batch's frames: every rank's rows have this shape
+                # the global batch's frames: every rank's rows and frames
+                # have this shape
                 frames += mel.shape[0] * mel.shape[1] * self.world
                 last_batch = host_batch
                 if (self.watch_interval and n % self.watch_interval == 0
@@ -307,20 +341,22 @@ class Trainer:
 
     def _log_train_images(self, epoch: int, batch):
         """Original / pre / post triptychs of the last train batch's rows,
-        through the live generator (rank 0's rows, on rank 0)."""
+        through the live generator (rank 0's rows, on rank 0; under
+        --seq_par its frames of them, the crop's first)."""
         if (batch is None or self.config.logging.num_plot_examples <= 0
                 or not self.is_primary):
             return
         mel = torch.from_numpy(batch.mel).to(self.device)
-        lengths = torch.from_numpy(batch.lengths).to(self.device)
+        held = np.minimum(batch.lengths, batch.mel.shape[1])
+        lengths = torch.from_numpy(held).to(self.device)
         pre, post, _, _ = self._eval_step(self.state.gen, mel, lengths)
         pre_h, post_h = pre.float().cpu().numpy(), post.float().cpu().numpy()
-        rows = [i for i in range(mel.shape[0]) if batch.lengths[i] > 0]
+        rows = [i for i in range(mel.shape[0]) if held[i] > 0]
         for slot, i in enumerate(rows[:self.config.logging.num_plot_examples], 1):
             if not self._save_plot(f"epoch_{epoch:03d}_train_{slot}",
                                    f"train_spectrograms/example_{slot}",
                                    batch.mel[i], pre_h[i], post_h[i],
-                                   int(batch.lengths[i])):
+                                   int(held[i])):
                 break
 
     def _eval_clip(self, mel: np.ndarray, gen=None):
@@ -554,8 +590,10 @@ def parse_args(argv=None):
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--seq_par", type=int, default=1, metavar="N",
-                   help="sequence-parallel training: not ported beyond 1 "
-                        "(ROADMAP.md Queue 1 item 8c)")
+                   help="sequence (context) parallelism: split each crop's "
+                        "time axis over N ranks (crop_len values must divide "
+                        "by N); with --multihost, each seq group inside one "
+                        "host")
     return p, p.parse_args(argv)
 
 
@@ -566,10 +604,11 @@ def _rank_main(rank: int, world_size: int, device, argv) -> None:
 
 def spawn_ranks(devices, argv) -> None:
     """The CLI ``argv`` as one rank a device of ``devices`` from this
-    process (``launch``, no time limit): the default over several cards.
-    A signal to this process reaches the ranks as a request to stop, and
-    it returns once they have checkpointed and exited."""
-    print(f"data parallel over {len(devices)} devices: one rank each")
+    process (``launch``, no time limit): the default over several cards
+    or with ``--seq_par``. A signal to this process reaches the ranks as a
+    request to stop, and it returns once they have checkpointed and
+    exited."""
+    print(f"parallel training over {len(devices)} devices: one rank each")
     multihost.launch(_rank_main, devices, (list(argv),), timeout_s=None)
 
 
@@ -579,21 +618,27 @@ def main(argv=None):
         parser.error("--fast_dropout and --exact_dropout request opposite "
                      "mixer-dropout semantics; drop one (--fast_dropout is a "
                      "no-op: fast dropout is the default)")
-    if args.seq_par > 1:
-        raise SystemExit("--seq_par > 1: sequence-parallel training is not "
-                         "ported yet (ROADMAP.md Queue 1 item 8c)")
+    if args.seq_par < 1:
+        parser.error("--seq_par must be >= 1")
     device = resolve_device(args.device)
-    if (not args.multihost and device.type == "cuda" and device.index is None
-            and torch.cuda.device_count() > 1):
-        # JAX's default: data parallel over every local device
-        spawn_ranks(local_devices(), argv if argv is not None else sys.argv[1:])
-        return None
+    config = load_model_config(args.config)
+    check_seq_crops(config.crop_lens, args.seq_par)
+    if not args.multihost:
+        devices = None
+        if device.type == "cuda" and device.index is None and (
+                torch.cuda.device_count() > 1 or args.seq_par > 1):
+            # JAX's default: parallel over every local device
+            devices = train_devices(local_devices(), args.seq_par)
+        elif args.seq_par > 1:
+            devices = [device] * args.seq_par
+        if devices is not None and len(devices) > 1:
+            spawn_ranks(devices, argv if argv is not None else sys.argv[1:])
+            return None
     created = False
     if args.multihost:
         created = multihost.initialize(args.coordinator, args.num_processes,
                                        args.process_id, device=device)
         device = multihost.rank_device(device, world()[0])
-    config = load_model_config(args.config)
     training, data, gen = config.training, config.data, config.model.generator
     if args.pretrained:
         training = dataclasses.replace(training, pretrained=args.pretrained)
@@ -611,7 +656,7 @@ def main(argv=None):
                           dtype=torch.float32 if args.fp32 else torch.bfloat16,
                           profile_steps=args.profile, watch_interval=args.watch,
                           grad_accum=args.grad_accum, keep_best=args.keep_best,
-                          ema_decay=args.ema)
+                          ema_decay=args.ema, seq_par=args.seq_par)
         try:
             trainer.train()
         finally:

@@ -171,8 +171,11 @@ def test_cli_refusals(run):
     cfg_path, _ = run
     with pytest.raises(SystemExit):
         _cli(cfg_path, "--fast_dropout", "--exact_dropout")
-    with pytest.raises(SystemExit, match="Queue 1 item 8"):
-        _cli(cfg_path, "--seq_par", "2")
+    with pytest.raises(SystemExit):
+        _cli(cfg_path, "--seq_par", "0")
+    # crops 32/24 over 5 seq ranks: refused before any rank starts
+    with pytest.raises(ValueError, match="do not divide by the sequence-parallel factor 5"):
+        _cli(cfg_path, "--seq_par", "5")
     with pytest.raises(SystemExit):
         _cli(cfg_path, "--rng_impl", "rbg")  # a JAX knob: not accepted
     if not torch.cuda.is_available():

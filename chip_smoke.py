@@ -3,8 +3,9 @@
 token-LM training path, its token-LM serving path, its codec deployment
 path, its codec training path, its vocoder training path, its LM
 artifact with codec attach, its parallel codec serving, its
-data-parallel and pipelined training and its sequence-parallel training
-on one NVIDIA GPU (H100).
+data-parallel and pipelined training, its sequence-parallel training and
+its codec artifact's traced programs (CUDA graphs, the int8 refiner) on
+one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --fsq-head-of DIR   # time another checkout's FSQ head
@@ -152,10 +153,11 @@ printing no result, without one. Phases (any failure exits non-zero):
     "encode"/True). Then the path (counts reset just before, read just
     after; residual_block, mel_mixer, mel_mixer_poly and fsq_head must
     launch, log-mel and flash must not): (a) three exports
-    through the export CLI at buckets 128/256/512/1024 (bf16 poly-decode,
-    the CLI default; fp32 exact and fp32 poly both, re-exported from the
-    first's manifest and weights.pt), each verified and reloaded with
-    ExportedPreEncoder(dir) on the card; the fp32 artifact's round trip
+    through the export CLI at buckets 128/512/1024 (bf16 poly-decode,
+    the CLI default; fp32 exact and, at 1024 alone, fp32 poly both,
+    re-exported from the first's manifest and weights.pt; each a traced
+    program per op, bucket and platform), each verified and reloaded with
+    ExportedPreEncoder(dir) on the card (a CUDA graph per shape); the fp32 artifact's round trip
     equals the in-memory model (tokens away from midpoints, mel within
     1e-4 * max(1, max|x|)); the flips of poly both are counted; (b) the
     re-encode CLI over 16 mels of 100-3000 frames (two chunked) through
@@ -298,7 +300,35 @@ printing no result, without one. Phases (any failure exits non-zero):
     process, and the halo exchanges' calls, bytes and ms in a synchronised
     step. These launch counts are printed on their own line and stay out
     of the kernels line, as phase 18's do;
-20. print {"ok": true, "device": {...}} as the last line.
+20. the codec artifact as traced programs (flagship width, seeded
+    weights, TF32 off): (a) each kernel's torch.library op (mqgan::*)
+    against its kernel wrapper on the same card inputs, bit for bit, and
+    torch.library.opcheck on the card; (b) three exports through the CLI at
+    buckets 128/512 (fp32 exact, bf16 poly-decode, bf16 poly-decode
+    --int8_refiner), each one's programs called eagerly against the
+    in-memory model on the kernels (tokens equal away from midpoints, the
+    decode of the same tokens at phase 3's gates) at B=1 T=128, B=1 T=77,
+    B=7 ragged and B=2 T=512, with the launches of one encode + decode (6
+    residual_block, 1 fsq_head, the mixers, 14 int8_conv), and the fp32
+    artifact's CPU programs (the card's, moved) on the CPU against the
+    model there, bit for bit; (c) each
+    runtime's CUDA-graph calls (the capturing call and a replay) equal to
+    the eager programs bit for bit at B=1 and B=7 ragged in both buckets,
+    encode and reencode, and the graph of 8 repeat-padded rows against
+    the unpadded 7-row call (tokens equal, the mel at phase 13's gates:
+    cuBLAS and cuDNN may take another algorithm for 7 rows); a B=1 decode
+    span (T=1024, phase 13's bf16
+    artifact) timed eager vs replayed with its idle share, and the
+    graphs' memory (that span and B=64); (d) int8_conv against its plain
+    version at each of the refiner's 14 int8 conv shapes (B=2 T=512, fp32
+    and bf16: codes and int32 sums equal, the output within one ulp), its
+    time at B=64 T=512 beside the plain version, its bound (int8 ops at
+    1,979 TOP/s or bytes) and cuDNN's bf16 conv2d (the yardstick), and the
+    bf16 round trip at B=64 T=512 with and without the int8 refiner
+    (mel-frames/s printed; deviation within 0.1 * max|mel|, the JAX
+    test's bound). Counts reset before (b), read after (c); the int8_conv
+    row joins the kernels line;
+21. print {"ok": true, "device": {...}} as the last line.
 
 A fatal signal prints every thread's Python stack (faulthandler). Once the
 last line is out, and every process the script started has been joined,
@@ -2383,7 +2413,9 @@ def lm_serving(tf_run, lstm_run, device, counters, card) -> None:
 # phase 13, codec deployment: the export buckets, the re-encoded directory
 # (14 clips within the largest bucket, in batches of 7, then 2 chunked
 # ones), the streaming chunk and the HTTP traffic
-DEPLOY_BUCKETS = (128, 256, 512, 1024)
+# each bucket is a traced program per op and platform (seconds to trace
+# each): phase 20's (128, 512) and the streaming window
+DEPLOY_BUCKETS = (128, 512, 1024)
 REENCODE_LENGTHS = (100, 177, 256, 300, 384, 450, 512, 600, 700, 777, 900,
                     1000, 1023, 1024, 2000, 3000)
 REENCODE_BATCH = 7
@@ -2500,9 +2532,9 @@ class _SpanTimer:
 
 def deploy_export(root, state, fp32) -> dict:
     """Phase 13a: three exports through the CLI (bf16 with the default
-    poly-decode mixers; fp32 exact and fp32 with both mixers Chebyshev, both
-    re-exported from the first artifact's manifest and weights), each
-    verified and reloaded on the card; the fp32 artifact's round trip
+    poly-decode mixers; fp32 exact and, at the largest bucket, fp32 with
+    both mixers Chebyshev, both re-exported from the first artifact's
+    manifest and weights), each verified and reloaded on the card; the fp32 artifact's round trip
     against the in-memory model."""
     import torch
 
@@ -2514,19 +2546,26 @@ def deploy_export(root, state, fp32) -> dict:
         json.dump({"model": {"mel_channels": MELS, "generator": DEPLOY_GENERATOR}}, f)
     buckets = [str(b) for b in DEPLOY_BUCKETS]
     dirs = {"bf16": os.path.join(root, "exp_bf16")}
+    t0 = time.perf_counter()
     export.main(["--config", cfg, "--seed", str(SEED), "--output", dirs["bf16"],
                  "--bf16", "--buckets", *buckets])
+    secs = {"bf16": round(time.perf_counter() - t0, 1)}
     weights = os.path.join(dirs["bf16"], "weights.pt")
-    for name, flags in (("fp32", ["--exact_mixers"]), ("both", ["--poly_mixers"])):
+    # the poly-both artifact serves one encode at T=ROUND_T: its largest
+    # bucket alone (each bucket is a traced program per platform)
+    for name, flags in (("fp32", ["--exact_mixers", "--buckets", *buckets]),
+                        ("both", ["--poly_mixers", "--buckets", buckets[-1]])):
         dirs[name] = os.path.join(root, f"exp_{name}")
+        t0 = time.perf_counter()
         export.main(["--manifest", dirs["bf16"], "--checkpoint", weights,
-                     "--output", dirs[name], "--buckets", *buckets, *flags])
+                     "--output", dirs[name], *flags])
+        secs[name] = round(time.perf_counter() - t0, 1)
+    print(f"  export CLI seconds (tracing, saving, verifying): {secs}")
     saved = torch.load(weights, weights_only=True)
     if set(saved) != set(state) or not all(torch.equal(saved[k], state[k]) for k in state):
         fail("the exported weights are not the seeded flagship generator's")
     rts = {}
-    for name, d in dirs.items():
-        export.verify_export(d)
+    for name, d in dirs.items():  # each verified by the CLI
         rts[name] = ExportedPreEncoder(d)
         m = rts[name].manifest
         print(f"  export {name}: dtype {m['dtype']}, poly_mixers {m['poly_mixers']}, "
@@ -3185,7 +3224,7 @@ def trainer_cli(device, counters, card) -> dict:
     gen_path = save_generator_only(root, trainer.state.gen.state_dict())
     art = os.path.join(root, "artifact")
     export.main(["--config", cfg_path, "--checkpoint", gen_path, "--output", art,
-                 "--buckets", "256", "512", "--exact_mixers", "--device", str(device)])
+                 "--buckets", "512", "1024", "--exact_mixers", "--device", str(device)])
     rt = ExportedPreEncoder(art, device=device)
     model = PreEncoder.from_config(MELS, trainer.config.model.generator)
     model.load_state_dict(torch.load(gen_path, weights_only=True))
@@ -5484,6 +5523,518 @@ def seq_training_alone() -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# phase 20, the codec artifact as the JAX package exports it: (a) the
+# kernels' ops against their kernel wrappers, (b) three traced artifacts at
+# flagship width, (c) CUDA-graph replay against the eager programs, (d) the
+# int8 refiner conv
+ARTIFACT_BUCKETS = (128, 512)
+ARTIFACT_CMP = ((1, (128,)), (1, (77,)), (7, (128, 127, 100, 77, 64, 9, 1)),
+                (2, (512, 300)))
+INT8_CMP_B, INT8_B, INT8_T = 2, 64, 512
+INT8_CONVS = 14  # the refiner's downs, mid and ups: 7 ConvBlocks of 2 convs
+PEAK_INT8 = 1979e12  # H100 SXM dense int8 tensor-core ops/s (data sheet)
+GRAPH_SPAN_T, GRAPH_BIG_B = DEPLOY_BUCKETS[-1], 64
+
+
+def _op_cases(device) -> dict:
+    """Phase 20a: name -> (op, its kernel wrapper, arguments on the card),
+    small shapes the kernels take (bf16 blocks and the int8 conv need
+    channels % 16, the flash kernels D in 32/64/128)."""
+    import torch
+
+    from mqgan_tpu_torch.core.config import SpectrogramConfig
+    from mqgan_tpu_torch.nn.blocks import ResidualBlock1D
+    from mqgan_tpu_torch.nn.mixer2d import MelMixer2D
+    from mqgan_tpu_torch.ops import (block_kernels as bk, flash_attention as fa,
+                                     fsq_kernels as fk, int8_conv as ik,
+                                     mixer_kernels as mk, mixer_poly as mp,
+                                     stft_kernels as sk)
+    from mqgan_tpu_torch.quant.fsq import FSQSpec
+    from mqgan_tpu_torch.utils.init import seeded_init_
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    def detached(w):
+        return type(w)(*(None if t is None else t.detach().to(device) for t in w))
+
+    dt, b, t = torch.bfloat16, 3, 77
+    lengths = torch.tensor([77, 40, 1], dtype=torch.int32, device=device)
+    lo, hi = torch.zeros_like(lengths), lengths.clone()
+    cbam = detached(seeded_init_(ResidualBlock1D(32, 48, 3, causal=False), 1)
+                    .to(device).kernel_weights(dt))
+    causal = detached(seeded_init_(ResidualBlock1D(48, 48, 5, causal=True), 2)
+                      .to(device).kernel_weights(dt))
+    x32, x48 = rand(b, t, 32, dtype=dt), rand(b, t, 48, dtype=dt)
+    z, part, proj = bk.residual_block_begin_kernel(x32, lengths, *cbam, lo, hi)
+    mix = detached(seeded_init_(MelMixer2D(64), 3).to(device).kernel_weights())
+    xm = rand(b, t, 64, dtype=dt)
+    spec = FSQSpec((8, 5, 5, 5))
+    h = rand(b * t, 48, dtype=dt)
+    fw, fb = rand(48, 4), rand(4)
+    consts = torch.from_numpy(fk.fsq_head_constants(spec)).to(device)
+    tables = sk.log_mel_tables(SpectrogramConfig(), device)
+    dft = sk.dft_mel_tables(SpectrogramConfig(sampling_rate=16000, filter_length=1200,
+                                              hop_length=300, win_length=1200,
+                                              n_mel_channels=80, mel_fmax=8000.0))
+    dft = [x.to(device) for x in dft]
+    wav = rand(2, 9000)
+    q, k, v = (rand(2, 65, 2, 64, dtype=dt) for _ in range(3))
+    o, lse = fa.flash_attention_fwd(q, k, v, 0.125)
+    do = rand(2, 65, 2, 64, dtype=dt)
+    img = rand(2, 32, 12, 144, dtype=dt).contiguous(memory_format=torch.channels_last)
+    wq, sw = ik.quantize_weights(rand(48, 32, 3, 3, dtype=dt))
+    bias = rand(48)
+    ops = torch.ops.mqgan
+    return {
+        "fsq_head": (ops.fsq_head, fk.fsq_head_kernel, (h, fw, fb, consts)),
+        "residual_block": (ops.residual_block, bk.residual_block_kernel,
+                           (x32, lengths, *cbam, False)),
+        "residual_block causal": (ops.residual_block, bk.residual_block_kernel,
+                                  (x48, lengths, *causal, True)),
+        "residual_block_begin": (ops.residual_block_begin, bk.residual_block_begin_kernel,
+                                 (x32, lengths, *cbam, lo, hi)),
+        "residual_block_finish": (ops.residual_block_finish,
+                                  bk.residual_block_finish_kernel,
+                                  (x32, lengths, *cbam, proj, z, part.contiguous(),
+                                   lengths.float())),
+        "mel_mixer": (ops.mel_mixer, mk.mel_mixer_kernel, (xm, lengths, *mix)),
+        "mel_mixer_poly": (ops.mel_mixer_poly, mp.poly_mixer_kernel,
+                           (xm, lengths, *mix, mp.POLY_DEGREE, mp.POLY_GRID)),
+        "log_mel": (ops.log_mel, sk.log_mel_kernel,
+                    (wav, tables.fbank, tables.cos, tables.sin, tables.window,
+                     tables.twiddles, tables.bands, tables.weights, tables.hop,
+                     tables.n_fft)),
+        "log_mel_dft": (ops.log_mel_dft, sk.log_mel_dft_kernel,
+                        (wav, dft[0], dft[1], dft[2], 300)),
+        "flash_fwd": (ops.flash_fwd, fa.flash_attention_fwd, (q, k, v, 0.125)),
+        "flash_bwd": (ops.flash_bwd, fa.flash_attention_bwd, (q, k, v, o, lse, do, 0.125)),
+        "int8_conv": (ops.int8_conv, ik.int8_conv_kernel, (img, wq, sw, bias)),
+    }
+
+
+def compare_ops(device) -> None:
+    """Phase 20a: each op's CUDA implementation against its kernel wrapper
+    on the same inputs, bit for bit, and torch.library.opcheck on the
+    card (schema, fake implementation, AOT dispatch with dynamic shapes)."""
+    import torch
+
+    for name, (op, kernel, args) in _op_cases(device).items():
+        got = op(*args)
+        want = kernel(*args)
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        same = len(got) == len(want) and all(
+            g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+            for g, w in zip(got, want))
+        try:
+            torch.library.opcheck(op.default, args)
+            checked = "ok"
+        except Exception as e:  # reported, then failed below
+            checked = f"FAIL ({str(e)[:300]})"
+        print(f"  20a {name}: op == kernel wrapper bit for bit "
+              f"{'ok' if same else 'FAIL'}; opcheck on the card {checked}")
+        if not same or checked != "ok":
+            fail(f"phase 20a: the op {name} disagrees with its kernel wrapper or "
+                 f"fails opcheck")
+
+
+def _artifact_exports(root) -> dict:
+    """Phase 20b: the export CLI at flagship width, buckets ARTIFACT_BUCKETS:
+    fp32 exact, bf16 poly-decode (the CLI default) and bf16 poly-decode with
+    --int8_refiner; name -> (directory, export seconds)."""
+    from mqgan_tpu_torch.deploy import export
+
+    cfg = os.path.join(root, "flagship20.json")
+    with open(cfg, "w") as f:
+        json.dump({"model": {"mel_channels": MELS, "generator": DEPLOY_GENERATOR}}, f)
+    buckets = [str(b) for b in ARTIFACT_BUCKETS]
+    out = {}
+    for name, flags in (("fp32", ["--exact_mixers"]), ("bf16", ["--bf16"]),
+                        ("int8", ["--bf16", "--int8_refiner"])):
+        d = os.path.join(root, f"exp20_{name}")
+        t0 = time.perf_counter()
+        export.main(["--config", cfg, "--seed", str(SEED), "--output", d,
+                     "--buckets", *buckets, *flags])
+        out[name] = (d, time.perf_counter() - t0)
+    return out
+
+
+def _program_round_trip(rt, model, x, lengths, bucket, counters):
+    """The loaded programs called eagerly at bucket (no graph): (tokens,
+    mel, launches of one encode + decode)."""
+    import torch
+
+    dev = rt.device
+    b, t = x.shape[:2]
+    xp = np.zeros((b, bucket, MELS), np.float32)
+    xp[:, :t] = x
+    pad = torch.from_numpy(np.arange(bucket)[None, :] >= lengths[:, None]).to(dev)
+    enc = rt.program("encode", bucket, dev)
+    dec = rt.program("decode", bucket, dev)
+    with torch.no_grad():
+        enc(torch.from_numpy(xp).to(dev), pad)  # load and warm
+        before = counters.snapshot()
+        idx = enc(torch.from_numpy(xp).to(dev), pad)
+        mel = dec(idx, pad)
+        torch.cuda.synchronize()
+        after = counters.snapshot()
+    launches = {k: after.get(k, 0) - before.get(k, 0) for k in after
+                if after.get(k, 0) != before.get(k, 0)}
+    return idx[:, :t].cpu().numpy(), mel[:, :t].float().cpu().numpy(), launches, pad
+
+
+def artifact_programs(root, state, device, counters, card) -> dict:
+    """Phase 20b: each artifact's loaded programs against the in-memory
+    model on the kernels (tokens equal away from midpoints, the mel at
+    phase 13's gates) and the launches of one round trip through them;
+    returns name -> runtime."""
+    import torch
+
+    from mqgan_tpu_torch.core.config import GeneratorConfig
+    from mqgan_tpu_torch.deploy.runtime import ExportedPreEncoder
+    from mqgan_tpu_torch.models.preencoder import PreEncoder
+
+    dirs = _artifact_exports(root)
+    fp32 = build_model(device, torch.float32, state=state)
+    rts = {}
+    for name, (d, secs) in dirs.items():
+        rt = rts[name] = ExportedPreEncoder(d)
+        m = rt.manifest
+        sizes = sum(os.path.getsize(os.path.join(d, p, f)) for p in m["platforms"]
+                    for files in m["files"].values() for f in files.values())
+        dtype = torch.bfloat16 if m["dtype"] == "bfloat16" else torch.float32
+        model = PreEncoder.from_config(MELS, GeneratorConfig(), dtype=dtype,
+                                       poly_mixers=m["poly_mixers"],
+                                       int8_refiner=m["int8_refiner"])
+        model.load_state_dict(state)
+        model = model.to(device).eval()
+        print(f"  20b export {name}: {secs:.1f} s, platforms {m['platforms']}, files "
+              f"{m['files']['128']}, {sizes / 1e6:.0f} MB of programs")
+        want_launches = {"residual_block": 6, "fsq_head": 1,
+                         "mel_mixer": 2 if not m["poly_mixers"] else 1}
+        if m["poly_mixers"]:
+            want_launches["mel_mixer_poly"] = 1
+        if m["int8_refiner"]:
+            want_launches["int8_conv"] = INT8_CONVS
+        for bsz, lens in ARTIFACT_CMP:
+            lengths = np.array(lens, np.int32)
+            t = int(lengths.max())
+            x = np.random.default_rng(SEED + 41 + bsz).standard_normal(
+                (bsz, t, MELS)).astype(np.float32)
+            bucket = rt.bucket_for(t)
+            tokens, mel, launches, pad = _program_round_trip(rt, model, x, lengths,
+                                                             bucket, counters)
+            xp = np.zeros((bsz, bucket, MELS), np.float32)
+            xp[:, :t] = x
+            with torch.no_grad():
+                want_tokens = model.encode(torch.from_numpy(xp).to(device), pad)
+            want_tokens = want_tokens[:, :t].cpu().numpy()
+            near = _near_midpoints(fp32, xp, lengths)[:, :t]
+            valid = np.arange(t)[None, :] < lengths[:, None]
+            flips = _check_tokens(f"20b {name} program vs model", tokens[valid],
+                                  want_tokens[valid], near[valid])
+            # the decode of the same tokens (a flipped token moves its frames)
+            with torch.no_grad():
+                idx = torch.from_numpy(np.pad(tokens, ((0, 0), (0, bucket - t)))).to(device)
+                want = model.decode(idx, pad)[:, :t].float().cpu().numpy()
+            ok, max_abs, detail = _judge("mel", torch.from_numpy(mel[valid]),
+                                         torch.from_numpy(want[valid]), dtype)
+            print(f"    B={bsz} T={t} (bucket {bucket}) lengths {list(lens)}: "
+                  f"program vs in-memory model {flips} token flips (midpoints), "
+                  f"{detail.strip()}, max|d| {max_abs:.3e}; launches of one encode + "
+                  f"decode {launches} {'ok' if ok and launches == want_launches else 'FAIL'}")
+            if not ok or launches != want_launches:
+                fail(f"phase 20b: the {name} artifact's programs disagree with the "
+                     f"model or launch {launches} (want {want_launches})")
+    # the CPU programs of a card export are its programs moved to the CPU:
+    # the fp32 ones against the model on the CPU (the plain versions)
+    cpu_rt = ExportedPreEncoder(dirs["fp32"][0], device="cpu")
+    cpu = build_model("cpu", torch.float32, state=state)
+    x = np.random.default_rng(SEED + 45).standard_normal((1, 77, MELS)).astype(np.float32)
+    tokens, mel = cpu_rt.reencode(x, [77])
+    xp = torch.zeros((1, 128, MELS))
+    xp[0, :77] = torch.from_numpy(x[0])
+    pad = torch.arange(128)[None, :] >= 77
+    want_tokens = cpu.encode(xp, pad)
+    want = cpu.decode(want_tokens, pad)[:, :77].numpy()
+    same = np.array_equal(tokens, want_tokens[:, :77].numpy()) and np.array_equal(mel, want)
+    print(f"  20b fp32 artifact's CPU programs (moved from the card's) on the CPU vs "
+          f"the model on the CPU, B=1 T=77: tokens and mel equal bit for bit "
+          f"{'ok' if same else 'FAIL'}")
+    if not same:
+        fail("phase 20b: the artifact's CPU programs disagree with the CPU model")
+    return rts
+
+
+def _eager_call(rt, op, x, lengths):
+    """The runtime's op through its programs called eagerly (no graph), on
+    the same padded rows the runtime's graph takes."""
+    import torch
+
+    from mqgan_tpu_torch.deploy.runtime import graph_rows
+    from mqgan_tpu_torch.parallel.mesh import repeat_pad_rows
+
+    arr, pad_mask, t = rt._prepare(np.asarray(x), lengths)
+    rows = arr.shape[0]
+    arr, pad_mask = repeat_pad_rows((arr, pad_mask), graph_rows(rows))
+    fn = rt._call(op, rt.device, arr.shape[1])
+    with torch.no_grad():
+        outs = fn(torch.from_numpy(arr).to(rt.device), torch.from_numpy(pad_mask).to(rt.device))
+        unpadded = fn(torch.from_numpy(arr[:rows]).to(rt.device),
+                      torch.from_numpy(pad_mask[:rows]).to(rt.device))
+    return ([o[:rows, :t].cpu().numpy() for o in outs],
+            [o[:, :t].cpu().numpy() for o in unpadded])
+
+
+def graph_replay(rts, span_rt, card) -> None:
+    """Phase 20c: the runtimes' CUDA-graph calls against the eager programs,
+    bit for bit, at B=1 and B=7 ragged in both buckets (the graph's first
+    call answers from its warm-up, the second replays), the padded-rows
+    graph against the unpadded call (tokens equal, the mel at phase 13's
+    gates); B=1 span ms eager vs replayed on phase
+    13's bf16 artifact with the idle share, and the graphs' memory."""
+    import torch
+
+    from mqgan_tpu_torch.deploy.runtime import graph_rows
+
+    for name in ("fp32", "bf16", "int8"):
+        rt = rts[name]
+        for bsz, lens in ((1, (128,)), (1, (300,)), (7, (512, 500, 300, 129, 128, 64, 1)),
+                          (7, (128, 120, 77, 60, 9, 2, 1))):
+            lengths = np.array(lens, np.int32)
+            t = int(lengths.max())
+            x = np.random.default_rng(SEED + 50 + bsz + t).standard_normal(
+                (bsz, t, MELS)).astype(np.float32)
+            for op, arg in (("encode", x), ("reencode", x)):
+                first = rt.reencode(arg, lengths) if op == "reencode" else (rt.encode(arg, lengths),)
+                again = rt.reencode(arg, lengths) if op == "reencode" else (rt.encode(arg, lengths),)
+                eager, unpadded = _eager_call(rt, op, arg, lengths)
+                same = all(np.array_equal(a, e) for a, e in zip(first, eager)) and \
+                    all(np.array_equal(a, e) for a, e in zip(again, eager))
+                # the padded rows leave the mixers' Chebyshev range as it
+                # is, but cuBLAS and cuDNN may take another algorithm for
+                # 7 rows than for 8: tokens equal, the mel at phase 13's gate
+                pad_tokens = np.array_equal(again[0], unpadded[0])
+                pad_ok, pad_diff = pad_tokens, 0.0
+                if op == "reencode":
+                    dt = torch.float32 if rt.manifest["dtype"] == "float32" else torch.bfloat16
+                    ok_mel, pad_diff, _ = _judge("", torch.from_numpy(again[1]),
+                                                 torch.from_numpy(unpadded[1]), dt)
+                    pad_ok = pad_ok and ok_mel
+                print(f"  20c {name} {op} B={bsz} T={t} (bucket {rt.bucket_for(t)}, "
+                      f"graph rows {graph_rows(bsz)}): the capturing call and a replay "
+                      f"== the eager program bit for bit {'ok' if same else 'FAIL'}; "
+                      f"the padded-rows graph vs the unpadded call: tokens equal "
+                      f"{pad_tokens}, mel max|d| {pad_diff:.3e} "
+                      f"{'ok' if pad_ok else 'FAIL'}")
+                if not (same and pad_ok):
+                    fail(f"phase 20c: the {name} {op} graph disagrees with the eager "
+                         f"call (replay {same}, padded rows {pad_ok})")
+        print(f"    {name}: {len(rt.graphs)} graphs captured")
+
+    rt = span_rt
+    tokens = np.random.default_rng(SEED + 51).integers(
+        0, rt.codebook_size, (1, GRAPH_SPAN_T)).astype(np.int32)
+    prog = rt.program("decode", GRAPH_SPAN_T, rt.device)
+    pad = torch.zeros((1, GRAPH_SPAN_T), dtype=torch.bool, device=rt.device)
+
+    def eager():
+        with torch.no_grad():
+            return prog(torch.from_numpy(tokens).to(rt.device), pad).float().cpu().numpy()
+
+    def replayed():
+        return rt.decode(tokens)
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_reserved()
+    if not np.array_equal(replayed(), eager()):  # the capture, then its check
+        fail("phase 20c: the B=1 span's graph disagrees with the eager program")
+    span_mem = torch.cuda.memory_reserved() - mem0
+    for label, fn in (("eager program", eager), ("CUDA graph", replayed)):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        events, wall = _device_profile(fn)
+        busy = sum(ms for _, ms in events)
+        idle = f"{1 - busy / wall:.3f}" if busy else "not measured"
+        print(f"  20c B=1 decode span T={GRAPH_SPAN_T}, bf16 poly-decode (phase 13's "
+              f"artifact), {label}: median {np.median(times):.3f} ms (min "
+              f"{min(times):.3f}) host clock incl. copies; profiled: busy {busy:.3f} "
+              f"of {wall:.3f} ms, idle share {idle} [{card}]")
+    big = np.random.default_rng(SEED + 52).integers(
+        0, rt.codebook_size, (GRAPH_BIG_B, GRAPH_SPAN_T)).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0, peak0 = torch.cuda.memory_reserved(), torch.cuda.max_memory_allocated()
+    rt.decode(big)
+    torch.cuda.synchronize()
+    print(f"  20c graphs' memory: the B=1 T={GRAPH_SPAN_T} decode graph reserved "
+          f"{span_mem / 1e6:.1f} MB; the B={GRAPH_BIG_B} T={GRAPH_SPAN_T} decode "
+          f"graph {(torch.cuda.memory_reserved() - mem0) / 1e9:.2f} GB more reserved, "
+          f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(the pool is shared by the runtime's graphs) [{card}]")
+
+
+def _int8_levels(model) -> list:
+    """(name, conv, T divisor) of the int8 refiner's 14 convs."""
+    ref = model.refiner
+    out = []
+    for i, blk in enumerate(ref.downs):
+        out += [(f"down{i}.conv{j}", getattr(blk, f"conv{j}"), 2 ** (i + 1)) for j in (1, 2)]
+    out += [(f"mid.conv{j}", getattr(ref.mid, f"conv{j}"), 2 ** ref.depth) for j in (1, 2)]
+    for i, blk in enumerate(ref.ups):
+        out += [(f"up{i}.conv{j}", getattr(blk, f"conv{j}"), 2 ** (ref.depth - 1 - i))
+                for j in (1, 2)]
+    return out
+
+
+def _ulps(got, want) -> int:
+    """The largest distance in units in the last place between two tensors
+    of one float dtype (same-signed values; 0 where equal)."""
+    import torch
+
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[got.dtype]
+    return int((got.view(bits).long() - want.view(bits).long()).abs().max())
+
+
+def int8_conv_checks(state, device, card) -> "_KernelRow":
+    """Phase 20d: the int8 conv against its plain version at each of the
+    int8 refiner's 14 conv shapes (B=2 T=512, fp32 and bf16: codes and
+    int32 sums equal, the output within one ulp), its times at B=64 T=512
+    beside the plain version, the bound and cuDNN's bf16 conv2d; then the
+    bf16 round trip with and without the int8 refiner."""
+    import torch
+    import torch.nn.functional as F
+
+    from mqgan_tpu_torch.core.config import GeneratorConfig
+    from mqgan_tpu_torch.models.preencoder import PreEncoder
+    from mqgan_tpu_torch.nn.unet import _int8_args
+    from mqgan_tpu_torch.ops.int8_conv import (activation_scale, int8_conv_accumulators,
+                                               int8_conv_kernel, int8_conv_plain,
+                                               quantize_activations)
+
+    model = build_model(device, torch.bfloat16, state=state)
+    width = MELS + MELS // GeneratorConfig().refiner_hidden_proj_divisor
+    gen = torch.Generator(device=device).manual_seed(SEED + 60)
+    row = _KernelRow("int8_conv", "mqgan_tpu_torch/csrc/int8_conv.cu",
+                     "mqgan_tpu/nn/unet.py:51 (XLA int8 conv, no Pallas)")
+    yardstick = 0.0  # cuDNN's bf16 conv2d: another function, not library_ms
+    worst_ulps = 0
+    for name, conv, div in _int8_levels(model):
+        cout, cin = conv.weight.shape[:2] if not conv.weight_norm else conv.v.shape[:2]
+        for dtype in (torch.float32, torch.bfloat16):
+            h = INT8_T // div
+            x = torch.randn((INT8_CMP_B, cin, h, width), generator=gen, device=device)
+            x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+            wq, sw, bias = _int8_args(conv, dtype)
+            xq, acc = int8_conv_kernel(x, wq, sw, bias, accumulators=True)
+            pxq = quantize_activations(x.permute(0, 2, 3, 1), activation_scale(x))
+            pacc = int8_conv_accumulators(pxq, wq)
+            y, py = int8_conv_kernel(x, wq, sw, bias), int8_conv_plain(x, wq, sw, bias)
+            ulps = _ulps(y, py)
+            worst_ulps = max(worst_ulps, ulps)
+            ok = torch.equal(xq, pxq) and torch.equal(acc, pacc) and ulps <= 1
+            if not ok or dtype == torch.bfloat16:
+                print(f"  20d {name} {cin}->{cout} at B={INT8_CMP_B} H={h} W={width} "
+                      f"{str(dtype)[6:]}: codes equal {torch.equal(xq, pxq)}, int32 sums "
+                      f"equal {torch.equal(acc, pacc)}, output {ulps} ulp from plain "
+                      f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"phase 20d: int8_conv {name} {dtype} disagrees with its plain version")
+        dt = torch.bfloat16
+        h = INT8_T // div
+        x = torch.randn((INT8_B, cin, h, width), generator=gen, device=device)
+        x = x.to(dt).contiguous(memory_format=torch.channels_last)
+        wq, sw, bias = _int8_args(conv, dt)
+        w16, b16 = conv.folded().to(dt), conv.bias.to(dt)
+        ms = time_ms(lambda: int8_conv_kernel(x, wq, sw, bias), 10)
+        pms = time_ms(lambda: int8_conv_plain(x, wq, sw, bias), 1)
+        lib = time_ms(lambda: F.conv2d(x, w16, b16, padding=1), 10)
+        m = INT8_B * h * width
+        ops = 2.0 * m * cout * 9 * cin
+        nbytes = 2.0 * m * (cin + cout) + 9 * cin * cout + 8 * cout
+        bound = row.add(ms, pms, ops, PEAK_INT8, nbytes)
+        yardstick += lib
+        print(f"  20d {name} {cin}->{cout} at B={INT8_B} H={h} W={width} bf16: "
+              f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), plain {pms:.2f} ms, bound "
+              f"{bound:.4f} ms, cuDNN bf16 conv2d {lib:.4f} ms [{card}]")
+        torch.cuda.empty_cache()
+    row.max_abs_err = 0.0
+    print(f"  20d int8_conv over the 14 convs at B={INT8_B} T={INT8_T}: {row.ms:.3f} ms, "
+          f"plain {row.plain_ms:.1f} ms, bound {row.bound_ms:.3f} ms "
+          f"({row.bound_by}), cuDNN bf16 {yardstick:.3f} ms; worst output "
+          f"{worst_ulps} ulp from plain [{card}]")
+
+    int8 = PreEncoder.from_config(MELS, GeneratorConfig(), dtype=torch.bfloat16,
+                                  poly_mixers="decode", int8_refiner=True)
+    int8.load_state_dict(state)
+    int8 = int8.to(device).eval()
+    flt = build_model(device, torch.bfloat16, poly_mixers="decode", state=state)
+    mel = torch.randn((BENCH_B, BENCH_T, MELS), generator=gen, device=device)
+    pad = torch.zeros((BENCH_B, BENCH_T), dtype=torch.bool, device=device)
+    rates, outs = {}, {}
+    with torch.no_grad():
+        for label, m in (("float refiner", flt), ("int8 refiner", int8)):
+            outs[label] = m.decode(m.encode(mel, pad), pad).float()
+            ms = time_ms(lambda: m.decode(m.encode(mel, pad), pad), ITERS)
+            rates[label] = BENCH_B * BENCH_T / (ms / 1e3)
+    dev = float((outs["int8 refiner"] - outs["float refiner"]).abs().max())
+    scale = float(outs["float refiner"].abs().max())
+    ok = dev < 0.1 * scale and bool(torch.isfinite(outs["int8 refiner"]).all())
+    print(f"  20d bf16 poly-decode round trip B={BENCH_B} T={BENCH_T}: "
+          f"{rates['float refiner']:.1f} mel-frames/s float refiner, "
+          f"{rates['int8 refiner']:.1f} int8 refiner (printed, not claimed); int8 vs "
+          f"float max|d| {dev:.4f} = {dev / scale:.4f} of max|mel| (limit 0.1) "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        fail("phase 20d: the int8 refiner's round trip deviates beyond 0.1 * max|mel|")
+    return row
+
+
+def traced_artifacts(state, device, counters, card, deploy_root) -> tuple:
+    """Phase 20: (the int8_conv row, the launches of 20b + 20c)."""
+    import torch
+
+    from mqgan_tpu_torch.deploy.runtime import ExportedPreEncoder
+
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        seconds[part] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    print(f"  [20a] ops vs kernel wrappers, opcheck on the card")
+    compare_ops(device)
+    lap("a")
+    root = tempfile.mkdtemp(prefix="chip_smoke_artifact_")
+    try:
+        counters.reset()
+        rts = artifact_programs(root, state, device, counters, card)
+        lap("b")
+        graph_replay(rts, ExportedPreEncoder(os.path.join(deploy_root, "exp_bf16")), card)
+        torch.cuda.synchronize()
+        launches = counters.snapshot()
+        lap("c")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  launches in 20b-20c (programs and their graphs): {launches}")
+    for name in ("residual_block", "mel_mixer", "mel_mixer_poly", "fsq_head", "int8_conv"):
+        if launches.get(name, 0) <= 0:
+            fail(f"phase 20: {name} was not launched through the artifacts")
+    row = int8_conv_checks(state, device, card)
+    lap("d")
+    print(f"  phase 20 seconds by part: {seconds}")
+    return row, launches
+
+
 def main() -> None:
     import torch
 
@@ -5629,6 +6180,12 @@ def main() -> None:
         seq_train_launches = seq_parallel_training(device, card)
         print(f"  launches of the sequence-parallel trainer (rank 0's plots and "
               f"eval; none in a step): {seq_train_launches}")
+        print(f"[20] the codec artifact's traced programs, CUDA graphs and the int8 "
+              f"refiner [{card}] {at()}")
+        int8_row, artifact_launches = traced_artifacts(state, device, counters, card,
+                                                       deploy_root)
+        rows.append(int8_row)
+        launches["int8_conv"] = artifact_launches["int8_conv"]
     finally:
         shutil.rmtree(lm_root, ignore_errors=True)
         shutil.rmtree(deploy_root, ignore_errors=True)

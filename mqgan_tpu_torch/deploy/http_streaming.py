@@ -23,7 +23,10 @@ decoder feeds 1-D int token chunks. Sessions idle longer than
 
 CLI:  python -m mqgan_tpu_torch.deploy.http_streaming --model_dir DIR
       [--port 8766] [--window W] [--max_batch 8] [--idle_timeout 600]
-      [--device cuda]
+      [--data_parallel] [--device cuda]
+
+``--data_parallel`` splits each coalesced span batch (and each whole-clip
+batch) over every visible card, as deploy/http_server.py's flag does.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from mqgan_tpu_torch.deploy.http_server import (CodecHTTPService,
                                                 _HTTPError, _load_npy,
                                                 _npy_bytes,
                                                 serve_until_interrupted)
+from mqgan_tpu_torch.deploy.runtime import ExportedPreEncoder
 from mqgan_tpu_torch.deploy.streaming_server import StreamingCodecServer
 
 KINDS = ("duplex", "encoder", "decoder")
@@ -235,16 +239,21 @@ def main(argv=None):
     p.add_argument("--max_delay_ms", type=float, default=3.0)
     p.add_argument("--idle_timeout", type=float, default=600.0,
                    help="seconds of inactivity before a session is swept")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="split each batch over every visible card")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
+    runtime = ExportedPreEncoder(args.model_dir, device=args.device,
+                                 data_parallel=args.data_parallel)
     service = StreamingHTTPService(
-        args.model_dir, window=args.window, stream_max_batch=args.max_batch,
+        runtime=runtime, window=args.window, stream_max_batch=args.max_batch,
         stream_max_delay_ms=args.max_delay_ms,
-        idle_timeout_s=args.idle_timeout, device=args.device)
+        idle_timeout_s=args.idle_timeout)
     server = StreamingHTTPServer(service, host=args.host, port=args.port)
     print(f"serving streams + {sorted(service.servers)} from "
-          f"{args.model_dir} on {server.url} ({service.runtime.device})",
+          f"{args.model_dir} on {server.url} ({runtime.device}, "
+          f"{runtime.n_devices} device(s))",
           flush=True)
     serve_until_interrupted(server)
 

@@ -33,11 +33,11 @@ from torch import nn
 from mqgan_tpu_torch.core.config import GeneratorConfig
 from mqgan_tpu_torch.core.masking import sequence_mask
 from mqgan_tpu_torch.nn.blocks import ResidualBlock1D
-from mqgan_tpu_torch.nn.conv import Dense
+from mqgan_tpu_torch.nn.conv import Dense, cast
 from mqgan_tpu_torch.nn.mixer2d import MelMixer2D
 from mqgan_tpu_torch.nn.unet import UNetRefiner
 from mqgan_tpu_torch.ops.fsq_kernels import fsq_encode_head, fsq_head_constants
-from mqgan_tpu_torch.quant.fsq import FSQ, indices_to_codes
+from mqgan_tpu_torch.quant.fsq import FSQ, indices_to_codes, unpack_tables
 
 # False: both mixers exact; "decode": the post mixer through the Chebyshev
 # interpolant; "encode": the pre mixer; True or "both": both mixers
@@ -59,8 +59,9 @@ class PreEncoder(nn.Module):
         of the exact path; "encode", True and "both" put the pre mixer
         through it too, which can flip an FSQ code whose pre-round value
         sits on a rounding midpoint (each flip a whole code step of the
-        decode). int8_refiner: the JAX package's int8 refiner convs are
-        not ported; only False is accepted. The rest are training knobs:
+        decode). int8_refiner: the refiner's down, mid and up ConvBlocks
+        run their convs on int8 at inference (nn/unet.py; training steps
+        keep the float convs). The rest are training knobs:
         the blocks' dropout rate (the mixers' and the refiner's is 0.1),
         FSQ noise dropout, ``remat`` (the mixers' pointwise MLP in
         checkpointed chunks of ``mixer_chunk_t`` frames), ``remat_refiner``
@@ -69,10 +70,6 @@ class PreEncoder(nn.Module):
         super().__init__()
         if poly_mixers not in POLY_MIXER_MODES:
             raise ValueError(f"poly_mixers must be one of {POLY_MIXER_MODES}")
-        if int8_refiner:
-            raise NotImplementedError(
-                "int8_refiner=True (the refiner's int8 convs) is not ported "
-                "to the H100: ROADMAP.md Queue 1 item 7")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be fp32 or bf16, got {dtype}")
         ch = tuple(channels)
@@ -80,7 +77,7 @@ class PreEncoder(nn.Module):
         self.kernel_sizes = tuple(kernel_sizes)
         self.refiner_depth = refiner_depth
         self.poly_mixers = poly_mixers
-        self.int8_refiner = False
+        self.int8_refiner = bool(int8_refiner)
         self.dtype = dtype
         poly_pre = poly_mixers in (True, "encode", "both")
         poly_post = poly_mixers in (True, "decode", "both")
@@ -108,21 +105,26 @@ class PreEncoder(nn.Module):
         self.hidden_proj = Dense(ch[0], hidden)
         self.refiner = UNetRefiner(mel_channels + hidden, refiner_base_channels,
                                    refiner_depth, mel_channels, dropout=0.1,
-                                   remat=remat_refiner)
+                                   remat=remat_refiner, int8=self.int8_refiner)
         self.register_buffer(
             "fsq_consts", torch.from_numpy(fsq_head_constants(self.spec)),
             persistent=False)
+        for name, table in zip(("unpack_basis", "unpack_levels", "unpack_half"),
+                               unpack_tables(self.spec)):
+            self.register_buffer(name, table, persistent=False)
 
     @classmethod
     def from_config(cls, mel_channels: int, cfg: GeneratorConfig,
                     dtype: torch.dtype = torch.float32,
-                    poly_mixers: bool | str = False) -> "PreEncoder":
+                    poly_mixers: bool | str = False,
+                    int8_refiner: bool = False) -> "PreEncoder":
         return cls(mel_channels, channels=cfg.channels,
                    kernel_sizes=cfg.kernel_sizes, fsq_levels=cfg.fsq_levels,
                    refiner_base_channels=cfg.refiner_base_channels,
                    refiner_depth=cfg.refiner_depth,
                    refiner_hidden_proj_divisor=cfg.refiner_hidden_proj_divisor,
-                   poly_mixers=poly_mixers, dtype=dtype, dropout=cfg.dropout,
+                   poly_mixers=poly_mixers, int8_refiner=int8_refiner,
+                   dtype=dtype, dropout=cfg.dropout,
                    fsq_noise_dropout=cfg.fsq_noise_dropout, remat=cfg.remat,
                    remat_refiner=cfg.remat_refiner,
                    fast_dropout=cfg.fast_dropout,
@@ -150,19 +152,21 @@ class PreEncoder(nn.Module):
         return pad_mask
 
     def _encode_trunk(self, x, pad_mask, stats_mask=None, reduce=None):
-        h = self.pre(self.proj(x.to(self.dtype)), pad_mask)
+        h = self.pre(self.proj(cast(x, self.dtype)), pad_mask)
         for block in self.encoder_blocks:
             h = block(h, pad_mask, stats_mask=stats_mask, reduce=reduce)
         return h
 
     def _fsq_head(self, h):
-        w = self.q_in_proj.weight.float().t().contiguous()
+        w = cast(self.q_in_proj.weight, torch.float32).t().contiguous()
         idx = fsq_encode_head(h.reshape(-1, h.shape[-1]), w,
-                              self.q_in_proj.bias.float(), self.fsq_consts)
+                              cast(self.q_in_proj.bias, torch.float32),
+                              self.fsq_consts)
         return idx.reshape(h.shape[:2])
 
     def _decode_tokens(self, indices, pad_mask):
-        codes = indices_to_codes(indices, self.spec).to(self.dtype)
+        tables = (self.unpack_basis, self.unpack_levels, self.unpack_half)
+        codes = cast(indices_to_codes(indices, self.spec, tables), self.dtype)
         h = self.q_out_proj(codes)
         for block in self.decoder_blocks:
             h = block(h, pad_mask)
@@ -232,5 +236,5 @@ class PreEncoder(nn.Module):
         x_recon = self.out_proj(self.post(h, pad_mask, False, generator, seq))
         refiner_in = torch.cat([x_recon, self.hidden_proj(h)], dim=-1)
         residual = self.refiner(refiner_in.detach(), pad_mask, generator, seq,
-                                lengths)
+                                lengths, deterministic=False)
         return x_recon, x_recon + residual, indices

@@ -10,9 +10,9 @@ from torch import nn
 
 def aptx(x: torch.Tensor, alpha=1.0, beta=1.0, gamma=0.5) -> torch.Tensor:
     """Op-by-op in x's dtype, like ``jnp`` does for bf16 inputs."""
-    if torch.is_tensor(beta):
+    if torch.is_tensor(beta) and beta.dtype != x.dtype:
         beta = beta.to(x.dtype)
-    if torch.is_tensor(gamma):
+    if torch.is_tensor(gamma) and gamma.dtype != x.dtype:
         gamma = gamma.to(x.dtype)
     return (alpha + torch.tanh(beta * x)) * gamma * x
 

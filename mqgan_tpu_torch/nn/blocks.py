@@ -34,7 +34,7 @@ from torch import nn
 from mqgan_tpu_torch.core.masking import apply_mask, lengths_from_mask
 from mqgan_tpu_torch.nn.activations import APTx
 from mqgan_tpu_torch.nn.attention import CBAM1D
-from mqgan_tpu_torch.nn.conv import WNConv1d
+from mqgan_tpu_torch.nn.conv import WNConv1d, cast
 from mqgan_tpu_torch.nn.layers import dropout
 from mqgan_tpu_torch.nn.norm import make_norm
 from mqgan_tpu_torch.nn.pooling import Reduce
@@ -79,26 +79,28 @@ class ResidualBlock1D(nn.Module):
         """Fold the parameters into the layouts the kernel reads."""
 
         def taps(conv):  # (O, I, K) -> (K, I, O)
-            return conv.folded().permute(2, 1, 0).to(dtype).contiguous()
+            return cast(conv.folded().permute(2, 1, 0), dtype).contiguous()
+
+        def f32(t):
+            return cast(t, torch.float32).contiguous()
 
         extra = {}
         if self.residual is not None:
-            extra.update(proj_w=self.residual.weight[:, :, 0].t().to(dtype)
+            extra.update(proj_w=cast(self.residual.weight[:, :, 0].t(), dtype)
                          .contiguous(),
-                         proj_b=self.residual.bias.float().contiguous())
+                         proj_b=f32(self.residual.bias))
         if self.cbam is not None:
             cam = self.cbam.channel_attention
             extra.update(
-                cw1=cam.mlp_0.weight.t().to(dtype).contiguous(),
-                cb1=cam.mlp_0.bias.float().contiguous(),
-                cw2=cam.mlp_2.weight.t().to(dtype).contiguous(),
-                cb2=cam.mlp_2.bias.float().contiguous(),
-                sam_w=self.cbam.spatial_attention.conv.weight[0].t().float()
-                .contiguous())
+                cw1=cast(cam.mlp_0.weight.t(), dtype).contiguous(),
+                cb1=f32(cam.mlp_0.bias),
+                cw2=cast(cam.mlp_2.weight.t(), dtype).contiguous(),
+                cb2=f32(cam.mlp_2.bias),
+                sam_w=f32(self.cbam.spatial_attention.conv.weight[0].t()))
         return BlockWeights(
-            act=torch.stack([self.act.beta, self.act.gamma]).float(),
-            w1=taps(self.conv1), b1=self.conv1.bias.float().contiguous(),
-            w2=taps(self.conv2), b2=self.conv2.bias.float().contiguous(),
+            act=f32(torch.stack([self.act.beta, self.act.gamma])),
+            w1=taps(self.conv1), b1=f32(self.conv1.bias),
+            w2=taps(self.conv2), b2=f32(self.conv2.bias),
             **extra)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor | None = None,

@@ -5,8 +5,9 @@ Parameters are kept in PyTorch's layouts — Conv1d (O, I, K), Conv2d
 magnitude, (O,)) and ``bias``. The effective kernel is g * v / ||v|| with
 the norm over every axis but O (torch ``weight_norm(dim=0)``, and the same
 quantity as JAX's norm over (K, I) of its (K, I, O) kernel). ``folded()``
-gives it for inference. Both convs take stride, groups and explicit (lo, hi)
-padding per spatial dim, as the JAX ``WNConv`` does. The 1-D conv is
+gives it for inference, and ``fold_weight_norm_`` replaces (v, g) by it for
+good (a serving copy, deploy/export.py). Both convs take stride, groups and
+explicit (lo, hi) padding per spatial dim, as the JAX ``WNConv`` does. The 1-D conv is
 channels-last at ``forward`` and transposes to (B, C, T) internally
 (``conv_nct`` takes (B, C, T) as it is); the 2-D conv runs on NCHW.
 
@@ -24,12 +25,30 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t in ``dtype``: t itself when it already is (no op is recorded
+    when a program is traced)."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 def weight_norm_kernel(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """g * v / max(||v||, 1e-12), norm per output channel (axis 0), fp32."""
-    v = v.float()
+    v = cast(v, torch.float32)
     norm = v.flatten(1).norm(dim=1).clamp_min(1e-12)
     shape = (-1,) + (1,) * (v.ndim - 1)
-    return v * (g.float() / norm).reshape(shape)
+    return v * (cast(g, torch.float32) / norm).reshape(shape)
+
+
+def fold_weight_norm_(module: nn.Module) -> nn.Module:
+    """Replace every weight-normed conv's (v, g) in ``module`` by its folded
+    kernel, in place (inference: the same kernel, computed once)."""
+    for m in module.modules():
+        if isinstance(m, (WNConv1d, WNConv2d)) and m.weight_norm:
+            weight = m.folded().detach()
+            del m.v, m.g
+            m.weight_norm = False
+            m.weight = nn.Parameter(weight, requires_grad=False)
+    return module
 
 
 def same_padding_1d(kernel_size: int, causal: bool, dilation: int = 1) -> tuple:
@@ -75,15 +94,15 @@ class WNConv1d(nn.Module):
         """Effective (O, I/groups, K) kernel in fp32."""
         if self.weight_norm:
             return weight_norm_kernel(self.v, self.g)
-        return self.weight.float()
+        return cast(self.weight, torch.float32)
 
     def _conv(self, x: torch.Tensor) -> torch.Tensor:
         lo, hi = self.padding
         if lo == hi:
-            return F.conv1d(x, self.folded().to(x.dtype), stride=self.stride,
+            return F.conv1d(x, cast(self.folded(), x.dtype), stride=self.stride,
                             padding=lo, dilation=self.dilation,
                             groups=self.groups)
-        return F.conv1d(F.pad(x, (lo, hi)), self.folded().to(x.dtype),
+        return F.conv1d(F.pad(x, (lo, hi)), cast(self.folded(), x.dtype),
                         stride=self.stride, dilation=self.dilation,
                         groups=self.groups)
 
@@ -98,7 +117,7 @@ class WNConv1d(nn.Module):
         if seq is None:
             y = self._conv(x.transpose(1, 2)).transpose(1, 2)
         else:
-            w = self.folded().to(x.dtype)
+            w = cast(self.folded(), x.dtype)
             y, _ = seq.conv(
                 x, 1, self.kernel_size,
                 lambda xw: F.conv1d(xw.transpose(1, 2), w, stride=self.stride,
@@ -115,8 +134,8 @@ class Dense(nn.Linear):
     fp32 and are cast at use, like flax ``nn.Dense(dtype=...)``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        bias = None if self.bias is None else cast(self.bias, x.dtype)
+        return F.linear(x, cast(self.weight, x.dtype), bias)
 
 
 def _pair(x) -> tuple:
@@ -153,12 +172,12 @@ class WNConv2d(nn.Module):
     def folded(self) -> torch.Tensor:
         if self.weight_norm:
             return weight_norm_kernel(self.v, self.g)
-        return self.weight.float()
+        return cast(self.weight, torch.float32)
 
     def forward(self, x: torch.Tensor, seq=None) -> torch.Tensor:
         """``seq``: x's H (dim 2) is time, sharded (module docstring)."""
-        w = self.folded().to(x.dtype)
-        b = self.bias.to(x.dtype)
+        w = cast(self.folded(), x.dtype)
+        b = cast(self.bias, x.dtype)
         (h_lo, h_hi), (w_lo, w_hi) = self.padding
         if seq is not None:
             y, _ = seq.conv(x, 2, self.kernel_size[0], lambda xw: F.conv2d(

@@ -29,7 +29,7 @@ from torch import nn
 
 from mqgan_tpu_torch.core.masking import lengths_from_mask
 from mqgan_tpu_torch.nn.activations import aptx
-from mqgan_tpu_torch.nn.conv import WNConv2d
+from mqgan_tpu_torch.nn.conv import WNConv2d, cast
 from mqgan_tpu_torch.nn.layers import checkpoint, dropout
 from mqgan_tpu_torch.ops.mixer_kernels import MixerWeights, fused_mel_mixer
 from mqgan_tpu_torch.ops.mixer_poly import fused_poly_mixer
@@ -71,10 +71,10 @@ class MelMixer2D(nn.Module):
 
     def kernel_weights(self) -> MixerWeights:
         w1 = self.pw.folded().reshape(-1)
-        b1 = self.pw.bias.float()
-        w2 = self.conv_out.weight.float().reshape(-1)
-        consts = torch.stack([self.dw.bias.float()[0],
-                              self.conv_out.bias.float()[0],
+        b1 = cast(self.pw.bias, torch.float32)
+        w2 = cast(self.conv_out.weight, torch.float32).reshape(-1)
+        consts = torch.stack([cast(self.dw.bias, torch.float32)[0],
+                              cast(self.conv_out.bias, torch.float32)[0],
                               0.5 * (w2 * w1).sum(), 0.5 * (w2 * b1).sum()])
         return MixerWeights(dwk=self.dw.folded()[0, 0].contiguous(),
                             consts=consts, w1=w1.contiguous(),

@@ -14,8 +14,15 @@ its activations.
 
 Internally the image is NCHW (B, planes, T, F) in channels-last memory
 format; the convs go to cuDNN on the card, as the JAX package leaves them
-to XLA. The JAX package's packed-W and int8 variants are TPU layout tricks
-and are not ported.
+to XLA. The JAX package's packed-W variant of the ``pre`` level is a TPU
+layout trick and is not ported.
+
+``int8`` (``UNetRefiner(int8=True)``: the downs, the mid and the ups, not
+``pre``, as in the JAX package) runs both convs of a ConvBlock through the
+int8 conv (``ops/int8_conv.py``: the kernel on the card, its plain version
+on the CPU) at inference only: a call with ``deterministic=False`` (a
+training step) takes the bf16/fp32 convs, as the JAX ConvBlock does
+(``int8 and deterministic``).
 
 Under sequence-parallel training (``seq`` with the rows' global
 ``lengths``, ``parallel/seqtrain.py``) x holds this rank's frames: the
@@ -32,8 +39,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from mqgan_tpu_torch.nn.activations import aptx
-from mqgan_tpu_torch.nn.conv import Dense, WNConv2d
+from mqgan_tpu_torch.nn.conv import Dense, WNConv2d, cast
 from mqgan_tpu_torch.nn.layers import checkpoint, dropout
+from mqgan_tpu_torch.ops.int8_conv import int8_conv, quantize_weights
 
 
 def _mask4(x: torch.Tensor, m: torch.Tensor | None) -> torch.Tensor:
@@ -43,16 +51,32 @@ def _mask4(x: torch.Tensor, m: torch.Tensor | None) -> torch.Tensor:
     return x.masked_fill(m[:, None, :, None], 0.0)
 
 
+def _int8_args(conv: WNConv2d, dtype: torch.dtype) -> tuple:
+    """(wq, sw, bias) of a 3x3 conv: its folded kernel cast to the compute
+    dtype, then quantized (ops/int8_conv.py)."""
+    return (*quantize_weights(cast(conv.folded(), dtype)),
+            cast(conv.bias, torch.float32))
+
+
 class ConvBlock(nn.Module):
-    def __init__(self, c_in: int, c_out: int, dropout: float = 0.1):
+    def __init__(self, c_in: int, c_out: int, dropout: float = 0.1,
+                 int8: bool = False):
         super().__init__()
         self.dropout = dropout
+        self.int8 = int8
         self.residual = c_in == c_out
         self.conv1 = WNConv2d(c_in, c_out, 3)
         self.conv2 = WNConv2d(c_out, c_out, 3)
 
-    def forward(self, x, m=None, generator=None, seq=None):
+    def forward(self, x, m=None, generator=None, seq=None, deterministic=True):
         x = _mask4(x, m)
+        if self.int8 and deterministic:
+            dt = x.dtype
+            y = aptx(int8_conv(x, *_int8_args(self.conv1, dt)))
+            y = aptx(int8_conv(y, *_int8_args(self.conv2, dt)))
+            if self.residual:
+                y = y + x
+            return _mask4(y, m)
         y = dropout(aptx(self.conv1(x, seq)), self.dropout, generator)
         y = dropout(aptx(self.conv2(y, seq)), self.dropout, generator)
         if self.residual:
@@ -63,33 +87,37 @@ class ConvBlock(nn.Module):
 class UNetRefiner(nn.Module):
     def __init__(self, in_features: int, base_ch: int = 128, depth: int = 3,
                  out_features: int = 128, dropout: float = 0.1,
-                 remat: bool = False):
+                 remat: bool = False, int8: bool = False):
         super().__init__()
         self.depth = depth
         self.remat = remat
+        self.int8 = int8
         chs = [base_ch * 2 ** i for i in range(depth + 1)]
         self.pre = ConvBlock(1, chs[0], dropout)
-        self.downs = nn.ModuleList(ConvBlock(chs[i], chs[i + 1], dropout)
+        self.downs = nn.ModuleList(ConvBlock(chs[i], chs[i + 1], dropout, int8)
                                    for i in range(depth))
-        self.mid = ConvBlock(chs[-1], chs[-1], dropout)
+        self.mid = ConvBlock(chs[-1], chs[-1], dropout, int8)
         self.ups = nn.ModuleList(
             ConvBlock(chs[depth - i] + chs[depth - i - 1], chs[depth - i - 1],
-                      dropout)
+                      dropout, int8)
             for i in range(depth))
         self.post = WNConv2d(chs[0], 1, 3)
         self.reproj = Dense(in_features, out_features, bias=False)
 
-    def _block(self, block, h, m, generator, seq=None):
+    def _block(self, block, h, m, generator, seq=None, deterministic=False):
         if self.remat and torch.is_grad_enabled():
             return checkpoint(lambda h_, m_, g_: block(h_, m_, g_, seq),
                               generator, h, m)
-        return block(h, m, generator, seq)
+        return block(h, m, generator, seq, deterministic)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor | None = None,
                 generator: torch.Generator | None = None, seq=None,
-                lengths: torch.Tensor | None = None) -> torch.Tensor:
+                lengths: torch.Tensor | None = None,
+                deterministic: bool = True) -> torch.Tensor:
         """x (B, T, F) -> (B, T, out_features), in x's dtype. ``seq``: x
-        holds this rank's frames of a crop whose rows have ``lengths``."""
+        holds this rank's frames of a crop whose rows have ``lengths``.
+        ``deterministic=False`` (training) keeps the int8 blocks on the
+        float convs."""
         if seq is not None:
             return self._seq_forward(x, pad_mask, generator, seq, lengths)
         original_len = x.shape[1]
@@ -100,7 +128,8 @@ class UNetRefiner(nn.Module):
         if pad_mask is not None and pad_len:
             m = F.pad(pad_mask, (0, pad_len), value=True)
 
-        h = self._block(self.pre, img, m, generator)
+        det = deterministic
+        h = self._block(self.pre, img, m, generator, None, det)
         skips = []
         for down in self.downs:
             skips.append(h)
@@ -108,8 +137,8 @@ class UNetRefiner(nn.Module):
             if m is not None:
                 m = m[:, : (m.shape[1] // 2) * 2].reshape(
                     m.shape[0], -1, 2).any(dim=-1)
-            h = self._block(down, h, m, generator)
-        h = self._block(self.mid, h, m, generator)
+            h = self._block(down, h, m, generator, None, det)
+        h = self._block(self.mid, h, m, generator, None, det)
         for up in self.ups:
             h = h.repeat_interleave(2, dim=2)
             if m is not None:
@@ -118,7 +147,8 @@ class UNetRefiner(nn.Module):
             dt = skip.shape[2] - h.shape[2]
             if dt > 0:  # center-crop the skip's T to match
                 skip = skip[:, :, dt // 2: dt // 2 + h.shape[2]]
-            h = self._block(up, torch.cat([h, skip], dim=1), m, generator)
+            h = self._block(up, torch.cat([h, skip], dim=1), m, generator,
+                            None, det)
 
         out = self.post(_mask4(h, m))[:, 0, :original_len]  # (B, T, F)
         if pad_mask is not None:

@@ -11,12 +11,22 @@ is not 0.
 
 Nothing is built or loaded when a module is imported (the CPU tests import
 every module): the first launch builds and loads.
+
+Every kernel entry point is also a custom operator of one ``torch.library``
+namespace, ``mqgan`` (``register_op``): its CUDA implementation launches the
+kernel, its CPU implementation is the kernel's plain PyTorch version, and a
+fake implementation gives the exact output shapes and dtypes without
+building or loading anything, so that ``torch.export`` traces a model through
+the kernels. The ops take fresh outputs and mutate nothing. ``load_ops()``
+imports every module that registers one (a loaded program needs them all).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -29,7 +39,7 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("fsq_head.cu", "residual_block.cu", "mel_mixer.cu", "log_mel.cu",
-           "log_mel_dft.cu", "flash_attention.cu")
+           "log_mel_dft.cu", "flash_attention.cu", "int8_conv.cu")
 # no --use_fast_math: the FSQ head needs exact tanhf and the mixer its
 # exact-grade z tanh z (it writes its ex2/rcp.approx instructions itself;
 # tanh.approx's 2^-11 flips FSQ codes on the encode side), the log-mel
@@ -75,21 +85,51 @@ _SIGNATURES = {
     "mqgan_flash_bwd_dq": (_PTR,) * 8 + (_INT,) * 5 + (_FLT, _PTR),
     # q, k, v, do, lse, delta, dk, dv, B, T, H, D, is_bf16, scale, stream
     "mqgan_flash_bwd_dkv": (_PTR,) * 8 + (_INT,) * 5 + (_FLT, _PTR),
+    # x, wq, sw, bias, amax, xq, out, B, H, W, Cin, Cout, is_bf16,
+    # accumulators, stream
+    "mqgan_int8_conv": (_PTR,) * 7 + (_INT,) * 7 + (_PTR,),
 }
+
+NAMESPACE = "mqgan"
+# the modules that register the namespace's ops
+OP_MODULES = ("fsq_kernels", "block_kernels", "mixer_kernels", "mixer_poly",
+              "stft_kernels", "flash_attention", "int8_conv")
 
 
 class KernelCounters:
     """Launch counts per kernel wrapper: each wrapper adds one where it
     launches its kernel, and nowhere else (the plain CPU path does not
-    count)."""
+    count). A CUDA graph's capture launches nothing: under ``recording()``
+    the capturing thread's adds go to the graph's own tally, which each
+    replay adds with ``add_all``."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counts: dict[str, int] = {}
+        self._local = threading.local()
 
     def add(self, name: str) -> None:
+        tally = getattr(self._local, "tally", None)
+        if tally is not None:
+            tally[name] = tally.get(name, 0) + 1
+            return
         with self._lock:
             self._counts[name] = self._counts.get(name, 0) + 1
+
+    def add_all(self, counts: dict) -> None:
+        with self._lock:
+            for name, n in counts.items():
+                self._counts[name] = self._counts.get(name, 0) + n
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Within, this thread's adds go into the yielded dict instead."""
+        previous = getattr(self._local, "tally", None)
+        self._local.tally = tally = {}
+        try:
+            yield tally
+        finally:
+            self._local.tally = previous
 
     def reset(self) -> None:
         with self._lock:
@@ -200,6 +240,29 @@ def launch(name: str, device: torch.device, *args) -> None:
             err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def register_op(name: str, cpu, cuda, fake):
+    """Define ``mqgan::<name>`` with ``cpu`` as its CPU implementation (its
+    type annotations give the schema), ``cuda`` as its CUDA implementation
+    and ``fake`` as its fake one; returns the op."""
+    op = torch.library.custom_op(f"{NAMESPACE}::{name}", cpu, mutates_args=(),
+                                 device_types="cpu")
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(fake)
+    return op
+
+
+def load_ops() -> None:
+    """Import every module that registers an op of the namespace."""
+    for name in OP_MODULES:
+        importlib.import_module(f"mqgan_tpu_torch.ops.{name}")
+
+
+def check_device(name: str, t: torch.Tensor) -> None:
+    """Raise unless t is on the CPU (the plain version) or a card."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
 
 
 def ptr(t: torch.Tensor | None):

@@ -18,9 +18,11 @@ pooled statistics, MLP and gates are fp32 inside. Conv1 reads the padded
 frames of x as they are (they carry real values) and sees zeros only
 outside [0, T).
 
-``fused_residual_block`` launches the CUDA kernels of
-``csrc/residual_block.cu`` on a CUDA tensor and takes the plain PyTorch
-version ``residual_block_plain`` only for a CPU tensor.
+``fused_residual_block`` is the op ``mqgan::residual_block``: on a CUDA
+tensor its CUDA implementation ``residual_block_kernel`` launches the
+kernels of ``csrc/residual_block.cu``, on a CPU tensor it is the plain
+PyTorch version ``residual_block_plain``. The ops take the block's weights
+as the flat tensors of ``BlockWeights`` (None where a block has none).
 
 ``split_residual_block(x, lengths, w, lo, hi, reduce)`` runs a
 non-causal block split at its CBAM statistics, for one window of a clip
@@ -32,7 +34,9 @@ the sum's last column), and ``residual_block_finish`` (the gate MLP on the
 reduced max and sum / max(count, 1), the SAM statistics and the tail).
 ``residual_block_plain_begin`` / ``_finish`` are their plain versions; the
 range [0, length) with no reduction is the unsplit block, in the same
-order of operations.
+order of operations. The two parts are the ops ``mqgan::residual_block_begin``
+(which returns the projection as a fresh tensor, empty without one, where
+the split block reuses x) and ``mqgan::residual_block_finish``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch import Tensor
 import torch.nn.functional as F
 
 from mqgan_tpu_torch.nn.conv import same_padding_1d
@@ -229,42 +234,38 @@ def _block_dims(x: torch.Tensor, lengths: torch.Tensor, w: BlockWeights,
     return b, t, cin, cout, k, hid, sam_k, bf16
 
 
-def residual_block_begin(x: torch.Tensor, lengths: torch.Tensor,
-                         w: BlockWeights, lo: torch.Tensor,
-                         hi: torch.Tensor) -> tuple:
-    """The split launch's first part (see the module docstring): (res,
-    z, partial). A CPU tensor takes ``residual_block_plain_begin``."""
-    if x.device.type == "cpu":
-        return residual_block_plain_begin(x, lengths, w, lo, hi)
+def residual_block_begin_kernel(x: Tensor, lengths: Tensor, *args) -> tuple:
+    """The split launch's first part on CUDA tensors (the op's CUDA
+    implementation): args are the flat ``BlockWeights`` then lo, hi;
+    returns (z, partial, the projection or an empty tensor)."""
+    w, lo, hi = BlockWeights(*args[:-2]), args[-2], args[-1]
     b, t, cin, cout, k, _, _, bf16 = _block_dims(x, lengths, w, False)
     for name, r in (("stats_lo", lo), ("stats_hi", hi)):
         _cuda.check(r, name, dtype=torch.int32, shape=(b,), device=x.device)
     h = torch.empty((b, t, cout), dtype=x.dtype, device=x.device)
     z = torch.empty_like(h)
-    res = torch.empty_like(h) if w.proj_w is not None else x
+    proj = torch.empty_like(h) if w.proj_w is not None else x.new_empty((0,))
     partial = torch.empty((b, 2, cout), dtype=torch.float32, device=x.device)
     if h.numel() == 0:
-        return res, z, partial.zero_()
+        return z, partial.zero_(), proj
     p = _cuda.ptr
     _cuda.launch(
         "mqgan_residual_block_begin", x.device,
         p(x), p(lengths), p(w.act), p(w.w1), p(w.b1), p(w.w2), p(w.b2),
         p(w.proj_w), p(w.proj_b), p(lo), p(hi), p(h), p(z),
-        p(res) if w.proj_w is not None else None, p(partial),
+        p(proj) if w.proj_w is not None else None, p(partial),
         b, t, cin, cout, k, bf16)
     _cuda.COUNTERS.add("residual_block_split")
-    return res, z, partial
+    return z, partial, proj
 
 
-def residual_block_finish(x: torch.Tensor, lengths: torch.Tensor,
-                          w: BlockWeights, res: torch.Tensor, z: torch.Tensor,
-                          pooled: torch.Tensor,
-                          counts: torch.Tensor) -> torch.Tensor:
-    """The split launch's second part: pooled (B, 2, C) fp32 the reduced
-    (max, sum), counts (B,) fp32 the frames they cover. A CPU tensor takes
-    ``residual_block_plain_finish``."""
-    if x.device.type == "cpu":
-        return residual_block_plain_finish(x, lengths, w, res, z, pooled, counts)
+def residual_block_finish_kernel(x: Tensor, lengths: Tensor, *args) -> Tensor:
+    """The split launch's second part on CUDA tensors (the op's CUDA
+    implementation): args are the flat ``BlockWeights`` then res, z,
+    pooled (B, 2, C) fp32 the reduced (max, sum) and counts (B,) fp32 the
+    frames they cover."""
+    w = BlockWeights(*args[:-4])
+    res, z, pooled, counts = args[-4:]
     b, t, _, cout, _, hid, sam_k, bf16 = _block_dims(x, lengths, w, False)
     dev = x.device
     _cuda.check(z, "z", dtype=x.dtype, shape=(b, t, cout), device=dev)
@@ -292,20 +293,19 @@ def split_residual_block(x: torch.Tensor, lengths: torch.Tensor,
     """A non-causal block whose CBAM statistics are the frames [lo, hi) of
     each row, combined over the windows by ``reduce`` (None: this window
     alone)."""
-    res, z, partial = residual_block_begin(x, lengths, w, lo, hi)
+    z, partial, proj = residual_block_begin_op(x, lengths, *w, lo, hi)
+    res = x if w.proj_w is None else proj
     count = (hi - lo).clamp_min(0).float()
     total, mx, count = reduce_pools(partial[:, 1], partial[:, 0], count, reduce)
     pooled = torch.stack([mx, total], dim=1).contiguous()
-    return residual_block_finish(x, lengths, w, res, z, pooled,
-                                 count.contiguous())
+    return residual_block_finish_op(x, lengths, *w, res, z, pooled,
+                                    count.contiguous())
 
 
-def fused_residual_block(x: torch.Tensor, lengths: torch.Tensor,
-                         w: BlockWeights, *, causal: bool) -> torch.Tensor:
-    """x (B, T, Cin) in the compute dtype, lengths (B,) int32 valid frames
-    (contiguous masks) -> (B, T, Cout) in the compute dtype."""
-    if x.device.type == "cpu":
-        return residual_block_plain(x, lengths, w, causal=causal)
+def residual_block_kernel(x: Tensor, lengths: Tensor, *args) -> Tensor:
+    """The whole block on CUDA tensors (the op's CUDA implementation):
+    args are the flat ``BlockWeights`` then causal."""
+    w, causal = BlockWeights(*args[:-1]), args[-1]
     b, t, cin, cout, k, hid, sam_k, bf16 = _block_dims(x, lengths, w, causal)
     cdt, dev = x.dtype, x.device
     out = torch.empty((b, t, cout), dtype=cdt, device=dev)
@@ -328,3 +328,86 @@ def fused_residual_block(x: torch.Tensor, lengths: torch.Tensor,
         p(out), b, t, cin, cout, k, hid, sam_k, int(causal), bf16)
     _cuda.COUNTERS.add("residual_block")
     return out
+
+
+# The ops. Their CPU implementations (the plain versions) and fakes take
+# the block's weights as the flat tensors of BlockWeights.
+
+_OptT = Optional[Tensor]
+
+
+def _residual_block_cpu(
+        x: Tensor, lengths: Tensor, act: Tensor, w1: Tensor, b1: Tensor,
+        w2: Tensor, b2: Tensor, proj_w: _OptT, proj_b: _OptT, cw1: _OptT,
+        cb1: _OptT, cw2: _OptT, cb2: _OptT, sam_w: _OptT,
+        causal: bool) -> Tensor:
+    w = BlockWeights(act, w1, b1, w2, b2, proj_w, proj_b, cw1, cb1, cw2, cb2, sam_w)
+    return residual_block_plain(x, lengths, w, causal=causal)
+
+
+def _residual_block_begin_cpu(
+        x: Tensor, lengths: Tensor, act: Tensor, w1: Tensor, b1: Tensor,
+        w2: Tensor, b2: Tensor, proj_w: _OptT, proj_b: _OptT, cw1: _OptT,
+        cb1: _OptT, cw2: _OptT, cb2: _OptT, sam_w: _OptT, lo: Tensor,
+        hi: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    w = BlockWeights(act, w1, b1, w2, b2, proj_w, proj_b, cw1, cb1, cw2, cb2, sam_w)
+    res, z, partial = residual_block_plain_begin(x, lengths, w, lo, hi)
+    return z, partial, res if proj_w is not None else x.new_empty((0,))
+
+
+def _residual_block_finish_cpu(
+        x: Tensor, lengths: Tensor, act: Tensor, w1: Tensor, b1: Tensor,
+        w2: Tensor, b2: Tensor, proj_w: _OptT, proj_b: _OptT, cw1: _OptT,
+        cb1: _OptT, cw2: _OptT, cb2: _OptT, sam_w: _OptT, res: Tensor,
+        z: Tensor, pooled: Tensor, counts: Tensor) -> Tensor:
+    w = BlockWeights(act, w1, b1, w2, b2, proj_w, proj_b, cw1, cb1, cw2, cb2, sam_w)
+    return residual_block_plain_finish(x, lengths, w, res, z, pooled, counts)
+
+
+def _block_out(x, w2):
+    """Fake output: (B, T, Cout) in x's dtype."""
+    return x.new_empty((x.shape[0], x.shape[1], w2.shape[-1]))
+
+
+def _begin_fake(x, lengths, act, w1, b1, w2, b2, proj_w, *rest):
+    z = _block_out(x, w2)
+    partial = x.new_empty((x.shape[0], 2, w2.shape[-1]), dtype=torch.float32)
+    return z, partial, _block_out(x, w2) if proj_w is not None else x.new_empty((0,))
+
+
+residual_block_op = _cuda.register_op(
+    "residual_block", _residual_block_cpu, residual_block_kernel,
+    lambda x, lengths, act, w1, b1, w2, *rest: _block_out(x, w2))
+residual_block_begin_op = _cuda.register_op(
+    "residual_block_begin", _residual_block_begin_cpu,
+    residual_block_begin_kernel, _begin_fake)
+residual_block_finish_op = _cuda.register_op(
+    "residual_block_finish", _residual_block_finish_cpu,
+    residual_block_finish_kernel,
+    lambda x, lengths, act, w1, b1, w2, *rest: _block_out(x, w2))
+
+
+def fused_residual_block(x: Tensor, lengths: Tensor, w: BlockWeights, *,
+                         causal: bool) -> Tensor:
+    """x (B, T, Cin) in the compute dtype, lengths (B,) int32 valid frames
+    (contiguous masks) -> (B, T, Cout) in the compute dtype."""
+    _cuda.check_device("fused_residual_block", x)
+    return residual_block_op(x, lengths, *w, causal)
+
+
+def residual_block_begin(x: Tensor, lengths: Tensor, w: BlockWeights,
+                         lo: Tensor, hi: Tensor) -> tuple:
+    """The split launch's first part (see the module docstring): (res, z,
+    partial), res being x itself where the block has no projection."""
+    _cuda.check_device("residual_block_begin", x)
+    z, partial, proj = residual_block_begin_op(x, lengths, *w, lo, hi)
+    return (x if w.proj_w is None else proj), z, partial
+
+
+def residual_block_finish(x: Tensor, lengths: Tensor, w: BlockWeights,
+                          res: Tensor, z: Tensor, pooled: Tensor,
+                          counts: Tensor) -> Tensor:
+    """The split launch's second part: pooled (B, 2, C) fp32 the reduced
+    (max, sum), counts (B,) fp32 the frames they cover."""
+    _cuda.check_device("residual_block_finish", x)
+    return residual_block_finish_op(x, lengths, *w, res, z, pooled, counts)

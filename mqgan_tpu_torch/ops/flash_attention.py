@@ -8,10 +8,12 @@ the JAX library flash attention that ``mqgan_tpu/models/token_transformer.py``
 
 q, k, v and o are (B, T, H, D) as the attention module holds them; the
 kernels read and write that layout in place (no transpose, no pad to a tile
-multiple). ``causal_attention`` is the autograd op: on a CUDA tensor it
-launches the hand-written kernels of ``csrc/flash_attention.cu`` (forward
-``flash_fwd``, backward ``flash_bwd_dq`` then ``flash_bwd_dkv``) or raises;
-on a CPU tensor it takes the plain versions ``flash_attention_fwd_plain`` /
+multiple). ``causal_attention`` is the op ``mqgan::flash_fwd`` with its
+backward ``mqgan::flash_bwd`` (``torch.library.register_autograd``): on a
+CUDA tensor they launch the hand-written kernels of
+``csrc/flash_attention.cu`` (forward ``flash_fwd``, backward
+``flash_bwd_dq`` then ``flash_bwd_dkv``) or raise; on a CPU tensor they are
+the plain versions ``flash_attention_fwd_plain`` /
 ``flash_attention_bwd_plain`` (whose halves, ``flash_attention_bwd_dq_plain``
 and ``flash_attention_bwd_dkv_plain``, mirror the two backward kernels). The
 counters are ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``.
@@ -20,6 +22,7 @@ counters are ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``.
 from __future__ import annotations
 
 import torch
+from torch import Tensor
 
 from mqgan_tpu_torch.ops import _cuda
 
@@ -163,24 +166,58 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
     return (dq, *flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
 
 
-class _CausalAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        o, lse = flash_attention_fwd(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale = scale
-        return o
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         ctx.scale)
-        return dq, dk, dv, None
+def _flash_fwd_cpu(q: Tensor, k: Tensor, v: Tensor,
+                   scale: float) -> tuple[Tensor, Tensor]:
+    # contiguous, as the kernels write them
+    return tuple(t.contiguous() for t in flash_attention_fwd_plain(q, k, v, scale))
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     scale: float) -> torch.Tensor:
+def _flash_bwd_cpu(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
+                   do: Tensor, scale: float) -> tuple[Tensor, Tensor, Tensor]:
+    return tuple(t.contiguous()
+                 for t in flash_attention_bwd_plain(q, k, v, o, lse, do, scale))
+
+
+def _flash_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
+                    do: Tensor, scale: float) -> tuple[Tensor, Tensor, Tensor]:
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+
+
+def _lse_fake(q):
+    b, t, h, _ = q.shape
+    lse_dtype = torch.float64 if q.dtype == torch.float64 else torch.float32
+    return q.new_empty((b, h, t), dtype=lse_dtype)
+
+
+flash_fwd_op = _cuda.register_op(
+    "flash_fwd", _flash_fwd_cpu, flash_attention_fwd,
+    lambda q, k, v, scale: (torch.empty_like(q), _lse_fake(q)))
+flash_bwd_op = _cuda.register_op(
+    "flash_bwd", _flash_bwd_cpu, _flash_bwd_cuda,
+    lambda q, k, v, o, lse, do, scale: (torch.empty_like(q), torch.empty_like(k),
+                                        torch.empty_like(v)))
+
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.scale = scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_bwd_op(q, k, v, o, lse, do.contiguous(), ctx.scale)
+    return dq, dk, dv, None
+
+
+flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup_context)
+
+
+def causal_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     """softmax(q k^T * scale, causal) v for (B, T, H, D) q, k, v; returns
     (B, T, H, D) in q's dtype. Differentiable in q, k and v."""
-    return _CausalAttention.apply(q, k, v, float(scale))
+    _cuda.check_device("causal_attention", q)
+    return flash_fwd_op(q, k, v, float(scale))[0]

@@ -10,9 +10,10 @@ from the JAX package's XLA path, whose ``q_in_proj`` runs in bf16; the port
 follows the kernel, so a bf16 port and a bf16 JAX model can disagree on
 codes whose pre-round value sits near a rounding midpoint.
 
-``fsq_encode_head`` launches the CUDA kernel (``csrc/fsq_head.cu``) on a
-CUDA tensor and takes the plain PyTorch version ``fsq_encode_plain`` only
-for a CPU tensor.
+``fsq_encode_head`` is the op ``mqgan::fsq_head``: on a CUDA tensor its
+CUDA implementation ``fsq_head_kernel`` launches the kernel
+(``csrc/fsq_head.cu``), on a CPU tensor it is the plain PyTorch version
+``fsq_encode_plain``.
 """
 
 from __future__ import annotations
@@ -44,11 +45,9 @@ def fsq_encode_plain(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return ((q + half_w) * basis).sum(dim=-1).to(torch.int32)
 
 
-def fsq_encode_head(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+def fsq_head_kernel(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     consts: torch.Tensor) -> torch.Tensor:
-    """h (N, C) in bf16 or fp32 -> (N,) int32 packed indices."""
-    if h.device.type == "cpu":
-        return fsq_encode_plain(h, w, b, consts)
+    """The kernel on CUDA tensors (the op's CUDA implementation)."""
     if h.device.type != "cuda":
         raise ValueError(f"fsq_encode_head: unsupported device {h.device}")
     n, c = h.shape
@@ -71,3 +70,20 @@ def fsq_encode_head(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  pt(w), pt(b), pt(consts), pt(idx), n, c, d)
     _cuda.COUNTERS.add("fsq_head")
     return idx
+
+
+def _fsq_head_cpu(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  consts: torch.Tensor) -> torch.Tensor:
+    return fsq_encode_plain(h, w, b, consts)
+
+
+fsq_head_op = _cuda.register_op(
+    "fsq_head", _fsq_head_cpu, fsq_head_kernel,
+    lambda h, w, b, consts: h.new_empty((h.shape[0],), dtype=torch.int32))
+
+
+def fsq_encode_head(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    consts: torch.Tensor) -> torch.Tensor:
+    """h (N, C) in bf16 or fp32 -> (N,) int32 packed indices."""
+    _cuda.check_device("fsq_encode_head", h)
+    return fsq_head_op(h, w, b, consts)

@@ -9,9 +9,10 @@
 which is conv_out(aptx(pw(s))) with the fixed APTx folded: the (B, T, C, P)
 hidden never exists. Padded rows come out exactly equal to ``b_out``.
 
-``fused_mel_mixer`` launches the CUDA kernel (``csrc/mel_mixer.cu``) on a
-CUDA tensor and takes the plain PyTorch version ``mel_mixer_plain`` only for
-a CPU tensor. The plain version evaluates the hidden in time chunks so its
+``fused_mel_mixer`` is the op ``mqgan::mel_mixer``: on a CUDA tensor its
+CUDA implementation ``mel_mixer_kernel`` launches the kernel
+(``csrc/mel_mixer.cu``), on a CPU tensor it is the plain PyTorch version
+``mel_mixer_plain``. The plain version evaluates the hidden in time chunks so its
 peak memory stays bounded (the whole hidden is 34 GB fp32 at B=64, T=512,
 C=P=512).
 """
@@ -22,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
 from mqgan_tpu_torch.ops import _cuda
 
@@ -85,13 +87,10 @@ def check_mixer_args(x: torch.Tensor, lengths: torch.Tensor,
     return bf16
 
 
-def fused_mel_mixer(x: torch.Tensor, lengths: torch.Tensor,
-                    w: MixerWeights) -> torch.Tensor:
-    """x (B, T, C) in the compute dtype, lengths (B,) int32 valid frames
-    (contiguous masks) -> (B, T, C) in the compute dtype."""
-    check_mixer_shape("fused_mel_mixer", w.dwk.shape[0], w.w1.shape[0])
-    if x.device.type == "cpu":
-        return mel_mixer_plain(x, lengths, w)
+def mel_mixer_kernel(x: Tensor, lengths: Tensor, dwk: Tensor, consts: Tensor,
+                     w1: Tensor, b1: Tensor, w2: Tensor) -> Tensor:
+    """The kernel on CUDA tensors (the op's CUDA implementation)."""
+    w = MixerWeights(dwk, consts, w1, b1, w2)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mel_mixer: unsupported device {x.device}")
     bf16 = check_mixer_args(x, lengths, w)
@@ -106,3 +105,20 @@ def fused_mel_mixer(x: torch.Tensor, lengths: torch.Tensor,
                  b, t, c, p, k, bf16)
     _cuda.COUNTERS.add("mel_mixer")
     return out
+
+
+def _mel_mixer_cpu(x: Tensor, lengths: Tensor, dwk: Tensor, consts: Tensor,
+                   w1: Tensor, b1: Tensor, w2: Tensor) -> Tensor:
+    return mel_mixer_plain(x, lengths, MixerWeights(dwk, consts, w1, b1, w2))
+
+
+mel_mixer_op = _cuda.register_op("mel_mixer", _mel_mixer_cpu, mel_mixer_kernel,
+                                 lambda x, *rest: torch.empty_like(x))
+
+
+def fused_mel_mixer(x: Tensor, lengths: Tensor, w: MixerWeights) -> Tensor:
+    """x (B, T, C) in the compute dtype, lengths (B,) int32 valid frames
+    (contiguous masks) -> (B, T, C) in the compute dtype."""
+    check_mixer_shape("fused_mel_mixer", w.dwk.shape[0], w.w1.shape[0])
+    _cuda.check_device("fused_mel_mixer", x)
+    return mel_mixer_op(x, lengths, *w)

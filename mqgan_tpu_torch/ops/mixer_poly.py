@@ -6,11 +6,13 @@ depthwise-conv output, g(z) = sum_f w2[f] * aptx(w1[f] z + b1[f]) + b2. It
 is sampled on a Chebyshev grid over the batch's [min, max] and replaced by
 a degree-N interpolant evaluated with the Clenshaw recurrence.
 
-``fused_poly_mixer`` runs the whole mode from the mixer's input x: on a
-CUDA tensor the kernels of ``csrc/mel_mixer.cu`` (the conv, the mask and
-the batch's min/max; g at the nodes and the cosine projection, as
-``poly_mixer_apply`` computes them; the Clenshaw evaluation), one C call, no
-host sync; on a CPU tensor the plain version ``poly_mixer_plain``.
+``fused_poly_mixer`` runs the whole mode from the mixer's input x as the
+op ``mqgan::mel_mixer_poly``: on a CUDA tensor its CUDA implementation
+``poly_mixer_kernel`` launches the kernels of ``csrc/mel_mixer.cu`` (the
+conv, the mask and the batch's min/max; g at the nodes and the cosine
+projection, as ``poly_mixer_apply`` computes them; the Clenshaw
+evaluation), one C call, no host sync; on a CPU tensor it is the plain
+version ``poly_mixer_plain``.
 ``poly_mixer_apply`` is the plain mode from the masked conv output, as the
 JAX function takes it.
 """
@@ -21,6 +23,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
 from mqgan_tpu_torch.core.masking import apply_mask, sequence_mask
 from mqgan_tpu_torch.nn.activations import aptx
@@ -97,18 +100,11 @@ def poly_mixer_plain(x: torch.Tensor, lengths: torch.Tensor, w: MixerWeights,
                             w.consts[1], degree=degree, grid=grid)
 
 
-def fused_poly_mixer(x: torch.Tensor, lengths: torch.Tensor, w: MixerWeights,
-                     *, degree: int = POLY_DEGREE,
-                     grid: int = POLY_GRID) -> torch.Tensor:
-    """x (B, T, C) in the compute dtype, lengths (B,) int32 valid frames
-    (contiguous masks) -> the Chebyshev mode's (B, T, C) in the compute
-    dtype."""
-    check_mixer_shape("fused_poly_mixer", w.dwk.shape[0])
-    if not 1 <= degree <= MAX_POLY_DEGREE or grid < 1:
-        raise ValueError(f"fused_poly_mixer: degree {degree} outside the "
-                         f"kernel (1..{MAX_POLY_DEGREE}) or grid {grid} < 1")
-    if x.device.type == "cpu":
-        return poly_mixer_plain(x, lengths, w, degree=degree, grid=grid)
+def poly_mixer_kernel(x: Tensor, lengths: Tensor, dwk: Tensor, consts: Tensor,
+                      w1: Tensor, b1: Tensor, w2: Tensor, degree: int,
+                      grid: int) -> Tensor:
+    """The kernels on CUDA tensors (the op's CUDA implementation)."""
+    w = MixerWeights(dwk, consts, w1, b1, w2)
     if x.device.type != "cuda":
         raise ValueError(f"fused_poly_mixer: unsupported device {x.device}")
     bf16 = check_mixer_args(x, lengths, w)
@@ -131,3 +127,28 @@ def fused_poly_mixer(x: torch.Tensor, lengths: torch.Tensor, w: MixerWeights,
                  grid, bf16)
     _cuda.COUNTERS.add("mel_mixer_poly")
     return out
+
+
+def _poly_mixer_cpu(x: Tensor, lengths: Tensor, dwk: Tensor, consts: Tensor,
+                    w1: Tensor, b1: Tensor, w2: Tensor, degree: int,
+                    grid: int) -> Tensor:
+    return poly_mixer_plain(x, lengths, MixerWeights(dwk, consts, w1, b1, w2),
+                            degree=degree, grid=grid)
+
+
+poly_mixer_op = _cuda.register_op("mel_mixer_poly", _poly_mixer_cpu,
+                                  poly_mixer_kernel,
+                                  lambda x, *rest: torch.empty_like(x))
+
+
+def fused_poly_mixer(x: Tensor, lengths: Tensor, w: MixerWeights, *,
+                     degree: int = POLY_DEGREE, grid: int = POLY_GRID) -> Tensor:
+    """x (B, T, C) in the compute dtype, lengths (B,) int32 valid frames
+    (contiguous masks) -> the Chebyshev mode's (B, T, C) in the compute
+    dtype."""
+    check_mixer_shape("fused_poly_mixer", w.dwk.shape[0])
+    if not 1 <= degree <= MAX_POLY_DEGREE or grid < 1:
+        raise ValueError(f"fused_poly_mixer: degree {degree} outside the "
+                         f"kernel (1..{MAX_POLY_DEGREE}) or grid {grid} < 1")
+    _cuda.check_device("fused_poly_mixer", x)
+    return poly_mixer_op(x, lengths, *w, degree, grid)

@@ -16,7 +16,10 @@ any launch, and each route launches its kernel or raises:
   window folded in), frames read in place from the reflect-padded waveform.
 
 ``log_mel_plain`` is the plain PyTorch version of the function (the DFT as
-matmuls); the wrappers take it only for CPU tensors. There is no separate
+matmuls); the wrappers take it only for CPU tensors. Each kernel is an op,
+``mqgan::log_mel`` and ``mqgan::log_mel_dft``, whose CUDA implementation
+(``log_mel_kernel``, ``log_mel_dft_kernel``) launches it and whose CPU
+implementation is ``log_mel_plain``. There is no separate
 front-end class as in the JAX package (``PallasMelFrontend``):
 ``signal/mel.py`` ``MelFrontend`` runs ``log_mel``.
 """
@@ -25,10 +28,12 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
 from mqgan_tpu_torch.core.config import SpectrogramConfig
 from mqgan_tpu_torch.ops import _cuda
@@ -185,31 +190,29 @@ def _check_wav(wav: torch.Tensor, n_fft: int) -> None:
                          f"needs more than n_fft // 2 = {n_fft // 2}")
 
 
-def log_mel(wav: torch.Tensor, tables: LogMelTables) -> torch.Tensor:
-    """wav (B, samples) fp32 -> (B, samples // hop + 1, n_mels) fp32,
-    through the kernel of ``tables.route`` (the plain version for a CPU
-    tensor)."""
-    if wav.device.type == "cpu":
-        if tables.cos is None:
-            raise ValueError(f"log_mel: the tables are on {tables.fbank.device}, "
-                             f"the waveform on the CPU")
-        return log_mel_plain(wav, tables.cos, tables.sin, tables.fbank, tables.hop)
-    if tables.route == "dft":
-        return log_mel_dft(wav, tables.cos, tables.sin, tables.fbank, tables.hop)
-    n_fft, hop = tables.n_fft, tables.hop
+def log_mel_kernel(wav: Tensor, fbank: Tensor, cos: Optional[Tensor],
+                   sin: Optional[Tensor], window: Optional[Tensor],
+                   twiddles: Optional[Tensor], bands: Optional[Tensor],
+                   weights: Optional[Tensor], hop: int, n_fft: int) -> Tensor:
+    """The FFT kernel on CUDA tensors (the op's CUDA implementation; it
+    reads window, twiddles, bands, weights and fbank's shape)."""
     _check_wav(wav, n_fft)
     dev = wav.device
-    n_freq, n_mels = tables.fbank.shape
+    n_freq, n_mels = fbank.shape
     if log_mel_route(n_fft, n_mels, hop) != "fft" or n_freq != n_fft // 2 + 1:
         raise ValueError(f"log_mel: tables of n_fft {n_fft}, F {n_freq}, "
                          f"{n_mels} mels are not the FFT kernel's")
-    _cuda.check(tables.window, "window", dtype=torch.float32, shape=(n_fft,),
+    for name, t in (("window", window), ("twiddles", twiddles), ("bands", bands),
+                    ("weights", weights)):
+        if t is None:
+            raise ValueError(f"log_mel: the FFT kernel needs its {name} table")
+    _cuda.check(window, "window", dtype=torch.float32, shape=(n_fft,),
                 device=dev)
-    _cuda.check(tables.twiddles, "twiddles", dtype=torch.float32,
+    _cuda.check(twiddles, "twiddles", dtype=torch.float32,
                 shape=(_twiddle_rows(n_fft), 2), device=dev)
-    _cuda.check(tables.bands, "bands", dtype=torch.int32, shape=(n_mels, 3),
+    _cuda.check(bands, "bands", dtype=torch.int32, shape=(n_mels, 3),
                 device=dev)
-    _cuda.check(tables.weights, "weights", dtype=torch.float32, device=dev)
+    _cuda.check(weights, "weights", dtype=torch.float32, device=dev)
     b, samples = wav.shape
     frames = num_frames(samples, hop)
     out = torch.empty((b, frames, n_mels), dtype=torch.float32, device=dev)
@@ -218,20 +221,16 @@ def log_mel(wav: torch.Tensor, tables: LogMelTables) -> torch.Tensor:
     if wav.numel() >= 2 ** 31:
         raise ValueError("log_mel: the batch must hold < 2**31 samples")
     pt = _cuda.ptr
-    _cuda.launch("mqgan_log_mel", dev, pt(wav), pt(tables.window),
-                 pt(tables.twiddles), pt(tables.bands), pt(tables.weights),
-                 pt(out), b, frames, samples, hop, n_fft, n_mels)
+    _cuda.launch("mqgan_log_mel", dev, pt(wav), pt(window), pt(twiddles),
+                 pt(bands), pt(weights), pt(out), b, frames, samples, hop,
+                 n_fft, n_mels)
     _cuda.COUNTERS.add("log_mel")
     return out
 
 
-def log_mel_dft(wav: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                fbank: torch.Tensor, hop: int) -> torch.Tensor:
-    """The DFT kernel: wav (B, samples) fp32 -> (B, samples // hop + 1,
-    n_mels) fp32, for any even n_fft (``log_mel`` sends it the shapes the
-    FFT kernel does not take)."""
-    if wav.device.type == "cpu":
-        return log_mel_plain(wav, cos, sin, fbank, hop)
+def log_mel_dft_kernel(wav: Tensor, cos: Tensor, sin: Tensor, fbank: Tensor,
+                       hop: int) -> Tensor:
+    """The DFT kernel on CUDA tensors (the op's CUDA implementation)."""
     n_fft, n_freq = cos.shape
     n_mels = fbank.shape[1]
     log_mel_route(n_fft, n_mels, hop)
@@ -259,3 +258,55 @@ def log_mel_dft(wav: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                  n_freq, n_mels)
     _cuda.COUNTERS.add("log_mel_dft")
     return out
+
+
+def _log_mel_cpu(wav: Tensor, fbank: Tensor, cos: Optional[Tensor],
+                 sin: Optional[Tensor], window: Optional[Tensor],
+                 twiddles: Optional[Tensor], bands: Optional[Tensor],
+                 weights: Optional[Tensor], hop: int, n_fft: int) -> Tensor:
+    if cos is None or sin is None:
+        raise ValueError("log_mel: the plain version needs the cos/sin tables")
+    return log_mel_plain(wav, cos, sin, fbank, hop)
+
+
+def _log_mel_dft_cpu(wav: Tensor, cos: Tensor, sin: Tensor, fbank: Tensor,
+                     hop: int) -> Tensor:
+    return log_mel_plain(wav, cos, sin, fbank, hop)
+
+
+def _log_mel_fake(wav, fbank, cos, *rest):
+    hop = rest[-2]
+    return wav.new_empty((wav.shape[0], wav.shape[1] // hop + 1, fbank.shape[1]),
+                         dtype=torch.float32 if cos is None else cos.dtype)
+
+
+log_mel_op = _cuda.register_op("log_mel", _log_mel_cpu, log_mel_kernel,
+                               _log_mel_fake)
+log_mel_dft_op = _cuda.register_op(
+    "log_mel_dft", _log_mel_dft_cpu, log_mel_dft_kernel,
+    lambda wav, cos, sin, fbank, hop: wav.new_empty(
+        (wav.shape[0], wav.shape[1] // hop + 1, fbank.shape[1]), dtype=cos.dtype))
+
+
+def log_mel(wav: Tensor, tables: LogMelTables) -> Tensor:
+    """wav (B, samples) fp32 -> (B, samples // hop + 1, n_mels) fp32,
+    through the kernel of ``tables.route`` (the plain version for a CPU
+    tensor)."""
+    if wav.device.type == "cpu" and tables.cos is None:
+        raise ValueError(f"log_mel: the tables are on {tables.fbank.device}, "
+                         f"the waveform on the CPU")
+    if wav.device.type == "cuda" and tables.route == "dft":
+        return log_mel_dft(wav, tables.cos, tables.sin, tables.fbank, tables.hop)
+    _cuda.check_device("log_mel", wav)
+    return log_mel_op(wav, tables.fbank, tables.cos, tables.sin, tables.window,
+                      tables.twiddles, tables.bands, tables.weights, tables.hop,
+                      tables.n_fft)
+
+
+def log_mel_dft(wav: Tensor, cos: Tensor, sin: Tensor, fbank: Tensor,
+                hop: int) -> Tensor:
+    """The DFT kernel: wav (B, samples) fp32 -> (B, samples // hop + 1,
+    n_mels) fp32, for any even n_fft (``log_mel`` sends it the shapes the
+    FFT kernel does not take)."""
+    _cuda.check_device("log_mel_dft", wav)
+    return log_mel_dft_op(wav, cos, sin, fbank, hop)

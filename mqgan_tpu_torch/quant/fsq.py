@@ -118,12 +118,24 @@ def codes_to_indices(zhat: torch.Tensor, spec: FSQSpec) -> torch.Tensor:
     return ((zhat * half + half) * basis).sum(dim=-1).to(torch.int32)
 
 
-def indices_to_codes(indices: torch.Tensor, spec: FSQSpec) -> torch.Tensor:
-    """(...,) int -> (..., d) normalized codes in [-1, 1], fp32."""
+def unpack_tables(spec: FSQSpec) -> tuple:
+    """(basis int64, levels int64, half_width fp32) of ``indices_to_codes``,
+    CPU tensors."""
+    return (torch.from_numpy(spec.basis.astype(np.int64)),
+            torch.tensor(spec.levels, dtype=torch.int64),
+            torch.from_numpy(spec.half_width))
+
+
+def indices_to_codes(indices: torch.Tensor, spec: FSQSpec,
+                     tables: tuple | None = None) -> torch.Tensor:
+    """(...,) int -> (..., d) normalized codes in [-1, 1], fp32. ``tables``:
+    ``unpack_tables(spec)`` already on indices' device (a module keeps them
+    as buffers, so that a call copies nothing from the host, which a CUDA
+    graph's capture refuses)."""
     idx = indices.long()[..., None]
-    basis = torch.from_numpy(spec.basis.astype(np.int64)).to(indices.device)
-    lv = torch.tensor(spec.levels, dtype=torch.int64, device=indices.device)
-    half = torch.from_numpy(spec.half_width).to(indices.device)
+    if tables is None:
+        tables = (t.to(indices.device) for t in unpack_tables(spec))
+    basis, lv, half = tables
     level_idx = torch.remainder(torch.div(idx, basis, rounding_mode="floor"), lv)
     return (level_idx.float() - half) / half
 

@@ -74,7 +74,7 @@ def test_runtime_halos_follow_its_model(kernel_sizes, depth):
 
 def test_artifact_round_trip_equals_the_model(exported):
     model, out = exported
-    assert sorted(os.listdir(out)) == ["manifest.json", "weights.pt"]
+    assert sorted(os.listdir(out)) == ["cpu", "manifest.json", "weights.pt"]
     rt = ExportedPreEncoder(out, device="cpu")
     assert rt.buckets == list(BUCKETS) and rt.mel_channels == MELS
     assert rt.fsq_levels == [8, 5, 5, 5] and rt.codebook_size == 1000
@@ -168,8 +168,6 @@ def test_cli_errors_and_cuda_default(tmp_path):
             ExportedPreEncoder(str(tmp_path / "e"))
     with pytest.raises(ValueError, match="data_parallel device list"):
         ExportedPreEncoder(str(tmp_path / "e"), device="cpu", devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        PreEncoder(MELS, **NARROW, int8_refiner=True)
 
 
 def test_decode_returns_hidden_and_recon_like_jax():

@@ -23,6 +23,7 @@ from mqgan_tpu.quant.fsq import bound
 from mqgan_tpu_torch.core.config import GeneratorConfig
 from mqgan_tpu_torch.deploy import export, reencode, token_stats
 from mqgan_tpu_torch.models.preencoder import PreEncoder
+from mqgan_tpu_torch.ops import block_kernels
 from mqgan_tpu_torch.utils.params import state_dict_from_jax
 from tests.test_torch_bridge import MELS, NARROW, narrow_jax_params
 from tools.jax_generator_to_npz import flatten_tree
@@ -155,7 +156,9 @@ def test_kernel_error_propagates(tree_of_mels, tmp_path, monkeypatch):
     def failing_kernel(*args, **kw):
         raise RuntimeError("mqgan_residual_block: CUDA error 700 at launch")
 
-    monkeypatch.setattr(PreEncoder, "decode", failing_kernel)
+    # the artifact's programs call the block's op, whose CPU implementation
+    # is the plain version
+    monkeypatch.setattr(block_kernels, "residual_block_plain", failing_kernel)
     out = str(tmp_path / "out")
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         reencode.main(["--input_dir", tree_of_mels, "--output_dir", out,

@@ -19,7 +19,8 @@ printing no result, without one. Phases (any failure exits non-zero):
     sm_90a) and print the build time, the ptxas register report and a
     summary of registers and spills of the mma.sync kernels
     (flash_fwd_mma, flash_bwd_dq_mma, flash_bwd_dkv_mma per head size,
-    conv_gemm_mma) and of the mixer kernels (the exact kernel per dtype and
+    conv_gemm_mma), of the int8 conv's wgmma kernel per (BN, BK) and of
+    the mixer kernels (the exact kernel per dtype and
     tap count, the Chebyshev mode's five kernels), and, from
     cuobjdump -sass of the built library, the MUFU, FP32 and other
     instructions per evaluation in the mixers' inner loops;
@@ -92,7 +93,10 @@ printing no result, without one. Phases (any failure exits non-zero):
     launches, also in bursts) and,
     for the log-mel kernel, the torch.stft chain that computes the same
     function and the DFT kernel (the earlier design, now the route for
-    other n_fft), and print one JSON line of them; the log-mel kernel is
+    other n_fft) at that n_fft; the DFT kernel's row at its own shapes
+    (phase 3's n_fft 1200 and 1000 on the 64-clip batch, each against its
+    float64 plain version, beside its bound and the torch.stft chain at
+    that n_fft); and print one JSON line of them; the log-mel kernel is
     first held against its plain version in float64 at that batch (64
     clips; max|k - p64| <= 1e-4, or no more than the fp32 plain version's
     own error, since fp32 rounding reaches ~1e-4 in the log domain at
@@ -303,10 +307,12 @@ printing no result, without one. Phases (any failure exits non-zero):
 20. the codec artifact as traced programs (flagship width, seeded
     weights, TF32 off): (a) each kernel's torch.library op (mqgan::*)
     against its kernel wrapper on the same card inputs, bit for bit, and
-    torch.library.opcheck on the card; (b) three exports through the CLI at
-    buckets 128/512 (fp32 exact, bf16 poly-decode, bf16 poly-decode
-    --int8_refiner), each one's programs called eagerly against the
-    in-memory model on the kernels (tokens equal away from midpoints, the
+    torch.library.opcheck on the card; the host's microseconds per call of
+    the int8 conv's and the FSQ head's ops against their wrappers at the
+    main path's shapes (the eager entry points call the wrappers); (b)
+    three exports through the CLI at buckets 128/512 (fp32 exact, bf16
+    poly-decode, bf16 poly-decode --int8_refiner), each one's programs
+    called eagerly against the in-memory model on the kernels (tokens equal away from midpoints, the
     decode of the same tokens at phase 3's gates) at B=1 T=128, B=1 T=77,
     B=7 ragged and B=2 T=512, with the launches of one encode + decode (6
     residual_block, 1 fsq_head, the mixers, 14 int8_conv), and the fp32
@@ -322,12 +328,21 @@ printing no result, without one. Phases (any failure exits non-zero):
     graphs' memory (that span and B=64); (d) int8_conv against its plain
     version at each of the refiner's 14 int8 conv shapes (B=2 T=512, fp32
     and bf16: codes and int32 sums equal, the output within one ulp), its
-    time at B=64 T=512 beside the plain version, its bound (int8 ops at
-    1,979 TOP/s or bytes) and cuDNN's bf16 conv2d (the yardstick), and the
-    bf16 round trip at B=64 T=512 with and without the int8 refiner
-    (mel-frames/s printed; deviation within 0.1 * max|mel|, the JAX
-    test's bound). Counts reset before (b), read after (c); the int8_conv
-    row joins the kernels line;
+    whole-call time at B=64 T=512 beside the plain version, its bound (int8
+    ops at 1,979 TOP/s or bytes) and cuDNN's bf16 conv2d (the yardstick),
+    one profiled call of each conv split into the max pass, the quantize
+    pass and the conv kernel beside their bounds (the conv's TOP/s and
+    share of the peak); the same gates at B=3 on every combination of H 1,
+    13, 40, W 100, 144, Cin 64, 192, 768 and Cout 64, 256, 512 (tiles cut
+    by the image's edges, BK 64, N tiles of 64 and 256), fp32 and bf16; an
+    eager bf16 int8 round trip at B=3 T=77 against a CPU copy of its model
+    (the decode of the card's tokens at the bf16 gate, rel-L2 <= 2e-2);
+    and the bf16 round trip at B=64 T=512 with and without the int8
+    refiner (mel-frames/s printed; deviation within 0.1 * max|mel|, the
+    JAX test's bound), each profiled once by kernel, with the per-call
+    weight quantization of the 14 convs timed alone (printed, not
+    gated). Counts reset before (b), read after (c); the int8_conv row
+    joins the kernels line;
 21. print {"ok": true, "device": {...}} as the last line.
 
 A fatal signal prints every thread's Python stack (faulthandler). Once the
@@ -438,6 +453,9 @@ def _kernel_variant(mangled: str):
     flash kernel, 'bf16 taps=5' for a mixer kernel, 'fp32' etc."""
     if "poly_stats" in mangled or "poly_fit" in mangled:
         return None  # no template arguments
+    if "conv_kernelILi" in mangled:  # the int8 conv's <BN, BK>
+        bn, bk = re.findall(r"Li(\d+)E", mangled)[:2]
+        return f"BN={bn} BK={bk}"
     if "fsq_head_kernel" in mangled:
         d, vec = re.findall(r"Li(\d+)E", mangled)[:2]
         return f"{'bf16' if 'nv_bfloat16' in mangled else 'fp32'} d={d} vec={vec}"
@@ -451,10 +469,10 @@ def _kernel_variant(mangled: str):
 
 def ptxas_summary(report: str) -> list:
     """(kernel, template variant or None, registers, spill bytes stored,
-    spill bytes loaded) of each mma.sync kernel and mixer kernel entry in
-    the ptxas report."""
+    spill bytes loaded) of each mma.sync kernel, the int8 conv's wgmma
+    kernel and each mixer kernel entry in the ptxas report."""
     kernels = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma", "conv_gemm_mma",
-               "fsq_head_kernel",
+               "conv_kernel", "fsq_head_kernel",
                "mel_mixer_kernel", "poly_minmax_kernel", "poly_stats_kernel",
                "poly_fit_nodes_kernel", "poly_fit_coef_kernel", "poly_eval_kernel")
     rows, entry = [], None
@@ -964,6 +982,61 @@ def log_mel_library(wav, window, fbank, n_fft: int, hop: int, win: int):
     return torch.log(torch.clamp(mel, min=1e-5))
 
 
+def dft_configs() -> tuple:
+    """The two spectrogram configs whose even n_fft is no power of two, so
+    that the front end takes the DFT kernel: n_fft 1200 and 1000 (no
+    multiple of the DFT kernel's 16-sample stage), 16 kHz, 80 mels."""
+    from mqgan_tpu_torch.core.config import SpectrogramConfig
+
+    return tuple(SpectrogramConfig(sampling_rate=16000, filter_length=n, hop_length=n // 4,
+                                   win_length=n, n_mel_channels=80, mel_fmax=8000.0)
+                 for n in (1200, 1000))
+
+
+def log_mel_dft_row(device) -> "_KernelRow":
+    """Phase 8, row 4b at its own shapes: the DFT kernel at the two DFT
+    configs on the audio trip's batch (AUDIO_B clips of AUDIO_SAMPLES),
+    against its float64 plain version, timed with CUDA events beside its
+    bound, its fp32 plain version and the torch.stft chain at the same
+    n_fft; the row sums the two configs."""
+    import torch
+
+    from mqgan_tpu_torch.ops.stft_kernels import dft_mel_tables, log_mel_dft, log_mel_plain
+    from mqgan_tpu_torch.signal.stft import hann_window
+
+    row = _KernelRow("log_mel_dft", "mqgan_tpu_torch/csrc/log_mel_dft.cu",
+                     "mqgan_tpu/ops/stft_kernels.py:95")
+    wav = _audio_batch(device, SEED + 5)
+    row.library_ms = 0.0
+    for cfg in dft_configs():
+        hop, n_fft = cfg.hop_length, cfg.filter_length
+        n_freq, n_mels = cfg.n_freqs, cfg.n_mel_channels
+        cos, sin, fbank = (x.to(device) for x in dft_mel_tables(cfg))
+        ref = log_mel_plain(wav, *(x.to(device) for x in dft_mel_tables(cfg, np.float64)),
+                            hop)
+        err = float((log_mel_dft(wav, cos, sin, fbank, hop) - ref).abs().max())
+        del ref
+        window = hann_window(cfg.win_length, device=device)
+        ms = time_ms(lambda: log_mel_dft(wav, cos, sin, fbank, hop), 5)
+        pms = time_ms(lambda: log_mel_plain(wav, cos, sin, fbank, hop), 3)
+        lib = time_ms(lambda: log_mel_library(wav, window, fbank, n_fft, hop,
+                                              cfg.win_length), 10, inner=10)
+        # the function's work, counted as for row 4 (an FFT of each frame)
+        n = AUDIO_B * (AUDIO_SAMPLES // hop + 1)
+        nnz = int((fbank != 0).sum())
+        flops = (2.5 * n * n_fft * math.log2(n_fft) + 4.0 * n * n_freq + 2.0 * n * n_mels
+                 + 2.0 * n * nnz)
+        nbytes = 4.0 * (wav.numel() + cfg.win_length + nnz + n * n_mels)
+        bound = row.add(ms, pms, flops, PEAK_FP32, nbytes)
+        by = "operations" if flops / PEAK_FP32 >= nbytes / PEAK_BYTES else "bytes"
+        row.library_ms += lib
+        row.max_abs_err = max(row.max_abs_err, err)
+        print(f"  log_mel_dft N={n} n_fft={n_fft} F={n_freq} mels={n_mels}: {ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}), plain {pms:.4f} ms, torch.stft chain "
+              f"{lib:.4f} ms (the kernel {ms / lib:.2f}x the chain); max|k-p64| {err:.3e}")
+    return row
+
+
 def compare_log_mel(device) -> tuple:
     """Phase 3, log-mel: each kernel against its plain version (TF32 off);
     returns the largest |kernel - plain| and the DFT kernel's launches (its
@@ -982,11 +1055,7 @@ def compare_log_mel(device) -> tuple:
     worst, dft_launches = 0.0, 0
     small = SpectrogramConfig(sampling_rate=16000, filter_length=512, hop_length=128,
                               win_length=512, n_mel_channels=80, mel_fmax=8000.0)
-    odd = SpectrogramConfig(sampling_rate=16000, filter_length=1200, hop_length=300,
-                            win_length=1200, n_mel_channels=80, mel_fmax=8000.0)
-    # n_fft 1000 is no multiple of the DFT kernel's 16-sample stage
-    ragged = SpectrogramConfig(sampling_rate=16000, filter_length=1000, hop_length=250,
-                               win_length=1000, n_mel_channels=80, mel_fmax=8000.0)
+    odd, ragged = dft_configs()
     # odd log2(n_fft / 2): the FFT kernel's radix-2 pass; 32 and 2 frames a block
     fft256 = SpectrogramConfig(sampling_rate=8000, filter_length=256, hop_length=64,
                                win_length=256, n_mel_channels=40, mel_fmax=4000.0)
@@ -1677,12 +1746,10 @@ def kernel_times(model, device) -> list:
     dense_flops = fft_flops + 2.0 * n * n_freq * n_mels
     nbytes = 4.0 * (wav.numel() + cfg.win_length + nnz + n * n_mels)
     bound = mel_row.add(ms, pms, flops, PEAK_FP32, nbytes)
-    dft_row = _KernelRow("log_mel_dft", "mqgan_tpu_torch/csrc/log_mel_dft.cu",
-                         "mqgan_tpu/ops/stft_kernels.py:95")
-    dft_row.add(dft_ms, pms, flops, PEAK_FP32, nbytes)
-    dft_row.max_abs_err, dft_row.library_ms = dft_err, mel_row.library_ms
+    dft_row = log_mel_dft_row(device)
     print(f"  log_mel N={n} n_fft={n_fft} F={n_freq} mels={n_mels}: {ms:.4f} ms "
-          f"(roofline share {bound / ms:.3f}), the DFT kernel {dft_ms:.4f} ms, plain "
+          f"(roofline share {bound / ms:.3f}), the DFT kernel {dft_ms:.4f} ms at this "
+          f"n_fft, plain "
           f"{pms:.4f} ms, torch.stft chain {mel_row.library_ms:.4f} ms; bound "
           f"{bound:.4f} ms ({mel_row.bound_by}: {flops / 1e9:.2f} GFLOP counting the "
           f"filterbank's {nnz} nonzeros, {dense_flops / 1e9:.2f} counting F x n_mels "
@@ -5531,6 +5598,11 @@ ARTIFACT_BUCKETS = (128, 512)
 ARTIFACT_CMP = ((1, (128,)), (1, (77,)), (7, (128, 127, 100, 77, 64, 9, 1)),
                 (2, (512, 300)))
 INT8_CMP_B, INT8_B, INT8_T = 2, 64, 512
+# phase 20d's ragged shapes at B=3: heights, widths, Cin, Cout (every
+# combination, fp32 and bf16)
+INT8_RAGGED_B = 3
+INT8_RAGGED = ((1, 13, 40), (100, 144), (64, 192, 768), (64, 256, 512))
+INT8_TRIP_LENGTHS = (77, 60, 13)  # the eager int8 round trip at B=3 T=77
 INT8_CONVS = 14  # the refiner's downs, mid and ups: 7 ConvBlocks of 2 convs
 PEAK_INT8 = 1979e12  # H100 SXM dense int8 tensor-core ops/s (data sheet)
 GRAPH_SPAN_T, GRAPH_BIG_B = DEPLOY_BUCKETS[-1], 64
@@ -5639,6 +5711,57 @@ def compare_ops(device) -> None:
         if not same or checked != "ok":
             fail(f"phase 20a: the op {name} disagrees with its kernel wrapper or "
                  f"fails opcheck")
+
+
+def op_dispatch(device, state, card) -> None:
+    """Phase 20a: the host's microseconds per call of the int8 conv's and
+    the FSQ head's ops (torch.library dispatch) against their kernel
+    wrappers at the main path's shapes (the refiner's mid conv at B=64
+    T=512; the head over 64 * 512 rows), each a run of calls enqueued with
+    no sync, in turns op, wrapper, wrapper, op (medians)."""
+    import torch
+
+    from mqgan_tpu_torch.core.config import GeneratorConfig
+    from mqgan_tpu_torch.nn.unet import _int8_args
+    from mqgan_tpu_torch.ops import fsq_kernels as fk, int8_conv as ik
+
+    model = build_model(device, torch.bfloat16, state=state)
+    gen = torch.Generator(device=device).manual_seed(SEED + 41)
+    conv = model.refiner.mid.conv1
+    width = MELS + MELS // GeneratorConfig().refiner_hidden_proj_divisor
+    cin = (conv.v if conv.weight_norm else conv.weight).shape[1]
+    x = torch.randn((INT8_B, cin, INT8_T // 8, width), generator=gen,
+                    device=device).to(torch.bfloat16).contiguous(
+                        memory_format=torch.channels_last)
+    w = model.q_in_proj.weight.float().t().contiguous()
+    h = torch.randn((BENCH_B * BENCH_T, w.shape[0]), generator=gen,
+                    device=device).to(torch.bfloat16)
+    cases = {"int8_conv": (ik.int8_conv_op, ik.int8_conv_kernel,
+                           (x, *_int8_args(conv, torch.bfloat16)), 20),
+             "fsq_head": (fk.fsq_head_op, fk.fsq_head_kernel,
+                          (h, w, model.q_in_proj.bias.float(), model.fsq_consts), 200)}
+
+    def host_us(fn, args, calls) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        us = 1e6 * (time.perf_counter() - t0) / calls
+        torch.cuda.synchronize()
+        return us
+
+    for name, (op, kernel, args, calls) in cases.items():
+        op(*args), kernel(*args)
+        times = {op: [], kernel: []}
+        for _ in range(3):
+            for fn in (op, kernel, kernel, op):
+                times[fn].append(host_us(fn, args, calls))
+        op_us, kernel_us = np.median(times[op]), np.median(times[kernel])
+        print(f"  20a {name} on the host, {calls} calls enqueued a run: the op "
+              f"{op_us:.1f} us a call, the wrapper {kernel_us:.1f} us, the op's "
+              f"dispatch {op_us - kernel_us:.1f} us [{card}]")
+    del model, x, h
+    torch.cuda.empty_cache()
 
 
 def _artifact_exports(root) -> dict:
@@ -5904,21 +6027,197 @@ def _ulps(got, want) -> int:
     return int((got.view(bits).long() - want.view(bits).long()).abs().max())
 
 
+def _int8_compare(x, wq, sw, bias) -> tuple:
+    """The kernel against its plain version on the same inputs: (codes
+    equal, int32 sums equal, the output's distance in ulps)."""
+    import torch
+
+    from mqgan_tpu_torch.ops.int8_conv import (activation_scale, int8_conv_accumulators,
+                                               int8_conv_kernel, int8_conv_plain,
+                                               quantize_activations)
+
+    xq, acc = int8_conv_kernel(x, wq, sw, bias, accumulators=True)
+    pxq = quantize_activations(x.permute(0, 2, 3, 1), activation_scale(x))
+    pacc = int8_conv_accumulators(pxq, wq)
+    y, py = int8_conv_kernel(x, wq, sw, bias), int8_conv_plain(x, wq, sw, bias)
+    return torch.equal(xq, pxq), torch.equal(acc, pacc), _ulps(y, py)
+
+
+def int8_ragged(device, gen) -> None:
+    """Phase 20d: the int8 conv against its plain version at B=3 and every
+    shape of INT8_RAGGED (heights off the tile's 8 rows, widths off its 16
+    columns, Cin % 128 != 0, Cout below, at and above one N tile), fp32 and
+    bf16, under the 14 shapes' gates."""
+    import torch
+
+    from mqgan_tpu_torch.ops.int8_conv import int8_tile_plan, quantize_weights
+
+    worst, n_ok, n = 0, 0, 0
+    hs, ws, cins, couts = INT8_RAGGED
+    for h in hs:
+        for w in ws:
+            for cin in cins:
+                for cout in couts:
+                    for dtype in (torch.float32, torch.bfloat16):
+                        x = torch.randn((INT8_RAGGED_B, cin, h, w), generator=gen,
+                                        device=device)
+                        x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+                        k = torch.randn((cout, cin, 3, 3), generator=gen, device=device)
+                        wq, sw = quantize_weights(k.to(dtype))
+                        bias = torch.randn((cout,), generator=gen, device=device)
+                        codes, sums, ulps = _int8_compare(x, wq, sw, bias)
+                        ok = codes and sums and ulps <= 1
+                        worst, n, n_ok = max(worst, ulps), n + 1, n_ok + ok
+                        if not ok:
+                            plan = int8_tile_plan(INT8_RAGGED_B, h, w, cin, cout)
+                            print(f"  20d ragged B={INT8_RAGGED_B} {cin}->{cout} H={h} "
+                                  f"W={w} {str(dtype)[6:]} (bn {plan.bn}, bk {plan.bk}, "
+                                  f"box {plan.box_w}x{plan.box_h}): codes equal {codes}, "
+                                  f"sums equal {sums}, {ulps} ulp FAIL")
+    print(f"  20d ragged shapes (B={INT8_RAGGED_B}, H {hs}, W {ws}, Cin {cins}, Cout "
+          f"{couts}, fp32 and bf16): {n_ok} of {n} with codes and int32 sums equal "
+          f"and the output within 1 ulp (worst {worst}) {'ok' if n_ok == n else 'FAIL'}")
+    if n_ok != n:
+        fail("phase 20d: int8_conv disagrees with its plain version at a ragged shape")
+
+
+def _int8_split(shapes, device, gen, card) -> None:
+    """Phase 20d: one profiled call of each of the 14 convs at B=64 T=512
+    (bf16), split into the max pass, the quantize pass and the conv
+    kernel, each beside its bound (bytes for the passes, the larger of
+    operations and bytes for the conv); shapes: (name, cin, cout, h, w,
+    wq, sw, bias)."""
+    import torch
+
+    from mqgan_tpu_torch.ops.int8_conv import int8_conv_kernel
+
+    parts = ("absmax_kernel", "quantize_kernel", "conv_kernel")
+    totals = [0.0] * 6
+    measured = 0
+    for name, cin, cout, h, w, wq, sw, bias in shapes:
+        x = torch.randn((INT8_B, cin, h, w), generator=gen, device=device)
+        x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        # late in a long run the profiler may miss a profile's device
+        # events: up to three profiles a conv
+        for _ in range(3):
+            events, _ = _device_profile(lambda: int8_conv_kernel(x, wq, sw, bias))
+            got = {p: sum(ms for k, ms in events if p in k) for p in parts}
+            if all(got.values()):
+                break
+        del x
+        if not all(got.values()):
+            print(f"  20d split {name}: the profiler saw {got} (not measured)")
+            continue
+        m = INT8_B * h * w
+        x_bytes, xq_bytes, y_bytes = 2.0 * m * cin, 1.0 * m * cin, 2.0 * m * cout
+        ops = 2.0 * m * cout * 9 * cin
+        bounds = (1e3 * x_bytes / PEAK_BYTES, 1e3 * (x_bytes + xq_bytes) / PEAK_BYTES,
+                  max(1e3 * ops / PEAK_INT8,
+                      1e3 * (xq_bytes + 9 * cin * cout + y_bytes + 8 * cout) / PEAK_BYTES))
+        if any(got[p] < bound for p, bound in zip(parts, bounds)):
+            print(f"  20d split {name}: the profiler's {got} lie below the bounds "
+                  f"{[round(b, 4) for b in bounds]} (not measured)")
+            continue
+        measured += 1
+        for j, p in enumerate(parts):
+            totals[j] += got[p]
+            totals[3 + j] += bounds[j]
+        rate = ops / got["conv_kernel"] / 1e9
+        print(f"  20d split {name} {cin}->{cout} H={h}: max {got['absmax_kernel']:.4f} ms "
+              f"(bound {bounds[0]:.4f}), quantize {got['quantize_kernel']:.4f} ms (bound "
+              f"{bounds[1]:.4f}), conv {got['conv_kernel']:.4f} ms (bound {bounds[2]:.4f}, "
+              f"{rate:.1f} TOP/s = {1e12 * rate / PEAK_INT8:.3f} of 1,979)")
+    print(f"  20d split over {measured} of the {len(shapes)} convs (profiler, one call "
+          f"each): max {totals[0]:.3f} ms (bound {totals[3]:.3f}), quantize "
+          f"{totals[1]:.3f} ms (bound {totals[4]:.3f}), conv {totals[2]:.3f} ms (bound "
+          f"{totals[5]:.3f}) [{card}]")
+
+
+def _int8_small_trip(state, int8, device) -> None:
+    """Phase 20d: one eager bf16 round trip with the int8 refiner at B=3
+    T=77 (int8 convs at 40, 20 and 10 frames) against a CPU copy of its
+    model (plain versions): the decode of the card's tokens on both, over
+    the valid frames, at the bf16 kernel gate (rel-L2 <= 2e-2); token
+    flips counted."""
+    import torch
+
+    from mqgan_tpu_torch.core.config import GeneratorConfig
+    from mqgan_tpu_torch.models.preencoder import PreEncoder
+
+    lengths = np.array(INT8_TRIP_LENGTHS)
+    t = int(lengths.max())
+    x = np.random.default_rng(SEED + 61).standard_normal((len(lengths), t, MELS))
+    xt = torch.from_numpy(x.astype(np.float32))
+    pad = torch.from_numpy(np.arange(t)[None, :] >= lengths[:, None])
+    cpu = PreEncoder.from_config(MELS, GeneratorConfig(), dtype=torch.bfloat16,
+                                 poly_mixers="decode", int8_refiner=True)
+    cpu.load_state_dict(state)
+    cpu = cpu.eval()
+    with torch.no_grad():
+        tokens = int8.encode(xt.to(device), pad.to(device))
+        mel = int8.decode(tokens, pad.to(device)).float().cpu()
+        want = cpu.decode(tokens.cpu(), pad).float()
+        flips = int((cpu.encode(xt, pad) != tokens.cpu())[~pad].sum())
+    ok, _, detail = _judge("int8 decode", mel[~pad], want[~pad], torch.bfloat16)
+    ok = ok and mel.shape == want.shape
+    print(f"  20d eager bf16 int8 round trip B={len(lengths)} T={t} lengths "
+          f"{lengths.tolist()} vs a CPU copy (plain versions): {detail.strip()}; "
+          f"{flips} of {int((~pad).sum())} tokens differ (counted) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"phase 20d: the int8 round trip at B=3 T=77 disagrees with its CPU copy: "
+             f"{detail}")
+
+
+def _int8_trip_profiles(flt, int8, levels, mel, pad, card) -> None:
+    """Phase 20d: where the int8 round trip's time goes beside the float
+    one's: one profiled B=64 T=512 round trip of each (device time by
+    kernel group, the kernels whose time differs most), and the per-call
+    weight quantization of the 14 convs (nn/unet.py _int8_args) alone.
+    Printed only."""
+    import torch
+
+    from mqgan_tpu_torch.nn.unet import _int8_args
+
+    by_name = {}
+    for label, m in (("float refiner", flt), ("int8 refiner", int8)):
+        events, wall = _device_profile(lambda: m.decode(m.encode(mel, pad), pad))
+        _report_profile(f"20d {label} round trip B={BENCH_B} T={BENCH_T}", events, wall,
+                        top=6)
+        by_name[label] = dict(events)
+    f, q = by_name["float refiner"], by_name["int8 refiner"]
+    diff = sorted(((q.get(k, 0.0) - f.get(k, 0.0), k) for k in set(f) | set(q)),
+                  reverse=True)
+    print(f"  20d int8 - float device ms by kernel (largest first): " + "; ".join(
+        f"{d:+.3f} {k[:60]}" for d, k in diff[:8] if d > 0))
+    print(f"  20d float - int8 device ms by kernel (largest first): " + "; ".join(
+        f"{-d:+.3f} {k[:60]}" for d, k in reversed(diff[-6:]) if d < 0))
+
+    def quantize_all():
+        return [_int8_args(conv, torch.bfloat16) for _, conv, _ in levels]
+
+    events, _ = _device_profile(quantize_all)
+    ms = time_ms(quantize_all, 5)
+    print(f"  20d weight quantization of the 14 convs per call (nn/unet.py _int8_args, "
+          f"re-run on every eager forward): {ms:.3f} ms, device "
+          f"{sum(t for _, t in events):.3f} ms in {len(events)} kernel names [{card}]")
+
+
 def int8_conv_checks(state, device, card) -> "_KernelRow":
     """Phase 20d: the int8 conv against its plain version at each of the
     int8 refiner's 14 conv shapes (B=2 T=512, fp32 and bf16: codes and
-    int32 sums equal, the output within one ulp), its times at B=64 T=512
-    beside the plain version, the bound and cuDNN's bf16 conv2d; then the
-    bf16 round trip with and without the int8 refiner."""
+    int32 sums equal, the output within one ulp) and at the ragged shapes
+    of INT8_RAGGED; its times at B=64 T=512 beside the plain version, the
+    bound and cuDNN's bf16 conv2d, and split into its three kernels; then
+    an eager B=3 T=77 int8 round trip against a CPU copy, and the bf16
+    round trip at B=64 T=512 with and without the int8 refiner, each
+    profiled."""
     import torch
     import torch.nn.functional as F
 
     from mqgan_tpu_torch.core.config import GeneratorConfig
     from mqgan_tpu_torch.models.preencoder import PreEncoder
     from mqgan_tpu_torch.nn.unet import _int8_args
-    from mqgan_tpu_torch.ops.int8_conv import (activation_scale, int8_conv_accumulators,
-                                               int8_conv_kernel, int8_conv_plain,
-                                               quantize_activations)
+    from mqgan_tpu_torch.ops.int8_conv import int8_conv_kernel, int8_conv_plain
 
     model = build_model(device, torch.bfloat16, state=state)
     width = MELS + MELS // GeneratorConfig().refiner_hidden_proj_divisor
@@ -5927,25 +6226,21 @@ def int8_conv_checks(state, device, card) -> "_KernelRow":
                      "mqgan_tpu/nn/unet.py:51 (XLA int8 conv, no Pallas)")
     yardstick = 0.0  # cuDNN's bf16 conv2d: another function, not library_ms
     worst_ulps = 0
-    for name, conv, div in _int8_levels(model):
+    levels = _int8_levels(model)
+    shapes = []
+    for name, conv, div in levels:
         cout, cin = conv.weight.shape[:2] if not conv.weight_norm else conv.v.shape[:2]
         for dtype in (torch.float32, torch.bfloat16):
             h = INT8_T // div
             x = torch.randn((INT8_CMP_B, cin, h, width), generator=gen, device=device)
             x = x.to(dtype).contiguous(memory_format=torch.channels_last)
-            wq, sw, bias = _int8_args(conv, dtype)
-            xq, acc = int8_conv_kernel(x, wq, sw, bias, accumulators=True)
-            pxq = quantize_activations(x.permute(0, 2, 3, 1), activation_scale(x))
-            pacc = int8_conv_accumulators(pxq, wq)
-            y, py = int8_conv_kernel(x, wq, sw, bias), int8_conv_plain(x, wq, sw, bias)
-            ulps = _ulps(y, py)
+            codes, sums, ulps = _int8_compare(x, *_int8_args(conv, dtype))
             worst_ulps = max(worst_ulps, ulps)
-            ok = torch.equal(xq, pxq) and torch.equal(acc, pacc) and ulps <= 1
+            ok = codes and sums and ulps <= 1
             if not ok or dtype == torch.bfloat16:
                 print(f"  20d {name} {cin}->{cout} at B={INT8_CMP_B} H={h} W={width} "
-                      f"{str(dtype)[6:]}: codes equal {torch.equal(xq, pxq)}, int32 sums "
-                      f"equal {torch.equal(acc, pacc)}, output {ulps} ulp from plain "
-                      f"{'ok' if ok else 'FAIL'}")
+                      f"{str(dtype)[6:]}: codes equal {codes}, int32 sums equal {sums}, "
+                      f"output {ulps} ulp from plain {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"phase 20d: int8_conv {name} {dtype} disagrees with its plain version")
         dt = torch.bfloat16
@@ -5953,6 +6248,7 @@ def int8_conv_checks(state, device, card) -> "_KernelRow":
         x = torch.randn((INT8_B, cin, h, width), generator=gen, device=device)
         x = x.to(dt).contiguous(memory_format=torch.channels_last)
         wq, sw, bias = _int8_args(conv, dt)
+        shapes.append((name, cin, cout, h, width, wq, sw, bias))
         w16, b16 = conv.folded().to(dt), conv.bias.to(dt)
         ms = time_ms(lambda: int8_conv_kernel(x, wq, sw, bias), 10)
         pms = time_ms(lambda: int8_conv_plain(x, wq, sw, bias), 1)
@@ -5965,17 +6261,21 @@ def int8_conv_checks(state, device, card) -> "_KernelRow":
         print(f"  20d {name} {cin}->{cout} at B={INT8_B} H={h} W={width} bf16: "
               f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), plain {pms:.2f} ms, bound "
               f"{bound:.4f} ms, cuDNN bf16 conv2d {lib:.4f} ms [{card}]")
+        del x
         torch.cuda.empty_cache()
     row.max_abs_err = 0.0
     print(f"  20d int8_conv over the 14 convs at B={INT8_B} T={INT8_T}: {row.ms:.3f} ms, "
           f"plain {row.plain_ms:.1f} ms, bound {row.bound_ms:.3f} ms "
           f"({row.bound_by}), cuDNN bf16 {yardstick:.3f} ms; worst output "
           f"{worst_ulps} ulp from plain [{card}]")
+    _int8_split(shapes, device, gen, card)
+    int8_ragged(device, gen)
 
     int8 = PreEncoder.from_config(MELS, GeneratorConfig(), dtype=torch.bfloat16,
                                   poly_mixers="decode", int8_refiner=True)
     int8.load_state_dict(state)
     int8 = int8.to(device).eval()
+    _int8_small_trip(state, int8, device)
     flt = build_model(device, torch.bfloat16, poly_mixers="decode", state=state)
     mel = torch.randn((BENCH_B, BENCH_T, MELS), generator=gen, device=device)
     pad = torch.zeros((BENCH_B, BENCH_T), dtype=torch.bool, device=device)
@@ -5985,16 +6285,18 @@ def int8_conv_checks(state, device, card) -> "_KernelRow":
             outs[label] = m.decode(m.encode(mel, pad), pad).float()
             ms = time_ms(lambda: m.decode(m.encode(mel, pad), pad), ITERS)
             rates[label] = BENCH_B * BENCH_T / (ms / 1e3)
-    dev = float((outs["int8 refiner"] - outs["float refiner"]).abs().max())
-    scale = float(outs["float refiner"].abs().max())
-    ok = dev < 0.1 * scale and bool(torch.isfinite(outs["int8 refiner"]).all())
-    print(f"  20d bf16 poly-decode round trip B={BENCH_B} T={BENCH_T}: "
-          f"{rates['float refiner']:.1f} mel-frames/s float refiner, "
-          f"{rates['int8 refiner']:.1f} int8 refiner (printed, not claimed); int8 vs "
-          f"float max|d| {dev:.4f} = {dev / scale:.4f} of max|mel| (limit 0.1) "
-          f"{'ok' if ok else 'FAIL'} [{card}]")
-    if not ok:
-        fail("phase 20d: the int8 refiner's round trip deviates beyond 0.1 * max|mel|")
+        dev = float((outs["int8 refiner"] - outs["float refiner"]).abs().max())
+        scale = float(outs["float refiner"].abs().max())
+        ok = dev < 0.1 * scale and bool(torch.isfinite(outs["int8 refiner"]).all())
+        print(f"  20d bf16 poly-decode round trip B={BENCH_B} T={BENCH_T}: "
+              f"{rates['float refiner']:.1f} mel-frames/s float refiner, "
+              f"{rates['int8 refiner']:.1f} int8 refiner (printed, not claimed); int8 vs "
+              f"float max|d| {dev:.4f} = {dev / scale:.4f} of max|mel| (limit 0.1) "
+              f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            fail("phase 20d: the int8 refiner's round trip deviates beyond 0.1 * max|mel|")
+        del outs
+        _int8_trip_profiles(flt, int8, levels, mel, pad, card)
     return row
 
 
@@ -6013,6 +6315,7 @@ def traced_artifacts(state, device, counters, card, deploy_root) -> tuple:
 
     print(f"  [20a] ops vs kernel wrappers, opcheck on the card")
     compare_ops(device)
+    op_dispatch(device, state, card)
     lap("a")
     root = tempfile.mkdtemp(prefix="chip_smoke_artifact_")
     try:

@@ -19,6 +19,12 @@ fake implementation gives the exact output shapes and dtypes without
 building or loading anything, so that ``torch.export`` traces a model through
 the kernels. The ops take fresh outputs and mutate nothing. ``load_ops()``
 imports every module that registers one (a loaded program needs them all).
+
+The ops' dispatch costs the host some 10-55 us a call on an H100's machine
+(``chip_smoke.py`` phase 20a), so the eager entry points call the kernel
+wrappers themselves (``dispatch``): an eager call on a real CUDA tensor
+takes the wrapper, a traced one (``torch.export``, ``torch.compile``) the
+op, which is what a traced program records and its CUDA graphs replay.
 """
 
 from __future__ import annotations
@@ -86,8 +92,8 @@ _SIGNATURES = {
     # q, k, v, do, lse, delta, dk, dv, B, T, H, D, is_bf16, scale, stream
     "mqgan_flash_bwd_dkv": (_PTR,) * 8 + (_INT,) * 5 + (_FLT, _PTR),
     # x, wq, sw, bias, amax, xq, out, B, H, W, Cin, Cout, is_bf16,
-    # accumulators, stream
-    "mqgan_int8_conv": (_PTR,) * 7 + (_INT,) * 7 + (_PTR,),
+    # accumulators, bn, bk, stages, box_w, box_h, smem_bytes, stream
+    "mqgan_int8_conv": (_PTR,) * 7 + (_INT,) * 13 + (_PTR,),
 }
 
 NAMESPACE = "mqgan"
@@ -251,6 +257,22 @@ def register_op(name: str, cpu, cuda, fake):
     op.register_kernel("cuda")(cuda)
     op.register_fake(fake)
     return op
+
+
+def tracing(t: torch.Tensor) -> bool:
+    """Whether t is a tracer's tensor (torch.export's fake and functional
+    tensors, or anything under torch.compile) rather than a real one."""
+    return type(t) is not torch.Tensor or torch.compiler.is_compiling()
+
+
+def dispatch(op, kernel, *args):
+    """``op(*args)``, or its CUDA implementation ``kernel(*args)`` itself
+    for an eager call whose first argument is a real CUDA tensor: the same
+    launch without the op's dispatch."""
+    t = args[0]
+    if t.device.type == "cuda" and not tracing(t):
+        return kernel(*args)
+    return op(*args)
 
 
 def load_ops() -> None:

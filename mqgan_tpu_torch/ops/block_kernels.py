@@ -293,13 +293,14 @@ def split_residual_block(x: torch.Tensor, lengths: torch.Tensor,
     """A non-causal block whose CBAM statistics are the frames [lo, hi) of
     each row, combined over the windows by ``reduce`` (None: this window
     alone)."""
-    z, partial, proj = residual_block_begin_op(x, lengths, *w, lo, hi)
+    z, partial, proj = _cuda.dispatch(residual_block_begin_op, residual_block_begin_kernel,
+                                      x, lengths, *w, lo, hi)
     res = x if w.proj_w is None else proj
     count = (hi - lo).clamp_min(0).float()
     total, mx, count = reduce_pools(partial[:, 1], partial[:, 0], count, reduce)
     pooled = torch.stack([mx, total], dim=1).contiguous()
-    return residual_block_finish_op(x, lengths, *w, res, z, pooled,
-                                    count.contiguous())
+    return _cuda.dispatch(residual_block_finish_op, residual_block_finish_kernel, x,
+                          lengths, *w, res, z, pooled, count.contiguous())
 
 
 def residual_block_kernel(x: Tensor, lengths: Tensor, *args) -> Tensor:
@@ -392,7 +393,7 @@ def fused_residual_block(x: Tensor, lengths: Tensor, w: BlockWeights, *,
     """x (B, T, Cin) in the compute dtype, lengths (B,) int32 valid frames
     (contiguous masks) -> (B, T, Cout) in the compute dtype."""
     _cuda.check_device("fused_residual_block", x)
-    return residual_block_op(x, lengths, *w, causal)
+    return _cuda.dispatch(residual_block_op, residual_block_kernel, x, lengths, *w, causal)
 
 
 def residual_block_begin(x: Tensor, lengths: Tensor, w: BlockWeights,
@@ -400,7 +401,8 @@ def residual_block_begin(x: Tensor, lengths: Tensor, w: BlockWeights,
     """The split launch's first part (see the module docstring): (res, z,
     partial), res being x itself where the block has no projection."""
     _cuda.check_device("residual_block_begin", x)
-    z, partial, proj = residual_block_begin_op(x, lengths, *w, lo, hi)
+    z, partial, proj = _cuda.dispatch(residual_block_begin_op, residual_block_begin_kernel,
+                                      x, lengths, *w, lo, hi)
     return (x if w.proj_w is None else proj), z, partial
 
 
@@ -410,4 +412,5 @@ def residual_block_finish(x: Tensor, lengths: Tensor, w: BlockWeights,
     """The split launch's second part: pooled (B, 2, C) fp32 the reduced
     (max, sum), counts (B,) fp32 the frames they cover."""
     _cuda.check_device("residual_block_finish", x)
-    return residual_block_finish_op(x, lengths, *w, res, z, pooled, counts)
+    return _cuda.dispatch(residual_block_finish_op, residual_block_finish_kernel, x,
+                          lengths, *w, res, z, pooled, counts)

@@ -209,7 +209,8 @@ def _flash_setup_context(ctx, inputs, output):
 
 def _flash_backward(ctx, do, _dlse):
     q, k, v, o, lse = ctx.saved_tensors
-    dq, dk, dv = flash_bwd_op(q, k, v, o, lse, do.contiguous(), ctx.scale)
+    dq, dk, dv = _cuda.dispatch(flash_bwd_op, _flash_bwd_cuda, q, k, v, o, lse,
+                                do.contiguous(), ctx.scale)
     return dq, dk, dv, None
 
 
@@ -220,4 +221,6 @@ def causal_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     """softmax(q k^T * scale, causal) v for (B, T, H, D) q, k, v; returns
     (B, T, H, D) in q's dtype. Differentiable in q, k and v."""
     _cuda.check_device("causal_attention", q)
-    return flash_fwd_op(q, k, v, float(scale))[0]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return flash_fwd_op(q, k, v, float(scale))[0]  # the op carries the backward
+    return _cuda.dispatch(flash_fwd_op, flash_attention_fwd, q, k, v, float(scale))[0]

@@ -86,4 +86,4 @@ def fsq_encode_head(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     consts: torch.Tensor) -> torch.Tensor:
     """h (N, C) in bf16 or fp32 -> (N,) int32 packed indices."""
     _cuda.check_device("fsq_encode_head", h)
-    return fsq_head_op(h, w, b, consts)
+    return _cuda.dispatch(fsq_head_op, fsq_head_kernel, h, w, b, consts)

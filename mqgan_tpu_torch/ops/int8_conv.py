@@ -22,9 +22,17 @@ the quantize pass and the conv, one C call; counter ``int8_conv``), on a CPU
 tensor it is the plain version ``int8_conv_plain``, whose conv sums the
 int8 products exactly in float64 (a 9 * Cin * 127**2 sum exceeds fp32's
 2**24) before the int32 cast.
+
+The kernel's tiles come from ``int8_tile_plan``, a pure function of the
+shape: 128-pixel tiles (a ``box_w`` x ``box_h`` rectangle of one image, the
+pair that pads B*H*W least), BN output channels (64, 128 or 256, fitted to
+Cout), BK = 128 bytes of Cin a slice where Cin % 128 == 0, else 64, and
+as many ring stages as shared memory holds (at most 8).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +42,93 @@ from mqgan_tpu_torch.ops import _cuda
 
 QMAX = 127.0
 SCALE_FLOOR = 1e-8
+
+
+# the kernel's tiling (csrc/int8_conv.cu)
+BM = 128                           # pixels a tile: two consumer warpgroups of 64
+BN_CHOICES = (256, 128, 64)        # output channels a tile (the wgmma's N)
+BOX_WIDTHS = (128, 64, 32, 16, 8)  # a tile's width in pixels; height = 128 / width
+N_TILE_COST = 64                   # an N tile's fixed cost, in channels' worth
+MAX_STAGES = 8
+SMEM_LIMIT = 232_448               # a block's shared memory on an H100
+STAGING_BYTES = 2 * 64 * 40 * 4    # the epilogue's padded 64 x 32 words, each warpgroup
+BARRIER_BYTES = 2 * MAX_STAGES * 8
+SMEM_ALIGN = 1024                  # the 128-byte swizzle's repeat
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """The kernel's tiling of one call: tile t covers output pixels (b, h0 ..
+    h0 + box_h - 1, w0 .. w0 + box_w - 1) and channels n0 .. n0 + bn - 1,
+    clipped to the image and Cout (``tile``)."""
+
+    batch: int
+    height: int
+    width: int
+    cin: int
+    cout: int
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    box_w: int
+    box_h: int
+    smem_bytes: int
+
+    @property
+    def tiles_w(self) -> int:
+        return -(-self.width // self.box_w)
+
+    @property
+    def tiles_h(self) -> int:
+        return -(-self.height // self.box_h)
+
+    @property
+    def tiles_n(self) -> int:
+        return -(-self.cout // self.bn)
+
+    @property
+    def tiles(self) -> int:
+        return self.batch * self.tiles_h * self.tiles_w * self.tiles_n
+
+    def tile(self, t: int) -> tuple:
+        """(b, h0, w0, n0) of tile t: N tiles innermost, then w, h, b (the
+        kernel's tile_at)."""
+        m, n = divmod(t, self.tiles_n)
+        mh, wt = divmod(m, self.tiles_w)
+        b, ht = divmod(mh, self.tiles_h)
+        return b, ht * self.box_h, wt * self.box_w, n * self.bn
+
+
+def _smem_bytes(stages: int, bn: int, bk: int) -> int:
+    return stages * (BM + bn) * bk + STAGING_BYTES + BARRIER_BYTES + SMEM_ALIGN
+
+
+def int8_tile_plan(b: int, h: int, w: int, cin: int, cout: int) -> TilePlan:
+    """The kernel's tiling of a (b, cin, h, w) -> (b, cout, h, w) conv.
+    Raises ValueError for a shape the kernel does not take."""
+    if min(b, h, w) < 1:
+        raise ValueError(f"int8_conv: empty image B={b} H={h} W={w}")
+    if cin < 16 or cin % 16:
+        raise ValueError(f"int8_conv: the kernel needs Cin % 16 == 0, got {cin}")
+    if cout < 32 or cout % 16:
+        raise ValueError(f"int8_conv: the kernel needs Cout % 16 == 0 and Cout >= 32, "
+                         f"got {cout}")
+    if b * h * w >= 2 ** 31:
+        raise ValueError(f"int8_conv: B*H*W={b * h * w} exceeds 2**31 - 1 pixels")
+    bk = 128 if cin % 128 == 0 else 64
+    # the BN whose tiles cost least (the padded channels plus a fixed cost a
+    # tile), among those whose last tile is at least half used; ties: wider
+    fits = [bn for bn in BN_CHOICES if cout - (-(-cout // bn) - 1) * bn >= bn // 2]
+    bn = min(fits, key=lambda n: (-(-cout // n) * (n + N_TILE_COST), -n))
+    # the rectangle that pads the image least; ties: wider (longer rows)
+    def covered(bw: int) -> int:
+        return -(-w // bw) * bw * -(-h // (BM // bw)) * (BM // bw)
+
+    box_w = min(BOX_WIDTHS, key=lambda bw: (covered(bw), -bw))
+    stages = min(MAX_STAGES, (SMEM_LIMIT - _smem_bytes(0, bn, bk)) // ((BM + bn) * bk))
+    return TilePlan(b, h, w, cin, cout, BM, bn, bk, stages, box_w, BM // box_w,
+                    _smem_bytes(stages, bn, bk))
 
 
 def _div(a: Tensor, b: float) -> Tensor:
@@ -91,8 +186,8 @@ def int8_conv_plain(x: Tensor, wq: Tensor, sw: Tensor, bias: Tensor) -> Tensor:
     return out
 
 
-def _check(x: Tensor, wq: Tensor, sw: Tensor, bias: Tensor) -> int:
-    """Check a launch's arguments; returns the bf16 flag."""
+def _check(x: Tensor, wq: Tensor, sw: Tensor, bias: Tensor) -> tuple:
+    """Check a launch's arguments; returns (the bf16 flag, the tile plan)."""
     if x.device.type != "cuda":
         raise ValueError(f"int8_conv: unsupported device {x.device}")
     b, cin, h, w = x.shape
@@ -101,16 +196,13 @@ def _check(x: Tensor, wq: Tensor, sw: Tensor, bias: Tensor) -> int:
     bf16 = _cuda.cuda_dtype_flag(x.dtype)
     if not x.permute(0, 2, 3, 1).is_contiguous():
         raise ValueError("int8_conv: x must be channels-last contiguous")
-    if cin % 16 or not cin:
-        raise ValueError(f"int8_conv: the kernel needs Cin % 16 == 0, got {cin}")
     if x.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError("int8_conv: x and wq must be 16-byte aligned")
-    if -(-b * h * w // 128) >= 2 ** 31 or -(-cout // 64) > 65535:
-        raise ValueError(f"int8_conv: B*H*W={b * h * w}, Cout={cout} exceed the grid")
     _cuda.check(wq, "wq", dtype=torch.int8, shape=(cout, 3, 3, cin), device=dev)
     _cuda.check(sw, "sw", dtype=torch.float32, shape=(cout,), device=dev)
     _cuda.check(bias, "bias", dtype=torch.float32, shape=(cout,), device=dev)
-    return bf16
+    plan = int8_tile_plan(b, h, w, cin, cout) if x.numel() else None
+    return bf16, plan
 
 
 def int8_conv_kernel(x: Tensor, wq: Tensor, sw: Tensor, bias: Tensor,
@@ -118,7 +210,7 @@ def int8_conv_kernel(x: Tensor, wq: Tensor, sw: Tensor, bias: Tensor,
     """The kernel on CUDA tensors (the op's CUDA implementation). With
     ``accumulators``: (xq (B, H, W, Cin) int8, the int32 sums (B, H, W,
     Cout)) of the same launch, in place of y (a check of the kernel)."""
-    bf16 = _check(x, wq, sw, bias)
+    bf16, plan = _check(x, wq, sw, bias)
     b, cin, h, w = x.shape
     cout = wq.shape[0]
     dev = x.device
@@ -129,7 +221,8 @@ def int8_conv_kernel(x: Tensor, wq: Tensor, sw: Tensor, bias: Tensor,
         pt = _cuda.ptr
         _cuda.launch("mqgan_int8_conv", dev, pt(x), pt(wq), pt(sw), pt(bias),
                      pt(amax), pt(xq), pt(out), b, h, w, cin, cout, bf16,
-                     int(accumulators))
+                     int(accumulators), plan.bn, plan.bk, plan.stages, plan.box_w,
+                     plan.box_h, plan.smem_bytes)
         _cuda.COUNTERS.add("int8_conv")
     if accumulators:
         return xq, out.permute(0, 2, 3, 1)
@@ -149,5 +242,5 @@ def int8_conv(x: Tensor, wq: Tensor, sw: Tensor, bias: Tensor) -> Tensor:
     """x (B, Cin, H, W) in the compute dtype -> (B, Cout, H, W), both in
     channels-last memory (module docstring)."""
     _cuda.check_device("int8_conv", x)
-    return int8_conv_op(x.contiguous(memory_format=torch.channels_last),
-                        wq, sw, bias)
+    return _cuda.dispatch(int8_conv_op, int8_conv_kernel,
+                          x.contiguous(memory_format=torch.channels_last), wq, sw, bias)

@@ -121,4 +121,4 @@ def fused_mel_mixer(x: Tensor, lengths: Tensor, w: MixerWeights) -> Tensor:
     (contiguous masks) -> (B, T, C) in the compute dtype."""
     check_mixer_shape("fused_mel_mixer", w.dwk.shape[0], w.w1.shape[0])
     _cuda.check_device("fused_mel_mixer", x)
-    return mel_mixer_op(x, lengths, *w)
+    return _cuda.dispatch(mel_mixer_op, mel_mixer_kernel, x, lengths, *w)

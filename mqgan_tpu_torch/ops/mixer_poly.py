@@ -151,4 +151,4 @@ def fused_poly_mixer(x: Tensor, lengths: Tensor, w: MixerWeights, *,
         raise ValueError(f"fused_poly_mixer: degree {degree} outside the "
                          f"kernel (1..{MAX_POLY_DEGREE}) or grid {grid} < 1")
     _cuda.check_device("fused_poly_mixer", x)
-    return poly_mixer_op(x, lengths, *w, degree, grid)
+    return _cuda.dispatch(poly_mixer_op, poly_mixer_kernel, x, lengths, *w, degree, grid)

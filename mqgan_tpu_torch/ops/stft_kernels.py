@@ -298,9 +298,9 @@ def log_mel(wav: Tensor, tables: LogMelTables) -> Tensor:
     if wav.device.type == "cuda" and tables.route == "dft":
         return log_mel_dft(wav, tables.cos, tables.sin, tables.fbank, tables.hop)
     _cuda.check_device("log_mel", wav)
-    return log_mel_op(wav, tables.fbank, tables.cos, tables.sin, tables.window,
-                      tables.twiddles, tables.bands, tables.weights, tables.hop,
-                      tables.n_fft)
+    return _cuda.dispatch(log_mel_op, log_mel_kernel, wav, tables.fbank, tables.cos,
+                          tables.sin, tables.window, tables.twiddles, tables.bands,
+                          tables.weights, tables.hop, tables.n_fft)
 
 
 def log_mel_dft(wav: Tensor, cos: Tensor, sin: Tensor, fbank: Tensor,
@@ -309,4 +309,4 @@ def log_mel_dft(wav: Tensor, cos: Tensor, sin: Tensor, fbank: Tensor,
     n_mels) fp32, for any even n_fft (``log_mel`` sends it the shapes the
     FFT kernel does not take)."""
     _cuda.check_device("log_mel_dft", wav)
-    return log_mel_dft_op(wav, cos, sin, fbank, hop)
+    return _cuda.dispatch(log_mel_dft_op, log_mel_dft_kernel, wav, cos, sin, fbank, hop)

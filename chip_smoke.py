@@ -57,9 +57,13 @@ printing no result, without one. Phases (any failure exits non-zero):
     100,003 samples, at B=3 x 1,025 samples (n_fft/2 + 1: both reflected
     edges in every frame), on the hifimusic spec (160 mels) at B=2, at
     n_fft 512 (16 kHz, 80 mels), and at n_fft 256, 1024 and 4096 (256 mels)
-    where a radix-2 pass ends the FFT; the DFT kernel at n_fft 1200 (16 kHz, hop
-    300, 80 mels, 0.25 s of leading silence) and at n_fft 1000 (hop 250, a
-    last partial 16-sample stage). Then the whole fp32 round trip
+    where a radix-2 pass ends the FFT; the mixed-radix kernel at n_fft 1200
+    (16 kHz, hop 300, 80 mels, 0.25 s of leading silence), at n_fft 1000
+    (hop 250), at 1764 (44.1 kHz: radix 7), at 480 (48 kHz, 8 frames a
+    block), at 128 on B=3 x 65 samples (reflected edges only) and at 8192
+    (one frame a block); the DFT kernel at n_fft 1201 (odd, 15,000 samples
+    that hop 300 divides: JAX's frame count, one fewer than samples // hop
+    + 1) and at 2050 (n_fft / 2 = 5^2 * 41). Then the whole fp32 round trip
     through the kernels against the same model on the CPU (plain versions);
  4. serve 12 concurrent clips of mixed lengths (100-512 frames) through
     CodecServer over the runtime (flagship GeneratorConfig defaults, 128
@@ -92,16 +96,18 @@ printing no result, without one. Phases (any failure exits non-zero):
     card's maximum SM clock; the Chebyshev mode, one call of five kernel
     launches, also in bursts) and,
     for the log-mel kernel, the torch.stft chain that computes the same
-    function and the DFT kernel (the earlier design, now the route for
-    other n_fft) at that n_fft; the DFT kernel's row at its own shapes
-    (phase 3's n_fft 1200 and 1000 on the 64-clip batch, each against its
-    float64 plain version, beside its bound and the torch.stft chain at
-    that n_fft); and print one JSON line of them; the log-mel kernel is
-    first held against its plain version in float64 at that batch (64
-    clips; max|k - p64| <= 1e-4, or no more than the fp32 plain version's
-    own error, since fp32 rounding reaches ~1e-4 in the log domain at
-    near-silent single-bin mels), and its bound is the function's: an FFT
-    per frame and the filterbank's nonzeros, not F x n_mels; the FSQ head
+    function and the DFT kernel (the first design, now the route for the
+    shapes neither FFT kernel takes) at that n_fft; row 4b, the mixed-radix
+    kernel at its own shapes (phase 3's n_fft 1200 and 1000 on the 64-clip
+    batch, beside its bound, the DFT kernel at the same n_fft, its earlier
+    design, and the torch.stft chain); row 4c, the DFT kernel at n_fft 2050
+    on that batch; and print one JSON line of them; the log-mel kernel and
+    row 4b are first held against their plain version in float64 at that
+    batch (64 clips; max|k - p64| <= 1e-4, or no more than the fp32 plain
+    version's own error, since fp32 rounding reaches ~1e-4 in the log
+    domain at near-silent single-bin mels), and their bounds are the
+    function's: an FFT per frame and the filterbank's nonzeros, not F x
+    n_mels; the FSQ head
     in single calls, in bursts of 10 and by the profiler's kernel time,
     each with its GB/s;
  9. the three flash-attention kernels (forward, dQ, dK/dV) against their
@@ -129,9 +135,9 @@ printing no result, without one. Phases (any failure exits non-zero):
     the plain versions there, and each kernel's rate on the products it
     does (2 forward, 3 dQ, 4 dK/dV) beside the charged bound; kernels and
     SDPA are timed in single calls (the kernels line) and in bursts of 10
-    calls (printed beside); print the kernels JSON line (nine rows: the
-    DFT log-mel kernel's launches are phase 3's, the front end at n_fft
-    1200 and 1000, the only path that selects it);
+    calls (printed beside); print the kernels JSON line (twelve rows: the
+    mixed-radix and DFT log-mel kernels' launches are phase 3's, the front
+    end at the n_fft each takes, the only path that selects them);
 12. token-LM serving at the flagship widths, on the card (the transformer
     of phase 10b's run, fp32; an LSTM run dir of the trainer's format with
     seeded weights): (a) prefill (B=8, per-row prompt ends) and 16
@@ -982,10 +988,11 @@ def log_mel_library(wav, window, fbank, n_fft: int, hop: int, win: int):
     return torch.log(torch.clamp(mel, min=1e-5))
 
 
-def dft_configs() -> tuple:
-    """The two spectrogram configs whose even n_fft is no power of two, so
-    that the front end takes the DFT kernel: n_fft 1200 and 1000 (no
-    multiple of the DFT kernel's 16-sample stage), 16 kHz, 80 mels."""
+def mixed_configs() -> tuple:
+    """The two spectrogram configs of row 4b: even n_fft that are no power
+    of two, so that the front end takes the mixed-radix kernel: n_fft 1200
+    (M = 600 = 4 * 2 * 3 * 5 * 5) and 1000 (M = 500 = 4 * 5 * 5 * 5), 16
+    kHz, 80 mels."""
     from mqgan_tpu_torch.core.config import SpectrogramConfig
 
     return tuple(SpectrogramConfig(sampling_rate=16000, filter_length=n, hop_length=n // 4,
@@ -993,55 +1000,134 @@ def dft_configs() -> tuple:
                  for n in (1200, 1000))
 
 
-def log_mel_dft_row(device) -> "_KernelRow":
-    """Phase 8, row 4b at its own shapes: the DFT kernel at the two DFT
-    configs on the audio trip's batch (AUDIO_B clips of AUDIO_SAMPLES),
-    against its float64 plain version, timed with CUDA events beside its
-    bound, its fp32 plain version and the torch.stft chain at the same
-    n_fft; the row sums the two configs."""
+def dft_config():
+    """Row 4c's spec, on the DFT kernel's route: n_fft 2050 (M = 1025 = 5^2 *
+    41), hop 512 (512 frames of the audio batch's clips), 128 mels."""
+    from mqgan_tpu_torch.core.config import SpectrogramConfig
+
+    return SpectrogramConfig(filter_length=2050, hop_length=512, win_length=2050)
+
+
+def _log_mel_work(wav, cfg, fbank) -> tuple:
+    """(flops, bytes, frames) of the log-mel function on wav at cfg, counted
+    as for row 4: a real FFT of each frame, |.|, the filterbank's nonzeros
+    (a multiply-add each), clamp and log; the waveform read once, the
+    window, the nonzeros and the log-mel written once."""
+    from mqgan_tpu_torch.signal.stft import frame_count
+
+    n_fft, n_freq, n_mels = cfg.filter_length, cfg.n_freqs, cfg.n_mel_channels
+    n = wav.shape[0] * frame_count(wav.shape[1], n_fft, cfg.hop_length)
+    nnz = int((fbank != 0).sum())
+    flops = (2.5 * n * n_fft * math.log2(n_fft) + 4.0 * n * n_freq + 2.0 * n * n_mels
+             + 2.0 * n * nnz)
+    nbytes = 4.0 * (wav.numel() + cfg.win_length + nnz + n * n_mels)
+    return flops, nbytes, n
+
+
+def log_mel_mixed_row(device) -> "_KernelRow":
+    """Phase 8, row 4b at its own shapes: the mixed-radix kernel at the two
+    mixed configs on the audio trip's batch (AUDIO_B clips of
+    AUDIO_SAMPLES), held against its float64 plain version (max|k - p64| <=
+    max(1e-4, the fp32 plain's own error), as row 4), timed with CUDA events
+    beside its bound, its fp32 plain version, the DFT kernel at the same
+    n_fft (the earlier design of the row) and the torch.stft chain; the row
+    sums the two configs."""
     import torch
 
-    from mqgan_tpu_torch.ops.stft_kernels import dft_mel_tables, log_mel_dft, log_mel_plain
+    from mqgan_tpu_torch.ops.stft_kernels import (dft_mel_tables, log_mel, log_mel_dft,
+                                                  log_mel_plain, log_mel_tables)
+    from mqgan_tpu_torch.signal.stft import hann_window
+
+    row = _KernelRow("log_mel_mixed", "mqgan_tpu_torch/csrc/log_mel_mixed.cu",
+                     "mqgan_tpu/ops/stft_kernels.py:95")
+    wav = _audio_batch(device, SEED + 5)
+    row.library_ms = 0.0
+    for cfg in mixed_configs():
+        hop, n_fft = cfg.hop_length, cfg.filter_length
+        tables = log_mel_tables(cfg, device)
+        if tables.route != "mixed":
+            fail(f"row 4b: n_fft {n_fft} takes the {tables.route} route")
+        cos, sin, fbank = (x.to(device) for x in dft_mel_tables(cfg))
+        ref = log_mel_plain(wav, *(x.to(device) for x in dft_mel_tables(cfg, np.float64)),
+                            hop)
+        err = float((log_mel(wav, tables) - ref).abs().max())
+        plain_err = float((log_mel_plain(wav, cos, sin, fbank, hop) - ref).abs().max())
+        dft_err = float((log_mel_dft(wav, cos, sin, fbank, hop) - ref).abs().max())
+        del ref
+        limit = max(1e-4, plain_err)
+        print(f"  log_mel_mixed n_fft={n_fft} at B={AUDIO_B} x {AUDIO_SAMPLES} against "
+              f"the float64 plain version: max|k-p64| {err:.3e} (limit {limit:.3e} = "
+              f"max(1e-4, the fp32 plain's {plain_err:.3e})) "
+              f"{'ok' if err <= limit else 'FAIL'}; not gated: the DFT kernel's "
+              f"{dft_err:.3e}")
+        if not err <= limit:
+            fail(f"log_mel_mixed n_fft {n_fft} at B={AUDIO_B}: max|k-p64| {err:.3e} > "
+                 f"{limit:.3e}")
+        window = hann_window(cfg.win_length, device=device)
+        ms = time_ms(lambda: log_mel(wav, tables), 10, inner=10)
+        dft_ms = time_ms(lambda: log_mel_dft(wav, cos, sin, fbank, hop), 5)
+        pms = time_ms(lambda: log_mel_plain(wav, cos, sin, fbank, hop), 3)
+        lib = time_ms(lambda: log_mel_library(wav, window, fbank, n_fft, hop,
+                                              cfg.win_length), 10, inner=10)
+        flops, nbytes, n = _log_mel_work(wav, cfg, fbank)
+        bound = row.add(ms, pms, flops, PEAK_FP32, nbytes)
+        by = "operations" if flops / PEAK_FP32 >= nbytes / PEAK_BYTES else "bytes"
+        row.library_ms += lib
+        row.max_abs_err = max(row.max_abs_err, err)
+        print(f"  log_mel_mixed N={n} n_fft={n_fft} F={cfg.n_freqs} "
+              f"mels={cfg.n_mel_channels}: {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"plain {pms:.4f} ms, the DFT kernel {dft_ms:.4f} ms, torch.stft chain "
+              f"{lib:.4f} ms (the kernel {ms / lib:.2f}x the chain, "
+              f"{dft_ms / ms:.1f}x faster than the DFT kernel)")
+    return row
+
+
+def log_mel_dft_row(device) -> "_KernelRow":
+    """Phase 8, row 4c: the DFT kernel at a shape only it takes (dft_config,
+    n_fft 2050) on the audio trip's batch, against its float64 plain version
+    (printed beside the fp32 plain's error), timed beside its bound (the
+    function's, an FFT per frame), its fp32 plain version and the torch.stft
+    chain."""
+    from mqgan_tpu_torch.ops.stft_kernels import (dft_mel_tables, log_mel,
+                                                  log_mel_plain, log_mel_tables)
     from mqgan_tpu_torch.signal.stft import hann_window
 
     row = _KernelRow("log_mel_dft", "mqgan_tpu_torch/csrc/log_mel_dft.cu",
                      "mqgan_tpu/ops/stft_kernels.py:95")
     wav = _audio_batch(device, SEED + 5)
-    row.library_ms = 0.0
-    for cfg in dft_configs():
-        hop, n_fft = cfg.hop_length, cfg.filter_length
-        n_freq, n_mels = cfg.n_freqs, cfg.n_mel_channels
-        cos, sin, fbank = (x.to(device) for x in dft_mel_tables(cfg))
-        ref = log_mel_plain(wav, *(x.to(device) for x in dft_mel_tables(cfg, np.float64)),
-                            hop)
-        err = float((log_mel_dft(wav, cos, sin, fbank, hop) - ref).abs().max())
-        del ref
-        window = hann_window(cfg.win_length, device=device)
-        ms = time_ms(lambda: log_mel_dft(wav, cos, sin, fbank, hop), 5)
-        pms = time_ms(lambda: log_mel_plain(wav, cos, sin, fbank, hop), 3)
-        lib = time_ms(lambda: log_mel_library(wav, window, fbank, n_fft, hop,
-                                              cfg.win_length), 10, inner=10)
-        # the function's work, counted as for row 4 (an FFT of each frame)
-        n = AUDIO_B * (AUDIO_SAMPLES // hop + 1)
-        nnz = int((fbank != 0).sum())
-        flops = (2.5 * n * n_fft * math.log2(n_fft) + 4.0 * n * n_freq + 2.0 * n * n_mels
-                 + 2.0 * n * nnz)
-        nbytes = 4.0 * (wav.numel() + cfg.win_length + nnz + n * n_mels)
-        bound = row.add(ms, pms, flops, PEAK_FP32, nbytes)
-        by = "operations" if flops / PEAK_FP32 >= nbytes / PEAK_BYTES else "bytes"
-        row.library_ms += lib
-        row.max_abs_err = max(row.max_abs_err, err)
-        print(f"  log_mel_dft N={n} n_fft={n_fft} F={n_freq} mels={n_mels}: {ms:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}), plain {pms:.4f} ms, torch.stft chain "
-              f"{lib:.4f} ms (the kernel {ms / lib:.2f}x the chain); max|k-p64| {err:.3e}")
+    cfg = dft_config()
+    hop, n_fft = cfg.hop_length, cfg.filter_length
+    tables = log_mel_tables(cfg, device)
+    if tables.route != "dft":
+        fail(f"row 4c: n_fft {n_fft} takes the {tables.route} route")
+    cos, sin, fbank = tables.cos, tables.sin, tables.fbank
+    ref = log_mel_plain(wav, *(x.to(device) for x in dft_mel_tables(cfg, np.float64)), hop)
+    err = float((log_mel(wav, tables) - ref).abs().max())
+    plain_err = float((log_mel_plain(wav, cos, sin, fbank, hop) - ref).abs().max())
+    del ref
+    window = hann_window(cfg.win_length, device=device)
+    ms = time_ms(lambda: log_mel(wav, tables), 5)
+    pms = time_ms(lambda: log_mel_plain(wav, cos, sin, fbank, hop), 3)
+    row.library_ms = time_ms(lambda: log_mel_library(wav, window, fbank, n_fft, hop,
+                                                     cfg.win_length), 10, inner=10)
+    flops, nbytes, n = _log_mel_work(wav, cfg, fbank)
+    bound = row.add(ms, pms, flops, PEAK_FP32, nbytes)
+    row.max_abs_err = err
+    product = 4.0 * n * n_fft * cfg.n_freqs
+    print(f"  log_mel_dft N={n} n_fft={n_fft} F={cfg.n_freqs} mels={cfg.n_mel_channels}: "
+          f"{ms:.4f} ms, bound {bound:.4f} ms ({row.bound_by}), plain {pms:.4f} ms, "
+          f"torch.stft chain {row.library_ms:.4f} ms (the kernel {ms / row.library_ms:.2f}x "
+          f"the chain; {product / 1e9:.1f} GFLOP as a product, "
+          f"{product / ms / 1e9:.1f} TFLOP/s); max|k-p64| {err:.3e} (the fp32 plain's "
+          f"{plain_err:.3e})")
     return row
 
 
 def compare_log_mel(device) -> tuple:
     """Phase 3, log-mel: each kernel against its plain version (TF32 off);
-    returns the largest |kernel - plain| and the DFT kernel's launches (its
-    path: the front end at an even n_fft that is no power of two, counts
-    reset before each case and read after)."""
+    returns the largest |kernel - plain| and the launches of the mixed-radix
+    and DFT kernels (their path: the front end at an n_fft the FFT kernel
+    does not take, counts reset before each case and read after)."""
     import torch
 
     from mqgan_tpu_torch.core.config import SpectrogramConfig
@@ -1049,49 +1135,62 @@ def compare_log_mel(device) -> tuple:
     from mqgan_tpu_torch.ops.stft_kernels import (dft_mel_tables, log_mel,
                                                   log_mel_plain, log_mel_tables)
     from mqgan_tpu_torch.signal.mel import LOG_CLIP_VAL
+    from mqgan_tpu_torch.signal.stft import frame_count
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     floor = torch.log(torch.tensor(LOG_CLIP_VAL, device=device))
-    worst, dft_launches = 0.0, 0
-    small = SpectrogramConfig(sampling_rate=16000, filter_length=512, hop_length=128,
-                              win_length=512, n_mel_channels=80, mel_fmax=8000.0)
-    odd, ragged = dft_configs()
-    # odd log2(n_fft / 2): the FFT kernel's radix-2 pass; 32 and 2 frames a block
-    fft256 = SpectrogramConfig(sampling_rate=8000, filter_length=256, hop_length=64,
-                               win_length=256, n_mel_channels=40, mel_fmax=4000.0)
-    fft1024 = SpectrogramConfig(sampling_rate=16000, filter_length=1024, hop_length=256,
-                                win_length=1024, n_mel_channels=80, mel_fmax=8000.0)
-    fft4096 = SpectrogramConfig(filter_length=4096, hop_length=1024, win_length=4096,
-                                n_mel_channels=256)
+    worst, routed = 0.0, {"log_mel_mixed": 0, "log_mel_dft": 0}
+
+    def spec(rate, n_fft, hop, mels):
+        return SpectrogramConfig(sampling_rate=rate, filter_length=n_fft, hop_length=hop,
+                                 win_length=n_fft, n_mel_channels=mels, mel_fmax=rate / 2)
+
+    cfg1200, cfg1000 = mixed_configs()
     # (label, spec, clips, samples, leading silence of clip 0 in samples,
-    # the kernel its shape selects)
+    # the kernel its shape selects); the FFT kernel: odd log2(n_fft / 2) for
+    # its radix-2 pass, 32 and 2 frames a block; the mixed-radix kernel:
+    # radix 7, 8 frames a block, 32 frames a block on reflected edges only,
+    # one frame a block; the DFT kernel: odd n_fft with a sample count that
+    # hop divides (JAX's frame count), a prime factor 41
     cases = (("hifispeech", SpectrogramConfig(), 8, AUDIO_SAMPLES, 44_100, "log_mel"),
              ("hifispeech", SpectrogramConfig(), 1, 100_003, 0, "log_mel"),
              ("hifispeech edges", SpectrogramConfig(), 3, 1_025, 0, "log_mel"),
              ("hifimusic", SpectrogramConfig(n_mel_channels=160), 2, AUDIO_SAMPLES, 0,
               "log_mel"),
-             ("16k n_fft=512", small, 2, 16_000, 0, "log_mel"),
-             ("8k n_fft=256", fft256, 3, 8_001, 1_000, "log_mel"),
-             ("16k n_fft=1024", fft1024, 2, 16_000, 0, "log_mel"),
-             ("44.1k n_fft=4096 256 mels", fft4096, 2, 100_003, 0, "log_mel"),
-             ("16k n_fft=1200", odd, 2, 16_000, 4_000, "log_mel_dft"),
-             ("16k n_fft=1000", ragged, 2, 16_003, 0, "log_mel_dft"))
+             ("16k n_fft=512", spec(16000, 512, 128, 80), 2, 16_000, 0, "log_mel"),
+             ("8k n_fft=256", spec(8000, 256, 64, 40), 3, 8_001, 1_000, "log_mel"),
+             ("16k n_fft=1024", spec(16000, 1024, 256, 80), 2, 16_000, 0, "log_mel"),
+             ("44.1k n_fft=4096 256 mels", spec(44100, 4096, 1024, 256), 2, 100_003, 0,
+              "log_mel"),
+             ("16k n_fft=1200", cfg1200, 2, 16_000, 4_000, "log_mel_mixed"),
+             ("16k n_fft=1000", cfg1000, 2, 16_003, 0, "log_mel_mixed"),
+             ("44.1k n_fft=1764", spec(44100, 1764, 441, 128), 2, 44_100, 4_410,
+              "log_mel_mixed"),
+             ("48k n_fft=480", spec(48000, 480, 120, 80), 3, 9_001, 0, "log_mel_mixed"),
+             ("16k n_fft=128 edges", spec(16000, 128, 32, 40), 3, 65, 0, "log_mel_mixed"),
+             ("44.1k n_fft=8192", spec(44100, 8192, 2048, 128), 2, 30_001, 8_192,
+              "log_mel_mixed"),
+             ("16k n_fft=1201 odd", spec(16000, 1201, 300, 80), 2, 15_000, 4_000,
+              "log_mel_dft"),
+             ("44.1k n_fft=2050", dft_config(), 2, 20_000, 0, "log_mel_dft"))
     for label, cfg, b, n, quiet, kernel in cases:
+        n_fft, hop = cfg.filter_length, cfg.hop_length
         tables = log_mel_tables(cfg, device)
         cos, sin, _ = (t.to(device) for t in dft_mel_tables(cfg))  # the plain version's
         wav = 0.3 * torch.randn((b, n), generator=gen, device=device)
         wav[0, :quiet] = 0.0
-        # frames whose window sees only zeros
-        silent = max(0, (quiet - cfg.filter_length // 2) // cfg.hop_length + 1)
+        # frames whose window sees only zeros: the last sample of frame t is
+        # t * hop + n_fft - n_fft // 2 - 1
+        silent = max(0, (quiet - (n_fft - n_fft // 2)) // hop + 1)
         _cuda.COUNTERS.reset()
         got = log_mel(wav, tables)
         launches = _cuda.COUNTERS.snapshot()
-        want = log_mel_plain(wav, cos, sin, tables.fbank, cfg.hop_length)
+        want = log_mel_plain(wav, cos, sin, tables.fbank, hop)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         exact = bool((got[0, :silent] == floor).all() and (want[0, :silent] == floor).all())
         ok = (err <= 1e-4 and exact and launches == {kernel: 1}
-              and tuple(got.shape) == (b, n // cfg.hop_length + 1, cfg.n_mel_channels))
+              and tuple(got.shape) == (b, frame_count(n, n_fft, hop), cfg.n_mel_channels))
         print(f"  {kernel:15s} {label} B={b} x {n}: {tuple(got.shape)} "
               f"max|k-p| {err:.3e} (limit 1e-4), {silent} silent frames "
               f"{'== log(1e-5)' if exact else 'NOT log(1e-5)'}, launches {launches} "
@@ -1100,8 +1199,9 @@ def compare_log_mel(device) -> tuple:
             fail(f"{kernel} {label} B={b}: max|k-p| {err:.3e}, silent exact {exact}, "
                  f"launches {launches}")
         worst = max(worst, err)
-        dft_launches += launches.get("log_mel_dft", 0)
-    return worst, dft_launches
+        for name in routed:
+            routed[name] += launches.get(name, 0)
+    return worst, routed
 
 
 def _judge(label, got, want, dtype, zero=False) -> tuple:
@@ -1746,7 +1846,7 @@ def kernel_times(model, device) -> list:
     dense_flops = fft_flops + 2.0 * n * n_freq * n_mels
     nbytes = 4.0 * (wav.numel() + cfg.win_length + nnz + n * n_mels)
     bound = mel_row.add(ms, pms, flops, PEAK_FP32, nbytes)
-    dft_row = log_mel_dft_row(device)
+    mixed_row, dft_row = log_mel_mixed_row(device), log_mel_dft_row(device)
     print(f"  log_mel N={n} n_fft={n_fft} F={n_freq} mels={n_mels}: {ms:.4f} ms "
           f"(roofline share {bound / ms:.3f}), the DFT kernel {dft_ms:.4f} ms at this "
           f"n_fft, plain "
@@ -1754,7 +1854,7 @@ def kernel_times(model, device) -> list:
           f"{bound:.4f} ms ({mel_row.bound_by}: {flops / 1e9:.2f} GFLOP counting the "
           f"filterbank's {nnz} nonzeros, {dense_flops / 1e9:.2f} counting F x n_mels "
           f"= {n_freq * n_mels} densely; {nbytes / 1e6:.1f} MB)")
-    return [blk_row, mix_row, poly_row, fsq_row, mel_row, dft_row]
+    return [blk_row, mix_row, poly_row, fsq_row, mel_row, mixed_row, dft_row]
 
 
 def fsq_head_times(device, w, bias, consts):
@@ -2991,7 +3091,8 @@ def codec_deployment(state, device, counters, card, root=None) -> dict:
     for name in ("residual_block", "mel_mixer", "mel_mixer_poly", "fsq_head"):
         if launches.get(name, 0) <= 0:
             fail(f"phase 13: {name} was not launched on the deployment path")
-    for name in ("log_mel", "log_mel_dft", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("log_mel", "log_mel_mixed", "log_mel_dft", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
         if launches.get(name, 0):
             fail(f"phase 13: {name} launched on the deployment path")
     print(f"  phase 13 seconds by part: {seconds}")
@@ -5648,8 +5749,9 @@ def _op_cases(device) -> dict:
     fw, fb = rand(48, 4), rand(4)
     consts = torch.from_numpy(fk.fsq_head_constants(spec)).to(device)
     tables = sk.log_mel_tables(SpectrogramConfig(), device)
-    dft = sk.dft_mel_tables(SpectrogramConfig(sampling_rate=16000, filter_length=1200,
-                                              hop_length=300, win_length=1200,
+    mixed = sk.log_mel_tables(mixed_configs()[0], device)
+    dft = sk.dft_mel_tables(SpectrogramConfig(sampling_rate=16000, filter_length=1201,
+                                              hop_length=300, win_length=1201,
                                               n_mel_channels=80, mel_fmax=8000.0))
     dft = [x.to(device) for x in dft]
     wav = rand(2, 9000)
@@ -5679,6 +5781,10 @@ def _op_cases(device) -> dict:
                     (wav, tables.fbank, tables.cos, tables.sin, tables.window,
                      tables.twiddles, tables.bands, tables.weights, tables.hop,
                      tables.n_fft)),
+        "log_mel_mixed": (ops.log_mel_mixed, sk.log_mel_mixed_kernel,
+                          (wav, mixed.fbank, mixed.cos, mixed.sin, mixed.window,
+                           mixed.plan, mixed.twiddles, mixed.bands, mixed.weights,
+                           mixed.hop, mixed.n_fft)),
         "log_mel_dft": (ops.log_mel_dft, sk.log_mel_dft_kernel,
                         (wav, dft[0], dft[1], dft[2], 300)),
         "flash_fwd": (ops.flash_fwd, fa.flash_attention_fwd, (q, k, v, 0.125)),
@@ -6391,7 +6497,7 @@ def main() -> None:
     errs["residual_block"] = max(errs["residual_block"], compare_ragged_blocks(device))
     print(f"[3c] FSQ tokens through the pre mixer's kernel, B={BENCH_B} T={BENCH_T} {at()}")
     compare_pre_mixer_tokens(state, device)
-    errs["log_mel"], dft_launches = compare_log_mel(device)
+    errs["log_mel"], routed_launches = compare_log_mel(device)
     compare_round_trip(state, device)
 
     counters = _cuda.COUNTERS
@@ -6426,7 +6532,7 @@ def main() -> None:
           f"codec bf16 exact mixers, ISTFTNetGenerator() bf16 [{card}] {at()}")
     torch.cuda.reset_peak_memory_stats()
     launches.update(log_mel=audio_round_trip(model, device, counters, card)["log_mel"],
-                    log_mel_dft=dft_launches)
+                    **routed_launches)
 
     print(f"[8] kernel times at B={BENCH_B} T={BENCH_T} [{card}] {at()}")
     rows = kernel_times(model, device)

@@ -1,7 +1,8 @@
 // Fused log-mel front end: waveform -> (frames, n_mels) log-mel in fp32, by
 // an FFT of each frame. The route of ops/stft_kernels.py for power-of-two
-// n_fft from 256 to 4096 (every spec config of the repo); log_mel_dft.cu
-// takes the other shapes.
+// n_fft from 256 to 4096 (every spec config of the repo); log_mel_mixed.cu
+// (this design with radix-3, 5 and 7 passes) takes the other even n_fft
+// whose n_fft / 2 has no prime factor above 7, log_mel_dft.cu the rest.
 //
 // Replaces: mqgan_tpu/ops/stft_kernels.py:95 _log_mel_frames_pallas (the
 // Pallas TPU kernel behind PallasMelFrontend, a DFT product on the MXU).

@@ -1,7 +1,9 @@
 // Log-mel front end by DFT product: reflect-padded waveform -> (frames,
 // n_mels) log-mel, in fp32. The route of ops/stft_kernels.py for an n_fft
-// that the FFT kernel (log_mel.cu) does not take: any even n_fft that is
-// not a power of two from 256 to 4096 (n_fft 1200 at 16 kHz, say).
+// that neither FFT kernel (log_mel.cu, log_mel_mixed.cu) takes: odd n_fft
+// (as the JAX package frames them: (samples - 1) // hop + 1 frames where
+// hop divides the samples), an n_fft / 2 with a prime factor above 7
+// (2050 = 2 * 5^2 * 41, say), n_fft 2 and n_fft past 8192.
 //
 // Replaces: mqgan_tpu/ops/stft_kernels.py:_log_mel_frames_pallas (the
 // Pallas TPU kernel `_kernel` behind PallasMelFrontend), which is this same

@@ -6,8 +6,11 @@ torchaudio ``MelSpectrogram`` of the reference converter:
 
 ``MelFrontend`` runs the whole chain through ``ops/stft_kernels.py``
 ``log_mel``: on the card that is a hand-written kernel (an FFT for
-power-of-two n_fft from 256 to 4096, else a DFT product), on the CPU the
-plain PyTorch version.
+power-of-two n_fft from 256 to 4096, a mixed-radix FFT for the other even
+n_fft whose n_fft / 2 has no prime factor above 7, else a DFT product), on
+the CPU the plain PyTorch version. Any positive n_fft works, with the JAX
+package's frames (at an odd n_fft, one fewer than ``frames_for`` where hop
+divides the samples, as in JAX).
 """
 
 from __future__ import annotations

@@ -59,6 +59,14 @@ def num_frames(num_samples: int, hop_length: int) -> int:
     return num_samples // hop_length + 1
 
 
+def frame_count(num_samples: int, n_fft: int, hop_length: int) -> int:
+    """Frames that ``frame_signal`` yields, as the JAX package's
+    ``frame_signal`` does: (num_samples + 2 (n_fft // 2) - n_fft) // hop + 1.
+    That is ``num_frames`` for an even n_fft and, for an odd one, one frame
+    fewer where hop divides num_samples."""
+    return (num_samples + 2 * (n_fft // 2) - n_fft) // hop_length + 1
+
+
 def frame_signal(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
     """(B, T_samples) -> (B, frames, n_fft) windowless frames (a strided
     view of the reflect-padded signal)."""

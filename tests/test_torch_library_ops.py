@@ -29,6 +29,9 @@ from mqgan_tpu_torch.quant.fsq import FSQSpec
 from mqgan_tpu_torch.utils.init import seeded_init_
 
 B, T = 2, 9
+# n_fft 101, hop 50: 700 samples give JAX's (700 - 1) // 50 + 1 = 14 frames
+ODD_SPEC = SpectrogramConfig(sampling_rate=16000, filter_length=101, hop_length=50,
+                             win_length=101, n_mel_channels=8, mel_fmax=8000.0)
 LENGTHS = (9, 4)
 FLASH_TOL = 1e-5  # tests/test_torch_flash.py: fp32, other summation orders
 
@@ -69,6 +72,10 @@ def _cases():
                                               hop_length=64, win_length=256,
                                               n_mel_channels=16, mel_fmax=8000.0),
                             "cpu")
+    mixed = log_mel_tables(SpectrogramConfig(sampling_rate=16000, filter_length=96,
+                                             hop_length=24, win_length=96,
+                                             n_mel_channels=16, mel_fmax=8000.0), "cpu")
+    odd = log_mel_tables(ODD_SPEC, "cpu")
     wav = _t(rng, B, 700)
     q, k, v = (_t(rng, B, T, 2, 8) for _ in range(3))
     o, lse = flash_attention_fwd_plain(q, k, v, 0.35)
@@ -105,6 +112,15 @@ def _cases():
                                           tables.hop),
                         (log_mel_plain(wav, tables.cos, tables.sin, tables.fbank,
                                        tables.hop),)),
+        # odd n_fft, a hop that divides the samples: JAX's frame count
+        "log_mel_dft_odd": (ops.log_mel_dft, (wav, odd.cos, odd.sin, odd.fbank, odd.hop),
+                            (log_mel_plain(wav, odd.cos, odd.sin, odd.fbank, odd.hop),)),
+        "log_mel_mixed": (ops.log_mel_mixed, (wav, mixed.fbank, mixed.cos, mixed.sin,
+                                              mixed.window, mixed.plan, mixed.twiddles,
+                                              mixed.bands, mixed.weights, mixed.hop,
+                                              mixed.n_fft),
+                          (log_mel_plain(wav, mixed.cos, mixed.sin, mixed.fbank,
+                                         mixed.hop),)),
         "flash_fwd": (ops.flash_fwd, (q, k, v, 0.35), (o, lse)),
         # with inputs that require grad: the registered backward too
         "flash_fwd_grad": (ops.flash_fwd, tuple(t.clone().requires_grad_()
@@ -143,7 +159,7 @@ def test_every_kernel_entry_point_is_an_op():
     _cuda.load_ops()
     names = {"fsq_head", "residual_block", "residual_block_begin",
              "residual_block_finish", "mel_mixer", "mel_mixer_poly", "log_mel",
-             "log_mel_dft", "flash_fwd", "flash_bwd", "int8_conv"}
+             "log_mel_mixed", "log_mel_dft", "flash_fwd", "flash_bwd", "int8_conv"}
     for name in names:
         assert hasattr(torch.ops.mqgan, name), name
     # one CUDA implementation per C entry point
@@ -151,7 +167,8 @@ def test_every_kernel_entry_point_is_an_op():
                "residual_block_begin": "mqgan_residual_block_begin",
                "residual_block_finish": "mqgan_residual_block_finish",
                "mel_mixer": "mqgan_mel_mixer", "mel_mixer_poly": "mqgan_mel_mixer_poly",
-               "log_mel": "mqgan_log_mel", "log_mel_dft": "mqgan_log_mel_dft",
+               "log_mel": "mqgan_log_mel", "log_mel_mixed": "mqgan_log_mel_mixed",
+               "log_mel_dft": "mqgan_log_mel_dft",
                "int8_conv": "mqgan_int8_conv"}
     assert set(entries.values()) | {"mqgan_flash_fwd", "mqgan_flash_bwd_dq",
                                     "mqgan_flash_bwd_dkv"} == set(_cuda._SIGNATURES)
@@ -173,6 +190,30 @@ def test_fake_implementations_build_nothing():
         for o, r in zip(out, real):
             assert (o.shape, o.dtype, o.stride()) == (r.shape, r.dtype, r.stride()), name
     assert _cuda.LIBRARY._cdll is loaded
+
+
+@pytest.mark.parametrize("samples", [700, 699])
+def test_fakes_give_jax_frame_count_at_odd_n_fft(samples):
+    """The fake implementations of ``mqgan::log_mel`` and ``mqgan::log_mel_dft``
+    (the shapes a traced program records) give the frames of JAX's
+    ``frame_signal`` at an odd n_fft, as the CPU implementations do:
+    (samples - 1) // hop + 1, 14 at 700 samples (not 700 // 50 + 1)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from mqgan_tpu.signal.stft import frame_signal as jax_frame_signal
+
+    t = log_mel_tables(ODD_SPEC, "cpu")
+    wav = torch.zeros((2, samples))
+    want = jax_frame_signal(np.zeros((2, samples), np.float32), 101, 50).shape[1]
+    assert want == (samples - 1) // 50 + 1
+    cases = ((torch.ops.mqgan.log_mel, (wav, t.fbank, t.cos, t.sin, None, None, None,
+                                         None, t.hop, t.n_fft)),
+             (torch.ops.mqgan.log_mel_dft, (wav, t.cos, t.sin, t.fbank, t.hop)))
+    for op, args in cases:
+        assert op(*args).shape == (2, want, 8)
+        with FakeTensorMode() as mode:
+            fake = [mode.from_tensor(a) if torch.is_tensor(a) else a for a in args]
+            assert op(*fake).shape == (2, want, 8)
 
 
 @pytest.mark.parametrize("t", [1, 17])

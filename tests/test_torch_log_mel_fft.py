@@ -2,10 +2,12 @@
 
 The kernel (``csrc/log_mel.cu``) runs only on a card; what it reads is built
 here and checked here: the banded filterbank against the dense one, the
-twiddle table against numpy, the route chosen by shape, and a numpy replay
-of the kernel's passes (reflect index arithmetic, radix-16, radix-4 and
-radix-2 Stockham passes, the real-FFT split, the bands, the log) driven by
-these tables against ``np.fft.rfft`` and against ``log_mel_plain``."""
+twiddle table against numpy, the route chosen by shape (all three routes),
+and a numpy replay of the kernel's passes (reflect index arithmetic,
+radix-16, radix-4 and radix-2 Stockham passes, the real-FFT split, the
+bands, the log) driven by these tables against ``np.fft.rfft`` and against
+``log_mel_plain``. The mixed-radix kernel's are in
+``test_torch_log_mel_mixed.py``."""
 
 import numpy as np
 import pytest
@@ -168,12 +170,23 @@ def test_route_is_fft_for_powers_of_two(n_fft):
     assert log_mel_route(n_fft, 256, 1) == "fft"
 
 
-@pytest.mark.parametrize("n_fft", [1200, 800, 1000, 2, 128, 8192, 2050])
+@pytest.mark.parametrize("n_fft", [1200, 800, 1000, 128, 8192, 400, 480, 960, 1764, 4])
+def test_route_is_mixed_for_even_n_fft_of_small_primes(n_fft):
+    """Even n_fft from 4 to 8192 that the FFT kernel does not take and whose
+    n_fft / 2 has no prime factor above 7."""
+    assert log_mel_route(n_fft, 80, 300) == "mixed"
+    assert log_mel_route(n_fft, 256, 1) == "mixed"
+
+
+@pytest.mark.parametrize("n_fft", [2, 2050, 1201, 1, 15, 1202, 88, 8194, 16384, 10000])
 def test_route_is_dft_otherwise(n_fft):
+    """Below the mixed kernel's lower limit (2), odd (1201, 1, 15), a prime
+    factor above 7 in n_fft / 2 (2050 = 2 * 5^2 * 41, 1202 = 2 * 601, 88 =
+    8 * 11, 8194 = 2 * 17 * 241), past 8192 (16384, 10000)."""
     assert log_mel_route(n_fft, 80, 300) == "dft"
 
 
-@pytest.mark.parametrize("n_fft,n_mels,hop", [(1201, 80, 300), (0, 80, 300),
+@pytest.mark.parametrize("n_fft,n_mels,hop", [(-1200, 80, 300), (0, 80, 300),
                                               (2048, 0, 512), (2048, 257, 512),
                                               (1200, 300, 300), (2048, 128, 0)])
 def test_route_rejects_what_no_kernel_takes(n_fft, n_mels, hop):
@@ -188,9 +201,16 @@ def test_tables_hold_what_each_route_reads():
     assert tuple(cpu.window.shape) == (2048,)
     card = log_mel_tables(SpectrogramConfig(), "meta")  # as a card's, no cos/sin
     assert card.cos is None and card.sin is None and card.twiddles.device.type == "meta"
-    dft = log_mel_tables(SpectrogramConfig(sampling_rate=16000, filter_length=1200,
-                                           hop_length=300, win_length=1200,
-                                           n_mel_channels=80, mel_fmax=8000.0), "meta")
-    assert dft.route == "dft" and dft.cos.shape == (1200, 601) and dft.twiddles is None
+    mixed = log_mel_tables(SpectrogramConfig(sampling_rate=16000, filter_length=1200,
+                                             hop_length=300, win_length=1200,
+                                             n_mel_channels=80, mel_fmax=8000.0), "meta")
+    assert mixed.route == "mixed" and mixed.cos is None and mixed.sin is None
+    assert tuple(mixed.plan.shape) == (5, 3) and tuple(mixed.twiddles.shape) == (1197, 2)
+    assert tuple(mixed.window.shape) == (1200,) and tuple(mixed.bands.shape) == (80, 3)
+    assert cpu.plan is None and card.plan is None
+    dft = log_mel_tables(SpectrogramConfig(filter_length=2050, hop_length=512,
+                                           win_length=2050), "meta")
+    assert dft.route == "dft" and dft.cos.shape == (2050, 1026) and dft.twiddles is None
+    assert dft.plan is None and dft.window is None
     with pytest.raises(ValueError, match="tables are on meta"):
         log_mel(torch.zeros((1, 4096)), card)

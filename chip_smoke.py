@@ -193,12 +193,13 @@ printing no result, without one. Phases (any failure exits non-zero):
     generator's training-branch forward against its eval forward through
     the kernels, B=16 T=256 fp32 ragged: tokens equal away from midpoints,
     recon_post within 2e-4 * max(1, max|x|); (c) the trainer CLI (bf16,
-    fast dropout) on 96 seeded mels of 150-1500 frames, batch 16, crops
-    256/192/128, epoch 1 warmup and epoch 2 GAN, eval and save every
-    epoch (counts reset just before, read just after): finite losses in
-    both phases, no kernel launch inside a train step, 6 residual_block,
-    2 mel_mixer and 1 fsq_head launches per eval batch; a third epoch
-    resumes from the checkpoint; the trained generator, saved and
+    fast dropout, --async_checkpoint) on 96 seeded mels of 150-1500
+    frames, batch 16, crops 256/192/128, epoch 1 warmup and epoch 2 GAN,
+    eval and save every epoch (counts reset just before, read just
+    after): finite losses in both phases, no kernel launch inside a train
+    step, 6 residual_block, 2 mel_mixer and 1 fsq_head launches per eval
+    batch; a third epoch resumes from the background writer's
+    checkpoint; the trained generator, saved and
     exported (fp32, exact mixers), round-trips through ExportedPreEncoder
     as the in-memory model does (tokens away from midpoints, mel within
     1e-4 * max(1, max|x|)); (d) ms/step, trained mel-frames/s (B*T per
@@ -225,24 +226,33 @@ printing no result, without one. Phases (any failure exits non-zero):
     trainer CLI on 12 seeded wavs, 3 spectral then 3 adversarial steps,
     --export_dir (counts reset just before, read just after): finite losses
     under the JAX metric keys, one log_mel launch per batch and none else,
-    checkpoints, ISTFTNetFE.load_ts vocoding 10 and 23 frames as the
-    in-memory wrapper does (1e-5 * max(1, max|x|)); (d) ms/step, trained
+    checkpoints, ISTFTNetFE.load_ts serving the artifact's program (a
+    symbolic batch and frame count) at (b, t) = (1, 10) and (3, 23): spec
+    and phase as the in-memory generator's, the waveform as the in-memory
+    wrapper's (1e-5 * max(1, max|x|)); (d) ms/step, trained
     audio-s/s and peak memory, spectral and adversarial, fp32 and --bf16
     (2 warm-up, 5 timed steps, CUDA events), no host synchronisation in a
     step (CUDA sync debug mode; one torch.istft call's are printed); (e) a
     profile of one fp32
     adversarial step: kernel groups, idle share, kernel ms per voc/* range;
-16. the LM artifact and codec attach: the phase-10 transformer run and the
-    seeded LSTM run exported through the export_lm CLI (verified on the
-    card), each artifact's sampled and greedy tokens equal to its
-    in-process model's served sampler at the padded bucket and its scores
-    within 1e-5; then the codec's decode kernels (3 blocks, the Chebyshev
+16. the LM artifact and codec attach: (a) the phase-10 transformer run
+    (fp32 and bf16 KV) and the seeded LSTM run exported through the
+    export_lm CLI (torch.export programs traced on the card, verified
+    there), each artifact replayed as CUDA graphs: its sampled and greedy
+    tokens equal to its in-process model's served sampler at the padded
+    bucket (the capturing dispatch and a replay), its scores within
+    1e-5 * max(1, |nll|), its step program writing the cache or carries
+    in place; (b) the codec's decode kernels (3 blocks, the Chebyshev
     post mixer) against their plain versions at the traffic's decode
     shapes, and LMHTTPServer over the transformer artifact with phase
     13's bf16 poly-decode codec: 12 concurrent /generate requests with
     decode true (counts reset just before, read just after): tokens in
     [2, 1000), each mel equal to ExportedPreEncoder.decode of its tokens,
     3 residual_block and 1 mel_mixer_poly launches per decode, no other;
+    (c) each artifact's replayed decode at B=64, prompt 0, L=512: ms per
+    token beside 12f's eager figure, host synchronisations per dispatch
+    (none in the loop), the idle share of an L=32 dispatch, the graphs'
+    memory;
 17. parallel codec serving (flagship generator, seeded, TF32 off): (a) the
     split residual_block launch of the three CBAM blocks (begin: conv
     GEMMs and the pool over a frame range; finish: gate MLP, SAM, tail)
@@ -432,6 +442,9 @@ LM_CHUNKS = 20
 # mixed prompt lengths coalesce), and the logit gate card vs CPU
 SERVE_B, SERVE_L = 64, 512
 SERVE_PROMPT_GRID = 256
+# 12f's dispatch by name: (its eager ms per token, its tokens), which 16c
+# prints beside the replayed decode's and holds the artifact's tokens to
+EAGER_DECODE: dict = {}
 LOGIT_TOL = 1e-4
 LM_SHAPES = ((8, 2048), (4, 4096))
 LM_ITERS = 3
@@ -2525,6 +2538,7 @@ def decode_throughput(name, model, device, card, **extra) -> None:
     events, _ = _device_profile(lambda: _served(model, rows, device, short, **extra))
     ok = (tuple(out.shape) == (SERVE_B, SERVE_L) and int(out.min()) >= 2
           and int(out.max()) < LM["vocab_size"])
+    EAGER_DECODE[name] = (1e3 * secs / SERVE_L, out)
     print(f"  (f) {name} decode B={SERVE_B} prompt 0 L={SERVE_L}: {secs:.3f} s, "
           f"{1e3 * secs / SERVE_L:.3f} ms/token, {SERVE_B * SERVE_L / secs:.1f} tokens/s "
           f"{'ok' if ok else 'FAIL'} [{card}]")
@@ -3304,9 +3318,10 @@ def _trainer_run_config(root, rng, clips=TRAIN_CLIPS, frames=TRAIN_CLIP_FRAMES):
 
 def trainer_cli(device, counters, card) -> dict:
     """Phase 14c, the slice's main path: the trainer CLI, flagship config,
-    bf16, default fast dropout, on TRAIN_CLIPS seeded mels, epoch 1 warmup
-    and epoch 2 GAN, eval and save every epoch; no launch inside a train
-    step, TRAIN_EVAL_BATCH per eval batch; a third epoch resumes; the saved
+    bf16, default fast dropout, --async_checkpoint, on TRAIN_CLIPS seeded
+    mels, epoch 1 warmup and epoch 2 GAN, eval and save every epoch; no
+    launch inside a train step, TRAIN_EVAL_BATCH per eval batch; a third
+    epoch resumes from the background writer's checkpoint; the saved
     generator exports (fp32 exact mixers) and round-trips through
     ExportedPreEncoder like the in-memory model. Returns the launches."""
     import torch
@@ -3347,7 +3362,8 @@ def trainer_cli(device, counters, card) -> dict:
             return ev(gen, mel, lengths)
         return run
 
-    args = ["--config", cfg_path, "--no_wandb", "--device", str(device)]
+    args = ["--config", cfg_path, "--no_wandb", "--device", str(device),
+            "--async_checkpoint"]
     try:
         trainer_mod.make_train_step, trainer_mod.make_eval_step = counting_step, counting_eval
         counters.reset()
@@ -3372,7 +3388,7 @@ def trainer_cli(device, counters, card) -> dict:
     phases_ok = (by_epoch[1.0] and all(r["loss_d"] == 0.0 for r in by_epoch[1.0])
                  and by_epoch[2.0] and all(r["loss_d"] > 0.0 for r in by_epoch[2.0]))
     print(f"  14c trainer CLI: {n_train} train steps (B={cfg['data']['batch_size']}, crops "
-          f"256/192/128, bf16, fast dropout) and {n_eval} eval batches in "
+          f"256/192/128, bf16, fast dropout, --async_checkpoint) and {n_eval} eval batches in "
           f"{secs:.2f} s (set-up, eval and checkpoints included); last losses "
           f"epoch 1 {by_epoch[1.0][-1]['loss_g_total']:.4f}, epoch 2 "
           f"{by_epoch[2.0][-1]['loss_g_total']:.4f} (loss_d "
@@ -3383,8 +3399,10 @@ def trainer_cli(device, counters, card) -> dict:
     if launches != want or seen["step_launches"]:
         fail(f"phase 14c: launches {launches} != {want}, or a train step "
              f"launched {seen['step_launches']}")
-    if resumed.start_epoch != 3 or not by_epoch[3.0]:
-        fail("phase 14c: the third epoch did not resume from the checkpoint")
+    if (resumed.start_epoch != 3 or not by_epoch[3.0]
+            or not trainer.config.logging.async_save):
+        fail("phase 14c: the third epoch did not resume from the background "
+             "writer's checkpoint")
     print(f"  14c resumed at epoch {resumed.start_epoch}: {seen['train'] - n_train} "
           f"more train steps, to step {resumed.state.step}")
     compare_eval_kernels(trainer.state.gen, eval_inputs)
@@ -3693,6 +3711,8 @@ VOC_CMP_B = 2
 VOC_LR = 2e-4
 VOC_CLIPS, VOC_CLIP_SECONDS = 12, (0.5, 3.0)
 VOC_CLI_STEPS, VOC_CLI_ADV_START = 6, 3
+# 15c: the (b, t) shapes at which the vocoder artifact's program is held
+VOC_PROGRAM_SHAPES = ((1, 10), (3, 23))
 VOC_WARM, VOC_ITERS = 2, 5
 VOC_PARTS = ("voc/sample", "voc/g_forward", "voc/stft_loss", "voc/d_forward",
              "voc/d_backward", "voc/g_backward", "voc/optim")
@@ -3997,8 +4017,10 @@ def vocoder_trainer_cli(root, wav_dir, device, counters, card) -> dict:
     VOC_CLI_ADV_START spectral steps then adversarial ones, --export_dir
     (counts reset just before, read just after): finite losses under the
     JAX keys, one log_mel launch per batch (its init batch and one a step)
-    and none else, checkpoints; then ISTFTNetFE.load_ts vocodes 10 and 23
-    frames as the in-memory wrapper does (1e-5 * max(1, max|x|))."""
+    and none else, checkpoints; then ISTFTNetFE.load_ts serves the
+    artifact's program (a symbolic batch and frame count) at (b, t) =
+    VOC_PROGRAM_SHAPES: spec and phase equal to the in-memory generator's
+    and the waveform to the in-memory wrapper's (1e-5 * max(1, max|x|))."""
     import dataclasses
 
     import torch
@@ -4034,21 +4056,28 @@ def vocoder_trainer_cli(root, wav_dir, device, counters, card) -> dict:
     fe = ISTFTNetFE.load_ts(exp)
     mem = build_vocoder_fe(gen, fe.stft.hop_length)
     rng = np.random.default_rng(SEED + 53)
-    art_err, art_ok = 0.0, next(fe.gen.parameters()).device.type == "cuda"
-    for frames in (10, 23):
-        mel = rng.standard_normal((1, 128, frames)).astype(np.float32)
-        got, ref = fe(mel).cpu().numpy(), mem(mel).cpu().numpy()
-        err = float(np.abs(got - ref).max())
-        art_err = max(art_err, err)
+    art_err, art_ok = 0.0, next(fe.program.parameters()).device.type == "cuda"
+    for b, frames in VOC_PROGRAM_SHAPES:
+        mel = rng.standard_normal((b, 128, frames)).astype(np.float32)
+        with torch.no_grad():
+            x = torch.from_numpy(mel).to(device)
+            pairs = list(zip(fe.program(x), gen.eval()(x)))
+        pairs.append((fe(mel), mem(mel)))
+        for got, ref in ((g.float().cpu().numpy(), r.float().cpu().numpy())
+                         for g, r in pairs):
+            err = float(np.abs(got - ref).max())
+            art_err = max(art_err, err)
+            art_ok = (art_ok and got.shape == ref.shape
+                      and err <= 1e-5 * max(1.0, float(np.abs(ref).max())))
         # the iSTFT of 64 frames a mel frame, hop 8, n_fft 16: 512 t - 8 samples
-        art_ok = (art_ok and got.shape == ref.shape == (1, 1, frames * 512 - 8)
-                  and err <= 1e-5 * max(1.0, float(np.abs(ref).max())))
+        art_ok = art_ok and pairs[-1][0].shape == (b, 1, frames * 512 - 8)
     print(f"  15c trainer CLI: {VOC_CLI_STEPS} steps ({VOC_CLI_ADV_START} spectral, then "
           f"adversarial) in {secs:.2f} s (set-up, 12 wav loads and checkpoints included); "
           f"losses {[round(r['vocoder/loss'], 4) for r in recs]}; keys "
           f"{'ok' if keys_ok else 'BAD'}; launches {launches} (want {want}); "
-          f"checkpoints {'ok' if files_ok else 'MISSING'}; artifact vs in-memory "
-          f"wrapper at 10 and 23 frames max|d| {art_err:.2e} [{card}]")
+          f"checkpoints {'ok' if files_ok else 'MISSING'}; the artifact's program vs "
+          f"the in-memory generator and wrapper at (b, t) {VOC_PROGRAM_SHAPES} max|d| "
+          f"{art_err:.2e} [{card}]")
     if not (keys_ok and finite and files_ok and launches == want and art_ok):
         fail("phase 15c: the vocoder trainer CLI's run or its artifact is wrong")
     return launches
@@ -4209,20 +4238,56 @@ def vocoder_training(device, counters, card) -> dict:
     return launches
 
 
-# phase 16, the LM artifact and codec attach: the export buckets, and the
-# HTTP traffic: 12 requests of (n, length), decode true, two lengths per
-# bucket of the codec artifact so that decodes run at a few shapes
-LM_EXPORT_BUCKETS = dict(gen=(128, 512), prompt=(1, 256), score=(512, 2048))
+# phase 16, the LM artifact and codec attach: the export buckets (32 for
+# 16c's profiled dispatch; every pair and score bucket shares its programs,
+# so buckets cost no trace), 16a's length (in the 512 bucket), the three
+# artifacts (name, 12f's name, export flags), and the HTTP traffic: 12
+# requests of (n, length), decode true, two lengths per bucket of the codec
+# artifact so that decodes run at a few shapes
+LM_EXPORT_BUCKETS = dict(gen=(32, 128, 512), prompt=(1, 256), score=(512, 2048))
+LM_ARTIFACT_L = 300
+LM_ARTIFACTS = (("transformer", "transformer fp32 KV", ()),
+                ("transformer_bf16", "transformer bf16 KV", ("--kv_bf16",)),
+                ("lstm", "lstm", ()))
 LM_DECODE_REQUESTS = ((1, 100), (3, 100), (1, 120), (3, 128), (1, 400), (3, 400),
                       (1, 512), (3, 480), (1, 100), (3, 400), (1, 512), (3, 100))
 
 
-def compare_lm_artifact(name, out, run, device) -> None:
-    """Phase 16a: the exported LM on the card against the in-process model
-    of its run: 8 rows (mixed prompt lengths 0-200, per-row seeds, length
-    300 in the 512 bucket) sampled (temperature 0.9, top-k 50, top-p 0.95)
-    and greedy give the served sampler's tokens at the padded bucket
-    (equal); score of 4 rows of 2,048 tokens within 1e-5 of score_tokens."""
+def _state_writes(out, arch) -> dict:
+    """{op: [state inputs]} of the card's step program of an LM artifact
+    (the transformer's layer, the LSTM's step): the ops that take a cache
+    or carry input, or the result of an in-place op on one (its alias),
+    and the number of mutations the program returns as outputs (a
+    functionalised graph would copy the whole cache)."""
+    import torch
+
+    from mqgan_tpu_torch.deploy.runtime import program_path
+
+    name = "step_block.pt2" if arch == "transformer" else "step.pt2"
+    ep = torch.export.load(program_path(out, "cuda", name))
+    state = {n for n in ep.graph.nodes if n.op == "placeholder"
+             and (n.name in ("k", "v") or n.name.startswith("state_"))}
+    found = {"mutations returned": len(ep.graph_signature.user_inputs_to_mutate)}
+    for node in ep.graph.nodes:
+        if node.op != "call_function" or not node.args or node.args[0] not in state:
+            continue
+        op = str(node.target).split(".")[1]
+        found.setdefault(op, []).append(node.args[0].name)
+        if op.endswith("_"):  # an in-place op returns its input
+            state.add(node)
+    return found
+
+
+def compare_lm_artifact(name, out, run, device, kv=None) -> None:
+    """Phase 16a: the exported LM on the card, replayed as CUDA graphs,
+    against the in-process model of its run: 8 rows (mixed prompt lengths
+    0-200, per-row seeds, length LM_ARTIFACT_L in the 512 bucket) sampled
+    (temperature 0.9, top-k 50, top-p 0.95) and greedy give the served
+    sampler's tokens at the padded bucket (equal), at the shape's first
+    dispatch (its capture) and a second; score of 4 rows of 2,048 tokens
+    within 1e-5 * max(1, |nll|) of score_tokens; the step program writes
+    its state in place (index_put_ / copy_ on its inputs, no mutation
+    returned, no whole-cache copy of an fp32 cache)."""
     import torch
 
     from mqgan_tpu_torch.deploy.export_lm import ExportedMusicLM, load_lm_from_run
@@ -4245,16 +4310,19 @@ def compare_lm_artifact(name, out, run, device) -> None:
     mask[list(forbidden)] = False
     ok, same = True, []
     for knobs in ((0.9, 50, 0.95), (1.0, 1, 0.0)):
-        got = rt.generate_rows(genres, seeds, 300, prompts=prompts, temperature=knobs[0],
-                               top_k=knobs[1], top_p=knobs[2], forbidden=forbidden)
         want = served_sampler(model)(
             model, torch.from_numpy(genres).to(device), torch.from_numpy(seeds).to(device),
             torch.from_numpy(prompt).to(device),
             torch.tensor(lens, device=device), *knobs, mask.to(device),
-            max_len=rt._bucket(rt.gen_buckets, 300, "length"),
-            bos_id=args["bos_id"])[:, :300].cpu().numpy()
-        same.append(int((got == want).all(axis=1).sum()))
-        ok = ok and np.array_equal(got, want)
+            max_len=rt._bucket(rt.gen_buckets, LM_ARTIFACT_L, "length"),
+            bos_id=args["bos_id"], **({"kv_dtype": kv} if kv else {})
+        )[:, :LM_ARTIFACT_L].cpu().numpy()
+        for _ in range(2):
+            got = rt.generate_rows(genres, seeds, LM_ARTIFACT_L, prompts=prompts,
+                                   temperature=knobs[0], top_k=knobs[1],
+                                   top_p=knobs[2], forbidden=forbidden)
+            same.append(int((got == want).all(axis=1).sum()))
+            ok = ok and np.array_equal(got, want)
     tokens = rng.integers(2, args["vocab_size"], (4, 2048))
     tokens[:, 0] = args["bos_id"]
     tokens[2, 1500:] = args["pad_id"]
@@ -4262,28 +4330,107 @@ def compare_lm_artifact(name, out, run, device) -> None:
     wn, wv = score_tokens(model, torch.from_numpy(tokens).to(device),
                           torch.from_numpy(genres[:4]).to(device))
     s_err = float(np.abs(nll - wn.cpu().numpy()).max())
-    ok = (ok and s_err <= 1e-5 * max(1.0, float(np.abs(nll).max()))
-          and np.array_equal(n, wv.cpu().numpy()) and rt.device.type == "cuda")
+    writes = _state_writes(out, rt.arch)
+    # a bf16 cache is cast whole to fp32 where it is read (the port's
+    # arithmetic, kept); nothing else copies a cache
+    whole = {"copy_", "copy", "clone", "index_put", "slice_scatter"} | (
+        set() if kv else {"_to_copy"})
+    in_place = writes.pop("mutations returned") == 0 and (
+        "index_put_" in writes and not whole & set(writes)
+        if rt.arch == "transformer" else "copy_" in writes)
+    writes = {k: len(v) for k, v in writes.items()}
+    ok = (ok and s_err <= 1e-5 * max(1.0, float(np.abs(nll).max())) and in_place
+          and np.array_equal(n, wv.cpu().numpy()) and rt.device.type == "cuda"
+          and len(rt.graphs) == 1)
     print(f"  16a {name} artifact ({rt.arch}, buckets {rt.gen_buckets}/{rt.prompt_buckets}/"
-          f"{rt.score_buckets}) vs the in-process model: rows equal sampled "
-          f"{same[0]}/8, greedy {same[1]}/8; score max|d| {s_err:.2e} "
-          f"{'ok' if ok else 'FAIL'}")
+          f"{rt.score_buckets}) through CUDA graphs vs the in-process model: rows "
+          f"equal sampled {same[:2]}/8, greedy {same[2:]}/8 (capturing dispatch, "
+          f"replay); score max|d| {s_err:.2e}; the step program's state ops "
+          f"{writes} {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"phase 16a: the {name} LM artifact disagrees with its model")
 
 
+def lm_graph_decode(label, out, card) -> None:
+    """Phase 16c: the artifact's decode at 12f's shape (B=64, prompt 0,
+    L=512, 12f's seeds, genres and vocab mask) through its CUDA graphs, on
+    a runtime whose state buffers are sized for that shape first:
+    the capturing dispatch's tokens equal 12f's eager served sampler's and
+    a replay's; ms per token of 3 dispatches after the capturing one (host
+    clock, tokens to the host), beside 12f's; host synchronisations per
+    dispatch at L=32 and L=512 (CUDA sync debug mode; none more at L=512:
+    none in the loop); the idle share of an L=32 dispatch (the profiler's
+    busy time against the same dispatch unprofiled, as 12f takes it); the
+    graphs' memory: the state buffers and what the capturing dispatch
+    reserved beside them."""
+    import gc
+
+    import torch
+
+    from mqgan_tpu_torch.deploy.export_lm import ExportedMusicLM
+
+    gc.collect()  # the earlier runtimes' graphs and buffers go first
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rt = ExportedMusicLM(out)
+    rt.reserve(SERVE_B, 1, SERVE_L)
+    genres, seeds = np.arange(SERVE_B) % LM["num_genres"], np.arange(SERVE_B)
+    forbidden = tuple(int(i) for i in np.flatnonzero(~_serve_mask().numpy()))
+
+    def dispatch(length):
+        return rt.generate_rows(genres, seeds, length, forbidden=forbidden)
+
+    mem0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    first = dispatch(SERVE_L)
+    first_s = time.perf_counter() - t0
+    reserved = torch.cuda.memory_reserved() - mem0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = dispatch(SERVE_L)
+        times.append(1e3 * (time.perf_counter() - t0) / SERVE_L)
+    dispatch(32)
+    syncs = (_count_syncs(lambda: dispatch(32)), _count_syncs(lambda: dispatch(SERVE_L)))
+    events, _ = _device_profile(lambda: dispatch(32))
+    t0 = time.perf_counter()
+    dispatch(32)
+    wall = 1e3 * (time.perf_counter() - t0)
+    busy = sum(ms for _, ms in events)
+    eager_ms, eager_out = EAGER_DECODE.get(label, (None, None))
+    same = None if eager_out is None else int((first == eager_out.numpy()).all(axis=1).sum())
+    ok = (same == SERVE_B and np.array_equal(first, again)
+          and first.shape == (SERVE_B, SERVE_L) and int(first.min()) >= 2
+          and int(first.max()) < LM["vocab_size"] and syncs[1] <= syncs[0])
+    print(f"  16c {label} B={SERVE_B} prompt 0 L={SERVE_L} through the artifact's graphs: "
+          f"rows equal to 12f's eager served sampler {same}/{SERVE_B}; "
+          f"{min(times):.4f} ms/token (3 dispatches {[round(x, 4) for x in times]}; "
+          f"capturing dispatch {first_s:.2f} s), 12f's eager served sampler "
+          f"{'not measured' if eager_ms is None else f'{eager_ms:.4f}'} ms/token; host "
+          f"syncs per dispatch L=32 {syncs[0]}, L={SERVE_L} {syncs[1]}; L=32 dispatch "
+          f"busy {busy:.3f} of {wall:.3f} ms, idle share "
+          f"{'not measured' if not busy else f'{1 - busy / wall:.3f}'}; state buffers "
+          f"{rt.state_bytes() / 1e6:.1f} MB, the capturing dispatch reserved "
+          f"{reserved / 1e6:.1f} MB more {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        fail(f"phase 16c: the {label} artifact's replayed decode is wrong, differs from "
+             f"12f's or synchronises in its loop")
+
+
 def lm_artifacts(tf_run, lstm_run, codec_dir, device, counters, card) -> dict:
-    """Phase 16: export the phase-10 transformer and the seeded LSTM run
-    through the export CLI (verify_lm_export on the card), hold each
-    artifact against its model (16a), then (16b) LMHTTPServer over the
+    """Phase 16: export the phase-10 transformer (fp32 and bf16 KV) and the
+    seeded LSTM run through the export CLI (traced programs,
+    verify_lm_export on the card), hold each artifact, replayed as CUDA
+    graphs, against its model (16a), then (16b) LMHTTPServer over the
     transformer artifact with the bf16 poly-decode codec artifact of phase
     13: first the codec's decode kernels against their plain versions at
     the shapes the traffic's decodes take, then 12 concurrent /generate
     requests with decode true (counts reset just before, read just after):
     3 residual_block and 1 mel_mixer_poly launches per decode and no other
     kernel; tokens in [2, codebook size); each mel equal to
-    ExportedPreEncoder.decode of its tokens (1e-4 * max(1, max|x|)).
-    Returns the path's launches and the kernels' largest |kernel - plain|."""
+    ExportedPreEncoder.decode of its tokens (1e-4 * max(1, max|x|)); then
+    (16c) each artifact's replayed decode at 12f's shape. Returns the path's
+    launches and the kernels' largest |kernel - plain|."""
     import urllib.request
     from io import BytesIO
 
@@ -4296,16 +4443,19 @@ def lm_artifacts(tf_run, lstm_run, codec_dir, device, counters, card) -> dict:
     root = tempfile.mkdtemp(prefix="chip_smoke_lm_export_")
     try:
         outs = {}
-        for name, run in (("transformer", tf_run), ("lstm", lstm_run)):
+        for name, _, flags in LM_ARTIFACTS:
+            run = lstm_run if name == "lstm" else tf_run
             outs[name] = os.path.join(root, name)
             t0 = time.perf_counter()
             export_lm.main(["--lm_run", run, "--output", outs[name],
                             "--gen_buckets", *map(str, LM_EXPORT_BUCKETS["gen"]),
                             "--prompt_buckets", *map(str, LM_EXPORT_BUCKETS["prompt"]),
-                            "--score_buckets", *map(str, LM_EXPORT_BUCKETS["score"])])
-            print(f"  16a export of the {name} run with verify_lm_export: "
-                  f"{time.perf_counter() - t0:.2f} s")
-            compare_lm_artifact(name, outs[name], run, device)
+                            "--score_buckets", *map(str, LM_EXPORT_BUCKETS["score"]),
+                            *flags])
+            print(f"  16a export of the {name} run (traced programs, the card's and "
+                  f"the CPU's) with verify_lm_export: {time.perf_counter() - t0:.2f} s")
+            compare_lm_artifact(name, outs[name], run, device,
+                                torch.bfloat16 if flags else None)
 
         codec = ExportedPreEncoder(codec_dir)
         if codec.manifest["poly_mixers"] != "decode" or codec.manifest["dtype"] != "bfloat16":
@@ -4378,6 +4528,8 @@ def lm_artifacts(tf_run, lstm_run, codec_dir, device, counters, card) -> dict:
               f"launches {launches} (want {want}) {'ok' if ok else 'FAIL'} [{card}]")
         if not ok:
             fail("phase 16b: the LM server's codec attach is wrong")
+        for name, label, _ in LM_ARTIFACTS:
+            lm_graph_decode(label, outs[name], card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches, errs

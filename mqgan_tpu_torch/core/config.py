@@ -6,9 +6,10 @@ defaults).
 ``IOConfig`` and ``SpecConfig`` are the spec-config schema
 (``configs/spec_config_*.yaml``). ``TrainConfig`` is the whole model-config
 schema: data, model (generator and both discriminators), training (with its
-loss weights) and logging. Two JAX fields are not here: ``rng_impl`` (a JAX
-PRNG choice) and ``logging.async_save`` (orbax's background writer); like
-any unknown key of those sections they are ignored with a warning. PyYAML
+loss weights) and logging. One JAX field is not here: ``rng_impl`` (a JAX
+PRNG choice); like any unknown key of its section it is ignored with a
+warning. ``logging.async_save`` writes checkpoints in the background
+(``utils/checkpoint.py`` ``CheckpointWriter``, for orbax's). PyYAML
 is imported only inside the ``from_yaml`` methods: nothing else reads YAML,
 so a machine without it can still build every config in code or read one
 from JSON (``load_model_config``).
@@ -191,6 +192,8 @@ class WandbConfig:
 class LoggingConfig:
     eval_interval: int = 2
     save_interval: int = 2
+    # write checkpoints on a background thread (the CLI's --async_checkpoint)
+    async_save: bool = False
     num_plot_examples: int = 10
     # warn when the logged codebook_usage stays below the floor for this
     # many consecutive metric logs (floor <= 0 turns the check off)

@@ -107,22 +107,21 @@ class _EntryPoint(torch.nn.Module):
         return tokens, model._decode_tokens(tokens, pad_mask)[1]
 
 
-# traced graphs by (op, bucket, device, dtype, the modes of the modules it
-# runs and the names, shapes and dtypes of the model's tensors): a graph
-# depends on those and not on
-# the weights' values, so a later export of the same architecture in the
-# process takes the graph with its own weights (tracing costs seconds);
-# kept with meta tensors for weights
+# traced programs by key: what a trace depends on besides its root's
+# tensors (the caller's key: the entry point, device, dtype, modes and
+# example shapes) and the names, shapes and dtypes of those tensors, not
+# their values, so a later export of the same architecture in the process
+# takes the program with its own weights (tracing costs seconds); kept
+# with meta tensors for weights
 _TRACED: dict = {}
 
 
-def _tensors(model: PreEncoder, op: str) -> tuple:
-    """(the entry point of ``op``, its parameters and buffers by name)."""
-    root = _EntryPoint(model, op).eval()
-    return root, {**dict(root.named_parameters()), **dict(root.named_buffers())}
+def module_tensors(root: torch.nn.Module) -> dict:
+    """``root``'s parameters and buffers by name."""
+    return {**dict(root.named_parameters()), **dict(root.named_buffers())}
 
 
-def _with_tensors(program, tensors: dict):
+def with_tensors(program, tensors: dict):
     """``program`` (shallow-copied) holding ``tensors`` in place of its own."""
     program = copy.copy(program)
     program._state_dict = {k: tensors[k] for k in program.state_dict}
@@ -130,28 +129,53 @@ def _with_tensors(program, tensors: dict):
     return program
 
 
+def traced(root: torch.nn.Module, key: tuple, example):
+    """``torch.export`` of ``root`` (eval mode, no grad) on the (args,
+    dynamic_shapes) that ``example()`` gives, holding ``root``'s tensors;
+    one trace serves every root of the same ``key`` and tensor layout."""
+    tensors = module_tensors(root.eval())
+    key = key + (tuple((k, tuple(v.shape), v.dtype) for k, v in tensors.items()),)
+    if key not in _TRACED:
+        args, dims = example()
+        with torch.no_grad():
+            program = torch.export.export(root, args, dynamic_shapes=dims)
+        program._state_dict = {k: v.to("meta") for k, v in program.state_dict.items()}
+        _TRACED[key] = program
+    return with_tensors(_TRACED[key], tensors)
+
+
+def save_program(program, out_dir: str, platform: str, name: str,
+                 cpu_tensors: dict | None = None) -> None:
+    """Write ``program``, traced on ``platform``, as its file ``name``
+    there and, for a card's, its copy moved to the CPU, holding
+    ``cpu_tensors`` (None: its own, moved) in place of its own."""
+    torch.export.save(program, program_path(out_dir, platform, name))
+    if platform != "cpu":  # the pass rewrites the graph it is given
+        moved = move_to_device_pass(copy.deepcopy(program), "cpu")
+        if cpu_tensors is not None:
+            moved = with_tensors(moved, cpu_tensors)
+        torch.export.save(moved, program_path(out_dir, "cpu", name))
+
+
 def trace_program(model: PreEncoder, op: str, t: int):
     """``torch.export`` of ``op`` ("encode", "decode" or "reencode") at
     bucket t on the model's device, the batch symbolic, the model's
     parameters and buffers inside."""
     dev = model.fsq_consts.device
-    root, tensors = _tensors(model, op)
     modes = {"encode": (model.pre.poly_approx,),
              "decode": (model.post.poly_approx, model.refiner.int8)}
-    key = (op, t, str(dev), model.dtype, modes.get(op, (modes["encode"], modes["decode"])),
-           tuple((k, tuple(v.shape), v.dtype) for k, v in tensors.items()))
-    if key not in _TRACED:
+
+    def example():
         rows = TRACE_ROWS
         x = (torch.zeros((rows, t), dtype=torch.int32, device=dev) if op == "decode"
              else torch.zeros((rows, t, model.mel_channels), device=dev))
         pad_mask = torch.zeros((rows, t), dtype=torch.bool, device=dev)
         batch = torch.export.Dim("b", min=1, max=MAX_ROWS)
-        with torch.no_grad():
-            traced = torch.export.export(root, (x, pad_mask),
-                                         dynamic_shapes=({0: batch}, {0: batch}))
-        traced._state_dict = {k: v.to("meta") for k, v in traced.state_dict.items()}
-        _TRACED[key] = traced
-    return _with_tensors(_TRACED[key], tensors)
+        return (x, pad_mask), ({0: batch}, {0: batch})
+
+    return traced(_EntryPoint(model, op),
+                  (op, t, str(dev), model.dtype,
+                   modes.get(op, (modes["encode"], modes["decode"]))), example)
 
 
 def export_platforms(device) -> list:
@@ -205,7 +229,7 @@ def export_preencoder(model: PreEncoder, cfg: GeneratorConfig, out_dir: str, *,
     weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     torch.save(weights, os.path.join(out_dir, WEIGHTS_NAME))
     on = local_devices([device])[0] if device.type == "cuda" else device
-    traced = fold_weight_norm_(copy.deepcopy(model).to(on).eval())
+    on_model = fold_weight_norm_(copy.deepcopy(model).to(on).eval())
     # a card export's CPU programs hold the weights folded on the CPU, as a
     # CPU export's do
     on_cpu = (fold_weight_norm_(copy.deepcopy(model).cpu().eval())
@@ -214,12 +238,9 @@ def export_preencoder(model: PreEncoder, cfg: GeneratorConfig, out_dir: str, *,
         os.makedirs(os.path.join(out_dir, platform), exist_ok=True)
     for t, files in manifest["files"].items():
         for op, name in files.items():
-            program = trace_program(traced, op, int(t))
-            torch.export.save(program, program_path(out_dir, on.type, name))
-            if on_cpu is not None:  # the pass rewrites the graph it is given
-                moved = move_to_device_pass(copy.deepcopy(program), "cpu")
-                torch.export.save(_with_tensors(moved, _tensors(on_cpu, op)[1]),
-                                  program_path(out_dir, "cpu", name))
+            save_program(trace_program(on_model, op, int(t)), out_dir, on.type, name,
+                         None if on_cpu is None
+                         else module_tensors(_EntryPoint(on_cpu, op)))
     with open(os.path.join(out_dir, MANIFEST_NAME), "w") as f:
         json.dump(manifest, f, indent=2)
     if verify:

@@ -13,9 +13,10 @@
     -> .npy (n, length) int32 tokens, or with "decode": true an .npz of
        tokens and the codec's mel (n, length, mel_channels)
 
-Two backends: a training run dir of this package's trainer (``lm_run``) or
-an LM artifact (``lm_export``, ``deploy/export_lm.py``), whose buckets are
-then the dispatch grid. ``codec_dir``, a codec artifact
+Two backends: a training run dir of this package's trainer (``lm_run``,
+the eager served sampler) or an LM artifact (``lm_export``,
+``deploy/export_lm.py``: its traced programs, replayed as CUDA graphs on a
+card), whose buckets are then the dispatch grid. ``codec_dir``, a codec artifact
 (``deploy/runtime.py`` ``ExportedPreEncoder``), adds ids >= its codebook
 size to the forbidden set and answers ``"decode": true``; decodes are
 serialised by a lock.
@@ -326,6 +327,9 @@ class LMHTTPService:
                 for width in widths:
                     if (p_bucket, l_bucket, width) not in shapes:
                         shapes.append((p_bucket, l_bucket, width))
+        if rt is not None:  # the card's state buffers once, at the largest shape
+            rt.reserve(max(w for _, _, w in shapes), max(p for p, _, _ in shapes),
+                       max(l for _, l, _ in shapes))
         n = 0
         for p_bucket, l_bucket, width in shapes:
             if (p_bucket, l_bucket, width) in self.batcher._seen_shapes:

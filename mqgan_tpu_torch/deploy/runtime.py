@@ -28,7 +28,8 @@ replay. The rows of a device's slice are repeat-padded up to a power of two
 batch's [min, max], which repeated rows keep), so a server meets a bounded
 set of graphs. A runtime's graphs share one memory pool per device: a lock
 runs one call at a time, and each replay's outputs are consumed before the
-next. A capture or a launch that fails raises. A graph's replay adds the
+next. Captures in the process take ``CAPTURE_LOCK`` (torch allows one at a
+time). A capture or a launch that fails raises. A graph's replay adds the
 launches its capture recorded to the kernels' counters.
 
 Data parallelism (``devices``, or ``ExportedPreEncoder(data_parallel=True)``
@@ -63,6 +64,12 @@ WEIGHTS_NAME = "weights.pt"
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+# torch allows one CUDA graph capture at a time in a process; a server
+# holds more than one runtime (an LM's and a codec's, in two threads), so
+# every capture of this package takes this lock
+CAPTURE_LOCK = threading.Lock()
+
+
 def graph_rows(rows: int) -> int:
     """The rows of a slice's CUDA graph: the next power of two."""
     return 1 << max(0, rows - 1).bit_length()
@@ -77,7 +84,7 @@ class CudaGraphCall:
     def __init__(self, fn, example, pool):
         device = example[0].device
         self.static_in = [x.clone() for x in example]
-        with torch.cuda.device(device), torch.no_grad():
+        with CAPTURE_LOCK, torch.cuda.device(device), torch.no_grad():
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(side):  # build, load, pick algorithms
@@ -315,9 +322,8 @@ class ExportedPreEncoder(CodecRuntime):
             key = (op, bucket, device)
             if key not in self._programs:
                 _cuda.load_ops()  # the programs call the kernels' ops
-                loaded = torch.export.load(
-                    program_path(self.model_dir, self.platform, name))
-                self._programs[key] = _placed(loaded, device).module()
+                self._programs[key] = load_program(
+                    program_path(self.model_dir, self.platform, name), device).module()
             return self._programs[key]
 
     def _call(self, op: str, device: torch.device, bucket: int):
@@ -354,11 +360,12 @@ class ExportedPreEncoder(CodecRuntime):
         return int(self.manifest["eos_token_id"])
 
 
-def _placed(program, device: torch.device):
-    """The loaded program on ``device`` (a CUDA program is saved on the
-    card it was traced on)."""
+def load_program(path: str, device: torch.device):
+    """``torch.export.load`` of ``path``, on ``device`` (a CUDA program is
+    saved on the card it was traced on)."""
     from torch.export.passes import move_to_device_pass
 
+    program = torch.export.load(path)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     if next(iter(program.state_dict.values())).device == device:

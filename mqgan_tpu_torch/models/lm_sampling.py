@@ -4,6 +4,19 @@ transformer's prefill + KV-cache decode, their served twins with every
 sampling control a tensor and per-row (seed, prompt length), the shared
 temperature / top-k / top-p filter, and scoring.
 
+The served samplers are loops over traceable pieces: ``transformer_prefill``
+and ``transformer_step`` for the transformer, ``lstm_step`` for the LSTM.
+In a traced piece every per-step value is a tensor (the step counter ``t``
+a 0-d int64, the prompt column gathered by it; the LSTM's eager loop
+passes its Python step and column, the same values with no more host work
+a step than before). The transformer's pieces write
+the KV caches in place; the LSTM's return the new carries, which the
+sampler here rebinds and the traced program copies into its state inputs.
+``deploy/export_lm.py`` traces the pieces with ``torch.export`` (the
+transformer's through the model methods they call: embedding, one layer,
+head) and its runtime replays the programs, eagerly or as CUDA graphs, with
+the same operations in the same order as the loops here.
+
 Random draws. JAX's threefry key streams cannot be reproduced in PyTorch, so
 the port has its own per-row key chain (``KeyChain``): the uniform of (row
 seed, post-prompt step, vocab id) is a counter-based hash computed with
@@ -62,8 +75,17 @@ class KeyChain:
         ids = torch.arange(vocab_size, device=seeds.device)
         self.vocab_keys = _mix32(_mul32(ids, _GOLDEN) ^ _VOCAB_SALT)  # (V,)
 
+    @classmethod
+    def of(cls, seed_keys: torch.Tensor, vocab_keys: torch.Tensor) -> "KeyChain":
+        """The chain whose keys were made already: a traced piece takes
+        them as inputs."""
+        chain = cls.__new__(cls)
+        chain.seed_keys, chain.vocab_keys = seed_keys, vocab_keys
+        return chain
+
     def uniforms(self, steps) -> torch.Tensor:
-        """steps: an int or (B,) post-prompt steps -> (B, V) fp32."""
+        """steps: an int, a 0-d tensor or (B,) post-prompt steps -> (B, V)
+        fp32."""
         if isinstance(steps, int):
             steps = torch.full_like(self.seed_keys, steps)
         step_keys = _mix32(self.seed_keys
@@ -130,7 +152,7 @@ def filter_logits_traced(logits: torch.Tensor, temperature: torch.Tensor,
     return torch.where(logits < kth_p, neg_inf, logits)
 
 
-def _controls(model, temperature, top_k, top_p, device):
+def served_controls(model, temperature, top_k, top_p, device=None):
     """The served samplers' controls as clamped 0-d tensors."""
     return (torch.clamp(torch.as_tensor(temperature, dtype=torch.float32,
                                         device=device), min=1e-6),
@@ -178,6 +200,38 @@ def generate_tokens(model, genre_ids: torch.Tensor, seeds, max_len: int, *,
     return torch.stack(outs, dim=1)
 
 
+def filtered_draw(chain: KeyChain, logits, steps, temperature, top_k, top_p,
+                  vocab_mask):
+    """The served samplers' draw: ``filter_logits_traced`` then the key
+    chain's categorical draw at ``steps``."""
+    return chain.draw(filter_logits_traced(logits, temperature, top_k, top_p,
+                                           vocab_mask), steps)
+
+
+def prompt_column(prompt: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Column min(t, P - 1) of ``prompt`` (B, P), t a 0-d int64 tensor."""
+    return prompt.index_select(1, torch.clamp(t, max=prompt.shape[1] - 1).reshape(1))[:, 0]
+
+
+def lstm_step(model, weights, token, t, fed, prompt_lens, genre_vec,
+              seed_keys, vocab_keys, temperature, top_k, top_p, vocab_mask,
+              carries):
+    """Step t (an int, or a 0-d int64 tensor in a traced program) of the
+    served LSTM sampler: ``model.step`` on ``token`` (B,) from the (c, h)
+    ``carries`` with ``weights`` (``model.step_weights()``) and
+    ``genre_vec`` (``model.genre_vectors``), then row b's draw at
+    post-prompt step max(t - prompt_lens[b], 0). Returns (the new
+    carries, the draw, the next input): ``fed``, the prompt's column
+    min(t, P - 1), while t + 1 <= prompt_lens[b], else the draw. A draw
+    past a row's max_len steps is never returned by the sampler, so its
+    step is not clipped above."""
+    carries, logits = model.step(carries, token, genre_vec, weights)
+    nxt = filtered_draw(KeyChain.of(seed_keys, vocab_keys), logits,
+                        torch.clamp(t - prompt_lens, min=0), temperature, top_k,
+                        top_p, vocab_mask)
+    return carries, nxt, torch.where(t + 1 <= prompt_lens, fed, nxt)
+
+
 @torch.no_grad()
 def generate_tokens_served(model, genre_ids: torch.Tensor, seeds: torch.Tensor,
                            prompt: torch.Tensor, prompt_lens: torch.Tensor,
@@ -187,14 +241,14 @@ def generate_tokens_served(model, genre_ids: torch.Tensor, seeds: torch.Tensor,
     """``generate_tokens`` with tensor controls and per-row (seed, prompt
     length): prompt (B, P) with P >= 1 (the pad region is arbitrary),
     prompt_lens (B,) in [0, P] (0 = unconditional). The recurrence runs
-    P + max_len steps; at step t row b draws with its key at post-prompt
-    step clip(t - prompt_lens[b], 0, max_len - 1) and feeds prompt[t] back
-    while t + 1 <= prompt_lens[b]. Row b equals ``generate_tokens`` at B = 1
+    P + max_len ``lstm_step`` calls; at step t row b draws with its key at
+    post-prompt step t - prompt_lens[b] and feeds prompt[t] back while
+    t + 1 <= prompt_lens[b]. Row b equals ``generate_tokens`` at B = 1
     with seed seeds[b] and its own prompt. Returns the (B, max_len)
     continuation after each row's prompt."""
     b, p_bucket = prompt.shape
     dev = genre_ids.device
-    temperature, top_k, top_p = _controls(model, temperature, top_k, top_p, dev)
+    controls = served_controls(model, temperature, top_k, top_p, dev)
     weights = model.step_weights()
     genre_vec = model.genre_vectors(genre_ids)
     carries = model.zero_carries(b, dev)
@@ -204,11 +258,10 @@ def generate_tokens_served(model, genre_ids: torch.Tensor, seeds: torch.Tensor,
     token = torch.full((b,), bos_id, dtype=torch.long, device=dev)
     outs = []
     for t in range(p_bucket + max_len):
-        carries, logits = model.step(carries, token, genre_vec, weights)
-        flt = filter_logits_traced(logits, temperature, top_k, top_p, vocab_mask)
-        nxt = chain.draw(flt, torch.clamp(t - prompt_lens, 0, max_len - 1))
-        token = torch.where(t + 1 <= prompt_lens, prompt[:, min(t, p_bucket - 1)],
-                            nxt)
+        carries, nxt, token = lstm_step(
+            model, weights, token, t, prompt[:, min(t, p_bucket - 1)], prompt_lens,
+            genre_vec, chain.seed_keys, chain.vocab_keys, *controls, vocab_mask,
+            carries)
         outs.append(nxt)
     outs = torch.stack(outs, dim=1)  # (B, P + max_len)
     gather = prompt_lens[:, None] + torch.arange(max_len, device=dev)
@@ -217,6 +270,37 @@ def generate_tokens_served(model, genre_ids: torch.Tensor, seeds: torch.Tensor,
 
 def _kv_dtype(model, kv_dtype):
     return kv_dtype or model.dtype or torch.float32
+
+
+def prefix_tokens(prompt: torch.Tensor, bos_id: int) -> torch.Tensor:
+    """[BOS] + each row's prompt: (B, P) -> (B, P + 1) int64."""
+    return torch.cat([torch.full((prompt.shape[0], 1), bos_id, dtype=torch.long,
+                                 device=prompt.device), prompt.long()], dim=1)
+
+
+def transformer_prefill(model, prompt, prompt_lens, genre_ids, seed_keys,
+                        vocab_keys, temperature, top_k, top_p, vocab_mask,
+                        caches, *, bos_id: int):
+    """The served transformer's first piece: [BOS] + each row's prompt
+    (B, P), right-padded to the P bucket, through every layer in one pass
+    that writes positions [0, P] of ``caches`` in place; row b's logits at
+    its last valid position prompt_lens[b], filtered and drawn at
+    post-prompt step 0. Returns the first token (B,)."""
+    logits, _ = model.prefill(prefix_tokens(prompt, bos_id), genre_ids, caches,
+                              prompt_lens)
+    return filtered_draw(KeyChain.of(seed_keys, vocab_keys), logits, 0,
+                         temperature, top_k, top_p, vocab_mask)
+
+
+def transformer_step(model, token, t, prompt_lens, genre_ids, seed_keys,
+                     vocab_keys, temperature, top_k, top_p, vocab_mask, caches):
+    """Decode step t >= 1 (0-d int64) of the served transformer: row b's
+    ``token`` at position prompt_lens[b] + t through ``step_rows`` (its k/v
+    written into ``caches`` in place), drawn at post-prompt step t. Returns
+    the next token (B,)."""
+    logits, _ = model.step_rows(token, genre_ids, caches, prompt_lens + t)
+    return filtered_draw(KeyChain.of(seed_keys, vocab_keys), logits, t,
+                         temperature, top_k, top_p, vocab_mask)
 
 
 @torch.no_grad()
@@ -228,37 +312,31 @@ def generate_tokens_transformer_served(model, genre_ids: torch.Tensor,
                                        kv_dtype: torch.dtype | None = None
                                        ) -> torch.Tensor:
     """The transformer twin of ``generate_tokens_served``, same signature
-    and per-row contract. [BOS] + each row's prompt, right-padded to the P
-    bucket, fills every layer's KV cache in one prefill; row b's logits are
-    read at its last valid position (prompt_lens[b]); then max_len - 1
-    ``step_rows`` calls extend the cache, row b writing and attending at
-    its own position prompt_lens[b] + t, which overwrites the prefill's
-    pad-region entries before any valid query can see them. ``kv_dtype``
-    (default: the compute dtype, fp32 for inference rebuilds) stores the
-    cache; bf16 halves its reads, scores and softmax stay fp32, and the
-    per-row contract holds within one cache dtype."""
+    and per-row contract: one ``transformer_prefill`` fills every layer's
+    KV cache, then max_len - 1 ``transformer_step`` calls extend it, row b
+    writing and attending at its own position prompt_lens[b] + t, which
+    overwrites the prefill's pad-region entries before any valid query can
+    see them. ``kv_dtype`` (default: the compute dtype, fp32 for inference
+    rebuilds) stores the cache; bf16 halves its reads, scores and softmax
+    stay fp32, and the per-row contract holds within one cache dtype."""
     from mqgan_tpu_torch.models.token_transformer import init_cache
 
     b, p_bucket = prompt.shape
     dev = genre_ids.device
-    temperature, top_k, top_p = _controls(model, temperature, top_k, top_p, dev)
+    controls = served_controls(model, temperature, top_k, top_p, dev)
     chain = KeyChain(row_seeds(seeds, b, dev), model.vocab_size)
-    prompt_lens = torch.clamp(prompt_lens.long(), 0, p_bucket)
-    prefix = torch.cat([torch.full((b, 1), bos_id, dtype=torch.long, device=dev),
-                        prompt.long()], dim=1)
+    rows = (torch.clamp(prompt_lens.long(), 0, p_bucket), genre_ids,
+            chain.seed_keys, chain.vocab_keys)
     caches = init_cache(model, b, p_bucket + max_len, _kv_dtype(model, kv_dtype),
                         dev)
-    logits, caches = model.prefill(prefix, genre_ids, caches, prompt_lens)
-
-    def sample(logits, step):
-        return chain.draw(filter_logits_traced(logits, temperature, top_k, top_p,
-                                               vocab_mask), step)
-
-    token = sample(logits, 0)
+    token = transformer_prefill(model, prompt, *rows, *controls, vocab_mask,
+                                caches, bos_id=bos_id)
     outs = [token]
-    for t in range(1, max_len):
-        logits, caches = model.step_rows(token, genre_ids, caches, prompt_lens + t)
-        token = sample(logits, t)
+    t = torch.zeros((), dtype=torch.long, device=dev)
+    for _ in range(1, max_len):
+        t += 1
+        token = transformer_step(model, token, t, *rows, *controls, vocab_mask,
+                                 caches)
         outs.append(token)
     return torch.stack(outs, dim=1)
 
@@ -304,16 +382,34 @@ def generate_tokens_transformer(model, genre_ids: torch.Tensor, seeds,
     return torch.stack(outs, dim=1)
 
 
+def masked_nll(logits: torch.Tensor, targets: torch.Tensor, pad_id: int):
+    """(next-token NLL with pad targets zeroed, the valid mask), fp32, each
+    of the targets' shape."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets[..., None].long())[..., 0]
+    valid = (targets != pad_id).float()
+    return nll * valid, valid
+
+
 @torch.no_grad()
 def score_tokens(model, tokens: torch.Tensor, genre_ids: torch.Tensor):
     """Per-row next-token NLL sums over a BOS-prepended batch: the trainer's
     loss (inputs tokens[:, :-1], targets tokens[:, 1:], pad targets
     excluded) reduced per row. Returns (nll_sum (B,), n_valid (B,)), fp32."""
-    inp, tgt = tokens[:, :-1], tokens[:, 1:]
-    logp = torch.log_softmax(model(inp, genre_ids).float(), dim=-1)
-    nll = -logp.gather(-1, tgt[..., None].long())[..., 0]
-    valid = (tgt != model.pad_id).float()
-    return (nll * valid).sum(dim=1), valid.sum(dim=1)
+    nll, valid = masked_nll(model(tokens[:, :-1], genre_ids), tokens[:, 1:],
+                            model.pad_id)
+    return nll.sum(dim=1), valid.sum(dim=1)
+
+
+def lstm_score_step(model, weights, token, target, genre_ids, carries):
+    """One position of the LSTM's score through its decode step: ``token``
+    (B,) in from the (c, h) ``carries``; returns (the new carries, and
+    ``masked_nll`` of ``target`` (B,)). ``deploy/export_lm.py`` scores the
+    LSTM with it (the training forward's loop over time would trace
+    unrolled)."""
+    carries, logits = model.step(carries, token, model.genre_vectors(genre_ids),
+                                 weights)
+    return carries, masked_nll(logits, target, model.pad_id)
 
 
 @torch.no_grad()

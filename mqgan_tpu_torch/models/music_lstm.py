@@ -182,10 +182,12 @@ class MusicLSTM(nn.Module):
 
     def step_weights(self) -> tuple:
         """The fp32 weights ``step`` reads, gathered once per decode: each
-        layer's (W_in, W_hid, bias) and the projection's (W (H, V), b)."""
+        layer's (W_in, W_hid, bias) and the projection's (W (H, V), b), all
+        contiguous (a traced step holds them as buffers)."""
         layers = [self._modules[f"lstm_{i}"].gate_weights(torch.float32)
                   for i in range(self.lstm_layers)]
-        return layers, (self.proj.weight.t().float(), self.proj.bias.float())
+        return layers, (self.proj.weight.t().float().contiguous(),
+                        self.proj.bias.float())
 
     def step(self, carries: list, token: torch.Tensor, genre_vec: torch.Tensor,
              weights: tuple | None = None):

@@ -130,8 +130,11 @@ class CausalSelfAttention(nn.Module):
         q, k, v = self._qkv(x, torch.arange(t, device=x.device))
         visible = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
         out = self.masked_attention(q, k, v, visible)
-        cache["k"][:, :t] = k.to(cache["k"].dtype)
-        cache["v"][:, :t] = v.to(cache["v"].dtype)
+        # an index copy, not a slice assignment: a traced prefill then takes
+        # any cache length >= t
+        pos = torch.arange(t, device=x.device)
+        cache["k"].index_copy_(1, pos, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, pos, v.to(cache["v"].dtype))
         return self._out(out, x.dtype), cache
 
     def _attend_cache(self, q, k, v, cache: Cache, visible):
@@ -221,7 +224,9 @@ class MusicTransformer(nn.Module):
         self.ln_f = LayerNorm(emb_dim)
         self.proj = Dense(emb_dim, vocab_size)
 
-    def _embed(self, tokens: torch.Tensor, genre_ids: torch.Tensor):
+    def embed(self, tokens: torch.Tensor, genre_ids: torch.Tensor):
+        """Token embeddings (pad positions zeroed) plus the genre
+        embedding: (B, T) -> (B, T, E)."""
         tok_e = self.tok_emb(tokens)
         # padding_idx semantics: pad positions contribute zero vectors
         tok_e = torch.where((tokens == self.pad_id)[..., None],
@@ -236,7 +241,7 @@ class MusicTransformer(nn.Module):
         dtype. ``lengths`` is unused (the masked CE ignores pads); dropout
         runs when ``deterministic`` is False, from ``generator`` (CPU)."""
         del lengths
-        x = self._embed(tokens, genre_ids)
+        x = self.embed(tokens, genre_ids)
         seeds = [None] * self.n_layers
         if not deterministic and self.dropout > 0.0:
             if generator is None:
@@ -248,7 +253,19 @@ class MusicTransformer(nn.Module):
                 x = checkpoint(blk, x, seed, use_reentrant=False)
             else:
                 x = blk(x, seed)
-        return self.proj(self.ln_f(x))
+        return self.head(x)
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """The final norm and the vocab projection: hiddens -> logits."""
+        return self.proj(self.ln_f(h))
+
+    @staticmethod
+    def last_hidden(x: torch.Tensor, last_idx: torch.Tensor | None = None):
+        """(B, E) hiddens of x (B, T, E) at the last position, or per row at
+        ``last_idx`` (B,)."""
+        if last_idx is None:
+            return x[:, -1]
+        return x[torch.arange(x.shape[0], device=x.device), last_idx.long()]
 
     # -- decode path ------------------------------------------------------
 
@@ -259,33 +276,29 @@ class MusicTransformer(nn.Module):
         row at ``last_idx`` (B,) when given (row b's prefix ends at
         last_idx[b]; later positions are right-padding that the causal mask
         keeps from every valid query)."""
-        x = self._embed(tokens, genre_ids)
+        x = self.embed(tokens, genre_ids)
         for blk, cache in zip(self.blocks, caches):
             x, _ = blk.prefill(x, cache)
-        if last_idx is None:
-            h = x[:, -1]
-        else:
-            h = x[torch.arange(x.shape[0], device=x.device), last_idx.long()]
-        return self.proj(self.ln_f(h)), caches
+        return self.head(self.last_hidden(x, last_idx)), caches
 
     def step(self, token: torch.Tensor, genre_ids: torch.Tensor, caches: list,
              idx: int):
         """One decode step: token (B,) at absolute position ``idx``. Returns
         (logits (B, V), caches)."""
-        x = self._embed(token[:, None], genre_ids)
+        x = self.embed(token[:, None], genre_ids)
         for blk, cache in zip(self.blocks, caches):
             x, _ = blk.step(x, cache, idx)
-        return self.proj(self.ln_f(x[:, 0])), caches
+        return self.head(x[:, 0]), caches
 
     def step_rows(self, token: torch.Tensor, genre_ids: torch.Tensor,
                   caches: list, idx: torch.Tensor):
         """``step`` with per-row absolute positions idx (B,): the
         mixed-prompt-length decode path. Equals ``step`` when every row
         shares its position."""
-        x = self._embed(token[:, None], genre_ids)
+        x = self.embed(token[:, None], genre_ids)
         for blk, cache in zip(self.blocks, caches):
             x, _ = blk.step_rows(x, cache, idx)
-        return self.proj(self.ln_f(x[:, 0])), caches
+        return self.head(x[:, 0]), caches
 
 
 def init_cache(model: MusicTransformer, batch: int, max_total: int,

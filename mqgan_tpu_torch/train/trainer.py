@@ -9,15 +9,17 @@ every ``eval_interval`` epochs the eval set (full-length clips through the
 inference path: with more than one device, one exact sequence-parallel
 call whose windows fit the largest eval bucket, else overlapping windows
 of at most 512 frames), every ``save_interval`` epochs a checkpoint of the
-whole state. A run
-resumes from the newest checkpoint in its output dir; SIGTERM or SIGINT
-finishes the current step, checkpoints and exits.
+whole state (with ``--async_checkpoint`` written in the background from a
+host copy, ``utils/checkpoint.py`` ``CheckpointWriter``: a save waits for
+the one before, and the writer is drained on the stop and before
+``train`` returns). A run resumes from the newest checkpoint in its output
+dir; SIGTERM or SIGINT finishes the current step, checkpoints and exits.
 
 CLI:  python -m mqgan_tpu_torch.train.trainer --config model.yaml
       [--device cuda|cpu] [--fp32] [--pretrained CKPT] [--output_dir DIR]
       [--no_wandb] [--ema DECAY] [--keep_best] [--grad_accum N] [--remat]
       [--remat_refiner] [--exact_dropout] [--profile N] [--watch N]
-      [--seq_par N] [--multihost [--coordinator HOST:PORT
+      [--async_checkpoint] [--seq_par N] [--multihost [--coordinator HOST:PORT
       --num_processes N --process_id I]]
 
 The trainer runs on CUDA unless ``--device cpu`` is given; without a card
@@ -44,8 +46,8 @@ trainer's rules). Without ``--multihost`` the trainer spawns the grid
 itself: a rank per card when N divides the visible cards, else N ranks
 sharing the cards (gloo); with ``--device cpu``, N CPU ranks. Rank 0
 evaluates on its own card alone, as a data-parallel run does.
-JAX's ``--compile_cache``, ``--rng_impl`` and ``--async_checkpoint`` are
-not accepted (XLA compile, JAX PRNG and orbax knobs).
+JAX's ``--compile_cache`` and ``--rng_impl`` are not accepted (XLA compile
+and JAX PRNG knobs).
 """
 
 from __future__ import annotations
@@ -133,6 +135,11 @@ class Trainer:
         # signal (a second one force-quits); with ranks, _stop_requested
         # may also be the group's decision
         self._stop_requested = self._signalled = False
+        # the background checkpoint writer (None: saves write in place); it
+        # is drained before train() returns, so no write of this trainer is
+        # pending when a later one in the process reads latest_checkpoint
+        self._writer = (ckpt_utils.CheckpointWriter()
+                        if config.logging.async_save else None)
         self._collapse_streak = 0
         self._collapse_warned = False
         self._steps: Dict[bool, callable] = {}
@@ -477,8 +484,13 @@ class Trainer:
 
     def save(self, epoch: int):
         path = ckpt_utils.save_checkpoint(self.config.data.output_dir, self.state,
-                                          epoch, self.config.to_dict())
-        print(f"Checkpoint saved to {path}")
+                                          epoch, self.config.to_dict(), self._writer)
+        print(f"Checkpoint {'queued (async)' if self._writer else 'saved'} to {path}")
+
+    def drain_saves(self):
+        """Block until a background save is on disk; raise if it failed."""
+        if self._writer is not None:
+            self._writer.wait()
 
     def _install_signal_handlers(self):
         """SIGTERM/SIGINT -> finish the current step, checkpoint, exit; a
@@ -521,6 +533,7 @@ class Trainer:
                     # tagged with the interrupted epoch: a resume starts at
                     # epoch + 1 and skips the tail of this one
                     self.save(epoch)
+                    self.drain_saves()
                     print(f"Stopped by signal after epoch {epoch} (possibly "
                           "partial); checkpoint written.")
                     break
@@ -534,6 +547,7 @@ class Trainer:
         finally:
             for sig, handler in (prev or {}).items():
                 signal.signal(sig, handler)
+            self.drain_saves()
         print("Training finished.")
 
 
@@ -589,6 +603,10 @@ def parse_args(argv=None):
                    help="rank 0's address for --multihost")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--async_checkpoint", action="store_true",
+                   help="write checkpoints on a background thread: the train "
+                        "loop goes on after a host copy of the state instead "
+                        "of waiting for the disk (drained on stop and exit)")
     p.add_argument("--seq_par", type=int, default=1, metavar="N",
                    help="sequence (context) parallelism: split each crop's "
                         "time axis over N ranks (crop_len values must divide "
@@ -640,6 +658,9 @@ def main(argv=None):
                                        args.process_id, device=device)
         device = multihost.rank_device(device, world()[0])
     training, data, gen = config.training, config.data, config.model.generator
+    logging_cfg = config.logging
+    if args.async_checkpoint:
+        logging_cfg = dataclasses.replace(logging_cfg, async_save=True)
     if args.pretrained:
         training = dataclasses.replace(training, pretrained=args.pretrained)
     if args.output_dir:
@@ -649,7 +670,7 @@ def main(argv=None):
         remat_refiner=gen.remat_refiner or args.remat_refiner,
         fast_dropout=gen.fast_dropout or not args.exact_dropout)
     config = dataclasses.replace(
-        config, training=training, data=data,
+        config, training=training, data=data, logging=logging_cfg,
         model=dataclasses.replace(config.model, generator=gen))
     try:
         trainer = Trainer(config, device=device, use_wandb=not args.no_wandb,

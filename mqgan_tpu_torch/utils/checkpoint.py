@@ -18,7 +18,10 @@ is checked strictly: a missing key, an extra key or a wrong shape raises.
 The GAN trainer's checkpoints are the port's own (``torch.save``):
 ``save_checkpoint`` / ``latest_checkpoint`` / ``restore_checkpoint`` of the
 whole train state, and ``save_generator_only``, which writes the generator
-in the ``.pt`` format the readers above take.
+in the ``.pt`` format the readers above take. ``save_checkpoint`` with a
+``CheckpointWriter`` writes in the background (the trainer's
+``--async_checkpoint``, JAX's orbax async save): a host copy of the state is
+taken before it returns, and one writer thread writes that copy.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import threading
 
 import numpy as np
 import torch
@@ -95,25 +99,88 @@ def _atomic_save(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
+class CheckpointWriter:
+    """The background writer of ``save_checkpoint``: one thread at a time
+    writes a save's host copy while the caller goes on. A new save waits
+    for the previous one; ``wait`` drains the writer. A write that failed
+    raises in the caller, at the next save or at ``wait``."""
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self._error: Exception | None = None
+
+    def submit(self, write, *args) -> None:
+        """Run ``write(*args)`` on the writer thread, after the previous
+        write has finished."""
+        self.wait()
+
+        def run():
+            try:
+                write(*args)
+            except Exception as e:  # noqa: BLE001 - raised again by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, name="checkpoint-writer")
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Block until the pending write (if any) is on disk; raise if it
+        failed."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("a background checkpoint write failed") from err
+
+
+def _host_copy(obj):
+    """``obj`` with every tensor copied to the host (containers rebuilt, a
+    state_dict's ``_metadata`` kept): what the loop may change in place
+    afterwards is not in it."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        out = type(obj)((k, _host_copy(v)) for k, v in obj.items())
+        if hasattr(obj, "_metadata"):
+            out._metadata = dict(obj._metadata)
+        return out
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
+
+
+def _write_checkpoint(output_dir: str, path: str, epoch: int, state_dict: dict,
+                      config_dict: dict | None) -> None:
+    os.makedirs(output_dir, exist_ok=True)
+    _atomic_save({"epoch": epoch, "state": state_dict}, path)
+    if config_dict is not None:
+        with open(os.path.join(output_dir, "config.json"), "w") as f:
+            json.dump({"epoch": epoch, "config": config_dict}, f, indent=2,
+                      default=str)
+
+
 def save_checkpoint(output_dir: str, state, epoch: int,
-                    config_dict: dict | None = None) -> str:
+                    config_dict: dict | None = None,
+                    writer: CheckpointWriter | None = None) -> str:
     """The whole ``TrainState`` (``state.state_dict()``: models, spectral
     stats, optimizers, LeCam, step, the random generators' states, EMA) as
     ``output_dir/checkpoint_epoch_{epoch:03d}.pt``; the config beside it as
-    ``config.json``. In a data-parallel group (one shared ``output_dir``)
-    rank 0 writes and every rank waits for it at a barrier, so that any
-    rank may read the checkpoint once this returns; every rank restores the
-    same file."""
+    ``config.json``. With a ``writer`` the file is written in the
+    background from a host copy taken here; the caller drains the writer
+    before it reads the file or exits. In a data-parallel group (one shared
+    ``output_dir``) rank 0 writes and every rank waits for it (for its
+    copy, with a writer) at a barrier; every rank restores the same file."""
     path = os.path.abspath(os.path.join(output_dir,
                                         f"checkpoint_epoch_{epoch:03d}.pt"))
     rank, _ = world()
     if rank == 0:
-        os.makedirs(output_dir, exist_ok=True)
-        _atomic_save({"epoch": epoch, "state": state.state_dict()}, path)
-        if config_dict is not None:
-            with open(os.path.join(output_dir, "config.json"), "w") as f:
-                json.dump({"epoch": epoch, "config": config_dict}, f, indent=2,
-                          default=str)
+        if writer is None:
+            _write_checkpoint(output_dir, path, epoch, state.state_dict(),
+                              config_dict)
+        else:
+            writer.submit(_write_checkpoint, output_dir, path, epoch,
+                          _host_copy(state.state_dict()), config_dict)
     barrier(state.lecam.ema_real.device)
     return path
 

@@ -61,9 +61,11 @@ printing no result, without one. Phases (any failure exits non-zero):
     (16 kHz, hop 300, 80 mels, 0.25 s of leading silence), at n_fft 1000
     (hop 250), at 1764 (44.1 kHz: radix 7), at 480 (48 kHz, 8 frames a
     block), at 128 on B=3 x 65 samples (reflected edges only) and at 8192
-    (one frame a block); the DFT kernel at n_fft 1201 (odd, 15,000 samples
-    that hop 300 divides: JAX's frame count, one fewer than samples // hop
-    + 1) and at 2050 (n_fft / 2 = 5^2 * 41). Then the whole fp32 round trip
+    (one frame a block); the Bluestein kernel at n_fft 1201 (odd, 15,000
+    samples that hop 300 divides: JAX's frame count, one fewer than samples
+    // hop + 1), at 2050 (n_fft / 2 = 5^2 * 41), at 1144 (11 * 13) and at 88
+    on B=3 x 45 samples (reflected edges only); the DFT kernel at n_fft 9605
+    (odd, past the Bluestein kernel's L). Then the whole fp32 round trip
     through the kernels against the same model on the CPU (plain versions);
  4. serve 12 concurrent clips of mixed lengths (100-512 frames) through
     CodecServer over the runtime (flagship GeneratorConfig defaults, 128
@@ -97,12 +99,14 @@ printing no result, without one. Phases (any failure exits non-zero):
     launches, also in bursts) and,
     for the log-mel kernel, the torch.stft chain that computes the same
     function and the DFT kernel (the first design, now the route for the
-    shapes neither FFT kernel takes) at that n_fft; row 4b, the mixed-radix
+    shapes no other kernel takes) at that n_fft; row 4b, the mixed-radix
     kernel at its own shapes (phase 3's n_fft 1200 and 1000 on the 64-clip
     batch, beside its bound, the DFT kernel at the same n_fft, its earlier
-    design, and the torch.stft chain); row 4c, the DFT kernel at n_fft 2050
-    on that batch; and print one JSON line of them; the log-mel kernel and
-    row 4b are first held against their plain version in float64 at that
+    design, and the torch.stft chain); row 4c, the Bluestein kernel at
+    n_fft 2050 and 1201 on that batch (its L, the DFT kernel there, the
+    row's earlier design, and the torch.stft chain); row 4d, the DFT kernel
+    at n_fft 9605 on phase 3's B=2 case; and print one JSON line of them; the log-mel kernel and
+    rows 4b and 4c are first held against their plain version in float64 at that
     batch (64 clips; max|k - p64| <= 1e-4, or no more than the fp32 plain
     version's own error, since fp32 rounding reaches ~1e-4 in the log
     domain at near-silent single-bin mels), and their bounds are the
@@ -418,6 +422,9 @@ WARMUP, ITERS = 2, 5
 # the audio batch of the same throughput shape: 511 hops of 512 samples
 # give 512 frames per clip (5.93 s at 44.1 kHz)
 AUDIO_B, AUDIO_SAMPLES, AUDIO_ITERS = 64, 261_632, 3
+# phase 3's case of the DFT kernel, the only one its route gives it (clips,
+# samples, leading silence of clip 0), which phase 8 times as row 4d
+DFT_ONLY_BATCH = (2, 60_001, 12_000)
 GL_ITERS = 32
 # flash attention: kernel vs plain at these sequence lengths and head sizes
 FLASH_TS = (1, 17, 128, 129, 2047)
@@ -1014,11 +1021,30 @@ def mixed_configs() -> tuple:
 
 
 def dft_config():
-    """Row 4c's spec, on the DFT kernel's route: n_fft 2050 (M = 1025 = 5^2 *
-    41), hop 512 (512 frames of the audio batch's clips), 128 mels."""
+    """Row 4c's first spec, on the Bluestein kernel's route (the DFT
+    kernel's before it): n_fft 2050 (M = 1025 = 5^2 * 41), hop 512 (512
+    frames of the audio batch's clips), 128 mels."""
     from mqgan_tpu_torch.core.config import SpectrogramConfig
 
     return SpectrogramConfig(filter_length=2050, hop_length=512, win_length=2050)
+
+
+def bluestein_configs() -> tuple:
+    """Row 4c's specs: n_fft 2050 (dft_config) and the odd n_fft 1201 (hop
+    300, 873 frames of the audio batch's clips), 128 mels, 44.1 kHz."""
+    from mqgan_tpu_torch.core.config import SpectrogramConfig
+
+    return dft_config(), SpectrogramConfig(filter_length=1201, hop_length=300,
+                                           win_length=1201)
+
+
+def dft_only_config():
+    """Row 4d's spec, a shape only the DFT kernel takes: the odd n_fft 9605,
+    past the Bluestein kernel's 14406-point L, hop 2401, 128 mels, 44.1
+    kHz."""
+    from mqgan_tpu_torch.core.config import SpectrogramConfig
+
+    return SpectrogramConfig(filter_length=9605, hop_length=2401, win_length=9605)
 
 
 def _log_mel_work(wav, cfg, fbank) -> tuple:
@@ -1095,24 +1121,89 @@ def log_mel_mixed_row(device) -> "_KernelRow":
     return row
 
 
+def log_mel_bluestein_row(device) -> "_KernelRow":
+    """Phase 8, row 4c: the Bluestein kernel at n_fft 2050 and 1201
+    (bluestein_configs) on the audio trip's batch, held against its float64
+    plain version (max|k - p64| <= max(1e-4, the fp32 plain's own error), as
+    rows 4 and 4b), timed with CUDA events beside its bound (the function's,
+    an FFT per frame), its fp32 plain version, the DFT kernel at the same
+    n_fft (the row's earlier design) and the torch.stft chain; the row sums
+    the two configs."""
+    from mqgan_tpu_torch.ops.stft_kernels import (dft_mel_tables, log_mel, log_mel_dft,
+                                                  log_mel_plain, log_mel_tables)
+    from mqgan_tpu_torch.signal.stft import hann_window
+
+    row = _KernelRow("log_mel_bluestein", "mqgan_tpu_torch/csrc/log_mel_bluestein.cu",
+                     "mqgan_tpu/ops/stft_kernels.py:95")
+    wav = _audio_batch(device, SEED + 5)
+    row.library_ms = 0.0
+    for cfg in bluestein_configs():
+        hop, n_fft = cfg.hop_length, cfg.filter_length
+        tables = log_mel_tables(cfg, device)
+        if tables.route != "bluestein":
+            fail(f"row 4c: n_fft {n_fft} takes the {tables.route} route")
+        length = tables.spectrum.shape[0]
+        radices = tables.plan[:, 0].tolist()
+        cos, sin, fbank = (x.to(device) for x in dft_mel_tables(cfg))
+        ref = log_mel_plain(wav, *(x.to(device) for x in dft_mel_tables(cfg, np.float64)),
+                            hop)
+        err = float((log_mel(wav, tables) - ref).abs().max())
+        plain_err = float((log_mel_plain(wav, cos, sin, fbank, hop) - ref).abs().max())
+        dft_err = float((log_mel_dft(wav, cos, sin, fbank, hop) - ref).abs().max())
+        del ref
+        limit = max(1e-4, plain_err)
+        print(f"  log_mel_bluestein n_fft={n_fft} L={length} {radices} at B={AUDIO_B} x "
+              f"{AUDIO_SAMPLES} against the float64 plain version: max|k-p64| {err:.3e} "
+              f"(limit {limit:.3e} = max(1e-4, the fp32 plain's {plain_err:.3e})) "
+              f"{'ok' if err <= limit else 'FAIL'}; not gated: the DFT kernel's "
+              f"{dft_err:.3e}")
+        if not err <= limit:
+            fail(f"log_mel_bluestein n_fft {n_fft} at B={AUDIO_B}: max|k-p64| {err:.3e} > "
+                 f"{limit:.3e}")
+        window = hann_window(cfg.win_length, device=device)
+        ms = time_ms(lambda: log_mel(wav, tables), 10, inner=10)
+        dft_ms = time_ms(lambda: log_mel_dft(wav, cos, sin, fbank, hop), 5)
+        pms = time_ms(lambda: log_mel_plain(wav, cos, sin, fbank, hop), 3)
+        lib = time_ms(lambda: log_mel_library(wav, window, fbank, n_fft, hop,
+                                              cfg.win_length), 10, inner=10)
+        flops, nbytes, n = _log_mel_work(wav, cfg, fbank)
+        bound = row.add(ms, pms, flops, PEAK_FP32, nbytes)
+        by = "operations" if flops / PEAK_FP32 >= nbytes / PEAK_BYTES else "bytes"
+        row.library_ms += lib
+        row.max_abs_err = max(row.max_abs_err, err)
+        own = 2 * 5.0 * n * length * math.log2(length)  # two complex FFTs a frame
+        print(f"  log_mel_bluestein N={n} n_fft={n_fft} F={cfg.n_freqs} "
+              f"mels={cfg.n_mel_channels} L={length}: {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({by}), plain {pms:.4f} ms, the DFT kernel {dft_ms:.4f} ms (the earlier "
+              f"design), torch.stft chain {lib:.4f} ms (the kernel {ms / lib:.2f}x the "
+              f"chain, {dft_ms / ms:.2f}x faster than the DFT kernel); its two L-point "
+              f"FFTs {own / 1e9:.2f} GFLOP in fp64, {own / ms / 1e9:.2f} TFLOP/s")
+    return row
+
+
 def log_mel_dft_row(device) -> "_KernelRow":
-    """Phase 8, row 4c: the DFT kernel at a shape only it takes (dft_config,
-    n_fft 2050) on the audio trip's batch, against its float64 plain version
-    (printed beside the fp32 plain's error), timed beside its bound (the
-    function's, an FFT per frame), its fp32 plain version and the torch.stft
-    chain."""
+    """Phase 8, row 4d: the DFT kernel at the one shape its route gives it
+    on the main path, phase 3's case (dft_only_config, the odd n_fft 9605,
+    on DFT_ONLY_BATCH), seeded, against its float64 plain version (printed
+    beside the fp32 plain's error), timed beside its bound (the function's,
+    an FFT per frame), its fp32 plain version and the torch.stft chain."""
+    import torch
+
     from mqgan_tpu_torch.ops.stft_kernels import (dft_mel_tables, log_mel,
                                                   log_mel_plain, log_mel_tables)
     from mqgan_tpu_torch.signal.stft import hann_window
 
     row = _KernelRow("log_mel_dft", "mqgan_tpu_torch/csrc/log_mel_dft.cu",
                      "mqgan_tpu/ops/stft_kernels.py:95")
-    wav = _audio_batch(device, SEED + 5)
-    cfg = dft_config()
+    b, n, quiet = DFT_ONLY_BATCH
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    wav = 0.3 * torch.randn((b, n), generator=gen, device=device)
+    wav[0, :quiet] = 0.0
+    cfg = dft_only_config()
     hop, n_fft = cfg.hop_length, cfg.filter_length
     tables = log_mel_tables(cfg, device)
     if tables.route != "dft":
-        fail(f"row 4c: n_fft {n_fft} takes the {tables.route} route")
+        fail(f"row 4d: n_fft {n_fft} takes the {tables.route} route")
     cos, sin, fbank = tables.cos, tables.sin, tables.fbank
     ref = log_mel_plain(wav, *(x.to(device) for x in dft_mel_tables(cfg, np.float64)), hop)
     err = float((log_mel(wav, tables) - ref).abs().max())
@@ -1120,27 +1211,27 @@ def log_mel_dft_row(device) -> "_KernelRow":
     del ref
     window = hann_window(cfg.win_length, device=device)
     ms = time_ms(lambda: log_mel(wav, tables), 5)
-    pms = time_ms(lambda: log_mel_plain(wav, cos, sin, fbank, hop), 3)
+    pms = time_ms(lambda: log_mel_plain(wav, cos, sin, fbank, hop), 10)
     row.library_ms = time_ms(lambda: log_mel_library(wav, window, fbank, n_fft, hop,
                                                      cfg.win_length), 10, inner=10)
-    flops, nbytes, n = _log_mel_work(wav, cfg, fbank)
+    flops, nbytes, frames = _log_mel_work(wav, cfg, fbank)
     bound = row.add(ms, pms, flops, PEAK_FP32, nbytes)
     row.max_abs_err = err
-    product = 4.0 * n * n_fft * cfg.n_freqs
-    print(f"  log_mel_dft N={n} n_fft={n_fft} F={cfg.n_freqs} mels={cfg.n_mel_channels}: "
-          f"{ms:.4f} ms, bound {bound:.4f} ms ({row.bound_by}), plain {pms:.4f} ms, "
-          f"torch.stft chain {row.library_ms:.4f} ms (the kernel {ms / row.library_ms:.2f}x "
-          f"the chain; {product / 1e9:.1f} GFLOP as a product, "
-          f"{product / ms / 1e9:.1f} TFLOP/s); max|k-p64| {err:.3e} (the fp32 plain's "
-          f"{plain_err:.3e})")
+    product = 4.0 * frames * n_fft * cfg.n_freqs
+    print(f"  log_mel_dft N={frames} (B={b} x {n}) n_fft={n_fft} F={cfg.n_freqs} "
+          f"mels={cfg.n_mel_channels}: {ms:.4f} ms, bound {bound:.4f} ms "
+          f"({row.bound_by}), plain {pms:.4f} ms, torch.stft chain "
+          f"{row.library_ms:.4f} ms (the kernel {ms / row.library_ms:.2f}x the chain; "
+          f"{product / 1e9:.1f} GFLOP as a product, {product / ms / 1e9:.1f} TFLOP/s); "
+          f"max|k-p64| {err:.3e} (the fp32 plain's {plain_err:.3e})")
     return row
 
 
 def compare_log_mel(device) -> tuple:
     """Phase 3, log-mel: each kernel against its plain version (TF32 off);
-    returns the largest |kernel - plain| and the launches of the mixed-radix
-    and DFT kernels (their path: the front end at an n_fft the FFT kernel
-    does not take, counts reset before each case and read after)."""
+    returns the largest |kernel - plain| and the launches of the mixed-radix,
+    Bluestein and DFT kernels (their path: the front end at an n_fft the FFT
+    kernel does not take, counts reset before each case and read after)."""
     import torch
 
     from mqgan_tpu_torch.core.config import SpectrogramConfig
@@ -1152,7 +1243,7 @@ def compare_log_mel(device) -> tuple:
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     floor = torch.log(torch.tensor(LOG_CLIP_VAL, device=device))
-    worst, routed = 0.0, {"log_mel_mixed": 0, "log_mel_dft": 0}
+    worst, routed = 0.0, {"log_mel_mixed": 0, "log_mel_bluestein": 0, "log_mel_dft": 0}
 
     def spec(rate, n_fft, hop, mels):
         return SpectrogramConfig(sampling_rate=rate, filter_length=n_fft, hop_length=hop,
@@ -1163,8 +1254,10 @@ def compare_log_mel(device) -> tuple:
     # the kernel its shape selects); the FFT kernel: odd log2(n_fft / 2) for
     # its radix-2 pass, 32 and 2 frames a block; the mixed-radix kernel:
     # radix 7, 8 frames a block, 32 frames a block on reflected edges only,
-    # one frame a block; the DFT kernel: odd n_fft with a sample count that
-    # hop divides (JAX's frame count), a prime factor 41
+    # one frame a block; the Bluestein kernel: odd n_fft with a sample count
+    # that hop divides (JAX's frame count), a prime factor 41, primes 11 and
+    # 13, 20 frames a block on reflected edges only; the DFT kernel: an odd
+    # n_fft past the Bluestein kernel's limit
     cases = (("hifispeech", SpectrogramConfig(), 8, AUDIO_SAMPLES, 44_100, "log_mel"),
              ("hifispeech", SpectrogramConfig(), 1, 100_003, 0, "log_mel"),
              ("hifispeech edges", SpectrogramConfig(), 3, 1_025, 0, "log_mel"),
@@ -1184,8 +1277,12 @@ def compare_log_mel(device) -> tuple:
              ("44.1k n_fft=8192", spec(44100, 8192, 2048, 128), 2, 30_001, 8_192,
               "log_mel_mixed"),
              ("16k n_fft=1201 odd", spec(16000, 1201, 300, 80), 2, 15_000, 4_000,
-              "log_mel_dft"),
-             ("44.1k n_fft=2050", dft_config(), 2, 20_000, 0, "log_mel_dft"))
+              "log_mel_bluestein"),
+             ("44.1k n_fft=2050", dft_config(), 2, 20_000, 0, "log_mel_bluestein"),
+             ("44.1k n_fft=1144", spec(44100, 1144, 286, 128), 3, 20_001, 4_410,
+              "log_mel_bluestein"),
+             ("16k n_fft=88 edges", spec(16000, 88, 22, 40), 3, 45, 0, "log_mel_bluestein"),
+             ("44.1k n_fft=9605 odd", dft_only_config(), *DFT_ONLY_BATCH, "log_mel_dft"))
     for label, cfg, b, n, quiet, kernel in cases:
         n_fft, hop = cfg.filter_length, cfg.hop_length
         tables = log_mel_tables(cfg, device)
@@ -1859,7 +1956,8 @@ def kernel_times(model, device) -> list:
     dense_flops = fft_flops + 2.0 * n * n_freq * n_mels
     nbytes = 4.0 * (wav.numel() + cfg.win_length + nnz + n * n_mels)
     bound = mel_row.add(ms, pms, flops, PEAK_FP32, nbytes)
-    mixed_row, dft_row = log_mel_mixed_row(device), log_mel_dft_row(device)
+    mixed_row, blue_row = log_mel_mixed_row(device), log_mel_bluestein_row(device)
+    dft_row = log_mel_dft_row(device)
     print(f"  log_mel N={n} n_fft={n_fft} F={n_freq} mels={n_mels}: {ms:.4f} ms "
           f"(roofline share {bound / ms:.3f}), the DFT kernel {dft_ms:.4f} ms at this "
           f"n_fft, plain "
@@ -1867,7 +1965,7 @@ def kernel_times(model, device) -> list:
           f"{bound:.4f} ms ({mel_row.bound_by}: {flops / 1e9:.2f} GFLOP counting the "
           f"filterbank's {nnz} nonzeros, {dense_flops / 1e9:.2f} counting F x n_mels "
           f"= {n_freq * n_mels} densely; {nbytes / 1e6:.1f} MB)")
-    return [blk_row, mix_row, poly_row, fsq_row, mel_row, mixed_row, dft_row]
+    return [blk_row, mix_row, poly_row, fsq_row, mel_row, mixed_row, blue_row, dft_row]
 
 
 def fsq_head_times(device, w, bias, consts):
@@ -3105,8 +3203,8 @@ def codec_deployment(state, device, counters, card, root=None) -> dict:
     for name in ("residual_block", "mel_mixer", "mel_mixer_poly", "fsq_head"):
         if launches.get(name, 0) <= 0:
             fail(f"phase 13: {name} was not launched on the deployment path")
-    for name in ("log_mel", "log_mel_mixed", "log_mel_dft", "flash_fwd", "flash_bwd_dq",
-                 "flash_bwd_dkv"):
+    for name in ("log_mel", "log_mel_mixed", "log_mel_bluestein", "log_mel_dft",
+                 "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         if launches.get(name, 0):
             fail(f"phase 13: {name} launched on the deployment path")
     print(f"  phase 13 seconds by part: {seconds}")
@@ -5902,10 +6000,12 @@ def _op_cases(device) -> dict:
     consts = torch.from_numpy(fk.fsq_head_constants(spec)).to(device)
     tables = sk.log_mel_tables(SpectrogramConfig(), device)
     mixed = sk.log_mel_tables(mixed_configs()[0], device)
-    dft = sk.dft_mel_tables(SpectrogramConfig(sampling_rate=16000, filter_length=1201,
-                                              hop_length=300, win_length=1201,
-                                              n_mel_channels=80, mel_fmax=8000.0))
-    dft = [x.to(device) for x in dft]
+    odd = SpectrogramConfig(sampling_rate=16000, filter_length=1201, hop_length=300,
+                            win_length=1201, n_mel_channels=80, mel_fmax=8000.0)
+    dft = [x.to(device) for x in sk.dft_mel_tables(odd)]
+    blue = {name: sk.log_mel_tables(cfg, device)
+            for name, cfg in (("log_mel_bluestein", odd),
+                              ("log_mel_bluestein even", dft_config()))}
     wav = rand(2, 9000)
     q, k, v = (rand(2, 65, 2, 64, dtype=dt) for _ in range(3))
     o, lse = fa.flash_attention_fwd(q, k, v, 0.125)
@@ -5937,6 +6037,10 @@ def _op_cases(device) -> dict:
                           (wav, mixed.fbank, mixed.cos, mixed.sin, mixed.window,
                            mixed.plan, mixed.twiddles, mixed.bands, mixed.weights,
                            mixed.hop, mixed.n_fft)),
+        **{name: (ops.log_mel_bluestein, sk.log_mel_bluestein_kernel,
+                  (wav, t.fbank, None, None, t.premul, t.chirp, t.plan, t.twiddles,
+                   t.spectrum, t.split, t.bands, t.weights, t.hop, t.n_fft))
+           for name, t in blue.items()},
         "log_mel_dft": (ops.log_mel_dft, sk.log_mel_dft_kernel,
                         (wav, dft[0], dft[1], dft[2], 300)),
         "flash_fwd": (ops.flash_fwd, fa.flash_attention_fwd, (q, k, v, 0.125)),

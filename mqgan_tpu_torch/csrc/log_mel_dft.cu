@@ -1,9 +1,12 @@
 // Log-mel front end by DFT product: reflect-padded waveform -> (frames,
 // n_mels) log-mel, in fp32. The route of ops/stft_kernels.py for an n_fft
-// that neither FFT kernel (log_mel.cu, log_mel_mixed.cu) takes: odd n_fft
-// (as the JAX package frames them: (samples - 1) // hop + 1 frames where
-// hop divides the samples), an n_fft / 2 with a prime factor above 7
-// (2050 = 2 * 5^2 * 41, say), n_fft 2 and n_fft past 8192.
+// that no FFT kernel (log_mel.cu, log_mel_mixed.cu, log_mel_bluestein.cu)
+// takes: n_fft 1 and 2, odd n_fft past 9603 and even n_fft past 14406 (past
+// the Bluestein kernel's 14406-point chirp-z length), framed as the JAX
+// package frames them ((samples - 1) // hop + 1 frames at an odd n_fft
+// where hop divides the samples). Until the Bluestein kernel it took every
+// odd n_fft and every n_fft / 2 with a prime factor above 7 (2050 = 2 *
+// 5^2 * 41, say).
 //
 // Replaces: mqgan_tpu/ops/stft_kernels.py:_log_mel_frames_pallas (the
 // Pallas TPU kernel `_kernel` behind PallasMelFrontend), which is this same

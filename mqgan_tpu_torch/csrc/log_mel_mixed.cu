@@ -2,8 +2,11 @@
 // log-mel in fp32. The route of ops/stft_kernels.py for an even n_fft from 4
 // to 8192 that log_mel.cu (powers of two from 256 to 4096) does not take and
 // whose M = n_fft / 2 has no prime factor above 7: 1200, 1000, 800, 400 at
-// 16 kHz, 480 and 960 at 48 kHz, 1764 at 44.1 kHz, 128, 8192. log_mel_dft.cu
-// takes what is left (odd n_fft, a larger prime factor, n_fft 2).
+// 16 kHz, 480 and 960 at 48 kHz, 1764 at 44.1 kHz, 128, 8192.
+// log_mel_bluestein.cu takes the other n_fft from 3 (odd, a larger prime
+// factor, past 8192) up to its limit, log_mel_dft.cu what is left (n_fft 1
+// and 2, n_fft past that limit). The butterflies, reflect padding, split
+// and mel stage are fft_radix.cuh's, shared with log_mel_bluestein.cu.
 //
 // Replaces: mqgan_tpu/ops/stft_kernels.py:95 _log_mel_frames_pallas (the
 // Pallas TPU kernel behind PallasMelFrontend, a DFT product on the MXU), for
@@ -65,103 +68,14 @@
 
 #include <cuda_runtime.h>
 
+#include "fft_radix.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxPoints = 4096;  // complex FFT points per block, at most
-constexpr float kLogClip = 1e-5f;
-
-// (cos, sin) of 2 pi m / r, m < r, rounded from float64
-__constant__ float2 kRoot3[3] = {{1.0f, 0.0f},
-                                 {-0.5f, 0.86602540378443865f},
-                                 {-0.5f, -0.86602540378443865f}};
-__constant__ float2 kRoot5[5] = {{1.0f, 0.0f},
-                                 {0.30901699437494742f, 0.95105651629515357f},
-                                 {-0.80901699437494742f, 0.58778525229247314f},
-                                 {-0.80901699437494742f, -0.58778525229247314f},
-                                 {0.30901699437494742f, -0.95105651629515357f}};
-__constant__ float2 kRoot7[7] = {{1.0f, 0.0f},
-                                 {0.62348980185873353f, 0.78183148246802981f},
-                                 {-0.22252093395631440f, 0.97492791218182361f},
-                                 {-0.90096886790241913f, 0.43388373911755812f},
-                                 {-0.90096886790241913f, -0.43388373911755812f},
-                                 {-0.22252093395631440f, -0.97492791218182361f},
-                                 {0.62348980185873353f, -0.78183148246802981f}};
-
-template <int R>
-__device__ __forceinline__ float2 root(int m);
-template <>
-__device__ __forceinline__ float2 root<3>(int m) { return kRoot3[m]; }
-template <>
-__device__ __forceinline__ float2 root<5>(int m) { return kRoot5[m]; }
-template <>
-__device__ __forceinline__ float2 root<7>(int m) { return kRoot7[m]; }
 
 // shared-memory slot of point e: one pad slot after every 16 points
 __host__ __device__ __forceinline__ int slot(int e) { return e + (e >> 4); }
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
-}
-
-// in-place R-point DFT: a_s <- sum_q a_q exp(-2 pi i q s / R)
-template <int R>
-__device__ __forceinline__ void dft(float2 (&a)[R]) {
-  if constexpr (R == 2) {
-    const float2 a0 = a[0];
-    a[0] = cadd(a0, a[1]);
-    a[1] = csub(a0, a[1]);
-  } else if constexpr (R == 4) {
-    const float2 v0 = cadd(a[0], a[2]), v1 = csub(a[0], a[2]);
-    const float2 v2 = cadd(a[1], a[3]), d = csub(a[1], a[3]);
-    const float2 v3 = make_float2(d.y, -d.x);  // -i (a1 - a3)
-    a[0] = cadd(v0, v2);
-    a[1] = cadd(v1, v3);
-    a[2] = csub(v0, v2);
-    a[3] = csub(v1, v3);
-  } else {  // odd R: pairs t_j = a_j + a_{R-j}, d_j = a_j - a_{R-j}
-    constexpr int H = R / 2;
-    float2 t[H + 1], d[H + 1];
-    float2 sum = a[0];
-#pragma unroll
-    for (int j = 1; j <= H; ++j) {
-      t[j] = cadd(a[j], a[R - j]);
-      d[j] = csub(a[j], a[R - j]);
-      sum = cadd(sum, t[j]);
-    }
-    float2 out[R];
-    out[0] = sum;
-#pragma unroll
-    for (int s = 1; s <= H; ++s) {
-      float2 re = a[0], im = make_float2(0.0f, 0.0f);
-#pragma unroll
-      for (int j = 1; j <= H; ++j) {
-        const float2 w = root<R>((j * s) % R);
-        re = make_float2(fmaf(w.x, t[j].x, re.x), fmaf(w.x, t[j].y, re.y));
-        im = make_float2(fmaf(w.y, d[j].x, im.x), fmaf(w.y, d[j].y, im.y));
-      }
-      out[s] = make_float2(re.x + im.y, re.y - im.x);      // re - i im
-      out[R - s] = make_float2(re.x - im.y, re.y + im.x);  // re + i im
-    }
-#pragma unroll
-    for (int q = 0; q < R; ++q) a[q] = out[q];
-  }
-}
-
-// sample pos of a clip of `samples`, reflected at both ends (pos is within
-// one reflection: the wrapper asks for samples > n_fft / 2)
-__device__ __forceinline__ float reflected(const float* __restrict__ clip,
-                                           int pos, int samples) {
-  pos = pos < 0 ? -pos : pos;
-  pos = pos >= samples ? 2 * (samples - 1) - pos : pos;
-  return __ldg(clip + pos);
-}
 
 // 1. load, window and the first pass (p = 1): z[i + q M/R] -> Y[R i + s].
 // info[f] = (clip offset, first sample) of frame f, or (-1, 0) past the end.
@@ -321,10 +235,7 @@ log_mel_mixed_kernel(const float* __restrict__ wav,
       const int ka = k == m ? 0 : k, kb = k == 0 ? 0 : m - k;
       const float2 a = src[slot(f * m + ka)];
       const float2 b = src[slot(f * m + kb)];
-      const float2 even = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
-      const float2 odd = make_float2(0.5f * (a.y + b.y), 0.5f * (b.x - a.x));
-      const float2 x = cadd(even, cmul(w, odd));
-      mag[f * n_freq + k] = sqrtf(fmaf(x.x, x.x, x.y * x.y));
+      mag[f * n_freq + k] = split_magnitude(a, b, w);
       k += dk;
       f += df;
       if (k >= n_freq) {
@@ -335,25 +246,8 @@ log_mel_mixed_kernel(const float* __restrict__ wav,
   }
   __syncthreads();
   // 4. banded mel, clamp, log: mels of one frame on neighbouring threads
-  const float* mag = reinterpret_cast<const float*>(dst);
-  const int last = min(frames, n_total - n0);
-  int f = tid / n_mels, mel = tid - f * n_mels;
-  const int df = kThreads / n_mels, dm = kThreads - df * n_mels;
-  while (f < last) {
-    const int lo = __ldg(bands + 3 * mel);
-    const int hi = __ldg(bands + 3 * mel + 1);
-    const float* w = weights + __ldg(bands + 3 * mel + 2);
-    const float* row = mag + f * n_freq;
-    float acc = 0.0f;
-    for (int k = lo; k < hi; ++k) acc = fmaf(row[k], __ldg(w + (k - lo)), acc);
-    out[static_cast<size_t>(n0 + f) * n_mels + mel] = logf(fmaxf(acc, kLogClip));
-    mel += dm;
-    f += df;
-    if (mel >= n_mels) {
-      mel -= n_mels;
-      ++f;
-    }
-  }
+  mel_log(reinterpret_cast<const float*>(dst), bands, weights, out, n0,
+          min(frames, n_total - n0), n_freq, n_mels);
 }
 
 }  // namespace

@@ -45,8 +45,8 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("fsq_head.cu", "residual_block.cu", "mel_mixer.cu", "log_mel.cu",
-           "log_mel_mixed.cu", "log_mel_dft.cu", "flash_attention.cu",
-           "int8_conv.cu")
+           "log_mel_mixed.cu", "log_mel_bluestein.cu", "log_mel_dft.cu",
+           "flash_attention.cu", "int8_conv.cu")
 # no --use_fast_math: the FSQ head needs exact tanhf and the mixer its
 # exact-grade z tanh z (it writes its ex2/rcp.approx instructions itself;
 # tanh.approx's 2^-11 flips FSQ codes on the encode side), the log-mel
@@ -87,6 +87,10 @@ _SIGNATURES = {
     # frames_per_clip, samples, hop, n_fft, n_mels, n_passes, split_off,
     # frames per block, stream
     "mqgan_log_mel_mixed": (_PTR,) * 7 + (_INT,) * 9 + (_PTR,),
+    # wav, premul, chirp, plan, twiddles, spectrum, split, bands, weights,
+    # out, n_clips, frames_per_clip, samples, hop, n_fft, n_mels, length,
+    # n_passes, frames per block, stream
+    "mqgan_log_mel_bluestein": (_PTR,) * 10 + (_INT,) * 9 + (_PTR,),
     # wav_pad, cos, sin, fbank, out, n_clips, frames_per_clip, row_stride,
     # hop, n_fft, n_freq, n_mels, stream
     "mqgan_log_mel_dft": (_PTR,) * 5 + (_INT,) * 7 + (_PTR,),

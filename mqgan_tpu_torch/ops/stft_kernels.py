@@ -4,7 +4,7 @@
     out = log(max(|STFT(wav)| @ fbank, 1e-5))
     (center, reflect pad, periodic Hann window padded to n_fft, power 1)
 
-Three CUDA kernels compute it; ``log_mel_route`` chooses one by shape,
+Four CUDA kernels compute it; ``log_mel_route`` chooses one by shape,
 before any launch, and each route launches its kernel or raises:
 
 - ``"fft"`` (``csrc/log_mel.cu``, counter ``log_mel``), for power-of-two
@@ -15,19 +15,30 @@ before any launch, and each route launches its kernel or raises:
   the other even n_fft from 4 to 8192 whose n_fft / 2 has no prime factor
   above 7 (1200, 1000, 800, 480, 1764, 128, 8192, ...): the same design
   with Stockham passes of radix 4, 2, 3, 5 and 7 (``mixed_plan``).
+- ``"bluestein"`` (``csrc/log_mel_bluestein.cu``, counter
+  ``log_mel_bluestein``), for the other n_fft from 3 whose chirp-z length
+  L fits the kernel's BLUESTEIN_MAX_POINTS = 14406 points: every odd n_fft
+  to 9603 (1201, ...), every other even n_fft to 14406 (2050, 1144, 88,
+  10000, ...). Bluestein's chirp-z transform: the frame times a chirp, an
+  L-point circular convolution with the conjugate chirp by two in-place
+  mixed-radix FFTs (radix 4, 2, 3, 5, 7; L chosen by ``bluestein_length``,
+  tables by ``bluestein_plan``), the chirp again; the chirp-z stage in
+  fp64, the real-FFT split (even n_fft), magnitudes, bands and log in
+  fp32, one frame at a time.
 - ``"dft"`` (``csrc/log_mel_dft.cu``, counter ``log_mel_dft``), for the
-  rest (odd n_fft, a prime factor above 7, n_fft 2 or past 8192): the DFT
-  as an fp32 product with cos/sin tables (the window folded in), frames
-  read in place from the reflect-padded waveform.
+  rest (n_fft 1 and 2, odd n_fft past 9603, even n_fft past 14406): the
+  DFT as an fp32 product with cos/sin tables (the window folded in),
+  frames read in place from the reflect-padded waveform.
 
 Every route gives the frames of the JAX package's ``frame_signal``
 (``frame_count``: one fewer than ``samples // hop + 1`` at an odd n_fft
 where hop divides the samples). ``log_mel_plain`` is the plain PyTorch
 version of the function (the DFT as matmuls); the wrappers take it only for
-CPU tensors. Each kernel is an op, ``mqgan::log_mel``, ``mqgan::log_mel_mixed``
-and ``mqgan::log_mel_dft``, whose CUDA implementation (``log_mel_kernel``,
-``log_mel_mixed_kernel``, ``log_mel_dft_kernel``) launches it and whose CPU
-implementation is ``log_mel_plain``. There is no separate front-end class
+CPU tensors. Each kernel is an op, ``mqgan::log_mel``, ``mqgan::log_mel_mixed``,
+``mqgan::log_mel_bluestein`` and ``mqgan::log_mel_dft``, whose CUDA
+implementation (``log_mel_kernel``, ``log_mel_mixed_kernel``,
+``log_mel_bluestein_kernel``, ``log_mel_dft_kernel``) launches it and whose
+CPU implementation is ``log_mel_plain``. There is no separate front-end class
 as in the JAX package (``PallasMelFrontend``): ``signal/mel.py``
 ``MelFrontend`` runs ``log_mel``.
 """
@@ -54,6 +65,10 @@ FFT_MIN, FFT_MAX = 256, 4096  # n_fft range of the FFT kernel (powers of two)
 MIXED_MIN, MIXED_MAX = 4, 8192
 MIXED_RADICES = (4, 2, 3, 5, 7)  # its passes' radices, in plan order
 MIXED_BLOCK_POINTS = 2048  # its FFT points per block: whole frames up to this
+# the Bluestein kernel: n_fft from 3; L points of its frames in one block,
+# one fp64 buffer of 16 B a point (225 KB at 14406), at most
+BLUESTEIN_MIN, BLUESTEIN_MAX_POINTS = 3, 14406
+BLUESTEIN_BLOCK_POINTS = 2048  # its L points per block: whole frames up to this
 MAX_MELS = 256  # all kernels: the DFT kernel's (64, n_mels) accumulator
 PLAIN_CHUNK = 8192  # frames per matmul in the plain version
 
@@ -70,9 +85,43 @@ def mixed_radices(m: int) -> tuple[int, ...] | None:
     return tuple(radices) if m == 1 else None
 
 
+def bluestein_sizes(n_fft: int) -> tuple[int, int, int]:
+    """(M, K, least L) of the Bluestein kernel's chirp-z transform: for an
+    even n_fft the M = n_fft / 2 point complex DFT of the real-FFT split,
+    all K = M outputs; for an odd one the M = n_fft point DFT of the real
+    samples, its K = n_fft // 2 + 1 bins. The L-point circular convolution
+    wraps onto no output when L >= M + K - 1."""
+    m = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    k = m if n_fft % 2 == 0 else n_fft // 2 + 1
+    return m, k, m + k - 1
+
+
+def _least_smooth(n: int) -> int:
+    """The least length at or above n with no prime factor above 7."""
+    while mixed_radices(n) is None:
+        n += 1
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def bluestein_length(n_fft: int) -> int:
+    """L of the Bluestein kernel at n_fft: of the lengths with no prime
+    factor above 7 from the minimum (``bluestein_sizes``) up to 1.25 times
+    it and BLUESTEIN_MAX_POINTS, the one of fewest point-passes L P (P its
+    passes, ``mixed_radices``: each moves the frame through shared memory
+    once and ends at a barrier), the shortest of equal count. On an H100
+    this chose the fastest of 17 candidates at n_fft 2050 (2401 = 7^4) and
+    at 1201 (1875 = 3 5^4) (tools/log_mel_bluestein_times.py, PERF.md row
+    4c)."""
+    least = bluestein_sizes(n_fft)[2]
+    top = max(_least_smooth(least), min(int(1.25 * least), BLUESTEIN_MAX_POINTS))
+    return min((n for n in range(least, top + 1) if mixed_radices(n) is not None),
+               key=lambda n: (n * len(mixed_radices(n)), n))
+
+
 def log_mel_route(n_fft: int, n_mels: int, hop: int) -> str:
-    """"fft", "mixed" or "dft": the kernel that computes this shape on the
-    card; raises ValueError for a shape none takes."""
+    """"fft", "mixed", "bluestein" or "dft": the kernel that computes this
+    shape on the card; raises ValueError for a shape none takes."""
     if n_fft <= 0:
         raise ValueError(f"log_mel: n_fft {n_fft} must be positive")
     if not 0 < n_mels <= MAX_MELS or hop <= 0:
@@ -83,6 +132,9 @@ def log_mel_route(n_fft: int, n_mels: int, hop: int) -> str:
     if (n_fft % 2 == 0 and MIXED_MIN <= n_fft <= MIXED_MAX
             and mixed_radices(n_fft // 2) is not None):
         return "mixed"
+    if (n_fft >= BLUESTEIN_MIN
+            and _least_smooth(bluestein_sizes(n_fft)[2]) <= BLUESTEIN_MAX_POINTS):
+        return "bluestein"
     return "dft"
 
 
@@ -161,6 +213,109 @@ def mixed_plan(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
             np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32))
 
 
+@dataclass(frozen=True)
+class BluesteinPlan:
+    """The Bluestein kernel's tables at one n_fft (``bluestein_plan``),
+    computed in float64: the chirp-z stage's stay float64 (the kernel runs
+    that stage in fp64), the real-FFT split's are cast to fp32 once. M, K
+    and L as in ``bluestein_sizes``; c[n] = exp(-i pi (n^2 mod 2M) / M), the
+    chirp, with n^2 mod 2M taken in int64; W_S = exp(-2 pi i / S).
+
+      length    L
+      plan      (P, 3) int32 rows (r, N, offset), one an in-place pass of
+                the forward FFT in the order it runs (decimation in
+                frequency; the inverse runs them backwards): radix r over
+                sub-transforms of S = r N points, N = L / (r_1 ... r_s)
+      twiddles  (rows, 2) float64 (re, im): for each pass but the last (N
+                = 1), W_S^n' for n' < N at its row's offset
+      split     (M + 1, 2) fp32 W_n_fft^k, k <= M, at an even n_fft (the
+                real-FFT split); (0, 2) at an odd one
+      premul    float64, what multiplies the samples as they load: at an
+                even n_fft (M, 4), the complex pair (w[2n] c[n], i w[2n+1]
+                c[n]), so a[n] = x[2n] P0 + x[2n+1] P1 = (x[2n] w[2n] + i
+                x[2n+1] w[2n+1]) c[n]; at an odd one (M, 2), w[n] c[n]; w the
+                window (ones when none is given)
+      chirp     (M, 2) float64 c[n], the post-multiply (the even route's)
+      spectrum  (L, 2) float64 FFT_L(b) / L of the filter b[j] = conj c[j],
+                j < K, b[L - j] = conj c[j], 0 < j < M, zero elsewhere; bin
+                k at ``digit_reversed(L)[k]``, where the forward FFT leaves
+                it"""
+
+    length: int
+    plan: np.ndarray
+    twiddles: np.ndarray
+    split: np.ndarray
+    premul: np.ndarray
+    chirp: np.ndarray
+    spectrum: np.ndarray
+
+
+def _pairs(z: np.ndarray, dtype=np.float64) -> np.ndarray:
+    """complex (..., n) -> (..., n, 2) (re, im) of ``dtype``"""
+    return np.stack([z.real, z.imag], axis=-1).astype(dtype)
+
+
+def _in_place_passes(length: int) -> list[tuple[int, int]]:
+    """(r, N) of the L-point in-place passes, radices as ``mixed_radices``."""
+    rows, n = [], length
+    for r in mixed_radices(length):
+        n //= r
+        rows.append((r, n))
+    return rows
+
+
+def digit_reversed(length: int) -> np.ndarray:
+    """pos[k]: where the L-point forward FFT (decimation in frequency, in
+    place) leaves bin k = k_1 + r_1 (k_2 + r_2 (...)): sum_s k_s N_s."""
+    k, pos = np.arange(length), np.zeros(length, dtype=np.int64)
+    for r, n in _in_place_passes(length):
+        pos += (k % r) * n
+        k //= r
+    return pos
+
+
+def bluestein_plan(n_fft: int, window: np.ndarray | None = None,
+                   length: int | None = None) -> BluesteinPlan:
+    """The tables of the Bluestein kernel at n_fft, with the (fp32) window
+    folded into ``premul``; ``length`` overrides ``bluestein_length`` (it
+    must have no prime factor above 7 and be at least the minimum)."""
+    m, k, least = bluestein_sizes(n_fft)
+    length = bluestein_length(n_fft) if length is None else length
+    if n_fft < BLUESTEIN_MIN or length < least or mixed_radices(length) is None:
+        raise ValueError(f"log_mel_bluestein: no plan of {length} points at n_fft "
+                         f"{n_fft} (7-smooth, >= {least})")
+    rows, parts, off = [], [], 0
+    for r, n in _in_place_passes(length):
+        rows.append((r, n, off))
+        if n > 1:
+            parts.append(np.exp(-2j * np.pi * np.arange(n) / (r * n)))
+            off += n
+    n = np.arange(m, dtype=np.int64)
+    chirp = np.exp(-1j * np.pi * ((n * n) % (2 * m)) / m)
+    w = (np.ones(n_fft) if window is None
+         else np.asarray(window, dtype=np.float32).astype(np.float64))
+    if n_fft % 2 == 0:
+        premul = np.stack([w[0::2] * chirp, 1j * w[1::2] * chirp], axis=1)
+        split = np.exp(-2j * np.pi * np.arange(m + 1) / n_fft)
+    else:
+        premul, split = w * chirp, np.zeros(0)
+    filt = np.zeros(length, dtype=np.complex128)
+    filt[:k] = np.conj(chirp[:k])
+    filt[length - np.arange(1, m)] = np.conj(chirp[1:])
+    spectrum = np.empty(length, dtype=np.complex128)
+    spectrum[digit_reversed(length)] = np.fft.fft(filt) / length
+    return BluesteinPlan(length, np.asarray(rows, dtype=np.int32),
+                         _pairs(np.concatenate(parts + [np.zeros(0)])),
+                         _pairs(split, np.float32), _pairs(premul).reshape(m, -1),
+                         _pairs(chirp), _pairs(spectrum))
+
+
+def bluestein_frames(length: int) -> int:
+    """Frames a block of the Bluestein kernel transforms: as many whole
+    frames of L points as BLUESTEIN_BLOCK_POINTS holds, at least one."""
+    return max(1, BLUESTEIN_BLOCK_POINTS // length)
+
+
 def mixed_frames(n_fft: int) -> int:
     """Frames a block of the mixed-radix kernel transforms: as many whole
     frames of n_fft / 2 points as MIXED_BLOCK_POINTS holds, at least one."""
@@ -196,9 +351,12 @@ def banded_fbank(fbank: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 class LogMelTables:
     """What ``log_mel`` reads besides the waveform, for one spectrogram
     config on one device (``log_mel_tables``). ``cos``/``sin`` are kept for
-    the CPU (plain version) and the DFT route only; ``window``,
-    ``twiddles``, ``bands`` and ``weights`` for the FFT and mixed routes
-    (each route's own twiddles), ``plan`` for the mixed route only."""
+    the CPU (plain version) and the DFT route only; ``bands`` and
+    ``weights`` for the FFT, mixed and Bluestein routes, ``twiddles`` and
+    ``plan`` for each of them that has its own (the FFT route no plan),
+    ``window`` for the FFT and mixed routes; ``premul``, ``chirp``,
+    ``spectrum`` and ``split`` for the Bluestein route only
+    (``BluesteinPlan``)."""
 
     route: str
     n_fft: int
@@ -211,6 +369,10 @@ class LogMelTables:
     bands: torch.Tensor | None = None
     weights: torch.Tensor | None = None
     plan: torch.Tensor | None = None
+    premul: torch.Tensor | None = None
+    chirp: torch.Tensor | None = None
+    spectrum: torch.Tensor | None = None
+    split: torch.Tensor | None = None
 
 
 def log_mel_tables(cfg: SpectrogramConfig, device) -> LogMelTables:
@@ -224,18 +386,29 @@ def log_mel_tables(cfg: SpectrogramConfig, device) -> LogMelTables:
                   fbank=fbank.to(dev))
     if dev.type == "cpu" or route == "dft":
         tables.update(cos=cos.to(dev), sin=sin.to(dev))
-    if route in ("fft", "mixed"):
-        bands, weights = banded_fbank(fbank.numpy())
-        if route == "fft":
-            twiddles = fft_twiddles(n_fft)
-        else:
-            plan, twiddles = mixed_plan(n_fft)
-            tables.update(plan=torch.from_numpy(plan).to(dev))
-        tables.update(window=_padded_window(cfg.win_length, n_fft).to(dev),
-                      twiddles=torch.from_numpy(twiddles).to(dev),
-                      bands=torch.from_numpy(bands).to(dev),
-                      weights=torch.from_numpy(weights).to(dev))
+    if route == "dft":
+        return LogMelTables(**tables)
+    bands, weights = banded_fbank(fbank.numpy())
+    tables.update(bands=torch.from_numpy(bands).to(dev),
+                  weights=torch.from_numpy(weights).to(dev))
+    window = _padded_window(cfg.win_length, n_fft)
+    if route == "bluestein":
+        tables.update(bluestein_tensors(bluestein_plan(n_fft, window.numpy()), dev))
+        return LogMelTables(**tables)
+    if route == "fft":
+        twiddles = fft_twiddles(n_fft)
+    else:
+        plan, twiddles = mixed_plan(n_fft)
+        tables.update(plan=torch.from_numpy(plan).to(dev))
+    tables.update(window=window.to(dev), twiddles=torch.from_numpy(twiddles).to(dev))
     return LogMelTables(**tables)
+
+
+def bluestein_tensors(plan: BluesteinPlan, device) -> dict:
+    """A Bluestein plan's tables as the ``LogMelTables`` fields the kernel
+    reads, on ``device``."""
+    return {name: torch.from_numpy(getattr(plan, name)).to(device)
+            for name in ("plan", "twiddles", "premul", "chirp", "spectrum", "split")}
 
 
 def log_mel_plain(wav: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
@@ -342,6 +515,63 @@ def log_mel_mixed_kernel(wav: Tensor, fbank: Tensor, cos: Optional[Tensor],
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _bluestein_rows(length: int) -> tuple[int, int]:
+    """(passes, twiddle rows) of the L-point in-place plan."""
+    passes = _in_place_passes(length)
+    return len(passes), sum(n for _, n in passes if n > 1)
+
+
+def log_mel_bluestein_kernel(wav: Tensor, fbank: Tensor, cos: Optional[Tensor],
+                             sin: Optional[Tensor], premul: Tensor, chirp: Tensor,
+                             plan: Tensor, twiddles: Tensor, spectrum: Tensor,
+                             split: Tensor, bands: Tensor, weights: Tensor, hop: int,
+                             n_fft: int) -> Tensor:
+    """The Bluestein kernel on CUDA tensors (the op's CUDA implementation;
+    it reads premul, chirp, plan, twiddles, spectrum, split, bands, weights
+    and fbank's shape; L is the spectrum's length)."""
+    _check_wav(wav, n_fft)
+    dev = wav.device
+    n_freq, n_mels = fbank.shape
+    if (log_mel_route(n_fft, n_mels, hop) != "bluestein"
+            or n_freq != n_fft // 2 + 1):
+        raise ValueError(f"log_mel_bluestein: tables of n_fft {n_fft}, F {n_freq}, "
+                         f"{n_mels} mels are not the Bluestein kernel's")
+    m, _, least = bluestein_sizes(n_fft)
+    length = spectrum.shape[0]
+    frames = bluestein_frames(length)
+    if (length < least or mixed_radices(length) is None
+            or frames * length > BLUESTEIN_MAX_POINTS):
+        raise ValueError(f"log_mel_bluestein: L {length} at n_fft {n_fft} (7-smooth, "
+                         f">= {least}, <= {BLUESTEIN_MAX_POINTS})")
+    passes, rows = _bluestein_rows(length)
+    odd = n_fft % 2
+    f64 = torch.float64
+    _cuda.check(premul, "premul", dtype=f64, shape=(m, 2 if odd else 4), device=dev)
+    _cuda.check(chirp, "chirp", dtype=f64, shape=(m, 2), device=dev)
+    _cuda.check(plan, "plan", dtype=torch.int32, shape=(passes, 3), device=dev)
+    _cuda.check(twiddles, "twiddles", dtype=f64, shape=(rows, 2), device=dev)
+    _cuda.check(spectrum, "spectrum", dtype=f64, shape=(length, 2), device=dev)
+    _cuda.check(split, "split", dtype=torch.float32, shape=(0 if odd else m + 1, 2),
+                device=dev)
+    _cuda.check(bands, "bands", dtype=torch.int32, shape=(n_mels, 3), device=dev)
+    _cuda.check(weights, "weights", dtype=torch.float32, device=dev)
+    b, samples = wav.shape
+    count = frame_count(samples, n_fft, hop)
+    out = torch.empty((b, count, n_mels), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out
+    if wav.numel() >= 2 ** 31:
+        raise ValueError("log_mel_bluestein: the batch must hold < 2**31 samples")
+    pt = _cuda.ptr
+    _cuda.launch("mqgan_log_mel_bluestein", dev, pt(wav), pt(premul), pt(chirp),
+                 pt(plan), pt(twiddles), pt(spectrum), pt(split), pt(bands),
+                 pt(weights), pt(out), b, count, samples, hop, n_fft, n_mels, length,
+                 passes, frames)
+    _cuda.COUNTERS.add("log_mel_bluestein")
+    return out
+
+
 def log_mel_dft_kernel(wav: Tensor, cos: Tensor, sin: Tensor, fbank: Tensor,
                        hop: int) -> Tensor:
     """The DFT kernel on CUDA tensors (the op's CUDA implementation)."""
@@ -391,6 +621,14 @@ def _log_mel_mixed_cpu(wav: Tensor, fbank: Tensor, cos: Optional[Tensor],
                         n_fft)
 
 
+def _log_mel_bluestein_cpu(wav: Tensor, fbank: Tensor, cos: Optional[Tensor],
+                           sin: Optional[Tensor], premul: Tensor, chirp: Tensor,
+                           plan: Tensor, twiddles: Tensor, spectrum: Tensor,
+                           split: Tensor, bands: Tensor, weights: Tensor, hop: int,
+                           n_fft: int) -> Tensor:
+    return _log_mel_cpu(wav, fbank, cos, sin, None, None, None, None, hop, n_fft)
+
+
 def _log_mel_dft_cpu(wav: Tensor, cos: Tensor, sin: Tensor, fbank: Tensor,
                      hop: int) -> Tensor:
     return log_mel_plain(wav, cos, sin, fbank, hop)
@@ -407,6 +645,8 @@ log_mel_op = _cuda.register_op("log_mel", _log_mel_cpu, log_mel_kernel,
                                _log_mel_fake)
 log_mel_mixed_op = _cuda.register_op("log_mel_mixed", _log_mel_mixed_cpu,
                                      log_mel_mixed_kernel, _log_mel_fake)
+log_mel_bluestein_op = _cuda.register_op("log_mel_bluestein", _log_mel_bluestein_cpu,
+                                         log_mel_bluestein_kernel, _log_mel_fake)
 log_mel_dft_op = _cuda.register_op(
     "log_mel_dft", _log_mel_dft_cpu, log_mel_dft_kernel,
     lambda wav, cos, sin, fbank, hop: wav.new_empty(
@@ -423,6 +663,11 @@ def log_mel(wav: Tensor, tables: LogMelTables) -> Tensor:
                          f"the waveform on the CPU")
     if wav.device.type == "cuda" and tables.route == "dft":
         return log_mel_dft(wav, tables.cos, tables.sin, tables.fbank, tables.hop)
+    if wav.device.type == "cuda" and tables.route == "bluestein":
+        return log_mel_bluestein(wav, tables.fbank, tables.cos, tables.sin, tables.premul,
+                                 tables.chirp, tables.plan, tables.twiddles,
+                                 tables.spectrum, tables.split, tables.bands,
+                                 tables.weights, tables.hop, tables.n_fft)
     if wav.device.type == "cuda" and tables.route == "mixed":
         return log_mel_mixed(wav, tables.fbank, tables.cos, tables.sin, tables.window,
                              tables.plan, tables.twiddles, tables.bands,
@@ -443,6 +688,19 @@ def log_mel_mixed(wav: Tensor, fbank: Tensor, cos: Optional[Tensor],
     _cuda.check_device("log_mel_mixed", wav)
     return _cuda.dispatch(log_mel_mixed_op, log_mel_mixed_kernel, wav, fbank, cos, sin,
                           window, plan, twiddles, bands, weights, hop, n_fft)
+
+
+def log_mel_bluestein(wav: Tensor, fbank: Tensor, cos: Optional[Tensor],
+                      sin: Optional[Tensor], premul: Tensor, chirp: Tensor, plan: Tensor,
+                      twiddles: Tensor, spectrum: Tensor, split: Tensor, bands: Tensor,
+                      weights: Tensor, hop: int, n_fft: int) -> Tensor:
+    """The Bluestein kernel: wav (B, samples) fp32 -> (B, frames, n_mels)
+    fp32, for the shapes ``log_mel_route`` gives "bluestein" (the plain
+    version, from cos/sin, for a CPU tensor)."""
+    _cuda.check_device("log_mel_bluestein", wav)
+    return _cuda.dispatch(log_mel_bluestein_op, log_mel_bluestein_kernel, wav, fbank,
+                          cos, sin, premul, chirp, plan, twiddles, spectrum, split,
+                          bands, weights, hop, n_fft)
 
 
 def log_mel_dft(wav: Tensor, cos: Tensor, sin: Tensor, fbank: Tensor,

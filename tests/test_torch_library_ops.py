@@ -50,6 +50,12 @@ def _block(causal, cin=8, cout=12):
     return type(w)(*(None if t is None else t.detach() for t in w))
 
 
+def _bluestein_args(wav, t):
+    """The arguments of ``mqgan::log_mel_bluestein`` from a config's tables."""
+    return (wav, t.fbank, t.cos, t.sin, t.premul, t.chirp, t.plan, t.twiddles,
+            t.spectrum, t.split, t.bands, t.weights, t.hop, t.n_fft)
+
+
 def _cases():
     """name -> (op, args, the plain version's outputs)."""
     rng = np.random.default_rng(0)
@@ -76,6 +82,9 @@ def _cases():
                                              hop_length=24, win_length=96,
                                              n_mel_channels=16, mel_fmax=8000.0), "cpu")
     odd = log_mel_tables(ODD_SPEC, "cpu")
+    even = log_mel_tables(SpectrogramConfig(sampling_rate=16000, filter_length=88,
+                                            hop_length=22, win_length=88,
+                                            n_mel_channels=16, mel_fmax=8000.0), "cpu")
     wav = _t(rng, B, 700)
     q, k, v = (_t(rng, B, T, 2, 8) for _ in range(3))
     o, lse = flash_attention_fwd_plain(q, k, v, 0.35)
@@ -121,6 +130,10 @@ def _cases():
                                               mixed.n_fft),
                           (log_mel_plain(wav, mixed.cos, mixed.sin, mixed.fbank,
                                          mixed.hop),)),
+        # odd n_fft 101 (JAX's frame count) and even 88 = 8 * 11
+        **{name: (ops.log_mel_bluestein, _bluestein_args(wav, t),
+                  (log_mel_plain(wav, t.cos, t.sin, t.fbank, t.hop),))
+           for name, t in (("log_mel_bluestein", odd), ("log_mel_bluestein_even", even))},
         "flash_fwd": (ops.flash_fwd, (q, k, v, 0.35), (o, lse)),
         # with inputs that require grad: the registered backward too
         "flash_fwd_grad": (ops.flash_fwd, tuple(t.clone().requires_grad_()
@@ -159,7 +172,8 @@ def test_every_kernel_entry_point_is_an_op():
     _cuda.load_ops()
     names = {"fsq_head", "residual_block", "residual_block_begin",
              "residual_block_finish", "mel_mixer", "mel_mixer_poly", "log_mel",
-             "log_mel_mixed", "log_mel_dft", "flash_fwd", "flash_bwd", "int8_conv"}
+             "log_mel_mixed", "log_mel_bluestein", "log_mel_dft", "flash_fwd",
+             "flash_bwd", "int8_conv"}
     for name in names:
         assert hasattr(torch.ops.mqgan, name), name
     # one CUDA implementation per C entry point
@@ -168,6 +182,7 @@ def test_every_kernel_entry_point_is_an_op():
                "residual_block_finish": "mqgan_residual_block_finish",
                "mel_mixer": "mqgan_mel_mixer", "mel_mixer_poly": "mqgan_mel_mixer_poly",
                "log_mel": "mqgan_log_mel", "log_mel_mixed": "mqgan_log_mel_mixed",
+               "log_mel_bluestein": "mqgan_log_mel_bluestein",
                "log_mel_dft": "mqgan_log_mel_dft",
                "int8_conv": "mqgan_int8_conv"}
     assert set(entries.values()) | {"mqgan_flash_fwd", "mqgan_flash_bwd_dq",
@@ -194,7 +209,8 @@ def test_fake_implementations_build_nothing():
 
 @pytest.mark.parametrize("samples", [700, 699])
 def test_fakes_give_jax_frame_count_at_odd_n_fft(samples):
-    """The fake implementations of ``mqgan::log_mel`` and ``mqgan::log_mel_dft``
+    """The fake implementations of ``mqgan::log_mel``, ``mqgan::log_mel_bluestein``
+    and ``mqgan::log_mel_dft``
     (the shapes a traced program records) give the frames of JAX's
     ``frame_signal`` at an odd n_fft, as the CPU implementations do:
     (samples - 1) // hop + 1, 14 at 700 samples (not 700 // 50 + 1)."""
@@ -208,6 +224,7 @@ def test_fakes_give_jax_frame_count_at_odd_n_fft(samples):
     assert want == (samples - 1) // 50 + 1
     cases = ((torch.ops.mqgan.log_mel, (wav, t.fbank, t.cos, t.sin, None, None, None,
                                          None, t.hop, t.n_fft)),
+             (torch.ops.mqgan.log_mel_bluestein, _bluestein_args(wav, t)),
              (torch.ops.mqgan.log_mel_dft, (wav, t.cos, t.sin, t.fbank, t.hop)))
     for op, args in cases:
         assert op(*args).shape == (2, want, 8)

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from mqgan_tpu_torch.core.config import SpectrogramConfig
-from mqgan_tpu_torch.ops.stft_kernels import (banded_fbank, fft_twiddles,
+from mqgan_tpu_torch.ops.stft_kernels import (banded_fbank, bluestein_length, fft_twiddles,
                                               log_mel, log_mel_plain,
                                               log_mel_route, log_mel_tables)
 from mqgan_tpu_torch.signal.mel import mel_filterbank
@@ -178,11 +178,12 @@ def test_route_is_mixed_for_even_n_fft_of_small_primes(n_fft):
     assert log_mel_route(n_fft, 256, 1) == "mixed"
 
 
-@pytest.mark.parametrize("n_fft", [2, 2050, 1201, 1, 15, 1202, 88, 8194, 16384, 10000])
+@pytest.mark.parametrize("n_fft", [2, 9605, 1, 9607, 14408, 14408 + 2, 16384, 20000,
+                                   16385, 32768])
 def test_route_is_dft_otherwise(n_fft):
-    """Below the mixed kernel's lower limit (2), odd (1201, 1, 15), a prime
-    factor above 7 in n_fft / 2 (2050 = 2 * 5^2 * 41, 1202 = 2 * 601, 88 =
-    8 * 11, 8194 = 2 * 17 * 241), past 8192 (16384, 10000)."""
+    """Below the Bluestein kernel's lower limit (2, 1), past its 14406-point
+    L: odd from 9605 (L >= 14407), even from 14408 (16384 and 32768 too:
+    past the FFT kernels' limits)."""
     assert log_mel_route(n_fft, 80, 300) == "dft"
 
 
@@ -208,9 +209,16 @@ def test_tables_hold_what_each_route_reads():
     assert tuple(mixed.plan.shape) == (5, 3) and tuple(mixed.twiddles.shape) == (1197, 2)
     assert tuple(mixed.window.shape) == (1200,) and tuple(mixed.bands.shape) == (80, 3)
     assert cpu.plan is None and card.plan is None
-    dft = log_mel_tables(SpectrogramConfig(filter_length=2050, hop_length=512,
-                                           win_length=2050), "meta")
-    assert dft.route == "dft" and dft.cos.shape == (2050, 1026) and dft.twiddles is None
-    assert dft.plan is None and dft.window is None
+    dft = log_mel_tables(SpectrogramConfig(filter_length=2, hop_length=1, win_length=2,
+                                           n_mel_channels=1, mel_fmax=11025.0), "meta")
+    assert dft.route == "dft" and dft.cos.shape == (2, 2) and dft.twiddles is None
+    assert dft.plan is None and dft.window is None and dft.bands is None
+    blue = log_mel_tables(SpectrogramConfig(filter_length=2050, hop_length=512,
+                                            win_length=2050), "meta")
+    length = bluestein_length(2050)
+    assert blue.route == "bluestein" and blue.cos is None and blue.window is None
+    assert blue.plan.shape[1] == 3 and blue.twiddles.dtype == torch.float64
+    assert tuple(blue.premul.shape) == (1025, 4) and tuple(blue.split.shape) == (1026, 2)
+    assert tuple(blue.spectrum.shape) == (length, 2) and blue.spectrum.dtype == torch.float64
     with pytest.raises(ValueError, match="tables are on meta"):
         log_mel(torch.zeros((1, 4096)), card)

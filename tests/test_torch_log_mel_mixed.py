@@ -29,7 +29,7 @@ from mqgan_tpu_torch.ops.stft_kernels import (log_mel, log_mel_plain, log_mel_ro
 from mqgan_tpu_torch.signal.mel import LOG_CLIP_VAL, MelFrontend
 from mqgan_tpu_torch.signal.stft import frame_count
 
-CU = Path(__file__).resolve().parents[1] / "mqgan_tpu_torch" / "csrc" / "log_mel_mixed.cu"
+CU = Path(__file__).resolve().parents[1] / "mqgan_tpu_torch" / "csrc" / "fft_radix.cuh"
 THREADS, MAX_POINTS = 256, 4096  # the kernel's kThreads, kMaxPoints
 N_FFTS = (1200, 1000, 800, 480, 1764, 128, 8192)
 ROOTS = {r: (np.cos(2 * np.pi * np.arange(r) / r).astype(np.float32),
@@ -258,7 +258,7 @@ def test_mel_frontend_at_odd_n_fft_matches_jax(samples):
     The port's MelFrontend gives JAX's shape and values; frames_for keeps
     JAX's formula."""
     cfg, jcfg = _spec(1201, hop_length=300, win_length=1201)
-    assert log_mel_route(1201, 80, 300) == "dft"
+    assert log_mel_route(1201, 80, 300) == "bluestein"
     wav = _wav(1, samples, 1201)
     fe, jfe = MelFrontend(cfg, device="cpu"), JaxMelFrontend(jcfg)
     got = fe(wav).numpy()

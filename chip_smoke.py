@@ -65,8 +65,14 @@ printing no result, without one. Phases (any failure exits non-zero):
     samples that hop 300 divides: JAX's frame count, one fewer than samples
     // hop + 1), at 2050 (n_fft / 2 = 5^2 * 41), at 1144 (11 * 13) and at 88
     on B=3 x 45 samples (reflected edges only); the DFT kernel at n_fft 9605
-    (odd, past the Bluestein kernel's L). Then the whole fp32 round trip
-    through the kernels against the same model on the CPU (plain versions);
+    (odd, past the Bluestein kernel's L). Then each route past 256 mels: 320
+    mels on the hifispeech spec (FFT), at n_fft 1200 (mixed), 1201
+    (Bluestein) and 9605 (DFT, on the cos/sin tables of the case before),
+    and 1025 mels on the hifispeech spec, whose filters of one or two bins
+    leave the fp32 plain version itself ~1e-4 off: there the kernel is held
+    to the float64 plain version within max(1e-4, the fp32 plain's own
+    error). Then the whole fp32 round trip through the kernels against the
+    same model on the CPU (plain versions);
  4. serve 12 concurrent clips of mixed lengths (100-512 frames) through
     CodecServer over the runtime (flagship GeneratorConfig defaults, 128
     mels, seeded weights, bf16, buckets 128/256/512) and check the results
@@ -105,7 +111,9 @@ printing no result, without one. Phases (any failure exits non-zero):
     design, and the torch.stft chain); row 4c, the Bluestein kernel at
     n_fft 2050 and 1201 on that batch (its L, the DFT kernel there, the
     row's earlier design, and the torch.stft chain); row 4d, the DFT kernel
-    at n_fft 9605 on phase 3's B=2 case; and print one JSON line of them; the log-mel kernel and
+    at n_fft 9605 on phase 3's B=2 case; each log-mel route at its rows'
+    shapes also at 320 mels (and the FFT route at 1025), beside its time at
+    the row's mels; and print one JSON line of them; the log-mel kernel and
     rows 4b and 4c are first held against their plain version in float64 at that
     batch (64 clips; max|k - p64| <= 1e-4, or no more than the fp32 plain
     version's own error, since fp32 rounding reaches ~1e-4 in the log
@@ -117,21 +125,29 @@ printing no result, without one. Phases (any failure exits non-zero):
  9. the three flash-attention kernels (forward, dQ, dK/dV) against their
     plain versions, fp32 (max|k - p| <= 1e-4 * max(1, max|p|), TF32 off)
     and bf16 (rel-L2 <= 2e-2), at T 1, 17, 128, 129, 2047 and head sizes
-    32, 64, 128 (B=2, H=4); at T=1 dq and dk are 0 by definition (one key)
-    and take the absolute gate in both dtypes; then the backward run twice
+    32, 40, 64, 96, 128 and 256 (B=2, H=4; 40 on tiles zero-filled to 64
+    columns, 256 with each block owning half the output columns); at T=1
+    dq and dk are 0 by definition (one key) and take the absolute gate in
+    both dtypes; at T=129, rows copied in 8-, 4- and 2-byte pieces (bf16 D
+    20, 6, 3) and a D=64 tensor one element off 16-byte alignment (one
+    element a copy), in both dtypes; then the backward run twice
     on the same inputs must give bit-identical dq, dk and dv (torch.equal),
     fp32 and bf16, T 129 and 2047, every head size: no kernel uses atomics;
 10. the token-LM training slice at the flagship width (MusicTransformer
     vocab 1003, 10 genres, emb 512, 6 layers, 8 heads, mlp 4x): one fp32
     step on the card through the kernels against the same step on the CPU
     through the plain path (loss and every gradient); the trainer CLI
-    (--arch transformer --flash_lm --bf16) for one epoch of 2047-token
-    chunks with 6 launches of each kernel per train step (the slice's main
-    path: counts reset just before, read just after); training tokens/s
+    (--arch transformer --flash_lm --bf16, the depth cut to LM_RUN_LAYERS
+    = 2 layers) for one epoch of 2047-token chunks with a launch of each
+    kernel per layer and train step (the slice's main path: counts reset
+    just before, read just after); training tokens/s
     (B * (L - 1) per step, bf16, dropout 0.1) at B=8 L=2048 and B=4 L=4096
     through the kernels, the plain attention and the SDPA yardstick, with
-    peak memory, and a torch.profiler split of one step; one --arch lstm
-    step at flagship width; the trainer's run dir is phase 12's
+    peak memory, and a torch.profiler split of one step; the --flash_lm
+    crossover: the same step at B=8 and L 256, 512, 1024 and 2048 through
+    the kernels and through the plain attention, the ratios printed beside
+    the trainer's FLASH_LM_CROSSOVER; one --arch lstm
+    step at flagship width; the trainer's run dir (2 layers) is phase 12's
     transformer;
 11. time the flash kernels at the flagship layer call (B=8, H=8, T=2047,
     D=64, bf16) beside their plain versions, their bounds (the function's
@@ -139,7 +155,8 @@ printing no result, without one. Phases (any failure exits non-zero):
     the plain versions there, and each kernel's rate on the products it
     does (2 forward, 3 dQ, 4 dK/dV) beside the charged bound; kernels and
     SDPA are timed in single calls (the kernels line) and in bursts of 10
-    calls (printed beside); print the kernels JSON line (twelve rows: the
+    calls (printed beside); the same at head sizes 40, 96 and 256 (printed,
+    not in the kernels line); print the kernels JSON line (twelve rows: the
     mixed-radix and DFT log-mel kernels' launches are phase 3's, the front
     end at the n_fft each takes, the only path that selects them);
 12. token-LM serving at the flagship widths, on the card (the transformer
@@ -150,13 +167,13 @@ printing no result, without one. Phases (any failure exits non-zero):
     stream or within twice that of it (a near-tie), both archs; (c) the
     key chain's uniforms bit-equal on CPU and card; (d) LMHTTPServer on
     localhost: 12 concurrent /generate requests (mixed genres, prompt
-    lengths 0-200, n 1-4, length 512, two groups of sampling knobs):
+    lengths 0-200, n 1-4, length 256, two groups of sampling knobs):
     shapes, token range, mean batch size > 1,
     /healthz, and no kernel launch (the decode path has none); (e) at an
     equal dispatch width a row's tokens do not depend on its position or
     neighbours (gated), and the rows served alone that differ from the same
     rows coalesced are printed, with the first step where each does (fp32
-    and bf16 KV, LSTM); (f) decode at B=64, prompt 0, L=512: ms/token,
+    and bf16 KV, LSTM); (f) decode at B=64, prompt 0, L=256: ms/token,
     tokens/s and the device's idle share at L=32 (fp32 KV, bf16 KV, LSTM);
 13. codec deployment at flagship width, seeded weights. First its kernels
     against their plain versions at the path's own shapes, fp32 and bf16 at
@@ -209,7 +226,7 @@ printing no result, without one. Phases (any failure exits non-zero):
     1e-4 * max(1, max|x|)); (d) ms/step, trained mel-frames/s (B*T per
     step) and peak memory of the warmup and the GAN step at B=16 T=256
     bf16 for fast and exact dropout, --remat and grad_accum 2 (2 warm-up,
-    5 timed steps, CUDA events); (e) a profile of one fast-dropout GAN
+    3 timed steps, CUDA events); (e) a profile of one fast-dropout GAN
     step: kernel groups, elementwise and optimizer kernels, the device
     span of each part of the step (gan/* ranges) and the idle share;
 15. vocoder training at full width (the vocoder trainer CLI's defaults:
@@ -253,7 +270,7 @@ printing no result, without one. Phases (any failure exits non-zero):
     decode true (counts reset just before, read just after): tokens in
     [2, 1000), each mel equal to ExportedPreEncoder.decode of its tokens,
     3 residual_block and 1 mel_mixer_poly launches per decode, no other;
-    (c) each artifact's replayed decode at B=64, prompt 0, L=512: ms per
+    (c) each artifact's replayed decode at B=64, prompt 0, L=256: ms per
     token beside 12f's eager figure, host synchronisations per dispatch
     (none in the loop), the idle share of an L=32 dispatch, the graphs'
     memory;
@@ -298,9 +315,10 @@ printing no result, without one. Phases (any failure exits non-zero):
     mel_mixer and 1 fsq_head per eval batch and rank 1 none (counts reset
     just before, read just after), rank 0 alone writing; then 4 epochs
     with a SIGTERM on both ranks at epoch 3's first step (one checkpoint,
-    both exit 0) and a two-rank rerun that resumes at epoch 4; (c) ms/step
+    both exit 0) and a rerun in the same two ranks that resumes at epoch
+    4; (c) ms/step
     and peak memory per rank of the 2 x 8 bf16 GAN step against the 1 x 16
-    step at B=16 T=256 (2 warm-up, 5 timed, CUDA events), the all-reduce's
+    step at B=16 T=256 (2 warm-up, 3 timed, CUDA events), the all-reduce's
     ms and bytes per step; (d) the flagship LSTM's stack pipelined, a
     layer a stage x 4 microbatches on the card, against the serial stack
     (fp32 within 1e-5 * max(1, max|x|), bf16 rel-L2 <= 2e-2, logits and
@@ -319,7 +337,8 @@ printing no result, without one. Phases (any failure exits non-zero):
     finite losses, no launch inside a train step, rank 0's plots and eval
     (on its own card) launching residual_block, mel_mixer and fsq_head,
     rank 1 none; SIGTERM at epoch 3's first step (one checkpoint) and a
-    rerun that resumes at epoch 4; (c) ms/step, peak and held memory per
+    rerun in the same ranks that resumes at epoch 4; (c) ms/step, peak and
+    held memory per
     rank of the bf16 GAN step with B=16 T=256 over 2 seq ranks against one
     process, and the halo exchanges' calls, bytes and ms in a synchronised
     step. These launch counts are printed on their own line and stay out
@@ -330,8 +349,9 @@ printing no result, without one. Phases (any failure exits non-zero):
     torch.library.opcheck on the card; the host's microseconds per call of
     the int8 conv's and the FSQ head's ops against their wrappers at the
     main path's shapes (the eager entry points call the wrappers); (b)
-    three exports through the CLI at buckets 128/512 (fp32 exact, bf16
-    poly-decode, bf16 poly-decode --int8_refiner), each one's programs
+    three artifacts at buckets 128/512 (phase 13's fp32 exact and bf16
+    poly-decode, which also hold 1024, and an export through the CLI of
+    bf16 poly-decode --int8_refiner), each one's programs
     called eagerly against the in-memory model on the kernels (tokens equal away from midpoints, the
     decode of the same tokens at phase 3's gates) at B=1 T=128, B=1 T=77,
     B=7 ragged and B=2 T=512, with the launches of one encode + decode (6
@@ -425,10 +445,21 @@ AUDIO_B, AUDIO_SAMPLES, AUDIO_ITERS = 64, 261_632, 3
 # phase 3's case of the DFT kernel, the only one its route gives it (clips,
 # samples, leading silence of clip 0), which phase 8 times as row 4d
 DFT_ONLY_BATCH = (2, 60_001, 12_000)
+# the DFT route's tables by (n_fft, window, hop), built once (log_mel_tables_at)
+DFT_TABLES: dict = {}
+# phase 8: each log-mel route also at these mels
+WIDE_MELS = (320, 1025)
 GL_ITERS = 32
 # flash attention: kernel vs plain at these sequence lengths and head sizes
 FLASH_TS = (1, 17, 128, 129, 2047)
-FLASH_DS = (32, 64, 128)
+FLASH_DS = (32, 40, 64, 96, 128, 256)
+# phase 11 times the kernels at these head sizes too (besides D=64): 40 and
+# 96 on zero-filled tiles of 64 and 96 columns, 256 split over two blocks
+FLASH_TIMED_DS = (40, 96, 256)
+# phase 9 also at rows the kernels copy in narrower pieces: (D, T, elements
+# the tensors start past an aligned address): 8-, 4- and 2-byte (bf16)
+# copies of D 20, 6 and 3, and D=64 one element off 16-byte alignment
+FLASH_NARROW = ((20, 129, 0), (6, 129, 0), (3, 129, 0), (64, 129, 1))
 # the JAX package calls JAX's library kernels (JAX 0.9.0,
 # jax/experimental/pallas/ops/tpu/flash_attention.py) from _attend_flash
 FLASH_REPLACES = {
@@ -444,10 +475,14 @@ FLASH_REPLACES = {
 LM = dict(vocab_size=1003, num_genres=10, emb_dim=512, n_layers=6, n_heads=8,
           mlp_ratio=4)
 LM_CHUNKS = 20
+# phase 10b's trainer CLI run at the flagship width with its depth cut from
+# 6 layers: phases 12 and 16 serve and export that run, whose eager decode
+# costs ~470 kernel launches a step at 6 layers
+LM_RUN_LAYERS = 2
 # phase 12, LM serving: the decode throughput shape, the HTTP traffic's
 # prompt grid (every prompt of 1..200 tokens shares one bucket, so that
 # mixed prompt lengths coalesce), and the logit gate card vs CPU
-SERVE_B, SERVE_L = 64, 512
+SERVE_B, SERVE_L = 64, 256
 SERVE_PROMPT_GRID = 256
 # 12f's dispatch by name: (its eager ms per token, its tokens), which 16c
 # prints beside the replayed decode's and holds the artifact's tokens to
@@ -455,6 +490,8 @@ EAGER_DECODE: dict = {}
 LOGIT_TOL = 1e-4
 LM_SHAPES = ((8, 2048), (4, 4096))
 LM_ITERS = 3
+# phase 10c, the --flash_lm crossover: the sequence lengths timed at B=8
+CROSSOVER_LS = (256, 512, 1024, 2048)
 # phase 11 also times each flash kernel and SDPA over bursts of this many calls
 FLASH_BURST = 10
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores,
@@ -476,7 +513,8 @@ def card_line() -> str:
 
 def _kernel_variant(mangled: str):
     """A compiled kernel's template arguments as printed: 'D=64' for a
-    flash kernel, 'bf16 taps=5' for a mixer kernel, 'fp32' etc."""
+    flash kernel ('D=64 any head' for its bf16 build for any head), 'bf16
+    taps=5' for a mixer kernel, 'fp32' etc."""
     if "poly_stats" in mangled or "poly_fit" in mangled:
         return None  # no template arguments
     if "conv_kernelILi" in mangled:  # the int8 conv's <BN, BK>
@@ -490,6 +528,8 @@ def _kernel_variant(mangled: str):
         arg = re.search(r"Li(\d+)E", mangled)
         return dtype + (f" taps={arg.group(1)}" if arg else "")
     d = re.search(r"ILi(\d+)E", mangled)
+    if d and "mma" in mangled:  # the bf16 flash kernels' <D, kAny>
+        return f"D={d.group(1)}" + (" any head" if "ELb1E" in mangled else "")
     return f"D={d.group(1)}" if d else None
 
 
@@ -1063,6 +1103,36 @@ def _log_mel_work(wav, cfg, fbank) -> tuple:
     return flops, nbytes, n
 
 
+def mels_config(cfg, n_mels: int):
+    """cfg with n_mels mels."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, n_mel_channels=n_mels)
+
+
+def log_mel_tables_at(cfg, device, cache: dict = DFT_TABLES):
+    """log_mel_tables(cfg, device), the DFT route's cos/sin tables taken from
+    ``cache`` when it holds them at cfg's n_fft, window and hop (only the
+    filterbank depends on n_mels there; at n_fft 9605 the tables take
+    seconds of host time)."""
+    import dataclasses
+
+    import torch
+
+    from mqgan_tpu_torch.ops.stft_kernels import log_mel_route, log_mel_tables
+    from mqgan_tpu_torch.signal.mel import mel_filterbank
+
+    key = (cfg.filter_length, cfg.win_length, cfg.hop_length)
+    if (log_mel_route(cfg.filter_length, cfg.n_mel_channels, cfg.hop_length) == "dft"
+            and key in cache):
+        fbank = torch.from_numpy(mel_filterbank(cfg).astype(np.float32)).to(device)
+        return dataclasses.replace(cache[key], fbank=fbank)
+    tables = log_mel_tables(cfg, device)
+    if tables.route == "dft":
+        cache[key] = tables
+    return tables
+
+
 def log_mel_mixed_row(device) -> "_KernelRow":
     """Phase 8, row 4b at its own shapes: the mixed-radix kernel at the two
     mixed configs on the audio trip's batch (AUDIO_B clips of
@@ -1189,8 +1259,7 @@ def log_mel_dft_row(device) -> "_KernelRow":
     an FFT per frame), its fp32 plain version and the torch.stft chain."""
     import torch
 
-    from mqgan_tpu_torch.ops.stft_kernels import (dft_mel_tables, log_mel,
-                                                  log_mel_plain, log_mel_tables)
+    from mqgan_tpu_torch.ops.stft_kernels import dft_mel_tables, log_mel, log_mel_plain
     from mqgan_tpu_torch.signal.stft import hann_window
 
     row = _KernelRow("log_mel_dft", "mqgan_tpu_torch/csrc/log_mel_dft.cu",
@@ -1201,7 +1270,7 @@ def log_mel_dft_row(device) -> "_KernelRow":
     wav[0, :quiet] = 0.0
     cfg = dft_only_config()
     hop, n_fft = cfg.hop_length, cfg.filter_length
-    tables = log_mel_tables(cfg, device)
+    tables = log_mel_tables_at(cfg, device)
     if tables.route != "dft":
         fail(f"row 4d: n_fft {n_fft} takes the {tables.route} route")
     cos, sin, fbank = tables.cos, tables.sin, tables.fbank
@@ -1227,6 +1296,41 @@ def log_mel_dft_row(device) -> "_KernelRow":
     return row
 
 
+def log_mel_mels_times(device) -> None:
+    """Phase 8: each log-mel route at its rows' shapes (row 4: the
+    hifispeech spec; 4b: mixed_configs; 4c: bluestein_configs; all on the
+    audio batch; 4d: dft_only_config on DFT_ONLY_BATCH) at the row's mels
+    and at WIDE_MELS (1025 on the FFT route only, whose n_fft 2048 has 1025
+    bins), CUDA events; printed beside each other, not in the kernels
+    line."""
+    import torch
+
+    from mqgan_tpu_torch.core.config import SpectrogramConfig
+    from mqgan_tpu_torch.ops.stft_kernels import log_mel
+
+    audio = _audio_batch(device, SEED + 5)
+    b, n, _ = DFT_ONLY_BATCH
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    short = 0.3 * torch.randn((b, n), generator=gen, device=device)
+    rows = (("4", SpectrogramConfig(), audio), ("4b", mixed_configs()[0], audio),
+            ("4b", mixed_configs()[1], audio), ("4c", bluestein_configs()[0], audio),
+            ("4c", bluestein_configs()[1], audio), ("4d", dft_only_config(), short))
+    for row, cfg, wav in rows:
+        times, route = [], None
+        for mels in (cfg.n_mel_channels, *WIDE_MELS):
+            at = mels_config(cfg, mels)
+            tables = log_mel_tables_at(at, device)
+            if mels == 1025 and tables.route != "fft":
+                continue
+            route = tables.route
+            reps = (5, 1) if route == "dft" else (10, 10)
+            times.append((mels, time_ms(lambda: log_mel(wav, tables), *reps)))
+        base = times[0][1]
+        print(f"  row {row} ({route}) n_fft={cfg.filter_length} B={wav.shape[0]} x "
+              f"{wav.shape[1]}: " + ", ".join(
+                  f"{mels} mels {ms:.4f} ms ({ms / base:.2f}x)" for mels, ms in times))
+
+
 def compare_log_mel(device) -> tuple:
     """Phase 3, log-mel: each kernel against its plain version (TF32 off);
     returns the largest |kernel - plain| and the launches of the mixed-radix,
@@ -1236,8 +1340,7 @@ def compare_log_mel(device) -> tuple:
 
     from mqgan_tpu_torch.core.config import SpectrogramConfig
     from mqgan_tpu_torch.ops import _cuda
-    from mqgan_tpu_torch.ops.stft_kernels import (dft_mel_tables, log_mel,
-                                                  log_mel_plain, log_mel_tables)
+    from mqgan_tpu_torch.ops.stft_kernels import dft_mel_tables, log_mel, log_mel_plain
     from mqgan_tpu_torch.signal.mel import LOG_CLIP_VAL
     from mqgan_tpu_torch.signal.stft import frame_count
 
@@ -1257,7 +1360,9 @@ def compare_log_mel(device) -> tuple:
     # one frame a block; the Bluestein kernel: odd n_fft with a sample count
     # that hop divides (JAX's frame count), a prime factor 41, primes 11 and
     # 13, 20 frames a block on reflected edges only; the DFT kernel: an odd
-    # n_fft past the Bluestein kernel's limit
+    # n_fft past the Bluestein kernel's limit; then each route past 256 mels
+    # (320, and 1025 on the FFT route's n_fft 2048, whose 1025 bins leave
+    # many filters empty), the DFT case on the 9605 tables of the one before
     cases = (("hifispeech", SpectrogramConfig(), 8, AUDIO_SAMPLES, 44_100, "log_mel"),
              ("hifispeech", SpectrogramConfig(), 1, 100_003, 0, "log_mel"),
              ("hifispeech edges", SpectrogramConfig(), 3, 1_025, 0, "log_mel"),
@@ -1282,11 +1387,23 @@ def compare_log_mel(device) -> tuple:
              ("44.1k n_fft=1144", spec(44100, 1144, 286, 128), 3, 20_001, 4_410,
               "log_mel_bluestein"),
              ("16k n_fft=88 edges", spec(16000, 88, 22, 40), 3, 45, 0, "log_mel_bluestein"),
-             ("44.1k n_fft=9605 odd", dft_only_config(), *DFT_ONLY_BATCH, "log_mel_dft"))
+             ("44.1k n_fft=9605 odd", dft_only_config(), *DFT_ONLY_BATCH, "log_mel_dft"),
+             ("hifispeech 320 mels", SpectrogramConfig(n_mel_channels=320), 2, 100_003,
+              8_000, "log_mel"),
+             ("hifispeech 1025 mels", SpectrogramConfig(n_mel_channels=1025), 2, 100_003,
+              8_000, "log_mel"),
+             ("44.1k n_fft=1200 320 mels", spec(44100, 1200, 300, 320), 2, 30_001, 4_410,
+              "log_mel_mixed"),
+             ("44.1k n_fft=1201 320 mels", spec(44100, 1201, 300, 320), 2, 30_001, 4_410,
+              "log_mel_bluestein"),
+             ("44.1k n_fft=9605 odd 320 mels", mels_config(dft_only_config(), 320),
+              *DFT_ONLY_BATCH, "log_mel_dft"))
     for label, cfg, b, n, quiet, kernel in cases:
         n_fft, hop = cfg.filter_length, cfg.hop_length
-        tables = log_mel_tables(cfg, device)
-        cos, sin, _ = (t.to(device) for t in dft_mel_tables(cfg))  # the plain version's
+        tables = log_mel_tables_at(cfg, device)
+        # the plain version's tables (the DFT route holds them already)
+        cos, sin = ((tables.cos, tables.sin) if tables.route == "dft" else
+                    (t.to(device) for t in dft_mel_tables(cfg)[:2]))
         wav = 0.3 * torch.randn((b, n), generator=gen, device=device)
         wav[0, :quiet] = 0.0
         # frames whose window sees only zeros: the last sample of frame t is
@@ -1297,16 +1414,27 @@ def compare_log_mel(device) -> tuple:
         launches = _cuda.COUNTERS.snapshot()
         want = log_mel_plain(wav, cos, sin, tables.fbank, hop)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
+        err, limit, against = float((got - want).abs().max()), 1e-4, "k-p"
+        if cfg.n_mel_channels > 256 and tables.route != "dft":
+            # past 256 mels, filters of a few bins, where the fp32 plain
+            # version is itself ~1e-4 off in the log domain (1.07e-4 at 1025
+            # mels on an H100): the float64 plain version is the reference,
+            # as for the 64-clip rows of phase 8 (the DFT route's float64
+            # tables at n_fft 9605 would cost seconds of host time)
+            ref = log_mel_plain(wav, *(x.to(device) for x in dft_mel_tables(
+                cfg, np.float64)), hop)
+            limit = max(1e-4, float((want - ref).abs().max()))
+            err, against = float((got - ref).abs().max()), "k-p64"
+            del ref
         exact = bool((got[0, :silent] == floor).all() and (want[0, :silent] == floor).all())
-        ok = (err <= 1e-4 and exact and launches == {kernel: 1}
+        ok = (err <= limit and exact and launches == {kernel: 1}
               and tuple(got.shape) == (b, frame_count(n, n_fft, hop), cfg.n_mel_channels))
         print(f"  {kernel:15s} {label} B={b} x {n}: {tuple(got.shape)} "
-              f"max|k-p| {err:.3e} (limit 1e-4), {silent} silent frames "
+              f"max|{against}| {err:.3e} (limit {limit:.3e}), {silent} silent frames "
               f"{'== log(1e-5)' if exact else 'NOT log(1e-5)'}, launches {launches} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"{kernel} {label} B={b}: max|k-p| {err:.3e}, silent exact {exact}, "
+            fail(f"{kernel} {label} B={b}: max|{against}| {err:.3e}, silent exact {exact}, "
                  f"launches {launches}")
         worst = max(worst, err)
         for name in routed:
@@ -1337,7 +1465,7 @@ def compare_flash(device) -> dict:
     import torch
 
     from mqgan_tpu_torch.ops.flash_attention import (
-        flash_attention_bwd, flash_attention_bwd_dkv_plain,
+        copy_width, flash_attention_bwd, flash_attention_bwd_dkv_plain,
         flash_attention_bwd_dq_plain, flash_attention_fwd,
         flash_attention_fwd_plain)
 
@@ -1375,6 +1503,29 @@ def compare_flash(device) -> dict:
                       f"{'; '.join(details)} {'FAIL' if bad else 'ok'}")
                 if bad:
                     fail(f"flash {dtype} D={d} T={t}: {bad}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for d, t, off in FLASH_NARROW:
+            def make():
+                buf = torch.randn(2 * t * 4 * d + off, generator=gen, device=device)
+                return buf.to(dtype)[off:].view(2, t, 4, d)
+            q, k, v, do = (make() for _ in range(4))
+            scale = d ** -0.5
+            width = copy_width(d, q, k, v, do)
+            o, lse = flash_attention_fwd(q, k, v, scale)
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, scale)
+            torch.cuda.synchronize()
+            want = (flash_attention_fwd_plain(q, k, v, scale)[0],
+                    flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale),
+                    *flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, scale))
+            judged = [_judge(label, got, w, dtype)
+                      for label, got, w in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
+                                               want)]
+            bad = [detail for ok, _, detail in judged if not ok]
+            print(f"  flash {str(dtype)[6:]:8s} D={d:3d} T={t:4d}, {width}-element "
+                  f"copies ({off} off alignment): {'; '.join(j[2] for j in judged)} "
+                  f"{'FAIL' if bad else 'ok'}")
+            if bad:
+                fail(f"flash {dtype} D={d} T={t} off {off}: {bad}")
     return errs
 
 
@@ -1958,6 +2109,7 @@ def kernel_times(model, device) -> list:
     bound = mel_row.add(ms, pms, flops, PEAK_FP32, nbytes)
     mixed_row, blue_row = log_mel_mixed_row(device), log_mel_bluestein_row(device)
     dft_row = log_mel_dft_row(device)
+    log_mel_mels_times(device)
     print(f"  log_mel N={n} n_fft={n_fft} F={n_freq} mels={n_mels}: {ms:.4f} ms "
           f"(roofline share {bound / ms:.3f}), the DFT kernel {dft_ms:.4f} ms at this "
           f"n_fft, plain "
@@ -2173,17 +2325,19 @@ def _write_chunks(root, n: int, length: int, seed: int) -> str:
 
 def lm_trainer_cli(counters, device, root) -> dict:
     """Phase 10b, the slice's main path: the trainer CLI (--arch transformer
-    --flash_lm --bf16, flagship defaults) for one epoch over LM_CHUNKS chunks
-    of 2047 tokens (input T = 2047): LM_CHUNKS - 2 train rows in steps of 8,
-    2 val rows; 6 launches of each flash kernel per train step, 6 forward
-    launches per val step. Its run dir, ``root``/run, is phase 12's
-    transformer. Returns the launch counts."""
+    --flash_lm --bf16, flagship widths, LM_RUN_LAYERS layers) for one epoch
+    over LM_CHUNKS chunks of 2047 tokens (input T = 2047): LM_CHUNKS - 2
+    train rows in steps of 8, 2 val rows; a launch of each flash kernel per
+    layer and train step, a forward launch per layer and val step. Its run
+    dir, ``root``/run, is phase 12's transformer. Returns the launch
+    counts."""
     from mqgan_tpu_torch.train import lstm_trainer
 
     n_val = max(1, int(0.1 * LM_CHUNKS))
     steps = -(-(LM_CHUNKS - n_val) // 8)
-    want = {"flash_fwd": 6 * (steps + 1), "flash_bwd_dq": 6 * steps,
-            "flash_bwd_dkv": 6 * steps}
+    layers = LM_RUN_LAYERS
+    want = {"flash_fwd": layers * (steps + 1), "flash_bwd_dq": layers * steps,
+            "flash_bwd_dkv": layers * steps}
     mapping = _write_chunks(root, LM_CHUNKS, 2047, SEED + 14)
     out = os.path.join(root, "run")
     counters.reset()
@@ -2191,13 +2345,14 @@ def lm_trainer_cli(counters, device, root) -> dict:
     lstm_trainer.main([
         "--chunks_dir", os.path.join(root, "chunks"), "--mapping_json", mapping,
         "--vocab_size", str(LM["vocab_size"]), "--num_genres", str(LM["num_genres"]),
-        "--arch", "transformer", "--flash_lm", "--bf16", "--batch_size", "8",
-        "--epochs", "1", "--log_every", "1", "--out_dir", out, "--device", str(device)])
+        "--arch", "transformer", "--flash_lm", "--bf16", "--n_layers", str(layers),
+        "--batch_size", "8", "--epochs", "1", "--log_every", "1", "--out_dir", out, "--device", str(device)])
     secs = time.perf_counter() - t0
     launches = counters.snapshot()
     with open(os.path.join(out, "best.json")) as f:
         best = json.load(f)
-    print(f"  trainer CLI: {steps} train + 1 val steps at B=8 L=2048 in {secs:.2f} s "
+    print(f"  trainer CLI: {layers} layers, {steps} train + 1 val steps at B=8 L=2048 "
+          f"in {secs:.2f} s "
           f"(set-up included), val loss {best['val_loss']:.4f}; launches {launches} "
           f"(want {want})")
     if launches != want:
@@ -2250,6 +2405,46 @@ def lm_throughput(device, counters, card) -> None:
             torch.cuda.empty_cache()
 
 
+def flash_crossover(device, card) -> None:
+    """Phase 10c: the --flash_lm crossover. The trainer's bf16 step
+    (forward, backward, clip + AdamW; dropout 0.1) of the flagship
+    transformer at B=8 and each L of CROSSOVER_LS, through the flash kernels
+    and through the plain attention (the trainer's route without the flag),
+    1 warm-up and LM_ITERS timed steps each, CUDA events, the two routes in
+    turn at each L; prints each ratio plain / flash (above 1: flash faster)
+    and the least L at which flash is no slower, beside the trainer's
+    FLASH_LM_CROSSOVER (the length below which it warns)."""
+    import torch
+
+    from mqgan_tpu_torch.train.lstm_trainer import (FLASH_LM_CROSSOVER, ClipAdamW,
+                                                    make_lstm_step)
+
+    steps = {}
+    for route in ("kernels", "plain"):
+        model = lm_model(device, torch.bfloat16, route, dropout=0.1)
+        tx = ClipAdamW(1e-3)
+        steps[route] = (make_lstm_step(model, tx, 0, train=True),
+                        tx.init(model.parameters()))
+    gen = torch.Generator().manual_seed(SEED)
+    ratios = {}
+    for length in CROSSOVER_LS:
+        data = [lm_batch(device, 8, length, SEED + 40 + i) for i in range(LM_ITERS + 1)]
+        ms = {}
+        for route, (step, state) in steps.items():
+            step(state, *data[0], gen)
+            ms[route] = time_ms(lambda: [step(state, *d, gen) for d in data[1:]],
+                                1) / LM_ITERS
+        ratios[length] = ms["plain"] / ms["kernels"]
+        print(f"  crossover B=8 L={length}: flash {ms['kernels']:.3f} ms/step, plain "
+              f"{ms['plain']:.3f} ms/step, plain / flash {ratios[length]:.3f} [{card}]")
+    crossover = next((n for n in CROSSOVER_LS if ratios[n] >= 1.0), None)
+    print(f"  flash no slower from L={crossover} of {CROSSOVER_LS}; the trainer warns "
+          f"below FLASH_LM_CROSSOVER = {FLASH_LM_CROSSOVER}, where this run's plain / "
+          f"flash is {ratios.get(FLASH_LM_CROSSOVER, float('nan')):.3f}")
+    del steps
+    torch.cuda.empty_cache()
+
+
 def lstm_step(device, card) -> None:
     """Phase 10e: one --arch lstm train step at flagship width (emb 512, 2
     layers of 1024, fp32, the trainer's default) at B=8, L=2048."""
@@ -2282,9 +2477,20 @@ def lstm_step(device, card) -> None:
 
 
 def flash_times(device, errs) -> list:
-    """Phase 11: the three flash kernels at the flagship layer call (B=8,
-    H=8, T=2047, D=64, bf16), first held against their plain versions
-    there. Bounds are the function's: a product of the causal pairs is
+    """Phase 11: the flash kernels' rows at the flagship layer call (D=64,
+    the kernels line's), then the same at the head sizes of FLASH_TIMED_DS
+    (printed only; their errors count in ``errs``)."""
+    rows = _flash_rows(device, errs, 64)
+    for d in FLASH_TIMED_DS:
+        print(f"  head size {d} (tiles of {-(-d // 32) * 32 if d <= 128 else d} columns"
+              f"{', the output split over two blocks' if d > 128 else ''}):")
+        _flash_rows(device, errs, d)
+    return rows
+
+
+def _flash_rows(device, errs, d: int) -> list:
+    """The three flash kernels at the layer call B=8, H=8, T=2047, head size
+    d, bf16, first held against their plain versions there. Bounds are the function's: a product of the causal pairs is
     2*B*H*D*T(T+1)/2 FLOP; the forward does 2, the backward of the function
     5 (S, dP, dV, dK, dQ), of which the dQ row is charged dQ and one of the
     two shared recomputations, the dK/dV row dV, dK and the other (the
@@ -2305,7 +2511,7 @@ def flash_times(device, errs) -> list:
         flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
         flash_attention_fwd, flash_attention_fwd_plain)
 
-    b, t, h, d = 8, 2047, 8, 64
+    b, t, h = 8, 2047, 8
     scale = d ** -0.5
     gen = torch.Generator(device=device).manual_seed(SEED + 16)
     q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device=device)
@@ -2350,7 +2556,7 @@ def flash_times(device, errs) -> list:
             ("flash_bwd_dkv", lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale),
              lambda: flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, scale), 3, 4,
              2.0 * 6 * elems + 2 * stats, "backward")):
-        row = _KernelRow(name, "mqgan_tpu_torch/csrc/flash_attention.cu", FLASH_REPLACES[name])
+        row = _KernelRow(name, "mqgan_tpu_torch/csrc/flash_attention.cuh", FLASH_REPLACES[name])
         ms = time_ms(fn, 20)
         burst = time_ms(fn, 10, FLASH_BURST)
         pms = time_ms(plain_fn, 3)
@@ -2522,7 +2728,7 @@ def compare_greedy(name, cpu, card, device) -> None:
 def serve_lm_http(run, device, counters, card) -> None:
     """Phase 12d: LMHTTPServer on localhost over the flagship transformer
     run: 12 concurrent /generate requests (mixed genres, prompt lengths
-    0..200, n 1..4, length 512, two groups of sampling knobs), on shapes
+    0..200, n 1..4, length SERVE_L, two groups of sampling knobs), on shapes
     not warmed up (the CPU tests cover the warm-up grid; on the card a
     shape's first run compiles nothing); shapes, token range (pad and BOS
     never drawn), mean batch size > 1, /healthz. The path runs none of the
@@ -2589,7 +2795,7 @@ def served_determinism(name, model, device, **extra) -> int:
     may pick another GEMM for another M). Returns the rows that differ."""
     import torch
 
-    p, length = 64, 64
+    p, length = 64, 32
     knobs = (1.0, 0, 0.95)
     rows = _serve_rows(8, p, SEED + 35)
     others = _serve_rows(4, p, SEED + 36)
@@ -2614,7 +2820,7 @@ def served_determinism(name, model, device, **extra) -> int:
 
 
 def decode_throughput(name, model, device, card, **extra) -> None:
-    """Phase 12f: one served dispatch at B=64, prompt 0, L=512 after an
+    """Phase 12f: one served dispatch at B=64, prompt 0, L=SERVE_L after an
     L=32 warm-up: ms per decode step (a token for each of the 64 rows),
     tokens/s, and the device's idle share: the profiler's device busy time
     of an L=32 dispatch against the same dispatch unprofiled (a longer one
@@ -3143,7 +3349,7 @@ def compare_bf16_artifact(rt, state) -> None:
     cpu = build_model("cpu", torch.bfloat16, poly_mixers=rt.model.poly_mixers, state=state)
     xt = torch.from_numpy(x)
     h_cpu = cpu._encode_trunk(xt, pad)
-    idx_cpu = cpu.encode(xt, pad)
+    idx_cpu = cpu._fsq_head(h_cpu)  # cpu.encode(xt, pad), its trunk run once
     mel_cpu = cpu.decode(idx_cpu, pad)
     h_card = rt.model._encode_trunk(xt.to(rt.device), pad.to(rt.device)).cpu()
     tokens = rt.encode(x, lengths)
@@ -3217,7 +3423,7 @@ def codec_deployment(state, device, counters, card, root=None) -> dict:
 TRAIN_CMP_B, TRAIN_CMP_T = 2, 128
 TRAIN_B, TRAIN_T = 16, 256
 TRAIN_CLIPS, TRAIN_CLIP_FRAMES = 96, (150, 1500)
-TRAIN_WARM, TRAIN_ITERS = 2, 5
+TRAIN_WARM, TRAIN_ITERS = 2, 3
 TRAIN_EVAL_BATCH = {"residual_block": 6, "mel_mixer": 2, "fsq_head": 1}
 
 
@@ -4451,12 +4657,12 @@ def compare_lm_artifact(name, out, run, device, kv=None) -> None:
 
 def lm_graph_decode(label, out, card) -> None:
     """Phase 16c: the artifact's decode at 12f's shape (B=64, prompt 0,
-    L=512, 12f's seeds, genres and vocab mask) through its CUDA graphs, on
+    L=SERVE_L, 12f's seeds, genres and vocab mask) through its CUDA graphs, on
     a runtime whose state buffers are sized for that shape first:
     the capturing dispatch's tokens equal 12f's eager served sampler's and
     a replay's; ms per token of 3 dispatches after the capturing one (host
     clock, tokens to the host), beside 12f's; host synchronisations per
-    dispatch at L=32 and L=512 (CUDA sync debug mode; none more at L=512:
+    dispatch at L=32 and L=SERVE_L (CUDA sync debug mode; none more there:
     none in the loop); the idle share of an L=32 dispatch (the profiler's
     busy time against the same dispatch unprofiled, as 12f takes it); the
     graphs' memory: the state buffers and what the capturing dispatch
@@ -4984,6 +5190,7 @@ DP_CMP_B, DP_CMP_T, DP_CMP_STEPS = 4, 128, 3
 DP_CMP_LENGTHS = (128, 128, 97, 0)
 DP_PROBE = 2  # steps whose reductions are synchronised and timed
 DP_TIMEOUT_S = 600
+ONE_PROCESS: dict = {}  # (b, t) -> the one-process step's _timed_steps
 PIPE_B, PIPE_L, PIPE_MICRO, PIPE_ITERS = 8, 256, 4, 3
 PIPE_CHUNKS = 24
 PIPE_LSTM = dict(emb_dim=512, lstm_hid=1024, lstm_layers=2)  # the CLI's defaults
@@ -5228,42 +5435,12 @@ def _dp_step_rank(rank, world, device, times_b, times_t):
     return out
 
 
-def _one_process_step_times(device, b, t) -> tuple:
-    """18c's reference: the bf16 GAN step of one process on the whole b x t
-    batch (ms per step, peak GB)."""
-    import torch
-
-    from mqgan_tpu_torch.train.step import make_train_step
-
-    cfg = gan_config(False)
-    state = gan_state(cfg, device, dtype=torch.bfloat16)
-    step = make_train_step(cfg, train_d=True, dtype=torch.bfloat16)
-    batches = [_dp_batch(device, b, t, [t] * b, SEED + 61 + i)
-               for i in range(TRAIN_WARM + TRAIN_ITERS)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for mel, lengths in batches[:TRAIN_WARM]:
-        step(state, mel, lengths)
-    times = []
-    for mel, lengths in batches[TRAIN_WARM:]:
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        step(state, mel, lengths)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    del state, step, batches
-    torch.cuda.empty_cache()
-    return times, peak
-
-
-def _dp_trainer_rank(rank, world, device, cfg_path, sig_cfg_path, resume, extra=()):
+def _dp_trainer_rank(rank, world, device, cfg_path, sig_cfg_path, extra=()):
     """Phase 18b (and 19b, with ``extra`` CLI arguments) on one rank: the
     trainer CLI (``--multihost`` in the launcher's group) with its launches
     counted, in train steps and in all; then, run on to 4 epochs, a SIGTERM
-    to this process at its first step of epoch 3. With ``resume``: the
-    rerun of that run."""
+    to this process at its first step of epoch 3; then the rerun of that
+    run, in the same ranks (a launch of fresh ranks costs ~25 s)."""
     import signal
 
     import torch
@@ -5304,9 +5481,6 @@ def _dp_trainer_rank(rank, world, device, cfg_path, sig_cfg_path, resume, extra=
 
     trainer_mod.make_train_step, trainer_mod.make_eval_step = counting_step, counting_eval
     try:
-        if resume:
-            t = cli(sig_cfg_path)
-            return {"start_epoch": t.start_epoch, "step": t.state.step}
         counters.reset()
         t = cli(cfg_path)
         out = {"launches": counters.snapshot(), "eval": seen["eval"],
@@ -5317,6 +5491,9 @@ def _dp_trainer_rank(rank, world, device, cfg_path, sig_cfg_path, resume, extra=
         t = cli(sig_cfg_path)
         out.update(stopped=t._stop_requested, stop_step=t.state.step,
                    files_after_signal=sorted(os.listdir(t.config.data.output_dir)))
+        seen["signal_at"] = None
+        t = cli(sig_cfg_path)
+        out.update(start_epoch=t.start_epoch, step=t.state.step)
         del t
         torch.cuda.empty_cache()
         return out
@@ -5328,7 +5505,7 @@ def dp_step_check(device, card) -> None:
     """Phases 18a and 18c: DP_RANKS ranks (``launch``) against one process."""
     from mqgan_tpu_torch.parallel import multihost
 
-    ref_ms, ref_peak = _one_process_step_times(device, TRAIN_B, TRAIN_T)
+    ref_ms, ref_peak, _, _ = _one_process_times(device, TRAIN_B, TRAIN_T)
     devices = _dp_devices()
     t0 = time.perf_counter()
     ranks = multihost.launch(_dp_step_rank, devices, (TRAIN_B, TRAIN_T),
@@ -5382,11 +5559,9 @@ def dp_trainer_check(device, card) -> dict:
             json.dump(cfg, f)
         devices = _dp_devices()
         t0 = time.perf_counter()
-        ranks = multihost.launch(_dp_trainer_rank, devices,
-                                 (cfg_path, sig_path, False), timeout_s=DP_TIMEOUT_S)
+        ranks = multihost.launch(_dp_trainer_rank, devices, (cfg_path, sig_path),
+                                 timeout_s=DP_TIMEOUT_S)
         secs = time.perf_counter() - t0
-        resumed = multihost.launch(_dp_trainer_rank, devices,
-                                   (cfg_path, sig_path, True), timeout_s=DP_TIMEOUT_S)
         with open(os.path.join(root, "run", "train_metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
     finally:
@@ -5400,7 +5575,7 @@ def dp_trainer_check(device, card) -> dict:
     ckpts = [f for f in r0["files"] if f.startswith("checkpoint_epoch_")]
     new = sorted(set(r0["files_after_signal"]) - set(r0["files"]))
     print(f"  18b trainer CLI on {devices}: {r0['steps']} steps a rank (B="
-          f"{cfg['data']['batch_size']} global), {secs:.1f} s for both runs; rank 0 "
+          f"{cfg['data']['batch_size']} global), {secs:.1f} s for the three runs; rank 0 "
           f"{r0['eval']} eval batches, launches {r0['launches']} (want {want}), rank 1 "
           f"launches {r1['launches']} ({r1['eval']} eval batches); launches inside "
           f"train steps {r0['step_launches']} / {r1['step_launches']}; ranks bit-equal "
@@ -5408,9 +5583,9 @@ def dp_trainer_check(device, card) -> dict:
           f"{len(train_recs)} train records (want {2 * logged}), checkpoints {ckpts}")
     print(f"  18b SIGTERM at each rank's first step of epoch 3: stopped "
           f"{r0['stopped']} / {r1['stopped']} at step {r0['stop_step']} / "
-          f"{r1['stop_step']}, new files {new}; the rerun resumed at epoch "
-          f"{resumed[0]['start_epoch']} / {resumed[1]['start_epoch']} and ended at step "
-          f"{resumed[0]['step']} [{card}]")
+          f"{r1['stop_step']}, new files {new}; the rerun (same ranks) resumed at "
+          f"epoch {r0['start_epoch']} / {r1['start_epoch']} and ended at step "
+          f"{r0['step']} [{card}]")
     ok = (finite and r0["checksum"] == r1["checksum"] and r0["launches"] == want
           and not r1["launches"] and r1["eval"] == 0
           and not r0["step_launches"] and not r1["step_launches"]
@@ -5421,7 +5596,7 @@ def dp_trainer_check(device, card) -> dict:
         fail("phase 18b: the data-parallel trainer CLI's run is wrong")
     if (not (r0["stopped"] and r1["stopped"]) or new != ["checkpoint_epoch_003.pt"]
             or r0["stop_step"] != r1["stop_step"]
-            or [r["start_epoch"] for r in resumed] != [4, 4]):
+            or [r["start_epoch"] for r in ranks] != [4, 4]):
         fail("phase 18b: SIGTERM did not stop both ranks with one checkpoint, "
              "or the rerun did not resume")
     return r0["launches"]
@@ -5746,22 +5921,24 @@ def _seq_step_rank(rank, world, device, labels, times_b, times_t):
     return out
 
 
-def _seq_reference_times(device, b, t):
-    """19c's reference: the bf16 GAN step of one process on the whole b x t
-    batch."""
+def _one_process_times(device, b, t) -> tuple:
+    """18c's and 19c's reference, measured once: the bf16 GAN step of one
+    process on the whole b x t batch (_timed_steps' ms, peak GB, held GB,
+    finite)."""
     import torch
 
     from mqgan_tpu_torch.train.step import make_train_step
 
-    cfg = gan_config(False)
-    state = gan_state(cfg, device, dtype=torch.bfloat16)
-    step = make_train_step(cfg, train_d=True, dtype=torch.bfloat16)
-    batches = [_dp_batch(device, b, t, [t] * b, SEED + 61 + i)
-               for i in range(TRAIN_WARM + TRAIN_ITERS)]
-    out = _timed_steps(step, state, batches)
-    del state, step, batches
-    torch.cuda.empty_cache()
-    return out
+    if (b, t) not in ONE_PROCESS:
+        cfg = gan_config(False)
+        state = gan_state(cfg, device, dtype=torch.bfloat16)
+        step = make_train_step(cfg, train_d=True, dtype=torch.bfloat16)
+        batches = [_dp_batch(device, b, t, [t] * b, SEED + 61 + i)
+                   for i in range(TRAIN_WARM + TRAIN_ITERS)]
+        ONE_PROCESS[b, t] = _timed_steps(step, state, batches)
+        del state, step, batches
+        torch.cuda.empty_cache()
+    return ONE_PROCESS[b, t]
 
 
 def seq_step_check(device, card) -> None:
@@ -5769,8 +5946,8 @@ def seq_step_check(device, card) -> None:
     one process."""
     from mqgan_tpu_torch.parallel import multihost
 
-    ref_ms, ref_peak, ref_base, ref_finite = _seq_reference_times(device, TRAIN_B,
-                                                                  TRAIN_T)
+    ref_ms, ref_peak, ref_base, ref_finite = _one_process_times(device, TRAIN_B,
+                                                                TRAIN_T)
     fmt = lambda e: ", ".join(f"{k} {v:.2e}" for k, v in e.items())  # noqa: E731
     ok, times = ref_finite, None
     for world in (2, 4):
@@ -5850,12 +6027,8 @@ def seq_trainer_check(device, card) -> dict:
         devices = _seq_devices(2)
         t0 = time.perf_counter()
         ranks = multihost.launch(_dp_trainer_rank, devices,
-                                 (cfg_path, sig_path, False, extra),
-                                 timeout_s=DP_TIMEOUT_S)
+                                 (cfg_path, sig_path, extra), timeout_s=DP_TIMEOUT_S)
         secs = time.perf_counter() - t0
-        resumed = multihost.launch(_dp_trainer_rank, devices,
-                                   (cfg_path, sig_path, True, extra),
-                                   timeout_s=DP_TIMEOUT_S)
         with open(os.path.join(root, "run", "train_metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
     finally:
@@ -5870,7 +6043,7 @@ def seq_trainer_check(device, card) -> dict:
     evals = [r for r in recs if "eval_recon_post_mse" in r]
     print(f"  19b trainer CLI --seq_par 2 on {devices}: {r0['steps']} steps a rank (B="
           f"{cfg['data']['batch_size']}, crops {cfg['data']['crop_len']}, each rank "
-          f"half of every crop), {secs:.1f} s for both runs; rank 0 launches "
+          f"half of every crop), {secs:.1f} s for the three runs; rank 0 launches "
           f"{r0['launches']} ({r0['eval']} eval-step calls: plot batches and eval "
           f"clips; {len(evals)} evals logged), "
           f"rank 1 launches {r1['launches']}; launches inside train steps "
@@ -5880,9 +6053,9 @@ def seq_trainer_check(device, card) -> dict:
           f"checkpoints {ckpts}")
     print(f"  19b SIGTERM at each rank's first step of epoch 3: stopped "
           f"{r0['stopped']} / {r1['stopped']} at step {r0['stop_step']} / "
-          f"{r1['stop_step']}, new files {new}; the rerun resumed at epoch "
-          f"{resumed[0]['start_epoch']} / {resumed[1]['start_epoch']} and ended at step "
-          f"{resumed[0]['step']} [{card}]")
+          f"{r1['stop_step']}, new files {new}; the rerun (same ranks) resumed at "
+          f"epoch {r0['start_epoch']} / {r1['start_epoch']} and ended at step "
+          f"{r0['step']} [{card}]")
     ok = (finite and r0["checksum"] == r1["checksum"] and evals
           and all(r0["launches"].get(k, 0) > 0 for k in SEQ_EVAL_KERNELS)
           and not r1["launches"] and r1["eval"] == 0
@@ -5894,7 +6067,7 @@ def seq_trainer_check(device, card) -> dict:
         fail("phase 19b: the sequence-parallel trainer CLI's run is wrong")
     if (not (r0["stopped"] and r1["stopped"]) or new != ["checkpoint_epoch_003.pt"]
             or r0["stop_step"] != r1["stop_step"]
-            or [r["start_epoch"] for r in resumed] != [4, 4]):
+            or [r["start_epoch"] for r in ranks] != [4, 4]):
         fail("phase 19b: SIGTERM did not stop both ranks with one checkpoint, "
              "or the rerun did not resume")
     return r0["launches"]
@@ -6126,24 +6299,23 @@ def op_dispatch(device, state, card) -> None:
     torch.cuda.empty_cache()
 
 
-def _artifact_exports(root) -> dict:
-    """Phase 20b: the export CLI at flagship width, buckets ARTIFACT_BUCKETS:
-    fp32 exact, bf16 poly-decode (the CLI default) and bf16 poly-decode with
-    --int8_refiner; name -> (directory, export seconds)."""
+def _artifact_exports(root, deploy_root) -> dict:
+    """Phase 20b: phase 13's fp32 exact and bf16 poly-decode (the CLI
+    default) artifacts, which hold ARTIFACT_BUCKETS, and the export CLI at
+    flagship width, buckets ARTIFACT_BUCKETS, of bf16 poly-decode with
+    --int8_refiner; name -> (directory, export seconds or None)."""
     from mqgan_tpu_torch.deploy import export
 
+    out = {name: (os.path.join(deploy_root, f"exp_{name}"), None)
+           for name in ("fp32", "bf16")}
     cfg = os.path.join(root, "flagship20.json")
     with open(cfg, "w") as f:
         json.dump({"model": {"mel_channels": MELS, "generator": DEPLOY_GENERATOR}}, f)
-    buckets = [str(b) for b in ARTIFACT_BUCKETS]
-    out = {}
-    for name, flags in (("fp32", ["--exact_mixers"]), ("bf16", ["--bf16"]),
-                        ("int8", ["--bf16", "--int8_refiner"])):
-        d = os.path.join(root, f"exp20_{name}")
-        t0 = time.perf_counter()
-        export.main(["--config", cfg, "--seed", str(SEED), "--output", d,
-                     "--buckets", *buckets, *flags])
-        out[name] = (d, time.perf_counter() - t0)
+    d = os.path.join(root, "exp20_int8")
+    t0 = time.perf_counter()
+    export.main(["--config", cfg, "--seed", str(SEED), "--output", d, "--buckets",
+                 *map(str, ARTIFACT_BUCKETS), "--bf16", "--int8_refiner"])
+    out["int8"] = (d, time.perf_counter() - t0)
     return out
 
 
@@ -6171,7 +6343,7 @@ def _program_round_trip(rt, model, x, lengths, bucket, counters):
     return idx[:, :t].cpu().numpy(), mel[:, :t].float().cpu().numpy(), launches, pad
 
 
-def artifact_programs(root, state, device, counters, card) -> dict:
+def artifact_programs(root, deploy_root, state, device, counters, card) -> dict:
     """Phase 20b: each artifact's loaded programs against the in-memory
     model on the kernels (tokens equal away from midpoints, the mel at
     phase 13's gates) and the launches of one round trip through them;
@@ -6182,7 +6354,7 @@ def artifact_programs(root, state, device, counters, card) -> dict:
     from mqgan_tpu_torch.deploy.runtime import ExportedPreEncoder
     from mqgan_tpu_torch.models.preencoder import PreEncoder
 
-    dirs = _artifact_exports(root)
+    dirs = _artifact_exports(root, deploy_root)
     fp32 = build_model(device, torch.float32, state=state)
     rts = {}
     for name, (d, secs) in dirs.items():
@@ -6196,8 +6368,10 @@ def artifact_programs(root, state, device, counters, card) -> dict:
                                        int8_refiner=m["int8_refiner"])
         model.load_state_dict(state)
         model = model.to(device).eval()
-        print(f"  20b export {name}: {secs:.1f} s, platforms {m['platforms']}, files "
-              f"{m['files']['128']}, {sizes / 1e6:.0f} MB of programs")
+        made = "phase 13's" if secs is None else f"{secs:.1f} s"
+        print(f"  20b export {name}: {made}, buckets {m['buckets']}, platforms "
+              f"{m['platforms']}, files {m['files']['128']}, {sizes / 1e6:.0f} MB of "
+              f"programs")
         want_launches = {"residual_block": 6, "fsq_head": 1,
                          "mel_mixer": 2 if not m["poly_mixers"] else 1}
         if m["poly_mixers"]:
@@ -6682,7 +6856,7 @@ def traced_artifacts(state, device, counters, card, deploy_root) -> tuple:
     root = tempfile.mkdtemp(prefix="chip_smoke_artifact_")
     try:
         counters.reset()
-        rts = artifact_programs(root, state, device, counters, card)
+        rts = artifact_programs(root, deploy_root, state, device, counters, card)
         lap("b")
         graph_replay(rts, ExportedPreEncoder(os.path.join(deploy_root, "exp_bf16")), card)
         torch.cuda.synchronize()
@@ -6809,6 +6983,7 @@ def main() -> None:
             launches.update(lm_trainer_cli(counters, device, lm_root))
             print(f"[10c] training throughput, bf16 [{card}] {at()}")
             lm_throughput(device, counters, card)
+            flash_crossover(device, card)
             print(f"[10e] --arch lstm [{card}]")
             lstm_step(device, card)
         print(f"[11] flash kernel times at the flagship layer call [{card}] {at()}")

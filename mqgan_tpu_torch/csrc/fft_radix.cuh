@@ -129,7 +129,10 @@ __device__ __forceinline__ float reflected(const float* __restrict__ clip,
 // the banded mel, the clamp and the exact logf of frames [0, last) of the
 // block from mag[f * stride + k]: a thread per (frame, mel), mels of one
 // frame on neighbouring threads (the stores coalesce), the band [lo, hi) of
-// nonzero weights summed in a fixed order (no atomics, deterministic)
+// nonzero weights summed in a fixed order (no atomics, deterministic). The
+// walk steps the index f * n_mels + mel by kThreads: df whole frames and dm
+// mels, with one carry when mel passes n_mels (dm < n_mels), so it covers
+// every pair at any n_mels; past kThreads mels df is 0 and dm kThreads.
 __device__ __forceinline__ void mel_log(const float* mag, const int* __restrict__ bands,
                                         const float* __restrict__ weights,
                                         float* __restrict__ out, int n0, int last,

@@ -37,11 +37,13 @@
 // current one is consumed; samples past n_fft in the last stage read as
 // zeros); each thread holds an 8-frame x 4-bin tile of both re and im, so
 // the magnitude is formed in registers. The magnitudes go to shared memory
-// and are projected onto the filterbank into a (64, n_mels) accumulator
-// held in shared memory, each element owned by one thread: no atomics, the
-// result is deterministic. After the last tile the clamp and the log are
-// applied and the tile is written once. F = n_fft/2+1 is not padded: loads
-// past F read zeros.
+// and are projected onto the filterbank, each thread owning whole mel
+// columns of the block's 64 output rows: it adds each tile's sums to the
+// rows in device memory (in registers, 64 at a time), and after the last
+// tile writes the clamp and the log there. No atomics, so the result is
+// deterministic, and shared memory does not grow with n_mels (any n_mels;
+// a (64, n_mels) accumulator in shared memory passed an H100 block's 227
+// KB past 795 mels). F = n_fft/2+1 is not padded: loads past F read zeros.
 // Exact sqrtf and logf: the library is built without --use_fast_math.
 
 #include <cuda_runtime.h>
@@ -72,7 +74,6 @@ log_mel_dft_kernel(const float* __restrict__ wav, const float* __restrict__ cosw
   float* c_s = a_s + kTileK * kAStride;          // [kTileK][kTileF]
   float* s_s = c_s + kTileK * kTileF;            // [kTileK][kTileF]
   float* mag_s = s_s + kTileK * kTileF;          // [kTileN][kTileF]
-  float* out_s = mag_s + kTileN * kTileF;        // [kTileN][n_mels]
 
   const int tid = threadIdx.x;
   const int tx = tid % (kTileF / kCols);  // bins tx*4 .. tx*4+3
@@ -125,8 +126,6 @@ log_mel_dft_kernel(const float* __restrict__ wav, const float* __restrict__ cosw
       s_s[(b_kk + 2 * r) * kTileF + b_f] = s_reg[r];
     }
   };
-
-  for (int i = tid; i < kTileN * n_mels; i += kThreads) out_s[i] = 0.0f;
 
   const int n_ftiles = (n_freq + kTileF - 1) / kTileF;
   const int n_ksteps = (n_fft + kTileK - 1) / kTileK;
@@ -187,12 +186,17 @@ log_mel_dft_kernel(const float* __restrict__ wav, const float* __restrict__ cosw
     __syncthreads();
 
     // out[n][m] += sum_f mag[n][f] * fbank[f0 + f][m]: each thread owns
-    // whole columns m of the accumulator
+    // whole columns m of the block's rows, summed in device memory across
+    // the tiles (the first starts from 0, the last writes the log)
     const int f_len = min(kTileF, n_freq - f0);
+    const int n_rows = min(kTileN, n_total - n0);
+    const bool last = ft + 1 == n_ftiles;
     for (int m = tid; m < n_mels; m += kThreads) {
+      float* col = out + static_cast<size_t>(n0) * n_mels + m;
       float acc[kTileN];
 #pragma unroll
-      for (int n = 0; n < kTileN; ++n) acc[n] = out_s[n * n_mels + m];
+      for (int n = 0; n < kTileN; ++n)
+        acc[n] = ft > 0 && n < n_rows ? col[static_cast<size_t>(n) * n_mels] : 0.0f;
       for (int f = 0; f < f_len; f += 4) {
         float w[4];
 #pragma unroll
@@ -212,15 +216,10 @@ log_mel_dft_kernel(const float* __restrict__ wav, const float* __restrict__ cosw
         }
       }
 #pragma unroll
-      for (int n = 0; n < kTileN; ++n) out_s[n * n_mels + m] = acc[n];
-    }
-  }
-
-  // the thread that accumulated each element also finishes it
-  for (int m = tid; m < n_mels; m += kThreads) {
-    for (int n = 0; n < kTileN && n0 + n < n_total; ++n) {
-      out[static_cast<size_t>(n0 + n) * n_mels + m] =
-          logf(fmaxf(out_s[n * n_mels + m], kLogClip));
+      for (int n = 0; n < kTileN; ++n) {
+        if (n < n_rows)
+          col[static_cast<size_t>(n) * n_mels] = last ? logf(fmaxf(acc[n], kLogClip)) : acc[n];
+      }
     }
   }
 }
@@ -234,8 +233,7 @@ extern "C" int mqgan_log_mel_dft(const void* wav_pad, const void* cosw,
                                  int n_freq, int n_mels, void* stream) {
   const int n_total = n_clips * frames_per_clip;
   const size_t smem =
-      sizeof(float) * (kTileK * kAStride + 2 * kTileK * kTileF +
-                       kTileN * kTileF + static_cast<size_t>(kTileN) * n_mels);
+      sizeof(float) * (kTileK * kAStride + 2 * kTileK * kTileF + kTileN * kTileF);
   cudaError_t err = cudaFuncSetAttribute(
       log_mel_dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

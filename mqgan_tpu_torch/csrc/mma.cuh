@@ -1,5 +1,5 @@
 // Tensor-core and async-copy helpers shared by the bf16 kernels
-// (flash_attention.cu, residual_block.cu): cp.async into shared memory,
+// (flash_attention.cuh, residual_block.cu): cp.async into shared memory,
 // ldmatrix, mma.sync m16n8k16 (bf16 in, fp32 accumulate) and the
 // per-lane offsets of their fragments.
 //
@@ -28,11 +28,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// cp.async of 16 (or 4) bytes from global to shared memory; with !in nothing
-// is read and the destination is zero-filled
+// cp.async of 16 (or 8, or 4) bytes from global to shared memory; with !in
+// nothing is read and the destination is zero-filled
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(in ? 8 : 0));
 }
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),

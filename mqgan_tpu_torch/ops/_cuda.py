@@ -46,7 +46,8 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("fsq_head.cu", "residual_block.cu", "mel_mixer.cu", "log_mel.cu",
            "log_mel_mixed.cu", "log_mel_bluestein.cu", "log_mel_dft.cu",
-           "flash_attention.cu", "int8_conv.cu")
+           "flash_attention.cu", "flash_attention_wide.cu", "flash_attention_any.cu",
+           "flash_attention_any_wide.cu", "int8_conv.cu")
 # no --use_fast_math: the FSQ head needs exact tanhf and the mixer its
 # exact-grade z tanh z (it writes its ex2/rcp.approx instructions itself;
 # tanh.approx's 2^-11 flips FSQ codes on the encode side), the log-mel
@@ -94,12 +95,14 @@ _SIGNATURES = {
     # wav_pad, cos, sin, fbank, out, n_clips, frames_per_clip, row_stride,
     # hop, n_fft, n_freq, n_mels, stream
     "mqgan_log_mel_dft": (_PTR,) * 5 + (_INT,) * 7 + (_PTR,),
-    # q, k, v, o, lse, B, T, H, D, is_bf16, scale, stream
-    "mqgan_flash_fwd": (_PTR,) * 5 + (_INT,) * 5 + (_FLT, _PTR),
-    # q, k, v, o, do, lse, delta, dq, B, T, H, D, is_bf16, scale, stream
-    "mqgan_flash_bwd_dq": (_PTR,) * 8 + (_INT,) * 5 + (_FLT, _PTR),
-    # q, k, v, do, lse, delta, dk, dv, B, T, H, D, is_bf16, scale, stream
-    "mqgan_flash_bwd_dkv": (_PTR,) * 8 + (_INT,) * 5 + (_FLT, _PTR),
+    # q, k, v, o, lse, B, T, H, D, elements a copy, is_bf16, scale, stream
+    "mqgan_flash_fwd": (_PTR,) * 5 + (_INT,) * 6 + (_FLT, _PTR),
+    # q, k, v, o, do, lse, delta, dq, B, T, H, D, elements a copy, is_bf16,
+    # scale, stream
+    "mqgan_flash_bwd_dq": (_PTR,) * 8 + (_INT,) * 6 + (_FLT, _PTR),
+    # q, k, v, do, lse, delta, dk, dv, B, T, H, D, elements a copy, is_bf16,
+    # scale, stream
+    "mqgan_flash_bwd_dkv": (_PTR,) * 8 + (_INT,) * 6 + (_FLT, _PTR),
     # x, wq, sw, bias, amax, xq, out, B, H, W, Cin, Cout, is_bf16,
     # accumulators, bn, bk, stages, box_w, box_h, smem_bytes, stream
     "mqgan_int8_conv": (_PTR,) * 7 + (_INT,) * 13 + (_PTR,),

@@ -8,10 +8,14 @@ the JAX library flash attention that ``mqgan_tpu/models/token_transformer.py``
 
 q, k, v and o are (B, T, H, D) as the attention module holds them; the
 kernels read and write that layout in place (no transpose, no pad to a tile
-multiple). ``causal_attention`` is the op ``mqgan::flash_fwd`` with its
-backward ``mqgan::flash_bwd`` (``torch.library.register_autograd``): on a
+multiple, and no padded copy of a head size: the kernels zero-fill the
+columns past D in their own loads). They take every D from 1 to 128 and D =
+256 (``head_size_ok``), the sizes JAX's TPU kernel takes up to 256 (below
+128, or a multiple of 128); a larger D raises. ``causal_attention`` is the
+op ``mqgan::flash_fwd`` with its backward ``mqgan::flash_bwd``
+(``torch.library.register_autograd``): on a
 CUDA tensor they launch the hand-written kernels of
-``csrc/flash_attention.cu`` (forward ``flash_fwd``, backward
+``csrc/flash_attention.cuh`` (forward ``flash_fwd``, backward
 ``flash_bwd_dq`` then ``flash_bwd_dkv``) or raise; on a CPU tensor they are
 the plain versions ``flash_attention_fwd_plain`` /
 ``flash_attention_bwd_plain`` (whose halves, ``flash_attention_bwd_dq_plain``
@@ -26,7 +30,7 @@ from torch import Tensor
 
 from mqgan_tpu_torch.ops import _cuda
 
-HEAD_DIMS = (32, 64, 128)
+MAX_HEAD = 256  # the largest head size the kernels take (and 1..128)
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -88,24 +92,42 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
             *flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, scale))
 
 
+def head_size_ok(d: int) -> bool:
+    """Whether the kernels take head size d: 1..128 or 256. JAX's TPU
+    kernel also takes the multiples of 128 past 256, which the port does
+    not (ROADMAP.md Queue 3)."""
+    return 1 <= d <= 128 or d == MAX_HEAD
+
+
+def copy_width(d: int, *tensors: torch.Tensor) -> int:
+    """Elements a kernel copy moves: the widest of 16, 8, 4 and 2 bytes (one
+    element at least) that divides a row of d elements and every tensor's
+    address. 16 bytes is the kernels' fast path."""
+    size = tensors[0].element_size()
+    for nbytes in (16, 8, 4, 2):
+        if (nbytes >= size and d * size % nbytes == 0
+                and all(x.data_ptr() % nbytes == 0 for x in tensors)):
+            return nbytes // size
+    return 1
+
+
 def _check_cuda(name: str, *tensors: torch.Tensor) -> tuple:
     """Raise unless every tensor is a contiguous (B, T, H, D) CUDA tensor of
-    the first one's shape and dtype (bf16 or fp32, D in HEAD_DIMS, 16-byte
-    aligned); returns (B, T, H, D)."""
+    the first one's shape and dtype (bf16 or fp32, ``head_size_ok(D)``);
+    returns (B, T, H, D)."""
     first = tensors[0]
     if first.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {first.device}")
     if first.dim() != 4:
         raise ValueError(f"{name}: expected (B, T, H, D), got {tuple(first.shape)}")
     b, t, h, d = first.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head size {d} has no kernel (supported: "
-                         f"{', '.join(map(str, HEAD_DIMS))})")
+    if not head_size_ok(d):
+        raise ValueError(f"{name}: head size {d} has no kernel (1..128 and "
+                         f"{MAX_HEAD}; JAX's TPU kernel takes larger multiples of "
+                         f"128, not ported: ROADMAP.md Queue 3)")
     for i, x in enumerate(tensors):
         _cuda.check(x, f"{name} input {i}", dtype=first.dtype,
                     shape=first.shape, device=first.device)
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} input {i}: not 16-byte aligned")
     _cuda.cuda_dtype_flag(first.dtype)
     return b, t, h, d
 
@@ -121,7 +143,8 @@ def flash_attention_fwd(q, k, v, scale: float):
     if t and b * h:
         pt = _cuda.ptr
         _cuda.launch("mqgan_flash_fwd", q.device, pt(q), pt(k), pt(v), pt(o),
-                     pt(lse), b, t, h, d, _cuda.cuda_dtype_flag(q.dtype), scale)
+                     pt(lse), b, t, h, d, copy_width(d, q, k, v, o),
+                     _cuda.cuda_dtype_flag(q.dtype), scale)
         _cuda.COUNTERS.add("flash_fwd")
     return o, lse
 
@@ -136,6 +159,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, scale: float):
         pt = _cuda.ptr
         _cuda.launch("mqgan_flash_bwd_dq", q.device, pt(q), pt(k), pt(v), pt(o),
                      pt(do), pt(lse), pt(delta), pt(dq), b, t, h, d,
+                     copy_width(d, q, k, v, o, do, dq),
                      _cuda.cuda_dtype_flag(q.dtype), scale)
         _cuda.COUNTERS.add("flash_bwd_dq")
     return dq, delta
@@ -152,6 +176,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float):
         pt = _cuda.ptr
         _cuda.launch("mqgan_flash_bwd_dkv", q.device, pt(q), pt(k), pt(v), pt(do),
                      pt(lse), pt(delta), pt(dk), pt(dv), b, t, h, d,
+                     copy_width(d, q, k, v, do, dk, dv),
                      _cuda.cuda_dtype_flag(q.dtype), scale)
         _cuda.COUNTERS.add("flash_bwd_dkv")
     return dk, dv

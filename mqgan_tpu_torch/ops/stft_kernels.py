@@ -69,7 +69,6 @@ MIXED_BLOCK_POINTS = 2048  # its FFT points per block: whole frames up to this
 # one fp64 buffer of 16 B a point (225 KB at 14406), at most
 BLUESTEIN_MIN, BLUESTEIN_MAX_POINTS = 3, 14406
 BLUESTEIN_BLOCK_POINTS = 2048  # its L points per block: whole frames up to this
-MAX_MELS = 256  # all kernels: the DFT kernel's (64, n_mels) accumulator
 PLAIN_CHUNK = 8192  # frames per matmul in the plain version
 
 
@@ -121,12 +120,12 @@ def bluestein_length(n_fft: int) -> int:
 
 def log_mel_route(n_fft: int, n_mels: int, hop: int) -> str:
     """"fft", "mixed", "bluestein" or "dft": the kernel that computes this
-    shape on the card; raises ValueError for a shape none takes."""
+    shape on the card (every kernel takes any n_mels); raises ValueError
+    for a shape none takes."""
     if n_fft <= 0:
         raise ValueError(f"log_mel: n_fft {n_fft} must be positive")
-    if not 0 < n_mels <= MAX_MELS or hop <= 0:
-        raise ValueError(f"log_mel: n_mels {n_mels} (1..{MAX_MELS}) or hop "
-                         f"{hop} out of range")
+    if n_mels <= 0 or hop <= 0:
+        raise ValueError(f"log_mel: n_mels {n_mels} and hop {hop} must be positive")
     if n_fft & (n_fft - 1) == 0 and FFT_MIN <= n_fft <= FFT_MAX:
         return "fft"
     if (n_fft % 2 == 0 and MIXED_MIN <= n_fft <= MIXED_MAX

@@ -14,7 +14,7 @@ Usage: python -m mqgan_tpu_torch.train.lstm_trainer --chunks_dir D
        [--arch transformer --flash_lm --bf16 ...]
 
 ``--flash_lm`` on a card runs the transformer's attention through the
-hand-written flash kernels (``csrc/flash_attention.cu``). ``--pipe N
+hand-written flash kernels (``csrc/flash_attention.cuh``). ``--pipe N
 --pipe_micro M`` pipelines the LSTM stack (``parallel/pipeline.py``: one
 layer a stage, N == --lstm_layers, a GPipe schedule of M microbatches;
 equal values and gradients); stage i runs on visible card i mod count, so
@@ -44,6 +44,19 @@ from mqgan_tpu_torch.utils.torch_import import (import_music_lstm_params,
                                                 strip_module_prefix)
 
 LEN_BUCKETS = (64, 128, 256, 512, 1024, 2048)
+# The --flash_lm speed crossover on the card: the least sequence length at
+# which the bf16 train step of the flagship transformer (B=8) through the
+# flash kernels is no slower than through the plain attention, the route
+# without the flag (chip_smoke.py phase 10c times both at L 256, 512, 1024
+# and 2048 and prints the ratios on every run). Measured on an "NVIDIA H100
+# 80GB HBM3, 700.00 W" (nvidia-smi's name and power limit), plain / flash
+# step time in three runs: 0.968, 0.946, 1.003 at L=256; 0.809, 0.797,
+# 1.236 at 512; 1.117, 0.998, 1.124 at 1024; 1.589, 1.305, 1.352 at 2048.
+# Below 2048 both steps take 54-84 ms whatever L, bound by the host, so the
+# least L at which flash is no slower moves between runs: this is the
+# least at which the median ratio is. The trainer warns when the data's
+# longest sequence is below it.
+FLASH_LM_CROSSOVER = 1024
 PRETRAINED_SOURCES = ("pass a .pt state_dict written by this trainer, the "
                       "reference MusicLSTM's .pth/.pt (--arch lstm), or an "
                       ".npz of a flattened JAX param tree; orbax dirs need "
@@ -183,6 +196,19 @@ def load_pretrained(model, path: str) -> None:
     model.load_state_dict(sd)
 
 
+def warn_flash_below_crossover(ds: MusicChunkDataset) -> None:
+    """Warn when --flash_lm meets data whose longest sequence (the longest
+    chunk plus BOS) is below FLASH_LM_CROSSOVER: flash trains correctly
+    there, but its gain below the crossover is memory, not speed."""
+    longest = 1 + max(np.load(path, mmap_mode="r").shape[0] for path, _ in ds.items)
+    if longest < FLASH_LM_CROSSOVER:
+        print(f"WARNING: --flash_lm engaged but the longest training sequence is "
+              f"{longest} tokens — below the measured L~{FLASH_LM_CROSSOVER} speed "
+              f"crossover vs the plain attention on an H100 (PERF.md). Expect a "
+              f"slower step; keep the flag only if attention memory is the "
+              f"constraint.")
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train a genre-conditioned token LM.")
     p.add_argument("--chunks_dir", default="musicmels")
@@ -271,6 +297,8 @@ def main(argv=None):
     val_size = max(1, int(args.val_split * len(ds)))
     val_idx, train_idx = perm[:val_size].tolist(), perm[val_size:].tolist()
     print(f"Split: {len(train_idx)} train / {len(val_idx)} val")
+    if args.flash_lm and args.arch == "transformer":
+        warn_flash_below_crossover(ds)
 
     # both archs train with dropout 0.1 (reference train_music_lstm_v2.py:158)
     model = build_token_lm(vars(args), dropout=0.1,

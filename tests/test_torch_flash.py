@@ -16,8 +16,8 @@ from jax.experimental.pallas.ops.tpu.flash_attention import (
 
 from mqgan_tpu_torch.ops import _cuda
 from mqgan_tpu_torch.ops.flash_attention import (
-    causal_attention, flash_attention_bwd, flash_attention_bwd_plain,
-    flash_attention_fwd, flash_attention_fwd_plain)
+    causal_attention, copy_width, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_fwd, flash_attention_fwd_plain, head_size_ok)
 
 # fp32 on the CPU, the same function summed in other orders
 TOL = 1e-5
@@ -32,10 +32,18 @@ def _bhtd(x):
     return jnp.asarray(np.transpose(x, (0, 2, 1, 3)))
 
 
-@pytest.mark.parametrize("t", [1, 7, 37, 130])
-def test_plain_forward_matches_jax_reference(rng, t):
-    q, k, v = _inputs(rng, t)
-    scale = D ** -0.5
+# (T, D): D = 8 at four lengths, then the head sizes the kernels take by
+# zero-filling their tiles (16, 40, 80: not a multiple of 32; 96 = 768 / 8
+# heads) and the one they split across two blocks (256)
+T_D = ([pytest.param(t, D, id=str(t)) for t in (1, 7, 37, 130)]
+       + [pytest.param(t, d, id=f"{t}-d{d}")
+          for t, d in ((37, 16), (130, 40), (37, 80), (130, 96), (37, 256))])
+
+
+@pytest.mark.parametrize("t,d", T_D)
+def test_plain_forward_matches_jax_reference(rng, t, d):
+    q, k, v = _inputs(rng, t, d)
+    scale = d ** -0.5
     want = np.transpose(np.asarray(mha_reference(
         _bhtd(q), _bhtd(k), _bhtd(v), None, causal=True, sm_scale=scale)),
         (0, 2, 1, 3))
@@ -43,17 +51,17 @@ def test_plain_forward_matches_jax_reference(rng, t):
         mha_reference_no_custom_vjp, causal=True, sm_scale=scale,
         save_residuals=True))(_bhtd(q), _bhtd(k), _bhtd(v))
     o, lse = flash_attention_fwd_plain(*map(torch.from_numpy, (q, k, v)), scale)
-    assert o.shape == (B, t, H, D) and lse.shape == (B, H, t)
+    assert o.shape == (B, t, H, d) and lse.shape == (B, H, t)
     np.testing.assert_allclose(o.numpy(), want, atol=TOL, rtol=TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(m + jnp.log(l)),
                                atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("t", [1, 7, 37, 130])
-def test_plain_backward_matches_jax_vjp(rng, t):
-    q, k, v = _inputs(rng, t)
-    do = rng.standard_normal((B, t, H, D)).astype(np.float32)
-    scale = D ** -0.5
+@pytest.mark.parametrize("t,d", T_D)
+def test_plain_backward_matches_jax_vjp(rng, t, d):
+    q, k, v = _inputs(rng, t, d)
+    do = rng.standard_normal((B, t, H, d)).astype(np.float32)
+    scale = d ** -0.5
 
     # the library's reference VJP takes sm_scale=1 only: scale q inside
     def ref(qq, kk, vv):
@@ -76,7 +84,8 @@ def _naive(q, k, v, scale):
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
 
 
-@pytest.mark.parametrize("t,d", [(1, 8), (37, 8), (130, 32)])
+@pytest.mark.parametrize("t,d", [(1, 8), (37, 8), (130, 32), (37, 16), (130, 40),
+                                 (37, 80), (130, 96), (37, 256)])
 def test_autograd_op_matches_naive_autograd_fp64(rng, t, d):
     q, k, v = (torch.from_numpy(x).requires_grad_()
                for x in _inputs(rng, t, d, np.float64))
@@ -114,3 +123,18 @@ def test_wrappers_take_plain_on_cpu_and_refuse_other_devices(rng):
         flash_attention_fwd(meta, meta, meta, 0.5)
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention_bwd(meta, meta, meta, meta, meta, meta, 0.5)
+
+
+def test_head_sizes_and_copy_widths():
+    """The kernels take D 1..128 and 256 (JAX's TPU kernel: below 128 or a
+    multiple of 128; past 256 refused), and copy rows in the widest of 16,
+    8, 4, 2 bytes that a row and every address allow."""
+    assert all(head_size_ok(d) for d in (*range(1, 129), 256))
+    assert not any(head_size_ok(d) for d in (0, 129, 200, 255, 384, 512))
+    x = torch.zeros(4096, dtype=torch.bfloat16)
+    rows = lambda d, off=0: x[off:off + 2 * d].view(1, 1, 2, d)  # noqa: E731
+    assert [copy_width(d, rows(d)) for d in (64, 40, 96, 20, 6, 3)] == [8, 8, 8, 4, 2, 1]
+    assert copy_width(40, rows(40), rows(40, 2)) == 2  # a 4-byte address
+    assert copy_width(40, rows(40, 1)) == 1
+    y = torch.zeros(4096, dtype=torch.float32)
+    assert [copy_width(d, y[:2 * d].view(1, 1, 2, d)) for d in (40, 6, 3)] == [4, 2, 1]

@@ -1,5 +1,5 @@
 """PyTorch port: the tiling of the bf16 flash-attention backward kernels
-(``csrc/flash_attention.cu`` ``flash_bwd_dq_mma`` and ``flash_bwd_dkv_mma``)
+(``csrc/flash_attention.cuh`` ``flash_bwd_dq_mma`` and ``flash_bwd_dkv_mma``)
 replayed in torch on the CPU and held against the plain backward.
 
 The replay follows the kernels' decomposition, not their lane layouts:

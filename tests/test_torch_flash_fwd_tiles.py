@@ -1,5 +1,5 @@
 """PyTorch port: the tiling of the bf16 flash-attention forward kernel
-(``csrc/flash_attention.cu`` ``flash_fwd_mma``) replayed in torch on the CPU
+(``csrc/flash_attention.cuh`` ``flash_fwd_mma``) replayed in torch on the CPU
 and held against the plain forward.
 
 The replay follows the kernel's decomposition, not its lane layout: 64-row

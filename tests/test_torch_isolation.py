@@ -85,6 +85,17 @@ lm_art = export_lm.export_music_lm(
     MusicLSTM(vocab_size=8, num_genres=2, emb_dim=4, lstm_hid=4, lstm_layers=1),
     art + "/lm", gen_buckets=(4,), prompt_buckets=(1,), score_buckets=(4,),
     verify=False)
+import importlib.util
+
+
+def example(name):
+    # the port's example script examples/<name>.py as a module
+    spec = importlib.util.spec_from_file_location(name, f"examples/{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 entries = {
     "exported": lambda: runtime.ExportedPreEncoder(art),
     "vocoder_artifact": lambda: ISTFTNetFE.load_ts(voc_art).gen,
@@ -102,6 +113,14 @@ entries = {
                                             art + "/out", "--model_dir", art]),
     "export_main": lambda: export.main(["--manifest", art, "--seed", "0",
                                         "--output", art + "/again"]),
+    "serving_demo_torch": lambda: example("serving_demo_torch").main(
+        ["--model_dir", art]),
+    "music_continuation_torch": lambda: example("music_continuation_torch").main(
+        ["--model_dir", art, "--lm_run", art, "--out", art + "/cont.npy"]),
+    "audio_reconstruction_demo_torch": lambda: example(
+        "audio_reconstruction_demo_torch").main(
+        ["--wav", art + "/in.wav", "--out", art + "/out.wav", "--spec_config",
+         art + "/spec.yaml", "--model_dir", art]),
 }
 result["entries"] = {}
 for name, entry in entries.items():
@@ -124,6 +143,8 @@ for name, entry in entries.items():
         result["entries"][name] = "ran on the CPU"
     except RuntimeError as e:
         result["entries"][name] = str(e)
+result["bad_after_entries"] = sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "mqgan_tpu"))
 shutil.rmtree(art, ignore_errors=True)
 print(json.dumps(result))
 """
@@ -155,11 +176,11 @@ def test_port_imports_nothing_of_jax_and_does_not_fall_back():
                  "nn.norm", "nn.pooling", "signal.qc", "parallel.dp",
                  "parallel.multihost", "parallel.pipeline"):
         assert f"mqgan_tpu_torch.{name}" in result["modules"]
-    assert result["bad"] == []
+    assert result["bad"] == [] and result["bad_after_entries"] == []
     assert result["trainer_device"] == "cuda"
     assert result["gan_trainer_device"] == "cuda"
     assert result["vocoder_trainer_device"] == "cuda"
-    assert len(result["entries"]) == 11
+    assert len(result["entries"]) == 14
     if result["cuda"]:
         assert result["default_device"].startswith("cuda")
         assert result["mel_device"].startswith("cuda")
@@ -174,11 +195,9 @@ def test_port_imports_nothing_of_jax_and_does_not_fall_back():
         assert "CUDA is not available" in result["vocoder_trainer_device_error"]
 
 
-def test_chip_smoke_imports_nothing_of_jax():
-    """Every import statement of chip_smoke.py, at any depth (it imports
-    the port inside its functions), names no JAX module and nothing of the
-    JAX package."""
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+def _imported_names(path: str) -> list:
+    """Every module an import statement of the file names, at any depth."""
+    with open(os.path.join(REPO, path)) as f:
         tree = ast.parse(f.read())
     names = []
     for node in ast.walk(tree):
@@ -186,7 +205,27 @@ def test_chip_smoke_imports_nothing_of_jax():
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
             names.append(node.module or "")
+    return names
+
+
+def _jax_names(names: list) -> list:
+    return [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax", "mqgan_tpu")]
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """Every import statement of chip_smoke.py, at any depth (it imports
+    the port inside its functions), names no JAX module and nothing of the
+    JAX package."""
+    names = _imported_names("chip_smoke.py")
     assert "mqgan_tpu_torch.ops" in names  # it does import the port
-    bad = [n for n in names
-           if n.split(".")[0] in ("jax", "jaxlib", "flax", "mqgan_tpu")]
-    assert bad == []
+    assert _jax_names(names) == []
+
+
+def test_port_examples_import_nothing_of_jax():
+    """The same for the port's examples (examples/*_torch.py), which the
+    probe above also runs to their first device check."""
+    for name in ("serving_demo_torch", "music_continuation_torch",
+                 "audio_reconstruction_demo_torch"):
+        names = _imported_names(f"examples/{name}.py")
+        assert any(n.startswith("mqgan_tpu_torch.") for n in names), name
+        assert _jax_names(names) == [], name

@@ -167,3 +167,38 @@ def test_cli_trains_writes_best_json_and_follows_the_jax_batch_order(
         lstm_trainer.main(common + ["--pretrained", str(tmp_path / "orbax_dir")])
     with pytest.raises(SystemExit, match="transformer is not pipelined"):
         lstm_trainer.main(common + ["--pipe", "2"])
+
+
+def test_cli_flash_lm_warns_below_the_crossover(tmp_path, rng, capsys):
+    """--flash_lm on data whose longest sequence (chunk + BOS) is below the
+    card's measured crossover warns, as the JAX trainer does at its own; at
+    the crossover, or without the flag, it does not."""
+    short = _chunks_dir(tmp_path, rng, n=6)
+    long_root = tmp_path / "long"
+    os.makedirs(long_root)
+    crossover = lstm_trainer.FLASH_LM_CROSSOVER
+    mapping = {}
+    for i, n in enumerate((crossover - 1, 40, 30, 20, 10, 5)):
+        np.save(long_root / f"c{i}.npy", rng.integers(2, VOCAB, n).astype(np.int32))
+        mapping[f"c{i}.npy"] = i % GENRES
+    with open(tmp_path / "long.json", "w") as f:
+        json.dump(mapping, f)
+    common = ["--device", "cpu", "--vocab_size", str(VOCAB), "--num_genres", str(GENRES),
+              "--arch", "transformer", "--emb_dim", "16", "--n_layers", "1",
+              "--n_heads", "2", "--batch_size", "6", "--epochs", "1"]
+    runs = ((short, ["--flash_lm"]), ((str(long_root), str(tmp_path / "long.json")),
+                                      ["--flash_lm"]), (short, []))
+    warned = []
+    for i, ((chunks, mapping_json), flags) in enumerate(runs):
+        lstm_trainer.main(common + flags + ["--chunks_dir", chunks, "--mapping_json",
+                                            mapping_json, "--out_dir",
+                                            str(tmp_path / f"run{i}")])
+        out = capsys.readouterr().out
+        warned.append("WARNING: --flash_lm engaged" in out)
+        if warned[-1]:
+            longest = 1 + max(np.load(p).shape[0] for p in
+                              (os.path.join(chunks, n) for n in json.load(
+                                  open(mapping_json))))
+            assert f"longest training sequence is {longest} tokens" in out
+            assert f"L~{crossover}" in out
+    assert warned == [True, False, False]

@@ -188,8 +188,8 @@ def test_route_is_dft_otherwise(n_fft):
 
 
 @pytest.mark.parametrize("n_fft,n_mels,hop", [(-1200, 80, 300), (0, 80, 300),
-                                              (2048, 0, 512), (2048, 257, 512),
-                                              (1200, 300, 300), (2048, 128, 0)])
+                                              (2048, 0, 512), (2048, -257, 512),
+                                              (1200, 300, -300), (2048, 128, 0)])
 def test_route_rejects_what_no_kernel_takes(n_fft, n_mels, hop):
     with pytest.raises(ValueError):
         log_mel_route(n_fft, n_mels, hop)

@@ -102,6 +102,31 @@ def test_transformer_logits_and_grads_match_jax_fp32(rng, t):
                                    rtol=GRAD_TOL, err_msg=name)
 
 
+def test_transformer_flash_at_head_size_96_matches_jax_fp32(rng):
+    """Head size 96 (emb 96, one head; 768 / 8 heads is the same D), which
+    the CUDA kernels take by zero-filling 96-column tiles: one layer of the
+    port's flash route (its plain versions on the CPU) against JAX's
+    attention on the CPU (its XLA path: the TPU kernel does not run
+    there), loss, logits and gradients."""
+    tf = dict(TF, emb_dim=96, n_heads=1, n_layers=1)
+    tokens, genres, targets = _batch(rng, 37)
+    jmodel = JaxTransformer(**tf, dropout=0.0, flash=False)
+    tree = _jax_tree(jmodel, rng)
+    want_logits, jgrads = _jax_logits_and_grads(jmodel, tree, tokens, genres, targets)
+    model = _port(MusicTransformer, tree, **tf, dropout=0.0, flash=True)
+    assert model.blocks[0].attn.features // model.blocks[0].attn.n_heads == 96
+    logits, grads = _port_logits_and_grads(model, tokens, genres, targets)
+    loss, _ = masked_ce_loss(logits, torch.from_numpy(targets))
+    want_loss = jax_masked_ce(jnp.asarray(want_logits), jnp.asarray(targets))[0]
+    np.testing.assert_allclose(float(loss), float(want_loss), atol=LOGIT_TOL,
+                               rtol=LOGIT_TOL)
+    np.testing.assert_allclose(logits.numpy(), want_logits, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    want = state_dict_from_jax(jgrads, model)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL, err_msg=name)
+
+
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))

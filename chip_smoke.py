@@ -18,10 +18,12 @@ printing no result, without one. Phases (any failure exits non-zero):
  2. build the hand-written CUDA kernels from mqgan_tpu_torch/csrc (nvcc,
     sm_90a) and print the build time, the ptxas register report and a
     summary of registers and spills of the mma.sync kernels
-    (flash_fwd_mma, flash_bwd_dq_mma, flash_bwd_dkv_mma per head size,
-    conv_gemm_mma), of the int8 conv's wgmma kernel per (BN, BK) and of
-    the mixer kernels (the exact kernel per dtype and
-    tap count, the Chebyshev mode's five kernels), and, from
+    (flash_fwd_mma, flash_bwd_dq_mma, flash_bwd_dkv_mma per head size and
+    their D-chunked kernels, with the fp32 ones; conv_gemm_mma per copy
+    width), of the int8 conv's wgmma kernel per (BN, BK), of the FSQ head
+    per (dtype, d, copy) and of the mixer kernels (the exact kernel per
+    dtype and tap count, and its P-slice build, the Chebyshev mode's five
+    kernels), and, from
     cuobjdump -sass of the built library, the MUFU, FP32 and other
     instructions per evaluation in the mixers' inner loops;
  3. hold each kernel against its plain PyTorch version on the same inputs,
@@ -38,7 +40,13 @@ printing no result, without one. Phases (any failure exits non-zero):
     blocks, two mixers and FSQ head), and for blocks whose widths and B*T
     are not multiples of the conv GEMM's 128 x 128 tile (24 -> 40 k7
     causal and k5 CBAM at B=3 T=77, 40 -> 136 k3 causal at B=2 T=130,
-    136 -> 24 k1 CBAM at B=5 T=29), fp32 and bf16. The Chebyshev kernel
+    136 -> 24 k1 CBAM at B=5 T=29) and whose channels are off 8, the conv
+    GEMM's 8-, 4-, 2-byte or one-element copies (36 -> 36, 100 -> 100,
+    36 -> 52, 12 -> 20, causal and CBAM, B=7 ragged T=77), fp32 and bf16;
+    the FSQ head past 8 code dims (groups of 8: d 9, 12 and 16 exact, d 30
+    of level 2, a codebook of 2^30 whose fp32 index sums round, counted
+    and held within 4 * 128); the exact mixer at P 3000 and 4096 (its
+    weights streamed in slices of 2048). The Chebyshev kernel
     (mel_mixer_poly: the conv and min/max, the fit, the Clenshaw pass)
     against the plain poly_mixer_plain on the flagship and hifimusic
     (P = 384) post mixers, fp32 and bf16, ragged lengths and a plane of
@@ -72,7 +80,12 @@ printing no result, without one. Phases (any failure exits non-zero):
     leave the fp32 plain version itself ~1e-4 off: there the kernel is held
     to the float64 plain version within max(1e-4, the fp32 plain's own
     error). Then the whole fp32 round trip through the kernels against the
-    same model on the CPU (plain versions);
+    same model on the CPU (plain versions); phase 3d: a codec whose shapes
+    the kernels once refused (channels 100/100/100/132, 10 FSQ dims, an
+    int8 refiner of base 24; seeded, biases at 0.3), fp32 and bf16 at B=3
+    T=77 ragged, card against CPU: tokens away from a midpoint, the
+    pre-refiner decode at phase 13's gates, the refined mel at phase 20's
+    int8 gate (rel-L2 <= 2e-2), every kernel of the path launched;
  4. serve 12 concurrent clips of mixed lengths (100-512 frames) through
     CodecServer over the runtime (flagship GeneratorConfig defaults, 128
     mels, seeded weights, bf16, buckets 128/256/512) and check the results
@@ -126,7 +139,9 @@ printing no result, without one. Phases (any failure exits non-zero):
     plain versions, fp32 (max|k - p| <= 1e-4 * max(1, max|p|), TF32 off)
     and bf16 (rel-L2 <= 2e-2), at T 1, 17, 128, 129, 2047 and head sizes
     32, 40, 64, 96, 128 and 256 (B=2, H=4; 40 on tiles zero-filled to 64
-    columns, 256 with each block owning half the output columns); at T=1
+    columns, 256 with each block owning half the output columns), and at
+    T 129 and 2047 and head sizes 384, 512 and 1024 (B=2, H=2: the
+    D-chunked kernels, a block per 128 output columns); at T=1
     dq and dk are 0 by definition (one key) and take the absolute gate in
     both dtypes; at T=129, rows copied in 8-, 4- and 2-byte pieces (bf16 D
     20, 6, 3) and a D=64 tensor one element off 16-byte alignment (one
@@ -155,8 +170,9 @@ printing no result, without one. Phases (any failure exits non-zero):
     the plain versions there, and each kernel's rate on the products it
     does (2 forward, 3 dQ, 4 dK/dV) beside the charged bound; kernels and
     SDPA are timed in single calls (the kernels line) and in bursts of 10
-    calls (printed beside); the same at head sizes 40, 96 and 256 (printed,
-    not in the kernels line); print the kernels JSON line (twelve rows: the
+    calls (printed beside); the same at head sizes 40, 96, 256, 384 and 512
+    (printed, not in the kernels line; past D = 128 the products done count
+    each column group's recomputed S and dP); print the kernels JSON line (twelve rows: the
     mixed-radix and DFT log-mel kernels' launches are phase 3's, the front
     end at the n_fft each takes, the only path that selects them);
 12. token-LM serving at the flagship widths, on the card (the transformer
@@ -275,8 +291,9 @@ printing no result, without one. Phases (any failure exits non-zero):
     (none in the loop), the idle share of an L=32 dispatch, the graphs'
     memory;
 17. parallel codec serving (flagship generator, seeded, TF32 off): (a) the
-    split residual_block launch of the three CBAM blocks (begin: conv
-    GEMMs and the pool over a frame range; finish: gate MLP, SAM, tail)
+    split residual_block launch of the three CBAM blocks and of CBAM
+    blocks at phase 3's channels off 8 (begin: conv GEMMs and the pool
+    over a frame range; finish: gate MLP, SAM, tail)
     against the unsplit kernel with the range [0, length) and no
     reduction at phase 3's shapes (max difference printed, expect 0), and
     against its plain version on the 4 windows of a B=2 clip pair of
@@ -367,7 +384,9 @@ printing no result, without one. Phases (any failure exits non-zero):
     artifact) timed eager vs replayed with its idle share, and the
     graphs' memory (that span and B=64); (d) int8_conv against its plain
     version at each of the refiner's 14 int8 conv shapes (B=2 T=512, fp32
-    and bf16: codes and int32 sums equal, the output within one ulp), its
+    and bf16: codes and int32 sums equal, the output within one ulp; the
+    same at B=3 T=77 for the 14 convs of refiners of base 8, 24 and 40:
+    Cin off 16, Cout below 32), its
     whole-call time at B=64 T=512 beside the plain version, its bound (int8
     ops at 1,979 TOP/s or bytes) and cuDNN's bf16 conv2d (the yardstick),
     one profiled call of each conv split into the max pass, the quantize
@@ -423,6 +442,14 @@ RAGGED_BLOCKS = ((24, 40, 7, True, 3, 77, (77, 60, 1)),
                  (24, 40, 5, False, 3, 77, (77, 60, 1)),
                  (40, 136, 3, True, 2, 130, (130, 3)),
                  (136, 24, 1, False, 5, 29, (29, 28, 1, 17, 5)))
+# blocks at channels off 8 (the bf16 conv GEMM's 8-byte copies, and at 18
+# -> 34 its 4-byte and at 17 -> 33 its one-element ones): each causal and
+# not (CBAM), B=7 ragged T=77
+NARROW_LENGTHS = (77, 70, 64, 41, 33, 9, 1)
+NARROW_BLOCKS = tuple((cin, cout, k, causal, len(NARROW_LENGTHS), 77, NARROW_LENGTHS)
+                      for cin, cout, k in ((36, 36, 5), (100, 100, 3), (36, 52, 3),
+                                           (12, 20, 7), (18, 34, 5), (17, 33, 3))
+                      for causal in (False, True))
 # the hifimusic generator, configs/model_config_hifimusic.yaml:14-35 written
 # out (the card's machine has no PyYAML)
 HIFIMUSIC = dict(mels=160, channels=(384, 384, 512, 512), kernel_sizes=(3, 3, 5, 7),
@@ -431,6 +458,16 @@ HIFIMUSIC = dict(mels=160, channels=(384, 384, 512, 512), kernel_sizes=(3, 3, 5,
 BENCH_B, BENCH_T = 64, 512
 # phase 3: the FSQ head at a row count off the 8 rows a warp reduces together
 FSQ_RAGGED_N = 4099
+# phase 3: the FSQ head past 8 code dims (groups of 8): d 9, 12, 16 with
+# codebooks below 2**24 (exact index sums), and d 30 of level 2 (2**30: the
+# fp32 sums may round apart, counted)
+FSQ_WIDE_LEVELS = ((5,) * 9, (3,) * 6 + (2,) * 6, (2,) * 16, (2,) * 30)
+# phase 3: the exact mixer past P = 2048 (its weights in slices of 2048)
+WIDE_MIXER_PS = (3000, 4096)
+# phase 3d: the codec at channels off 8, 10 FSQ dims and an int8 refiner of
+# base 24, card against its CPU plain path
+WIDE_CODEC = dict(channels=(100, 100, 100, 132), kernel_sizes=(3, 3, 5),
+                  fsq_levels=(5,) * 10, refiner_base_channels=24, refiner_depth=3)
 # phase 3c, bf16: the pre mixer's kernel may flip at most this many times
 # the FSQ tokens (away from a midpoint) that the plain mixer summed in
 # another order flips
@@ -453,13 +490,18 @@ GL_ITERS = 32
 # flash attention: kernel vs plain at these sequence lengths and head sizes
 FLASH_TS = (1, 17, 128, 129, 2047)
 FLASH_DS = (32, 40, 64, 96, 128, 256)
+# phase 9 also past D = 256 (the D-chunked kernels), at B=2 H=2
+FLASH_WIDE_DS, FLASH_WIDE_TS = (384, 512, 1024), (129, 2047)
 # phase 11 times the kernels at these head sizes too (besides D=64): 40 and
-# 96 on zero-filled tiles of 64 and 96 columns, 256 split over two blocks
-FLASH_TIMED_DS = (40, 96, 256)
+# 96 on zero-filled tiles of 64 and 96 columns, 256 split over two blocks,
+# 384 and 512 a block per 128 output columns, summed over D in chunks
+FLASH_TIMED_DS = (40, 96, 256, 384, 512)
 # phase 9 also at rows the kernels copy in narrower pieces: (D, T, elements
 # the tensors start past an aligned address): 8-, 4- and 2-byte (bf16)
-# copies of D 20, 6 and 3, and D=64 one element off 16-byte alignment
-FLASH_NARROW = ((20, 129, 0), (6, 129, 0), (3, 129, 0), (64, 129, 1))
+# copies of D 20, 6 and 3, D=64 and D=384 one element off 16-byte
+# alignment, D=512 two elements off (4-byte copies in the chunked kernels)
+FLASH_NARROW = ((20, 129, 0), (6, 129, 0), (3, 129, 0), (64, 129, 1), (384, 129, 1),
+                (512, 129, 2))
 # the JAX package calls JAX's library kernels (JAX 0.9.0,
 # jax/experimental/pallas/ops/tpu/flash_attention.py) from _attend_flash
 FLASH_REPLACES = {
@@ -520,13 +562,21 @@ def _kernel_variant(mangled: str):
     if "conv_kernelILi" in mangled:  # the int8 conv's <BN, BK>
         bn, bk = re.findall(r"Li(\d+)E", mangled)[:2]
         return f"BN={bn} BK={bk}"
+    if "conv_gemm_mma" in mangled:  # the block's conv GEMM's <elements a copy>
+        return f"vec={re.search(r'Li(\d+)E', mangled).group(1)}"
+    if "fsq_head_groups_kernel" in mangled:
+        vec = re.findall(r"Li(\d+)E", mangled)[0]
+        return f"{'bf16' if 'nv_bfloat16' in mangled else 'fp32'} groups of 8 dims vec={vec}"
     if "fsq_head_kernel" in mangled:
         d, vec = re.findall(r"Li(\d+)E", mangled)[:2]
         return f"{'bf16' if 'nv_bfloat16' in mangled else 'fp32'} d={d} vec={vec}"
     if "mixer_kernel" in mangled or "poly_" in mangled:
         dtype = "bf16" if "nv_bfloat16" in mangled else "fp32"
         arg = re.search(r"Li(\d+)E", mangled)
-        return dtype + (f" taps={arg.group(1)}" if arg else "")
+        return (dtype + (f" taps={arg.group(1)}" if arg else "")
+                + (" P in slices" if "Lb1E" in mangled else ""))
+    if "chunked" in mangled:  # the flash kernels past D = 256: no template
+        return "D-chunked"
     d = re.search(r"ILi(\d+)E", mangled)
     if d and "mma" in mangled:  # the bf16 flash kernels' <D, kAny>
         return f"D={d.group(1)}" + (" any head" if "ELb1E" in mangled else "")
@@ -537,8 +587,10 @@ def ptxas_summary(report: str) -> list:
     """(kernel, template variant or None, registers, spill bytes stored,
     spill bytes loaded) of each mma.sync kernel, the int8 conv's wgmma
     kernel and each mixer kernel entry in the ptxas report."""
-    kernels = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma", "conv_gemm_mma",
-               "conv_kernel", "fsq_head_kernel",
+    kernels = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma",
+               "flash_fwd_simt_chunked", "flash_bwd_dq_simt_chunked",
+               "flash_bwd_dkv_simt_chunked", "conv_gemm_mma",
+               "conv_kernel", "fsq_head_kernel", "fsq_head_groups_kernel",
                "mel_mixer_kernel", "poly_minmax_kernel", "poly_stats_kernel",
                "poly_fit_nodes_kernel", "poly_fit_coef_kernel", "poly_eval_kernel")
     rows, entry = [], None
@@ -812,7 +864,7 @@ def compare_fsq_head(model, device, tag="") -> float:
         cases.append((f"N={FSQ_RAGGED_N} {str(dtype)[6:]} unaligned",
                       flat[1:].view(FSQ_RAGGED_N, c), w, bias, model.fsq_consts,
                       model.codebook_size))
-        for levels in ((8,), (8, 5, 5), (8, 5, 5, 5, 5, 5, 5, 5)):
+        for levels in ((8,), (8, 5, 5), (8, 5, 5, 5, 5, 5, 5, 5)) + FSQ_WIDE_LEVELS:
             d = len(levels)
             spec = FSQSpec(levels)
             wd = torch.randn((c, d), generator=gen, device=device) * (2.0 / c ** 0.5)
@@ -821,22 +873,67 @@ def compare_fsq_head(model, device, tag="") -> float:
             h = torch.randn((FSQ_RAGGED_N, c), generator=gen, device=device).to(dtype)
             cases.append((f"N={FSQ_RAGGED_N} {str(dtype)[6:]} d={d}", h, wd, bd, consts,
                           spec.codebook_size))
+            if levels == FSQ_WIDE_LEVELS[1]:  # the groups kernel's scalar loads
+                cases.append((f"N={FSQ_RAGGED_N} {str(dtype)[6:]} d={d} unaligned",
+                              flat[1:].view(FSQ_RAGGED_N, c), wd, bd, consts,
+                              spec.codebook_size))
     worst = 0
     for label, h, wc, bc, consts, size in cases:
         got = fsq_encode_head(h, wc, bc, consts)
         want = fsq_encode_plain(h, wc, bc, consts)
         near = _fsq_near_midpoint(h, wc, bc, consts)
         mism = got != want
-        far_err = int((got - want)[~near].abs().max()) if bool((~near).any()) else 0
-        ok = far_err == 0 and int(got.min()) >= 0 and int(got.max()) < size
+        diff = (got.long() - want.long())[~near].abs()
+        far_err = int(diff.max()) if diff.numel() else 0
+        # past a codebook of 2**24 the fp32 index sums may round apart in
+        # either order (and the largest round up to the codebook's size):
+        # counted, and held within a few roundings (an ulp of 2**30 is 128)
+        exact = size < 2 ** 24
+        in_range = int(got.min()) >= 0 and int(got.max()) < size + (not exact)
+        ok = in_range and (far_err == 0 if exact else far_err <= 4 * 128)
         print(f"  {'fsq_head':15s} {tag}{label}: {int(mism.sum())} of {got.numel()} "
               f"indices differ, {int((mism & near).sum())} of them within 1e-4 of a "
-              f"midpoint {'ok' if ok else 'FAIL'}")
+              f"midpoint{'' if exact else f'; codebook {size}: {int((diff > 0).sum())} away from one differ, by at most {far_err} (fp32 sums past 2**24, counted)'} "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"fsq_head {tag}{label}: indices differ away from a midpoint or "
                  f"leave [0, {size})")
-        worst = max(worst, far_err)
+        if exact:
+            worst = max(worst, far_err)
     return float(worst)
+
+
+def compare_wide_mixers(device) -> float:
+    """Phase 3: the exact mixer past P = 2048 (WIDE_MIXER_PS: the kernel
+    streams its weights in slices of 2048) against its plain version, fp32
+    and bf16, B=3 T=77 C=128 ragged, at phase 3's gates, padded rows equal
+    to b_out; returns the largest bf16 |kernel - plain|."""
+    import torch
+
+    from mqgan_tpu_torch.nn.mixer2d import MelMixer2D
+    from mqgan_tpu_torch.ops.mixer_kernels import fused_mel_mixer, mel_mixer_plain
+    from mqgan_tpu_torch.utils.init import seeded_init_
+
+    gen = torch.Generator().manual_seed(SEED + 29)
+    lens = torch.tensor((77, 40, 1), dtype=torch.int32, device=device)
+    worst = 0.0
+    for p in WIDE_MIXER_PS:
+        wts = seeded_init_(MelMixer2D(p), SEED + p).to(device).kernel_weights()
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((3, 77, MELS), generator=gen).to(device, dtype)
+            got = fused_mel_mixer(x, lens, wts)
+            want = mel_mixer_plain(x, lens, wts)
+            ok, max_abs, detail = _judge("", got, want, dtype)
+            pad_rows = torch.arange(77, device=device)[None, :] >= lens[:, None]
+            pads = bool((got.float()[pad_rows] == wts.consts[1].to(dtype).float()).all())
+            if dtype == torch.bfloat16:
+                worst = max(worst, max_abs)
+            print(f"  mel_mixer       P={p} B=3 T=77 C={MELS} {str(dtype)[6:]:8s} "
+                  f"{detail.strip()}, max|k-p| {max_abs:.3e}, pads == b_out {pads} "
+                  f"{'ok' if ok and pads else 'FAIL'}")
+            if not (ok and pads):
+                fail(f"mel_mixer P={p} {dtype}: {detail}, pads == b_out {pads}")
+    return worst
 
 
 def compare_poly(model, device, b, t, lengths, tag="", main_path=False,
@@ -971,18 +1068,19 @@ def compare_pre_mixer_tokens(state, device) -> None:
 
 def compare_ragged_blocks(device) -> float:
     """Phase 3: blocks whose widths and B*T are off the conv GEMM's tile
-    (RAGGED_BLOCKS), seeded, against their plain versions in fp32 and bf16;
+    (RAGGED_BLOCKS) and whose channels are off 8 (NARROW_BLOCKS: the GEMM's
+    narrow copies), seeded, against their plain versions in fp32 and bf16;
     returns the largest bf16 |kernel - plain|."""
     import torch
 
     from mqgan_tpu_torch.nn.blocks import ResidualBlock1D
-    from mqgan_tpu_torch.ops.block_kernels import (fused_residual_block,
+    from mqgan_tpu_torch.ops.block_kernels import (copy_width, fused_residual_block,
                                                    residual_block_plain)
     from mqgan_tpu_torch.utils.init import seeded_init_
 
     gen = torch.Generator().manual_seed(SEED + 17)
     worst = 0.0
-    for cin, cout, k, causal, b, t, lengths in RAGGED_BLOCKS:
+    for cin, cout, k, causal, b, t, lengths in RAGGED_BLOCKS + NARROW_BLOCKS:
         blk = seeded_init_(ResidualBlock1D(cin, cout, k, causal=causal), SEED + 17)
         blk = blk.to(device)
         lens = torch.tensor(lengths, dtype=torch.int32, device=device)
@@ -994,9 +1092,11 @@ def compare_ragged_blocks(device) -> float:
             ok, max_abs, detail = _judge("", got, want, dtype)
             if dtype == torch.bfloat16:
                 worst = max(worst, max_abs)
+            vec = copy_width(cin, cout, x, wts.w1, wts.w2) if dtype == torch.bfloat16 else 1
             print(f"  residual_block  {cin}->{cout} k{k} {'causal' if causal else 'CBAM'} "
-                  f"B={b} T={t} lengths {lengths} {str(dtype)[6:]:8s} {detail.strip()}, "
-                  f"max|k-p| {max_abs:.3e} {'ok' if ok else 'FAIL'}")
+                  f"B={b} T={t} lengths {lengths} {str(dtype)[6:]:8s}"
+                  f"{f' {vec}-element copies' if vec < 8 and dtype == torch.bfloat16 else ''} "
+                  f"{detail.strip()}, max|k-p| {max_abs:.3e} {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"residual_block {cin}->{cout} k{k} B={b} T={t} {dtype}: {detail}")
     return worst
@@ -1033,6 +1133,78 @@ def compare_round_trip(state, device) -> None:
           f"(atol=rtol=2e-4) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("fp32 round trip disagrees with the plain CPU path")
+
+
+def compare_wide_codec(device, counters) -> None:
+    """Phase 3d: a codec whose shapes the kernels once refused, end to end
+    on the card against its CPU plain path: WIDE_CODEC (blocks at channels
+    off 8, the mixers' P = 100, 10 FSQ dims, an int8 refiner of base 24),
+    seeded (biases at 0.3), B=3 T=77 ragged, fp32 and bf16 under phase 13's
+    gates: tokens
+    equal away from a midpoint, the decoder's pre-refiner output (recon)
+    within 1e-4 * max(1, max|x|) in fp32, rel-L2 <= 2e-2 in bf16; the
+    refined mel within rel-L2 2e-2 (phase 20's int8 gate: the activation
+    codes may round apart where card and CPU differ by rounding at a
+    half). Every kernel of the path must launch (counted from the card's
+    calls alone)."""
+    import torch
+
+    from mqgan_tpu_torch.models.preencoder import PreEncoder
+    from mqgan_tpu_torch.utils.init import seeded_init_
+
+    rng = np.random.default_rng(SEED + 3)
+    b, t = 3, 77
+    x = torch.from_numpy(rng.standard_normal((b, t, MELS)).astype(np.float32))
+    lengths = torch.tensor([t, 50, 9], dtype=torch.int32)
+    pad = torch.arange(t)[None, :] >= lengths[:, None]
+    # seeded, then every bias drawn at 0.3: with the seeded zero biases the
+    # FSQ codes sit at the centre and the decode sees only zero codes
+    state = seeded_init_(PreEncoder(MELS, **WIDE_CODEC, int8_refiner=True),
+                         SEED + 3).state_dict()
+    noise = torch.Generator().manual_seed(SEED + 4)
+    for name, v in state.items():
+        if name.endswith("bias"):
+            v.copy_(0.3 * torch.randn(v.shape, generator=noise))
+    launches = Counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = PreEncoder(MELS, **WIDE_CODEC, int8_refiner=True, dtype=dtype)
+        ref.load_state_dict(state)
+        ref = ref.eval()
+        card = PreEncoder(MELS, **WIDE_CODEC, int8_refiner=True, dtype=dtype)
+        card.load_state_dict(state)
+        card = card.to(device).eval()
+        xd = x.to(dtype)
+        idx_ref = ref.encode(xd, pad)
+        out_ref, recon_ref = ref.decode(idx_ref, pad, return_recon=True)
+        counters.reset()
+        idx_dev = card.encode(xd.to(device), pad.to(device)).cpu()
+        out_dev, recon_dev = card.decode(idx_ref.to(device), pad.to(device),
+                                         return_recon=True)
+        torch.cuda.synchronize()
+        launches.update(counters.snapshot())
+        h = ref._encode_trunk(x, pad) if dtype == torch.float32 else None
+        valid = ~pad
+        if h is not None:
+            near = _fsq_near_midpoint(h.reshape(-1, h.shape[-1]), ref.q_in_proj.weight.t(),
+                                      ref.q_in_proj.bias, ref.fsq_consts).reshape(idx_ref.shape)
+        else:  # bf16 tokens flip with rounding order (phase 3c): counted
+            near = torch.ones_like(pad)
+        flips = (idx_ref != idx_dev) & valid
+        ok_tok = not bool((flips & ~near).any())
+        ok_rec, _, det_rec = _judge("recon", recon_dev.cpu()[valid], recon_ref[valid], dtype)
+        ok_mel, _, det_mel = _judge("mel", out_dev.cpu()[valid], out_ref[valid],
+                                    torch.bfloat16)
+        print(f"  wide codec {WIDE_CODEC} {str(dtype)[6:]}, B={b} T={t}: {int(flips.sum())} "
+              f"token flips of {int(valid.sum())} ({int((flips & near).sum())} "
+              f"{'within 1e-4 of a midpoint' if h is not None else 'bf16, counted'}); "
+              f"{det_rec}; refined {det_mel} "
+              f"{'ok' if ok_tok and ok_rec and ok_mel else 'FAIL'}")
+        if not (ok_tok and ok_rec and ok_mel):
+            fail(f"phase 3d: the wide codec on the card disagrees with the CPU ({dtype})")
+    print(f"  wide codec launches (fp32 + bf16 encode and decode): {dict(launches)}")
+    for name in ("residual_block", "mel_mixer", "fsq_head", "int8_conv"):
+        if not launches.get(name):
+            fail(f"phase 3d: {name} was not launched by the wide codec")
 
 
 def log_mel_library(wav, window, fbank, n_fft: int, hop: int, win: int):
@@ -1460,8 +1632,9 @@ def _judge(label, got, want, dtype, zero=False) -> tuple:
 
 def compare_flash(device) -> dict:
     """Phase 9: the three flash kernels against their plain versions (TF32
-    off), fp32 and bf16, T in FLASH_TS, D in FLASH_DS, B=2 H=4; returns each
-    kernel's largest |kernel - plain| in bf16."""
+    off), fp32 and bf16, T in FLASH_TS, D in FLASH_DS, B=2 H=4, and past
+    D = 256 (the D-chunked kernels) D in FLASH_WIDE_DS, T in FLASH_WIDE_TS,
+    B=2 H=2; returns each kernel's largest |kernel - plain| in bf16."""
     import torch
 
     from mqgan_tpu_torch.ops.flash_attention import (
@@ -1471,38 +1644,39 @@ def compare_flash(device) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(SEED + 11)
     errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    cases = ([(d, t, 4) for d in FLASH_DS for t in FLASH_TS]
+             + [(d, t, 2) for d in FLASH_WIDE_DS for t in FLASH_WIDE_TS])
     for dtype in (torch.float32, torch.bfloat16):
-        for d in FLASH_DS:
-            for t in FLASH_TS:
-                q, k, v, do = (torch.randn((2, t, 4, d), generator=gen, device=device)
-                               .to(dtype) for _ in range(4))
-                scale = d ** -0.5
-                o, lse = flash_attention_fwd(q, k, v, scale)
-                dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, scale)
-                torch.cuda.synchronize()
-                o_p, lse_p = flash_attention_fwd_plain(q, k, v, scale)
-                # the backward plain versions take the kernel's o and lse, so
-                # each kernel is held on the same inputs
-                dq_p = flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale)
-                dk_p, dv_p = flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, scale)
-                checks = (("flash_fwd", "o", o, o_p), ("flash_fwd", "lse", lse, lse_p),
-                          ("flash_bwd_dq", "dq", dq, dq_p),
-                          ("flash_bwd_dkv", "dk", dk, dk_p),
-                          ("flash_bwd_dkv", "dv", dv, dv_p))
-                details, bad = [], []
-                for kernel, label, got, want in checks:
-                    # one key: softmax has no gradient, dq = dk = 0
-                    zero = t == 1 and label in ("dq", "dk")
-                    ok, max_abs, detail = _judge(label, got, want, dtype, zero)
-                    details.append(detail)
-                    if not ok:
-                        bad.append(detail)
-                    if dtype == torch.bfloat16:
-                        errs[kernel] = max(errs[kernel], max_abs)
-                print(f"  flash {str(dtype)[6:]:8s} D={d:3d} T={t:4d}: "
-                      f"{'; '.join(details)} {'FAIL' if bad else 'ok'}")
-                if bad:
-                    fail(f"flash {dtype} D={d} T={t}: {bad}")
+        for d, t, heads in cases:
+            q, k, v, do = (torch.randn((2, t, heads, d), generator=gen, device=device)
+                           .to(dtype) for _ in range(4))
+            scale = d ** -0.5
+            o, lse = flash_attention_fwd(q, k, v, scale)
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, scale)
+            torch.cuda.synchronize()
+            o_p, lse_p = flash_attention_fwd_plain(q, k, v, scale)
+            # the backward plain versions take the kernel's o and lse, so
+            # each kernel is held on the same inputs
+            dq_p = flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale)
+            dk_p, dv_p = flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, scale)
+            checks = (("flash_fwd", "o", o, o_p), ("flash_fwd", "lse", lse, lse_p),
+                      ("flash_bwd_dq", "dq", dq, dq_p),
+                      ("flash_bwd_dkv", "dk", dk, dk_p),
+                      ("flash_bwd_dkv", "dv", dv, dv_p))
+            details, bad = [], []
+            for kernel, label, got, want in checks:
+                # one key: softmax has no gradient, dq = dk = 0
+                zero = t == 1 and label in ("dq", "dk")
+                ok, max_abs, detail = _judge(label, got, want, dtype, zero)
+                details.append(detail)
+                if not ok:
+                    bad.append(detail)
+                if dtype == torch.bfloat16:
+                    errs[kernel] = max(errs[kernel], max_abs)
+            print(f"  flash {str(dtype)[6:]:8s} D={d:3d} T={t:4d} H={heads}: "
+                  f"{'; '.join(details)} {'FAIL' if bad else 'ok'}")
+            if bad:
+                fail(f"flash {dtype} D={d} T={t}: {bad}")
     for dtype in (torch.float32, torch.bfloat16):
         for d, t, off in FLASH_NARROW:
             def make():
@@ -1539,21 +1713,22 @@ def check_flash_determinism(device) -> None:
                                                      flash_attention_fwd)
 
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    cases = [(d, t, 4 if d in FLASH_DS else 2) for d in FLASH_DS + FLASH_WIDE_DS
+             for t in (129, 2047)]
     for dtype in (torch.float32, torch.bfloat16):
-        for d in FLASH_DS:
-            for t in (129, 2047):
-                q, k, v, do = (torch.randn((2, t, 4, d), generator=gen, device=device)
-                               .to(dtype) for _ in range(4))
-                scale = d ** -0.5
-                o, lse = flash_attention_fwd(q, k, v, scale)
-                first = flash_attention_bwd(q, k, v, o, lse, do, scale)
-                second = flash_attention_bwd(q, k, v, o, lse, do, scale)
-                torch.cuda.synchronize()
-                same = [torch.equal(a, b) for a, b in zip(first, second)]
-                print(f"  determinism {str(dtype)[6:]:8s} D={d:3d} T={t:4d}: "
-                      f"dq, dk, dv bit-identical {same}")
-                if not all(same):
-                    fail(f"flash backward not deterministic: {dtype} D={d} T={t} {same}")
+        for d, t, heads in cases:
+            q, k, v, do = (torch.randn((2, t, heads, d), generator=gen, device=device)
+                           .to(dtype) for _ in range(4))
+            scale = d ** -0.5
+            o, lse = flash_attention_fwd(q, k, v, scale)
+            first = flash_attention_bwd(q, k, v, o, lse, do, scale)
+            second = flash_attention_bwd(q, k, v, o, lse, do, scale)
+            torch.cuda.synchronize()
+            same = [torch.equal(a, b) for a, b in zip(first, second)]
+            print(f"  determinism {str(dtype)[6:]:8s} D={d:3d} T={t:4d}: "
+                  f"dq, dk, dv bit-identical {same}")
+            if not all(same):
+                fail(f"flash backward not deterministic: {dtype} D={d} T={t} {same}")
 
 
 def serve(model, device, counters) -> dict:
@@ -2482,8 +2657,12 @@ def flash_times(device, errs) -> list:
     (printed only; their errors count in ``errs``)."""
     rows = _flash_rows(device, errs, 64)
     for d in FLASH_TIMED_DS:
-        print(f"  head size {d} (tiles of {-(-d // 32) * 32 if d <= 128 else d} columns"
-              f"{', the output split over two blocks' if d > 128 else ''}):")
+        if d > 256:
+            print(f"  head size {d} (a block per 128 output columns, {d // 128} a head; "
+                  f"the scores summed over D in 128-column chunks):")
+        else:
+            print(f"  head size {d} (tiles of {-(-d // 32) * 32 if d <= 128 else d} columns"
+                  f"{', the output split over two blocks' if d > 128 else ''}):")
         _flash_rows(device, errs, d)
     return rows
 
@@ -2502,7 +2681,10 @@ def _flash_rows(device, errs, d: int) -> list:
     dK). The times in the kernels line (ms, library_ms) are single calls,
     which count the host's work per call (checks, allocation, autograd)
     where the card waits on it; beside each the time per call in bursts of
-    FLASH_BURST calls is printed, where that work hides behind the card's."""
+    FLASH_BURST calls is printed, where that work hides behind the card's.
+    Past D = 128 a head's blocks own column groups of 128 (G = D / 128,
+    two at D = 256) and each recomputes S (and, backward, dP) over all D:
+    the products done are then G + 1, 2 G + 1 and 2 G + 2."""
     import torch
     import torch.nn.functional as F
 
@@ -2543,19 +2725,20 @@ def _flash_rows(device, errs, d: int) -> list:
         lib_ms = {key: time_ms(fn, 20) for key, fn in sdpa.items()}
         lib_burst = {key: time_ms(fn, 10, FLASH_BURST) for key, fn in sdpa.items()}
     prod = 2.0 * b * h * d * t * (t + 1) / 2
+    groups = d // 128 if d > 128 else 1  # blocks a head, each recomputing S
     elems = b * t * h * d  # one (B, T, H, D) bf16 tensor: 2 bytes each
     stats = 4.0 * b * h * t  # one (B, H, T) fp32 vector
     rows = []
     for name, fn, plain_fn, n_prod, n_done, nbytes, lib in (
             ("flash_fwd", lambda: flash_attention_fwd(q, k, v, scale),
-             lambda: flash_attention_fwd_plain(q, k, v, scale), 2, 2,
+             lambda: flash_attention_fwd_plain(q, k, v, scale), 2, groups + 1,
              2.0 * 4 * elems + stats, "forward"),
             ("flash_bwd_dq", lambda: flash_attention_bwd_dq(q, k, v, o, lse, do, scale),
-             lambda: flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale), 2, 3,
-             2.0 * 6 * elems + 2 * stats, "backward"),
+             lambda: flash_attention_bwd_dq_plain(q, k, v, o, lse, do, scale), 2,
+             2 * groups + 1, 2.0 * 6 * elems + 2 * stats, "backward"),
             ("flash_bwd_dkv", lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale),
-             lambda: flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, scale), 3, 4,
-             2.0 * 6 * elems + 2 * stats, "backward")):
+             lambda: flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, scale), 3,
+             2 * groups + 2, 2.0 * 6 * elems + 2 * stats, "backward")):
         row = _KernelRow(name, "mqgan_tpu_torch/csrc/flash_attention.cuh", FLASH_REPLACES[name])
         ms = time_ms(fn, 20)
         burst = time_ms(fn, 10, FLASH_BURST)
@@ -4867,17 +5050,20 @@ def _window_inputs(plan, lengths, device):
 
 
 def compare_split_kernel(model, device) -> float:
-    """Phase 17a: the split launch of the three CBAM blocks against the
-    unsplit kernel (the range [0, length), no reduction) at phase 3's
-    shapes, and against its plain version on the windows of the clip pair
+    """Phase 17a: the split launch of the three CBAM blocks (and of CBAM
+    blocks at NARROW_BLOCKS' channels off 8) against the unsplit kernel
+    (the range [0, length), no reduction) at phase 3's shapes, and against
+    its plain version on the windows of the clip pair
     (statistics reduced over the windows), fp32 and bf16 at phase 3's
     gates; returns the largest bf16 |kernel - plain| of the windows."""
     import torch
 
+    from mqgan_tpu_torch.nn.blocks import ResidualBlock1D
     from mqgan_tpu_torch.ops.block_kernels import (
         fused_residual_block, residual_block_plain_begin,
         residual_block_plain_finish, split_residual_block)
     from mqgan_tpu_torch.parallel.seqpar import _group_reduce, plan_seq_reencode
+    from mqgan_tpu_torch.utils.init import seeded_init_
 
     gen = torch.Generator().manual_seed(SEED + 30)
     lens = torch.tensor(CMP_LENGTHS, dtype=torch.int32, device=device)
@@ -4887,8 +5073,14 @@ def compare_split_kernel(model, device) -> float:
     b = len(SEQ_LENGTHS)
     reduce = _group_reduce(SEQ_WINDOWS, b, None, 0)
     worst = 0.0
+    # the encoder's CBAM blocks, and CBAM blocks at channels off 8 (the conv
+    # GEMM's narrow copies in the split launch's first part)
+    blocks = [(f"enc{i}", blk) for i, blk in enumerate(model.encoder_blocks)]
+    blocks += [(f"{cin}->{cout}", seeded_init_(ResidualBlock1D(cin, cout, k, causal=False),
+                                               SEED + 31).to(device))
+               for cin, cout, k, causal, *_ in NARROW_BLOCKS if not causal]
     for dtype in (torch.float32, torch.bfloat16):
-        for i, blk in enumerate(model.encoder_blocks):
+        for i, blk in blocks:
             cin = blk.conv1.v.shape[1]
             wts = blk.kernel_weights(dtype)
             x = torch.randn((CMP_B, CMP_T, cin), generator=gen).to(device, dtype)
@@ -4906,14 +5098,14 @@ def compare_split_kernel(model, device) -> float:
             ok, max_abs, detail = _judge("", got, want, dtype)
             if dtype == torch.bfloat16:
                 worst = max(worst, max_abs)
-            print(f"  residual_block_split enc{i} {str(dtype)[6:]:8s} at B={CMP_B} "
+            print(f"  residual_block_split {i} {str(dtype)[6:]:8s} at B={CMP_B} "
                   f"T={CMP_T}, range [0, length), no reduction: max|split - unsplit| "
                   f"{same:.3e} (expect 0) {'ok' if ok_same else 'FAIL'}; {SEQ_WINDOWS} "
                   f"windows of {plan.window} x B={b} (lengths {SEQ_LENGTHS}), reduced "
                   f"statistics vs the plain split: {detail.strip()}, max|k-p| "
                   f"{max_abs:.3e} {'ok' if ok else 'FAIL'}")
             if not (ok and ok_same):
-                fail(f"residual_block_split enc{i} {dtype}: the split launch "
+                fail(f"residual_block_split {i} {dtype}: the split launch "
                      f"disagrees (unsplit {same:.3e}; windows {detail})")
     return worst
 
@@ -6124,6 +6316,7 @@ ARTIFACT_CMP = ((1, (128,)), (1, (77,)), (7, (128, 127, 100, 77, 64, 9, 1)),
 INT8_CMP_B, INT8_B, INT8_T = 2, 64, 512
 # phase 20d's ragged shapes at B=3: heights, widths, Cin, Cout (every
 # combination, fp32 and bf16)
+INT8_NARROW_BASES = (8, 24, 40)
 INT8_RAGGED_B = 3
 INT8_RAGGED = ((1, 13, 40), (100, 144), (64, 192, 768), (64, 256, 512))
 INT8_TRIP_LENGTHS = (77, 60, 13)  # the eager int8 round trip at B=3 T=77
@@ -6617,6 +6810,87 @@ def int8_ragged(device, gen) -> None:
         fail("phase 20d: int8_conv disagrees with its plain version at a ragged shape")
 
 
+def int8_narrow_bases(device, gen) -> None:
+    """Phase 20d: the int8 conv against its plain version at the 14 convs of
+    refiners of base channels INT8_NARROW_BASES (Cin and Cout off 16, Cout
+    below 32: the padded Cin, BN = 32 and the element-wise epilogue), B=3
+    T=77 (80 after the refiner's padding) at the flagship's 144 columns,
+    fp32 and bf16, under the 14 shapes' gates."""
+    import torch
+
+    from mqgan_tpu_torch.nn.unet import UNetRefiner
+    from mqgan_tpu_torch.ops.int8_conv import int8_tile_plan, quantize_weights
+
+    width, t_pad, b = MELS + MELS // 8, 80, 3
+    n, n_ok, worst = 0, 0, 0
+    for base in INT8_NARROW_BASES:
+        ref = UNetRefiner(width, base, 3, MELS, int8=True)
+        blocks = ([(f"down{i}", blk, i + 1) for i, blk in enumerate(ref.downs)]
+                  + [("mid", ref.mid, 3)]
+                  + [(f"up{i}", blk, 2 - i) for i, blk in enumerate(ref.ups)])
+        for name, blk, level in blocks:
+            for j in (1, 2):
+                cout, cin = getattr(blk, f"conv{j}").v.shape[:2]
+                h = t_pad >> level
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn((b, cin, h, width), generator=gen, device=device)
+                    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+                    k = torch.randn((cout, cin, 3, 3), generator=gen, device=device)
+                    wq, sw = quantize_weights(k.to(dtype))
+                    bias = torch.randn((cout,), generator=gen, device=device)
+                    codes, sums, ulps = _int8_compare(x, wq, sw, bias)
+                    ok = codes and sums and ulps <= 1
+                    n, n_ok, worst = n + 1, n_ok + ok, max(worst, ulps)
+                    if not ok:
+                        plan = int8_tile_plan(b, h, width, cin, cout)
+                        print(f"  20d base {base} {name}.conv{j} {cin}->{cout} H={h} "
+                              f"{str(dtype)[6:]} (bn {plan.bn}, bk {plan.bk}, Cin padded "
+                              f"{plan.cin_padded}): codes equal {codes}, sums equal "
+                              f"{sums}, {ulps} ulp FAIL")
+    print(f"  20d refiners of base {INT8_NARROW_BASES} (B={b} T=77, 14 convs each, fp32 "
+          f"and bf16): {n_ok} of {n} with codes and int32 sums equal and the output "
+          f"within 1 ulp (worst {worst}) {'ok' if n_ok == n else 'FAIL'}")
+    if n_ok != n:
+        fail("phase 20d: int8_conv disagrees with its plain version at a narrow base")
+
+
+INT8_MISALIGNED = ((16, 16), (32, 48), (24, 20))  # (Cin, Cout)
+
+
+def int8_misaligned(device, gen) -> None:
+    """Phase 20d: the int8 conv against its plain version on an x one
+    element off 16-byte alignment (a view one element into its buffer), at
+    Cin 16 and 32 (xq's rows are x's: the max and quantize passes must load
+    it an element at a time) and 24 (padded), fp32 and bf16, B=3 H=13
+    W=144, under the 14 shapes' gates."""
+    import torch
+
+    from mqgan_tpu_torch.ops.int8_conv import quantize_weights
+
+    b, h, w = 3, 13, 144
+    n, n_ok, worst = 0, 0, 0
+    for cin, cout in INT8_MISALIGNED:
+        for dtype in (torch.float32, torch.bfloat16):
+            flat = torch.randn((b * h * w * cin + 1,), generator=gen, device=device)
+            x = flat.to(dtype)[1:].view(b, h, w, cin).permute(0, 3, 1, 2)
+            assert x.data_ptr() % 16 != 0
+            k = torch.randn((cout, cin, 3, 3), generator=gen, device=device)
+            wq, sw = quantize_weights(k.to(dtype))
+            bias = torch.randn((cout,), generator=gen, device=device)
+            codes, sums, ulps = _int8_compare(x, wq, sw, bias)
+            ok = codes and sums and ulps <= 1
+            n, n_ok, worst = n + 1, n_ok + ok, max(worst, ulps)
+            if not ok:
+                print(f"  20d misaligned x {cin}->{cout} {str(dtype)[6:]}: codes equal "
+                      f"{codes}, sums equal {sums}, {ulps} ulp FAIL")
+    print(f"  20d x one element off 16-byte alignment (Cin->Cout {INT8_MISALIGNED}, "
+          f"B={b} H={h} W={w}, fp32 and bf16): {n_ok} of {n} with codes and int32 sums "
+          f"equal and the output within 1 ulp (worst {worst}) "
+          f"{'ok' if n_ok == n else 'FAIL'}")
+    if n_ok != n:
+        fail("phase 20d: int8_conv disagrees with its plain version on a misaligned x")
+
+
 def _int8_split(shapes, device, gen, card) -> None:
     """Phase 20d: one profiled call of each of the 14 convs at B=64 T=512
     (bf16), split into the max pass, the quantize pass and the conv
@@ -6806,6 +7080,8 @@ def int8_conv_checks(state, device, card) -> "_KernelRow":
           f"{worst_ulps} ulp from plain [{card}]")
     _int8_split(shapes, device, gen, card)
     int8_ragged(device, gen)
+    int8_narrow_bases(device, gen)
+    int8_misaligned(device, gen)
 
     int8 = PreEncoder.from_config(MELS, GeneratorConfig(), dtype=torch.bfloat16,
                                   poly_mixers="decode", int8_refiner=True)
@@ -6925,10 +7201,14 @@ def main() -> None:
         compare_poly(music, device, CMP_B, CMP_T, CMP_LENGTHS, tag="hifimusic "))
     del music
     errs["residual_block"] = max(errs["residual_block"], compare_ragged_blocks(device))
+    errs["mel_mixer"] = max(errs["mel_mixer"], compare_wide_mixers(device))
     print(f"[3c] FSQ tokens through the pre mixer's kernel, B={BENCH_B} T={BENCH_T} {at()}")
     compare_pre_mixer_tokens(state, device)
     errs["log_mel"], routed_launches = compare_log_mel(device)
     compare_round_trip(state, device)
+    print(f"[3d] a codec at channels off 8, 10 FSQ dims, int8 refiner of base 24, "
+          f"card vs CPU {at()}")
+    compare_wide_codec(device, _cuda.COUNTERS)
 
     counters = _cuda.COUNTERS
     print(f"[4] serving (bf16, exact mixers) {at()}")

@@ -4,7 +4,8 @@
 // file instantiates the tiles' D = 32, 64 and 128 of fp32 and of bf16 heads
 // that fill their tiles in 16-byte copies; flash_attention_wide.cu,
 // flash_attention_any.cu and flash_attention_any_wide.cu the rest, built
-// in parallel with it.
+// in parallel with it; flash_attention_chunked.cu holds the kernels of the
+// multiples of 128 past 256.
 
 #include "flash_attention.cuh"
 
@@ -15,8 +16,9 @@ MQGAN_FLASH_ANY_SIZES(extern)
 MQGAN_FLASH_ANY_WIDE_SIZES(extern)
 
 // the tiles' D of a head of d columns: d rounded up to 32, 64, 96 or 128,
-// or 256; 0 (refused) past 128 but for 256 (the wrapper raises first,
-// naming the sizes)
+// or 256; 0 past 128 but for 256 (the larger multiples of 128 take the
+// chunked kernels before this dispatch; any other d is refused, and the
+// wrapper raises first, naming the sizes)
 inline int tile_cols(int d) {
   if (d < 1) return 0;
   if (d <= 128) return (d + 31) / 32 * 32;
@@ -62,6 +64,7 @@ extern "C" int mqgan_flash_fwd(const void* q, const void* k, const void* v,
   const Shape s{b, t, h, Head{d, vec}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
+  if (chunked_head(s.hd.d)) return fwd_chunked(q, k, v, o, lse_f, s, scale, is_bf16, st);
   MQGAN_FLASH_DISPATCH(fwd, q, k, v, o, lse_f, s, scale, st)
 }
 
@@ -74,6 +77,8 @@ extern "C" int mqgan_flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   float* delta_f = static_cast<float*>(delta);
+  if (chunked_head(s.hd.d))
+    return bwd_dq_chunked(q, k, v, o, dout, lse_f, delta_f, dq, s, scale, is_bf16, st);
   MQGAN_FLASH_DISPATCH(bwd_dq, q, k, v, o, dout, lse_f, delta_f, dq, s, scale, st)
 }
 
@@ -86,5 +91,7 @@ extern "C" int mqgan_flash_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
+  if (chunked_head(s.hd.d))
+    return bwd_dkv_chunked(q, k, v, dout, lse_f, delta_f, dk, dv, s, scale, is_bf16, st);
   MQGAN_FLASH_DISPATCH(bwd_dkv, q, k, v, dout, lse_f, delta_f, dk, dv, s, scale, st)
 }

@@ -18,8 +18,9 @@
 // no transpose and no pad to a tile multiple. Rows past T are read as zeros
 // and never written, so any T >= 1 works.
 //
-// Head sizes: every d from 1 to 128 and d = 256, the sizes JAX's TPU kernel
-// takes up to 256 (below 128, or a multiple of 128). The tiles hold D
+// Head sizes: every d from 1 to 128 and d = 256 here; the larger multiples
+// of 128 (the rest of what JAX's TPU kernel takes: below 128, or a multiple
+// of 128) run the D-chunked kernels of flash_attention_chunked.cu. The tiles hold D
 // columns, d rounded up to 32, 64, 96, 128 or 256 (one instantiation
 // each); the loads zero-fill the columns past d, which changes no score
 // and leaves the output's extra columns 0, and those are never stored. The
@@ -1141,6 +1142,18 @@ struct Shape {
   int b, t, h;
   Head hd;
 };
+
+// head sizes past 256 that are multiples of 128: the D-chunked kernels of
+// flash_attention_chunked.cu (one code path for every such D)
+inline bool chunked_head(int d) { return d > 256 && d % 128 == 0; }
+cudaError_t fwd_chunked(const void* q, const void* k, const void* v, void* o, float* lse,
+                        Shape s, float scale, int is_bf16, cudaStream_t st);
+cudaError_t bwd_dq_chunked(const void* q, const void* k, const void* v, const void* o,
+                           const void* dout, const float* lse, float* delta, void* dq,
+                           Shape s, float scale, int is_bf16, cudaStream_t st);
+cudaError_t bwd_dkv_chunked(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* delta, void* dk, void* dv,
+                            Shape s, float scale, int is_bf16, cudaStream_t st);
 
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {

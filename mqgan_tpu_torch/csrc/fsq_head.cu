@@ -43,6 +43,19 @@
 //   (one (row, dim) each; the other lanes hold copies), and the pack is
 //   log2(DP) shuffles over the lanes of a row.
 //
+// Past 8 code dims (fsq_head_groups_kernel): the packed index is a sum over dims, so it
+// splits into groups of 8. The kernel runs the D = 8 machinery once per
+// group g over W's columns [8g, 8g + 8) (the dims past d are zero columns
+// and add nothing), W's group staged in shared memory in turn (so shared
+// memory is bounded by a group, not by d), and each row's index is the
+// groups' partial sums added in group order, in fp32, by the lane that
+// stores it (a lane owns the same rows in every group: the grid stride does
+// not depend on g). Below a codebook of 2^24 every partial sum is an exact
+// integer, so the index equals the plain version's whatever the order; past
+// it the sum can round, in either. Both kernels run one device function,
+// fsq_group, per group; d <= 8 is one group of all its D dims, with D a
+// template parameter as before.
+//
 // Rounding as the reference: the multiply and the subtract are separate
 // (__fmul_rn / __fsub_rn, no contraction into an FMA), rintf rounds halves
 // to even like torch.round / jnp.round, tanhf is the exact one. The dot
@@ -124,19 +137,22 @@ __device__ __forceinline__ void load_step(const T* __restrict__ h, int n, int c,
   }
 }
 
-template <typename T, int D, int VEC>
-__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
-fsq_head_kernel(const T* __restrict__ h, const float* __restrict__ w,
-                const float* __restrict__ bias,
-                const float* __restrict__ consts, int* __restrict__ idx,
-                int n, int c) {
+// One group of up to D code dims: W's columns [d0, d0 + dg) of a (c, dd) W
+// staged in ws (zero past dg), then each of this warp's rows of the grid
+// stride reduced against them. emit(row, term) takes a row's partial index
+// over the group, on the lane that stores it (a lane owns the same rows in
+// every group: the grid stride does not depend on the group).
+template <typename T, int D, int VEC, typename Emit>
+__device__ __forceinline__ void fsq_group(const T* __restrict__ h, const float* __restrict__ w,
+                                          const float* __restrict__ bias,
+                                          const float* __restrict__ consts, float4* ws,
+                                          int n, int c, int dd, int d0, int dg, Emit emit) {
   using S = Shape<D>;
   constexpr int DP = S::DP, R = S::R, M = S::M, Q = S::Q, kLogM = S::kLogM;
   const int nvec = c / VEC;
 
-  // W (c, D) -> ws[(e * Q + q) * nvec + v] = dims 4q..4q+3 of channel
-  // v * VEC + e (0 past D)
-  extern __shared__ float4 ws[];
+  // W (c, dd) -> ws[(e * Q + q) * nvec + v] = dims d0 + 4q..4q+3 of channel
+  // v * VEC + e (0 past the group's dims)
   // four float4s a thread in flight at a time: W comes from L2 once a block
   for (int i0 = threadIdx.x; i0 < c * Q; i0 += 4 * blockDim.x) {
     float f[4][4];
@@ -147,7 +163,7 @@ fsq_head_kernel(const T* __restrict__ h, const float* __restrict__ w,
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int j = 4 * q + k;
-        f[t][k] = (i < c * Q && j < D) ? w[ch * D + j] : 0.0f;
+        f[t][k] = (i < c * Q && j < dg) ? w[ch * dd + d0 + j] : 0.0f;
       }
     }
 #pragma unroll
@@ -230,11 +246,12 @@ fsq_head_kernel(const T* __restrict__ h, const float* __restrict__ w,
     for (int b = 0; b < kLogM; ++b) k |= ((lane >> b) & 1) << (kLogM - 1 - b);
     const int r = k / DP, j = k - r * DP;
     float term = 0.0f;
-    if (j < D) {
-      const float half_l = consts[j], offset = consts[D + j];
-      const float shift = consts[2 * D + j], half_w = consts[3 * D + j];
-      const float basis = consts[4 * D + j];
-      const float z = acc[0] + bias[j];
+    if (j < dg) {
+      const int jd = d0 + j;
+      const float half_l = consts[jd], offset = consts[dd + jd];
+      const float shift = consts[2 * dd + jd], half_w = consts[3 * dd + jd];
+      const float basis = consts[4 * dd + jd];
+      const float z = acc[0] + bias[jd];
       // separate multiply and subtract, as the reference rounds them
       const float bounded = __fsub_rn(__fmul_rn(tanhf(z + shift), half_l),
                                       offset);
@@ -245,7 +262,47 @@ fsq_head_kernel(const T* __restrict__ h, const float* __restrict__ w,
     for (int off = R; off < M; off <<= 1) {
       term += __shfl_xor_sync(0xffffffffu, term, off);
     }
-    if (lane < R && row0 + r < n) idx[row0 + r] = static_cast<int>(term);
+    if (lane < R && row0 + r < n) emit(row0 + r, term);
+  }
+}
+
+// d <= 8: one group of all D dims
+template <typename T, int D, int VEC>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+fsq_head_kernel(const T* __restrict__ h, const float* __restrict__ w,
+                const float* __restrict__ bias,
+                const float* __restrict__ consts, int* __restrict__ idx,
+                int n, int c) {
+  extern __shared__ float4 ws[];
+  fsq_group<T, D, VEC>(h, w, bias, consts, ws, n, c, D, 0, D,
+                       [idx](int row, float term) { idx[row] = static_cast<int>(term); });
+}
+
+// Any d past 8: groups of D = 8 code dims (d_all of them), the groups'
+// partial indices added in group order; the sum so far waits in idx as fp32
+// bits until the last group
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+fsq_head_groups_kernel(const T* __restrict__ h, const float* __restrict__ w,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ consts, int* __restrict__ idx,
+                       int n, int c, int d_all) {
+  extern __shared__ float4 ws[];
+  const int n_groups = (d_all + kMaxD - 1) / kMaxD;
+  float* part = reinterpret_cast<float*>(idx);
+  for (int grp = 0; grp < n_groups; ++grp) {
+    if (grp > 0) __syncthreads();  // the previous group's W is read out
+    const bool first = grp == 0, last = grp + 1 == n_groups;
+    fsq_group<T, kMaxD, VEC>(h, w, bias, consts, ws, n, c, d_all, kMaxD * grp,
+                             min(kMaxD, d_all - kMaxD * grp),
+                             [=](int row, float term) {
+                               const float total = first ? term : part[row] + term;
+                               if (last) {
+                                 idx[row] = static_cast<int>(total);
+                               } else {
+                                 part[row] = total;
+                               }
+                             });
   }
 }
 
@@ -259,10 +316,17 @@ int sm_count() {
   return count;
 }
 
-template <typename T, int D, int VEC>
+// kGroups: fsq_head_groups_kernel over d dims in groups of D = 8
+template <typename T, int D, int VEC, bool kGroups = false>
 int launch(const T* h, const float* w, const float* bias, const float* consts,
-           int* idx, int n, int c, cudaStream_t s) {
-  auto kernel = fsq_head_kernel<T, D, VEC>;
+           int* idx, int n, int c, int d, cudaStream_t s) {
+  auto kernel = [] {
+    if constexpr (kGroups) {
+      return fsq_head_groups_kernel<T, VEC>;
+    } else {
+      return fsq_head_kernel<T, D, VEC>;
+    }
+  }();
   const size_t smem = static_cast<size_t>(c) * Shape<D>::Q * sizeof(float4);
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -284,19 +348,23 @@ int launch(const T* h, const float* w, const float* bias, const float* consts,
   const int needed = (groups + kWarps - 1) / kWarps;
   const int resident = (per_sm > 0 ? per_sm : 1) * sm_count();
   const int grid = needed < resident ? needed : resident;
-  kernel<<<grid, kWarps * 32, smem, s>>>(h, w, bias, consts, idx, n, c);
+  if constexpr (kGroups) {
+    kernel<<<grid, kWarps * 32, smem, s>>>(h, w, bias, consts, idx, n, c, d);
+  } else {
+    kernel<<<grid, kWarps * 32, smem, s>>>(h, w, bias, consts, idx, n, c);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kGroups = false>
 int launch_vec(const void* h, const float* w, const float* bias,
-               const float* consts, int* idx, int n, int c, cudaStream_t s) {
+               const float* consts, int* idx, int n, int c, int d, cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(T);
   const T* hp = static_cast<const T*>(h);
   if (c % kVec == 0 && reinterpret_cast<uintptr_t>(hp) % 16 == 0) {
-    return launch<T, D, kVec>(hp, w, bias, consts, idx, n, c, s);
+    return launch<T, D, kVec, kGroups>(hp, w, bias, consts, idx, n, c, d, s);
   }
-  return launch<T, D, 1>(hp, w, bias, consts, idx, n, c, s);
+  return launch<T, D, 1, kGroups>(hp, w, bias, consts, idx, n, c, d, s);
 }
 
 template <typename T>
@@ -304,15 +372,15 @@ int launch_d(const void* h, const float* w, const float* bias,
              const float* consts, int* idx, int n, int c, int d,
              cudaStream_t s) {
   switch (d) {
-    case 1: return launch_vec<T, 1>(h, w, bias, consts, idx, n, c, s);
-    case 2: return launch_vec<T, 2>(h, w, bias, consts, idx, n, c, s);
-    case 3: return launch_vec<T, 3>(h, w, bias, consts, idx, n, c, s);
-    case 4: return launch_vec<T, 4>(h, w, bias, consts, idx, n, c, s);
-    case 5: return launch_vec<T, 5>(h, w, bias, consts, idx, n, c, s);
-    case 6: return launch_vec<T, 6>(h, w, bias, consts, idx, n, c, s);
-    case 7: return launch_vec<T, 7>(h, w, bias, consts, idx, n, c, s);
-    case 8: return launch_vec<T, 8>(h, w, bias, consts, idx, n, c, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 1: return launch_vec<T, 1>(h, w, bias, consts, idx, n, c, d, s);
+    case 2: return launch_vec<T, 2>(h, w, bias, consts, idx, n, c, d, s);
+    case 3: return launch_vec<T, 3>(h, w, bias, consts, idx, n, c, d, s);
+    case 4: return launch_vec<T, 4>(h, w, bias, consts, idx, n, c, d, s);
+    case 5: return launch_vec<T, 5>(h, w, bias, consts, idx, n, c, d, s);
+    case 6: return launch_vec<T, 6>(h, w, bias, consts, idx, n, c, d, s);
+    case 7: return launch_vec<T, 7>(h, w, bias, consts, idx, n, c, d, s);
+    case 8: return launch_vec<T, 8>(h, w, bias, consts, idx, n, c, d, s);
+    default: return launch_vec<T, kMaxD, true>(h, w, bias, consts, idx, n, c, d, s);
   }
 }
 
@@ -326,7 +394,7 @@ extern "C" int mqgan_fsq_head(const void* h, int h_is_bf16, const void* w,
   const float* bf = static_cast<const float*>(bias);
   const float* cf = static_cast<const float*>(consts);
   int* out = static_cast<int*>(idx);
-  if (d < 1 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (h_is_bf16) {
     return launch_d<__nv_bfloat16>(h, wf, bf, cf, out, n, c, d, s);
   }

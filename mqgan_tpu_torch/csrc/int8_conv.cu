@@ -34,7 +34,7 @@
 //    bytes of Cin a slice) or the 64-byte one (BK = 64, where Cin % 128 != 0);
 //  - a block tile is 128 pixels (two consumer warpgroups of 64 rows) by BN
 //    output channels, BN fitted to Cout by the wrapper's plan
-//    (ops/int8_conv.py int8_tile_plan: 64, 128 or 256), so that no N tile
+//    (ops/int8_conv.py int8_tile_plan: 32, 64, 128 or 256), so that no N tile
 //    multiplies mostly zero weight rows;
 //  - the 128 pixels are a box_w x box_h rectangle of one image. TMA loads it
 //    for each of the 9 taps as a 4-D box (BK, box_w, box_h, 1) of xq (Cin,
@@ -63,6 +63,15 @@
 //
 // With `accumulators` set, the conv writes the raw int32 sums in place of y
 // (the check that the kernel's codes and sums equal the plain version's).
+//
+// Any Cin and Cout. TMA needs 16-byte global strides, so xq and wq hold Cin
+// padded with zero codes to Cp, the next multiple of 16: the quantize pass
+// writes xq so, and wq comes so from ops/int8_conv.py quantize_weights. The
+// zero codes add nothing, so the int32 sums are those at the true Cin. The
+// max and quantize passes load x in 16-byte vectors where Cp == Cin and x is
+// 16-byte aligned, else an element at a time. Below Cout = 64 the tile may be BN = 32
+// (wgmma N = 32). The epilogue stores only the columns below Cout: in
+// 16-byte runs where Cout is a multiple of 8, else an element at a time.
 
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda symbol is linked
 #include <cstdint>
@@ -88,9 +97,12 @@ struct Vec {
   static constexpr int kN = 16 / sizeof(T);
 };
 
+// max|x| over n elements: 16-byte loads over the first n_vec vectors, one
+// element at a time past them (the caller passes n_vec = 0 where x is not
+// 16-byte aligned)
 template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
-    absmax_kernel(const T* __restrict__ x, long long n_vec,
+    absmax_kernel(const T* __restrict__ x, long long n_vec, long long n,
                   unsigned* __restrict__ amax) {
   constexpr int V = Vec<T>::kN;
   float m = 0.0f;
@@ -100,6 +112,10 @@ __global__ void __launch_bounds__(kReduceThreads)
     const T* v = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int j = 0; j < V; ++j) m = fmaxf(m, fabsf(mqgan::to_f32<T>(v[j])));
+  }
+  for (long long i = n_vec * V + blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    m = fmaxf(m, fabsf(mqgan::to_f32<T>(x[i])));
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -148,6 +164,29 @@ __global__ void __launch_bounds__(kReduceThreads)
     } else {
       reinterpret_cast<uint32_t*>(xq)[i] = packed[0];
     }
+  }
+}
+
+// xq with Cin padded to cp (a multiple of 16) by zero codes: each thread
+// writes 4 bytes of one pixel's row
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads)
+    quantize_padded_kernel(const T* __restrict__ x, long long words, int cin, int cp,
+                           const unsigned* __restrict__ amax, int8_t* __restrict__ xq) {
+  const float sx = act_scale(amax);
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < words;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long pix = 4 * i / cp;
+    const int c0 = static_cast<int>(4 * i - pix * cp);
+    uint32_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (c0 + j < cin) {
+        const int8_t q = quantize(mqgan::to_f32<T>(x[pix * cin + c0 + j]), sx);
+        word |= static_cast<uint32_t>(static_cast<uint8_t>(q)) << (8 * j);
+      }
+    }
+    reinterpret_cast<uint32_t*>(xq)[i] = word;
   }
 }
 
@@ -260,6 +299,21 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t a, uint64_t b
                                          int accumulate);
 
 template <>
+__device__ __forceinline__ void wgmma_s8<32>(int (&d)[16], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t a, uint64_t b,
                                                int accumulate) {
   asm volatile(
@@ -354,9 +408,10 @@ struct Shape {
   int box_w, box_h;               // a tile's pixels: box_w x box_h, box_w * box_h = 128
   int tiles_w, tiles_h, tiles_n;  // tiles along W, H and Cout
   long long tiles;                // B * tiles_h * tiles_w * tiles_n
-  int slices;                     // ceil(Cin / BK)
+  int slices;                     // ceil(Cp / BK), Cp = Cin padded to 16 where it is not
   int stages;                     // slices in the shared-memory ring
   int mode;                       // 0: fp32 y, 1: bf16 y, 2: the int32 sums
+  int runs;                       // 1: Cout % 8 == 0, 16-byte stores; 0: one element
 };
 
 struct Tile {
@@ -512,6 +567,14 @@ __global__ void __launch_bounds__(kThreads, 1)
             const int n = tl.n0 + c * kChunk + 8 * piece;
             if (h < s.H && w < s.W && n < s.Cout) {
               const uint32_t* src = stg + row * kStageLd + 8 * piece;
+              const long long pix = (static_cast<long long>(tl.b) * s.H + h) * s.W + w;
+              if (!s.runs) {
+                for (int e = 0; e < 8 && n + e < s.Cout; ++e) {
+                  static_cast<__nv_bfloat16*>(out)[pix * s.Cout + n + e] =
+                      __float2bfloat16(__uint_as_float(src[e]));
+                }
+                continue;
+              }
               const uint4 lo = *reinterpret_cast<const uint4*>(src);
               const uint4 hi = *reinterpret_cast<const uint4*>(src + 4);
               const uint32_t f[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
@@ -522,7 +585,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                     __uint_as_float(f[2 * q]), __uint_as_float(f[2 * q + 1]));
                 packed[q] = *reinterpret_cast<const uint32_t*>(&two);
               }
-              const long long pix = (static_cast<long long>(tl.b) * s.H + h) * s.W + w;
               *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + pix * s.Cout + n) =
                   make_uint4(packed[0], packed[1], packed[2], packed[3]);
             }
@@ -537,8 +599,14 @@ __global__ void __launch_bounds__(kThreads, 1)
             const int n = tl.n0 + c * kChunk + 4 * piece;
             if (h < s.H && w < s.W && n < s.Cout) {
               const long long pix = (static_cast<long long>(tl.b) * s.H + h) * s.W + w;
+              const uint32_t* src = stg + row * kStageLd + 4 * piece;
+              if (!s.runs) {
+                for (int e = 0; e < 4 && n + e < s.Cout; ++e)
+                  static_cast<uint32_t*>(out)[pix * s.Cout + n + e] = src[e];
+                continue;
+              }
               *reinterpret_cast<uint4*>(static_cast<uint32_t*>(out) + pix * s.Cout + n) =
-                  *reinterpret_cast<const uint4*>(stg + row * kStageLd + 4 * piece);
+                  *reinterpret_cast<const uint4*>(src);
             }
           }
         }
@@ -574,16 +642,16 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// xq (Cin, W, H, B) boxes of (BK, box_w, box_h, 1) and wq (Cin, 9, Cout)
+// xq (Cp, W, H, B) boxes of (BK, box_w, box_h, 1) and wq (Cp, 9, Cout)
 // boxes of (BK, 1, BN), int8 as bytes, zero fill out of bounds
 cudaError_t encode_maps(CUtensorMap* x_map, CUtensorMap* w_map, const void* xq,
-                        const void* wq, const Shape& s, int bn, int bk) {
+                        const void* wq, const Shape& s, int cp, int bn, int bk) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const CUtensorMapSwizzle swizzle =
       bk == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   const cuuint32_t ones[4] = {1, 1, 1, 1};
-  const cuuint64_t cin = static_cast<cuuint64_t>(s.Cin);
+  const cuuint64_t cin = static_cast<cuuint64_t>(cp);
   const cuuint64_t x_dims[4] = {cin, static_cast<cuuint64_t>(s.W),
                                 static_cast<cuuint64_t>(s.H), static_cast<cuuint64_t>(s.B)};
   const cuuint64_t x_strides[3] = {cin, cin * s.W, cin * s.W * s.H};
@@ -606,7 +674,7 @@ cudaError_t encode_maps(CUtensorMap* x_map, CUtensorMap* w_map, const void* xq,
 // full shared memory
 struct DeviceInfo {
   int sms = 0;
-  bool smem_set[6] = {};
+  bool smem_set[8] = {};
 };
 
 cudaError_t device_info(DeviceInfo** info) {
@@ -646,8 +714,9 @@ template <int BK>
 cudaError_t launch_by_bn(int bn, const CUtensorMap& x_map, const CUtensorMap& w_map,
                          const float* sw, const float* bias, const unsigned* amax, void* out,
                          const Shape& s, int smem, cudaStream_t st) {
-  const int v = BK == 128 ? 3 : 0;  // an index per instantiation
+  const int v = BK == 128 ? 4 : 0;  // an index per instantiation
   switch (bn) {
+    case 32: return launch_conv<32, BK>(v + 3, x_map, w_map, sw, bias, amax, out, s, smem, st);
     case 64: return launch_conv<64, BK>(v, x_map, w_map, sw, bias, amax, out, s, smem, st);
     case 128: return launch_conv<128, BK>(v + 1, x_map, w_map, sw, bias, amax, out, s, smem, st);
     case 256: return launch_conv<256, BK>(v + 2, x_map, w_map, sw, bias, amax, out, s, smem, st);
@@ -660,28 +729,40 @@ int reduce_blocks(long long n_vec) {
   return static_cast<int>(want < 132 * 16 ? (want > 0 ? want : 1) : 132 * 16);
 }
 
+// the max and the quantize pass: 16-byte vectors where xq's rows are x's
+// (cp == cin) and x is 16-byte aligned, else one element at a time, xq
+// padded to cp
 template <typename T>
-cudaError_t passes(const void* x, void* amax, void* xq, long long n, cudaStream_t st) {
-  const long long n_vec = n / Vec<T>::kN;
-  const int blocks = reduce_blocks(n_vec);
+cudaError_t passes(const void* x, void* amax, void* xq, long long pixels, int cin, int cp,
+                   cudaStream_t st) {
+  const long long n = pixels * cin;
+  const bool vec = cp == cin && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const long long n_vec = vec ? n / Vec<T>::kN : 0;
+  const int blocks = reduce_blocks(vec ? n_vec : (n + Vec<T>::kN - 1) / Vec<T>::kN);
   auto* amax_u = static_cast<unsigned*>(amax);
   cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned), st);
   if (err != cudaSuccess) return err;
-  absmax_kernel<T><<<blocks, kReduceThreads, 0, st>>>(static_cast<const T*>(x), n_vec,
+  absmax_kernel<T><<<blocks, kReduceThreads, 0, st>>>(static_cast<const T*>(x), n_vec, n,
                                                        amax_u);
-  quantize_kernel<T><<<blocks, kReduceThreads, 0, st>>>(static_cast<const T*>(x), n_vec,
-                                                         amax_u, static_cast<int8_t*>(xq));
+  if (vec) {
+    quantize_kernel<T><<<blocks, kReduceThreads, 0, st>>>(static_cast<const T*>(x), n_vec,
+                                                           amax_u, static_cast<int8_t*>(xq));
+  } else {
+    quantize_padded_kernel<T><<<blocks, kReduceThreads, 0, st>>>(
+        static_cast<const T*>(x), pixels * cp / 4, cin, cp, amax_u,
+        static_cast<int8_t*>(xq));
+  }
   return cudaSuccess;
 }
 
 }  // namespace
 
-// x (B, H, W, Cin) in the compute dtype, wq (Cout, 3, 3, Cin) int8, sw and
-// bias (Cout,) fp32, amax one 4-byte scratch word, xq (B, H, W, Cin) int8
+// x (B, H, W, Cin) in the compute dtype, wq (Cout, 3, 3, Cp) int8 (Cin
+// padded with zero codes to Cp, Cin rounded up to 16; 16-byte aligned), sw
+// and bias (Cout,) fp32, amax one 4-byte scratch word, xq (B, H, W, Cp) int8
 // scratch, out (B, H, W, Cout) in the compute dtype (int32 with
 // accumulators). The tile plan (bn, bk, stages, box_w, box_h, smem_bytes)
-// comes from ops/int8_conv.py int8_tile_plan, which also checks the shapes:
-// Cin % 16 == 0, Cout % 16 == 0 and >= 32, 16-byte aligned x, xq and wq.
+// comes from ops/int8_conv.py int8_tile_plan, which also checks the shapes.
 extern "C" int mqgan_int8_conv(const void* x, const void* wq, const void* sw,
                                const void* bias, void* amax, void* xq, void* out, int B,
                                int H, int W, int Cin, int Cout, int is_bf16,
@@ -689,9 +770,10 @@ extern "C" int mqgan_int8_conv(const void* x, const void* wq, const void* sw,
                                int box_h, int smem_bytes, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const int need = stages * (kBM + bn) * bk + kStagingBytes + kBarrierBytes + kAlign;
+  const int cp = (Cin + 15) / 16 * 16;
   if (box_w <= 0 || box_h <= 0 || box_w * box_h != kBM || stages < 2 ||
-      stages > kMaxStages || smem_bytes < need || smem_bytes > kSmemMax || Cin % 16 != 0 ||
-      Cout % 16 != 0 || Cout < 32 || (bk != 64 && bk != 128))
+      stages > kMaxStages || smem_bytes < need || smem_bytes > kSmemMax || Cin < 1 ||
+      Cout < 1 || reinterpret_cast<uintptr_t>(wq) % 16 != 0 || (bk != 64 && bk != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   Shape s;
   s.B = B;
@@ -705,16 +787,17 @@ extern "C" int mqgan_int8_conv(const void* x, const void* wq, const void* sw,
   s.tiles_h = (H + box_h - 1) / box_h;
   s.tiles_n = (Cout + bn - 1) / bn;
   s.tiles = static_cast<long long>(B) * s.tiles_h * s.tiles_w * s.tiles_n;
-  s.slices = (Cin + bk - 1) / bk;
+  s.slices = (cp + bk - 1) / bk;
   s.stages = stages;
   s.mode = accumulators ? 2 : (is_bf16 ? 1 : 0);
+  s.runs = Cout % 8 == 0;
 
-  const long long n = static_cast<long long>(B) * H * W * Cin;
-  cudaError_t err = is_bf16 ? passes<__nv_bfloat16>(x, amax, xq, n, st)
-                            : passes<float>(x, amax, xq, n, st);
+  const long long pixels = static_cast<long long>(B) * H * W;
+  cudaError_t err = is_bf16 ? passes<__nv_bfloat16>(x, amax, xq, pixels, Cin, cp, st)
+                            : passes<float>(x, amax, xq, pixels, Cin, cp, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap x_map, w_map;
-  err = encode_maps(&x_map, &w_map, xq, wq, s, bn, bk);
+  err = encode_maps(&x_map, &w_map, xq, wq, s, cp, bn, bk);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto* swf = static_cast<const float*>(sw);
   const auto* bf = static_cast<const float*>(bias);

@@ -66,6 +66,11 @@
 // with no cancellation beyond that absolute bound. The prescaling adds one
 // rounding of w1 and b1 (2^-24 relative each).
 //
+// P past kPSlice = 2048 (kStream): (w1', b1', w2') do not fit the block's
+// dynamic shared memory (16 B a p), so they stream through it in slices of
+// 2048 p, a barrier between slices; each output's sum over p keeps its
+// order, and P <= 2048 keeps the one-slice build.
+//
 // What bounds the Chebyshev mode: FP32 issue (2 N operations per element,
 // N = 160 in pass 5) over a read of x and a write of s in pass 1, a read of
 // s and a write of out in pass 5. Pass 5 holds the N + 1 coefficients in
@@ -89,6 +94,7 @@ constexpr int kMaxPad = 3;     // taps <= 7
 // (PERF.md)
 constexpr int kSfuRows = 3;
 constexpr int kMaxCoef = 1024;
+constexpr int kPSlice = 2048;  // p of (w1', b1', w2') in shared memory at once
 constexpr float kTwoLog2e = 2.8853900817779268f;  // 2 / ln 2
 
 struct Plane {
@@ -182,7 +188,18 @@ __device__ __forceinline__ float zs_tanh(float zs) {
   return a * (r - 1.0f);
 }
 
-template <typename T, int K>
+// (w1, b1, w2) of p in [p0, p0 + n) into wsm[0, n), prescaled
+__device__ __forceinline__ void stage_weights(float4* wsm, const float* __restrict__ w1,
+                                              const float* __restrict__ b1,
+                                              const float* __restrict__ w2, int p0,
+                                              int n, int tid) {
+  for (int i = tid; i < n; i += kThreads) {
+    wsm[i] = make_float4(kTwoLog2e * w1[p0 + i], kTwoLog2e * b1[p0 + i],
+                         w2[p0 + i] / kTwoLog2e, 0.0f);
+  }
+}
+
+template <typename T, int K, bool kStream>
 __global__ void __launch_bounds__(kThreads)
 mel_mixer_kernel(const T* __restrict__ x, const int* __restrict__ lengths,
                  const float* __restrict__ dwk,
@@ -198,10 +215,9 @@ mel_mixer_kernel(const T* __restrict__ x, const int* __restrict__ lengths,
   const int tid = threadIdx.y * kTileC + threadIdx.x;
   load_plane<T, false>(pl, x + static_cast<size_t>(b) * t_len * c_len, dwk,
                        t0, c0, t_len, c_len, K);
-  for (int i = tid; i < p_len; i += kThreads) {
-    wsm[i] = make_float4(kTwoLog2e * w1[i], kTwoLog2e * b1[i],
-                         w2[i] / kTwoLog2e, 0.0f);
-  }
+  // the first slice of p (kStream), or all of them
+  const int p_first = kStream ? min(p_len, kPSlice) : p_len;
+  stage_weights(wsm, w1, b1, w2, 0, p_first, tid);
   __syncthreads();
 
   const int len = lengths[b];
@@ -218,17 +234,26 @@ mel_mixer_kernel(const T* __restrict__ x, const int* __restrict__ lengths,
     acc[r] = 0.0f;
   }
 
-  if (f0 < len) {  // else all of the warp's frames are padding
+  for (int p0 = 0, pn = p_first;;) {
+    if (f0 < len) {  // else all of the warp's frames are padding
 #pragma unroll 2
-    for (int p = 0; p < p_len; ++p) {
-      const float4 w = wsm[p];
+      for (int p = 0; p < pn; ++p) {
+        const float4 w = wsm[p];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float zs = fmaf(w.x, s[r], w.y);
-        const float q = (r < kSfuRows) ? zs_tanh<true>(zs) : zs_tanh<false>(zs);
-        acc[r] = fmaf(w.z, q, acc[r]);
+        for (int r = 0; r < kRows; ++r) {
+          const float zs = fmaf(w.x, s[r], w.y);
+          const float q = (r < kSfuRows) ? zs_tanh<true>(zs) : zs_tanh<false>(zs);
+          acc[r] = fmaf(w.z, q, acc[r]);
+        }
       }
     }
+    if (!kStream) break;
+    p0 += kPSlice;
+    if (p0 >= p_len) break;
+    pn = min(p_len - p0, kPSlice);
+    __syncthreads();  // every thread is done with the previous slice
+    stage_weights(wsm, w1, b1, w2, p0, pn, tid);
+    __syncthreads();
   }
 
   const int c = c0 + threadIdx.x;
@@ -481,11 +506,18 @@ struct ExactArgs {
 
 template <typename T, int K>
 int launch_exact(const ExactArgs& a, cudaStream_t s) {
-  const size_t smem = static_cast<size_t>(a.p) * sizeof(float4);
-  mel_mixer_kernel<T, K><<<tile_grid(a.b, a.t, a.c), dim3(kTileC, kRowGroups),
-                           smem, s>>>(
-      static_cast<const T*>(a.x), a.len, a.dwk, a.consts, a.w1, a.b1, a.w2,
-      static_cast<T*>(a.out), a.t, a.c, a.p);
+  const dim3 grid = tile_grid(a.b, a.t, a.c), block(kTileC, kRowGroups);
+  const auto* x = static_cast<const T*>(a.x);
+  auto* out = static_cast<T*>(a.out);
+  if (a.p <= kPSlice) {
+    const size_t smem = static_cast<size_t>(a.p) * sizeof(float4);
+    mel_mixer_kernel<T, K, false><<<grid, block, smem, s>>>(
+        x, a.len, a.dwk, a.consts, a.w1, a.b1, a.w2, out, a.t, a.c, a.p);
+  } else {
+    const size_t smem = static_cast<size_t>(kPSlice) * sizeof(float4);
+    mel_mixer_kernel<T, K, true><<<grid, block, smem, s>>>(
+        x, a.len, a.dwk, a.consts, a.w1, a.b1, a.w2, out, a.t, a.c, a.p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

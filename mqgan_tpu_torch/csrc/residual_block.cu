@@ -53,6 +53,8 @@ namespace {
 using mqgan::aptx;
 using mqgan::bf16;
 using mqgan::cp_async16;
+using mqgan::cp_async4;
+using mqgan::cp_async8;
 using mqgan::cp_async_commit;
 using mqgan::cp_async_wait;
 using mqgan::lane_a;
@@ -197,11 +199,20 @@ __global__ void __launch_bounds__(256) conv_gemm_simt(ConvArgs a) {
 // stage, 2 blocks an SM), 16 bytes a copy, one barrier a k-step; A is
 // gathered with the time shift and its zero-fill covers t + j - lo outside
 // [0, T) (so a shifted row never reads the neighbouring clip), rows m >= M
-// and k >= K. Needs Cin % 8 == 0 and Cout % 8 == 0 and 16-byte aligned x
-// and w, so an 8-wide chunk of K never straddles two taps (the wrapper
-// checks). On an H100 this tile was the fastest for the six blocks of a
+// and k >= K. On an H100 this tile was the fastest for the six blocks of a
 // flagship round trip among 32-deep steps with 3-5 stages, 2 x 2 warps of
 // 64 x 64, and 128 x 256 or 256 x 128 tiles.
+//
+// kVec, the elements a copy moves (the wrapper's copy width: the widest of
+// 8, 4, 2 and 1 that divides Cin, Cout and every operand's alignment in
+// elements). kVec = 8, 16-byte copies, is the flagship's build and carries
+// no code for the others: an 8-wide chunk of K never straddles two taps and
+// the epilogue stores column pairs. Below it each 8-wide chunk of a row is
+// 8 / kVec copies (cp.async of 8 or 4 bytes, or one element by a plain load
+// and store), each with its own tap and channel, so a chunk may straddle
+// taps; the zero-fill covers the K tail, the columns past Cout and the
+// shifted frames as before. At kVec = 1 (odd channels) the epilogue stores
+// one element at a time.
 constexpr int kBM = 128, kBN = 128, kBK = 64, kGemmStages = 3;
 constexpr int kWarpsM = 2, kWarpsN = 4, kGemmThreads = 32 * kWarpsM * kWarpsN;
 constexpr int kGemmBlocksPerSM = 2;  // launch bound: registers for this many
@@ -218,7 +229,25 @@ static_assert(kGemmThreads % (kBK / 8) == 0 && kGemmThreads % (kBN / 8) == 0 &&
                   kBCopies * kGemmThreads * 8 == kBK * kBN,
               "whole copies per thread");
 
+// one copy of kVec bf16 elements into shared memory; with !in the
+// destination is zero-filled and nothing is read
+template <int kVec>
+__device__ __forceinline__ void copy_elems(bf16* dst, const bf16* src, bool in) {
+  if constexpr (kVec == 8) {
+    cp_async16(dst, src, in);
+  } else if constexpr (kVec == 4) {
+    cp_async8(dst, src, in);
+  } else if constexpr (kVec == 2) {
+    cp_async4(dst, src, in);
+  } else {
+    *dst = in ? *src : __float2bfloat16(0.0f);
+  }
+}
+
+template <int kVec>
 __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSM) conv_gemm_mma(ConvArgs a) {
+  static_assert(kVec == 8 || kVec == 4 || kVec == 2 || kVec == 1, "a copy's elements");
+  constexpr int kSub = 8 / kVec;  // copies per 8-wide chunk
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -242,30 +271,46 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSM) conv_gemm_mma(
     a_t[r] = m < m_total ? m - bi * a.t : -(1 << 30);  // rows >= M: never in
     a_clip[r] = x + static_cast<size_t>(bi) * a.t * a.cin;
   }
-  const bool b_in_n = n0 + b_col < a.cout;
-  // the tap j and channel i of column k0 + a_col for the next k-step loaded
-  int next_k0 = 0, tap = a_col / a.cin, chan = a_col - tap * a.cin;
+  // the tap j and channel i of column k0 + a_col + u * kVec (copy u of the
+  // chunk) for the next k-step loaded
+  int next_k0 = 0, tap[kSub], chan[kSub];
+  bool b_in_n[kSub];  // copy u of the B chunk lies below Cout
+#pragma unroll
+  for (int u = 0; u < kSub; ++u) {
+    tap[u] = (a_col + u * kVec) / a.cin;
+    chan[u] = a_col + u * kVec - tap[u] * a.cin;
+    b_in_n[u] = n0 + b_col + u * kVec < a.cout;
+  }
 
   auto load_stage = [&](int slot) {
     bf16* as = ring + slot * kStageElems;
     bf16* bs = as + kBM * kALd;
-    const bool k_in = next_k0 + a_col < k_total;
 #pragma unroll
-    for (int r = 0; r < kACopies; ++r) {
-      const int ts = a_t[r] + tap - a.lo;
-      const bool in = k_in && ts >= 0 && ts < a.t;
-      const bf16* src = in ? a_clip[r] + static_cast<size_t>(ts) * a.cin + chan : x;
-      cp_async16(as + (a_row + r * kAStride) * kALd + a_col, src, in);
+    for (int u = 0; u < kSub; ++u) {
+      const bool k_in = next_k0 + a_col + u * kVec < k_total;
+#pragma unroll
+      for (int r = 0; r < kACopies; ++r) {
+        const int ts = a_t[r] + tap[u] - a.lo;
+        const bool in = k_in && ts >= 0 && ts < a.t;
+        const bf16* src = in ? a_clip[r] + static_cast<size_t>(ts) * a.cin + chan[u] : x;
+        copy_elems<kVec>(as + (a_row + r * kAStride) * kALd + a_col + u * kVec, src, in);
+      }
     }
 #pragma unroll
-    for (int r = 0; r < kBCopies; ++r) {
-      const int kr = b_row + r * kBStride, kx = next_k0 + kr;
-      const bool in = b_in_n && kx < k_total;
-      const bf16* src = in ? w + static_cast<size_t>(kx) * a.cout + n0 + b_col : w;
-      cp_async16(bs + kr * kBLd + b_col, src, in);
+    for (int u = 0; u < kSub; ++u) {
+#pragma unroll
+      for (int r = 0; r < kBCopies; ++r) {
+        const int kr = b_row + r * kBStride, kx = next_k0 + kr;
+        const bool in = b_in_n[u] && kx < k_total;
+        const bf16* src = in ? w + static_cast<size_t>(kx) * a.cout + n0 + b_col + u * kVec : w;
+        copy_elems<kVec>(bs + kr * kBLd + b_col + u * kVec, src, in);
+      }
     }
     next_k0 += kBK;
-    for (chan += kBK; chan >= a.cin; chan -= a.cin) ++tap;
+#pragma unroll
+    for (int u = 0; u < kSub; ++u) {
+      for (chan[u] += kBK; chan[u] >= a.cin; chan[u] -= a.cin) ++tap[u];
+    }
   };
 
   const int n_k = (k_total + kBK - 1) / kBK;
@@ -310,6 +355,7 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSM) conv_gemm_mma(
 
   // the epilogue from the C fragments: this lane owns columns n, n + 1 of
   // rows g and g + 8 of each 16-row tile; bf16x2 residual reads and stores
+  // (kVec = 1: one element at a time, column n + 1 only below Cout)
   float beta, gamma;
   act_params<bf16>(a, &beta, &gamma);
   const int g = lane / 4, c = lane % 4;
@@ -319,10 +365,10 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSM) conv_gemm_mma(
   float bias_lo[2 * kNJ], bias_hi[2 * kNJ];
 #pragma unroll
   for (int jn = 0; jn < 2 * kNJ; ++jn) {
-    col[jn] = n0 + wn * kWN + 8 * jn + 2 * c;  // even, so n + 1 < Cout too
+    col[jn] = n0 + wn * kWN + 8 * jn + 2 * c;  // even: with Cout even, n + 1 < Cout too
     const bool in = col[jn] < a.cout;
     bias_lo[jn] = in ? a.bias[col[jn]] : 0.0f;
-    bias_hi[jn] = in ? a.bias[col[jn] + 1] : 0.0f;
+    bias_hi[jn] = in && (kVec > 1 || col[jn] + 1 < a.cout) ? a.bias[col[jn] + 1] : 0.0f;
   }
 #pragma unroll
   for (int i = 0; i < kMI; ++i) {
@@ -335,6 +381,17 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSM) conv_gemm_mma(
 #pragma unroll
       for (int jn = 0; jn < 2 * kNJ; ++jn) {
         if (col[jn] >= a.cout) continue;
+        if constexpr (kVec == 1) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (col[jn] + e >= a.cout) continue;
+            const float r = a.epi == kTail ? __bfloat162float(res[row + col[jn] + e]) : 0.0f;
+            out[row + col[jn] + e] = __float2bfloat16(
+                epilogue<bf16>(a.epi, acc[i][jn][2 * half + e], e ? bias_hi[jn] : bias_lo[jn],
+                               valid, r, beta, gamma));
+          }
+          continue;
+        }
         float2 r = make_float2(0.0f, 0.0f);
         if (a.epi == kTail) {
           r = __bfloat1622float2(
@@ -536,17 +593,30 @@ int run_gate_tail(const void* z, const int* lengths, const float* act,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One k-tap conv GEMM with its epilogue: the mma.sync kernel in bf16, the
-// SIMT one in fp32.
-int conv_launch(const ConvArgs& a, int is_bf16, cudaStream_t s) {
+template <int kVec>
+int mma_launch(const ConvArgs& a, cudaStream_t s) {
+  const int m = a.b * a.t;
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv_gemm_mma<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kGemmSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_gemm_mma<kVec><<<dim3((a.cout + kBN - 1) / kBN, (m + kBM - 1) / kBM),
+                        kGemmThreads, kGemmSmem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One k-tap conv GEMM with its epilogue: the mma.sync kernel in bf16 (vec
+// elements a copy: 8, 4, 2 or 1), the SIMT one in fp32.
+int conv_launch(const ConvArgs& a, int is_bf16, int vec, cudaStream_t s) {
   const int m = a.b * a.t;
   if (is_bf16) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        conv_gemm_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kGemmSmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    conv_gemm_mma<<<dim3((a.cout + kBN - 1) / kBN, (m + kBM - 1) / kBM),
-                    kGemmThreads, kGemmSmem, s>>>(a);
+    switch (vec) {
+      case 8: return mma_launch<8>(a, s);
+      case 4: return mma_launch<4>(a, s);
+      case 2: return mma_launch<2>(a, s);
+      case 1: return mma_launch<1>(a, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   } else {
     conv_gemm_simt<<<dim3((a.cout + kSN - 1) / kSN, (m + kSM - 1) / kSM), 256,
                      0, s>>>(a);
@@ -561,14 +631,14 @@ int run_convs(const void* x, const int* len, const float* act, const void* w1,
               const void* b1, const void* w2, const void* b2, const void* pw,
               const void* pb, void* h, void* z, void* res, void* out, int b,
               int t, int cin, int cout, int k, int causal, int is_bf16,
-              cudaStream_t s) {
+              int vec, cudaStream_t s) {
   const int lo = causal ? k - 1 : k / 2;
   auto conv = [&](const void* in, const void* w, const void* bias, int c_in,
                   int taps, int pad_lo, int epi, const void* r,
                   void* dst) -> int {
     const ConvArgs a{in, w, static_cast<const float*>(bias), r, len, act, dst,
                      b, t, c_in, cout, taps, pad_lo, epi};
-    return conv_launch(a, is_bf16, s);
+    return conv_launch(a, is_bf16, vec, s);
   };
   int err;
   const void* residual = x;
@@ -590,12 +660,12 @@ extern "C" int mqgan_residual_block(
     const void* cb2, const void* sam_w, void* h, void* z, void* res,
     void* pooled, void* gate_c, void* sam_stats_buf, void* out, int b, int t,
     int cin, int cout, int k, int hid, int sam_k, int causal, int is_bf16,
-    void* stream) {
+    int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   const float* actf = static_cast<const float*>(act);
   int err = run_convs(x, len, actf, w1, b1, w2, b2, pw, pb, h, z, res, out, b,
-                      t, cin, cout, k, causal, is_bf16, s);
+                      t, cin, cout, k, causal, is_bf16, vec, s);
   if (err || causal) return err;
   const void* residual = pw != nullptr ? res : x;
   float* pooledf = static_cast<float*>(pooled);
@@ -624,12 +694,12 @@ extern "C" int mqgan_residual_block_begin(
     const void* b1, const void* w2, const void* b2, const void* pw,
     const void* pb, const void* stats_lo, const void* stats_hi, void* h,
     void* z, void* res, void* partial, int b, int t, int cin, int cout, int k,
-    int is_bf16, void* stream) {
+    int is_bf16, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   int err = run_convs(x, len, static_cast<const float*>(act), w1, b1, w2, b2,
                       pw, pb, h, z, res, nullptr, b, t, cin, cout, k, 0,
-                      is_bf16, s);
+                      is_bf16, vec, s);
   if (err) return err;
   const int* lo = static_cast<const int*>(stats_lo);
   const int* hi = static_cast<const int*>(stats_hi);

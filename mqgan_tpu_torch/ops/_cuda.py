@@ -47,7 +47,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("fsq_head.cu", "residual_block.cu", "mel_mixer.cu", "log_mel.cu",
            "log_mel_mixed.cu", "log_mel_bluestein.cu", "log_mel_dft.cu",
            "flash_attention.cu", "flash_attention_wide.cu", "flash_attention_any.cu",
-           "flash_attention_any_wide.cu", "int8_conv.cu")
+           "flash_attention_any_wide.cu", "flash_attention_chunked.cu", "int8_conv.cu")
 # no --use_fast_math: the FSQ head needs exact tanhf and the mixer its
 # exact-grade z tanh z (it writes its ex2/rcp.approx instructions itself;
 # tanh.approx's 2^-11 flips FSQ codes on the encode side), the log-mel
@@ -67,11 +67,11 @@ _SIGNATURES = {
                        _PTR),
     # x, lengths, act, w1, b1, w2, b2, pw, pb, cw1, cb1, cw2, cb2, sam_w,
     # h, z, res, pooled, gate_c, sam_stats, out,
-    # B, T, Cin, Cout, K, H, sam_k, causal, is_bf16, stream
-    "mqgan_residual_block": (_PTR,) * 21 + (_INT,) * 9 + (_PTR,),
+    # B, T, Cin, Cout, K, H, sam_k, causal, is_bf16, elements a copy, stream
+    "mqgan_residual_block": (_PTR,) * 21 + (_INT,) * 10 + (_PTR,),
     # x, lengths, act, w1, b1, w2, b2, pw, pb, stats_lo, stats_hi, h, z,
-    # res, partial, B, T, Cin, Cout, K, is_bf16, stream
-    "mqgan_residual_block_begin": (_PTR,) * 15 + (_INT,) * 6 + (_PTR,),
+    # res, partial, B, T, Cin, Cout, K, is_bf16, elements a copy, stream
+    "mqgan_residual_block_begin": (_PTR,) * 15 + (_INT,) * 7 + (_PTR,),
     # z, residual, lengths, act, cw1, cb1, cw2, cb2, sam_w, pooled, counts,
     # gate_c, sam_stats, out, B, T, Cout, H, sam_k, is_bf16, stream
     "mqgan_residual_block_finish": (_PTR,) * 14 + (_INT,) * 6 + (_PTR,),

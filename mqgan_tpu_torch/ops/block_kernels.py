@@ -37,6 +37,11 @@ range [0, length) with no reduction is the unsplit block, in the same
 order of operations. The two parts are the ops ``mqgan::residual_block_begin``
 (which returns the projection as a fresh tensor, empty without one, where
 the split block reuses x) and ``mqgan::residual_block_finish``.
+
+Shapes on the card: any Cin and Cout in fp32 and bf16. The bf16 conv GEMM
+copies 16 bytes at a time where Cin, Cout and every operand's address allow
+it (``copy_width``), else 8, 4 or 2 bytes, or one element; B*T is bounded
+by the grid (B*T <= 4,194,240 a launch).
 """
 
 from __future__ import annotations
@@ -178,23 +183,29 @@ def residual_block_plain(x: torch.Tensor, lengths: torch.Tensor,
     return _aptx((z + res) * valid, beta, gamma)
 
 
+def copy_width(cin: int, cout: int, *tensors: Tensor) -> int:
+    """Elements a copy of the bf16 conv GEMM moves: the widest of 8, 4, 2
+    and 1 that divides Cin, Cout and every tensor's address in elements. 8
+    (16 bytes) is the kernel's fast path, built on its own."""
+    for vec in (8, 4, 2):
+        if (cin % vec == 0 and cout % vec == 0
+                and all(t_.data_ptr() % (2 * vec) == 0 for t_ in tensors)):
+            return vec
+    return 1
+
+
 def _block_dims(x: torch.Tensor, lengths: torch.Tensor, w: BlockWeights,
                 causal: bool) -> tuple:
     """Check a CUDA launch's arguments; returns (B, T, Cin, Cout, K, H,
-    sam_k, is_bf16)."""
+    sam_k, is_bf16, elements a copy)."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_residual_block: unsupported device {x.device}")
     b, t, cin = x.shape
     k, _, cout = w.w1.shape
     cdt, dev = x.dtype, x.device
     bf16 = _cuda.cuda_dtype_flag(cdt)
-    if bf16 and (cin % 8 or cout % 8):
-        raise ValueError(f"fused_residual_block: bf16 kernel needs channels "
-                         f"% 8 == 0, got {cin}->{cout}")
-    if bf16 and any(t_.data_ptr() % 16 for t_ in (x, w.w1, w.w2)
-                    + ((w.proj_w,) if w.proj_w is not None else ())):
-        raise ValueError("fused_residual_block: bf16 kernel needs 16-byte "
-                         "aligned x and conv weights")
+    vec = copy_width(cin, cout, x, w.w1, w.w2,
+                     *(() if w.proj_w is None else (w.proj_w,))) if bf16 else 1
     if -(-b * t // 64) > 65535:
         raise ValueError(f"fused_residual_block: B*T={b * t} exceeds the "
                          f"kernel's grid")
@@ -231,7 +242,7 @@ def _block_dims(x: torch.Tensor, lengths: torch.Tensor, w: BlockWeights,
         if sam_k % 2 == 0 or hid > cout:
             raise ValueError(f"fused_residual_block: SAM taps {sam_k} must be "
                              f"odd and the CBAM hidden {hid} <= {cout}")
-    return b, t, cin, cout, k, hid, sam_k, bf16
+    return b, t, cin, cout, k, hid, sam_k, bf16, vec
 
 
 def residual_block_begin_kernel(x: Tensor, lengths: Tensor, *args) -> tuple:
@@ -239,7 +250,7 @@ def residual_block_begin_kernel(x: Tensor, lengths: Tensor, *args) -> tuple:
     implementation): args are the flat ``BlockWeights`` then lo, hi;
     returns (z, partial, the projection or an empty tensor)."""
     w, lo, hi = BlockWeights(*args[:-2]), args[-2], args[-1]
-    b, t, cin, cout, k, _, _, bf16 = _block_dims(x, lengths, w, False)
+    b, t, cin, cout, k, _, _, bf16, vec = _block_dims(x, lengths, w, False)
     for name, r in (("stats_lo", lo), ("stats_hi", hi)):
         _cuda.check(r, name, dtype=torch.int32, shape=(b,), device=x.device)
     h = torch.empty((b, t, cout), dtype=x.dtype, device=x.device)
@@ -254,7 +265,7 @@ def residual_block_begin_kernel(x: Tensor, lengths: Tensor, *args) -> tuple:
         p(x), p(lengths), p(w.act), p(w.w1), p(w.b1), p(w.w2), p(w.b2),
         p(w.proj_w), p(w.proj_b), p(lo), p(hi), p(h), p(z),
         p(proj) if w.proj_w is not None else None, p(partial),
-        b, t, cin, cout, k, bf16)
+        b, t, cin, cout, k, bf16, vec)
     _cuda.COUNTERS.add("residual_block_split")
     return z, partial, proj
 
@@ -266,7 +277,7 @@ def residual_block_finish_kernel(x: Tensor, lengths: Tensor, *args) -> Tensor:
     frames they cover."""
     w = BlockWeights(*args[:-4])
     res, z, pooled, counts = args[-4:]
-    b, t, _, cout, _, hid, sam_k, bf16 = _block_dims(x, lengths, w, False)
+    b, t, _, cout, _, hid, sam_k, bf16, _ = _block_dims(x, lengths, w, False)
     dev = x.device
     _cuda.check(z, "z", dtype=x.dtype, shape=(b, t, cout), device=dev)
     _cuda.check(res, "res", dtype=x.dtype, shape=(b, t, cout), device=dev)
@@ -307,7 +318,7 @@ def residual_block_kernel(x: Tensor, lengths: Tensor, *args) -> Tensor:
     """The whole block on CUDA tensors (the op's CUDA implementation):
     args are the flat ``BlockWeights`` then causal."""
     w, causal = BlockWeights(*args[:-1]), args[-1]
-    b, t, cin, cout, k, hid, sam_k, bf16 = _block_dims(x, lengths, w, causal)
+    b, t, cin, cout, k, hid, sam_k, bf16, vec = _block_dims(x, lengths, w, causal)
     cdt, dev = x.dtype, x.device
     out = torch.empty((b, t, cout), dtype=cdt, device=dev)
     if out.numel() == 0:
@@ -326,7 +337,7 @@ def residual_block_kernel(x: Tensor, lengths: Tensor, *args) -> Tensor:
         p(x), p(lengths), p(w.act), p(w.w1), p(w.b1), p(w.w2), p(w.b2),
         p(w.proj_w), p(w.proj_b), p(w.cw1), p(w.cb1), p(w.cw2), p(w.cb2),
         p(w.sam_w), p(h), p(z), p(res), p(pooled), p(gate_c), p(sam_stats),
-        p(out), b, t, cin, cout, k, hid, sam_k, int(causal), bf16)
+        p(out), b, t, cin, cout, k, hid, sam_k, int(causal), bf16, vec)
     _cuda.COUNTERS.add("residual_block")
     return out
 

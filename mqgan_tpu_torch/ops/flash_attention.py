@@ -9,9 +9,13 @@ the JAX library flash attention that ``mqgan_tpu/models/token_transformer.py``
 q, k, v and o are (B, T, H, D) as the attention module holds them; the
 kernels read and write that layout in place (no transpose, no pad to a tile
 multiple, and no padded copy of a head size: the kernels zero-fill the
-columns past D in their own loads). They take every D from 1 to 128 and D =
-256 (``head_size_ok``), the sizes JAX's TPU kernel takes up to 256 (below
-128, or a multiple of 128); a larger D raises. ``causal_attention`` is the
+columns past D in their own loads). They take the head sizes JAX's TPU
+kernel takes (``head_size_ok``): every D from 1 to 128 and every multiple of
+128 (past 256 through the D-chunked kernels of
+``csrc/flash_attention_chunked.cu``: a block per 128 output columns, the
+score products summed over D in 128-column chunks). The grid bounds a
+launch: B <= 65,535, T <= 4,194,240 and, past D = 256, H * D / 128 <=
+65,535. ``causal_attention`` is the
 op ``mqgan::flash_fwd`` with its backward ``mqgan::flash_bwd``
 (``torch.library.register_autograd``): on a
 CUDA tensor they launch the hand-written kernels of
@@ -30,7 +34,8 @@ from torch import Tensor
 
 from mqgan_tpu_torch.ops import _cuda
 
-MAX_HEAD = 256  # the largest head size the kernels take (and 1..128)
+CHUNK = 128  # head sizes past 128 are multiples of this
+MAX_GRID_Y = 65535  # the grid's second and third dimensions
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -93,10 +98,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
 
 
 def head_size_ok(d: int) -> bool:
-    """Whether the kernels take head size d: 1..128 or 256. JAX's TPU
-    kernel also takes the multiples of 128 past 256, which the port does
-    not (ROADMAP.md Queue 3)."""
-    return 1 <= d <= 128 or d == MAX_HEAD
+    """Whether the kernels take head size d: JAX's TPU kernel's rule, 1..128
+    or a multiple of 128."""
+    return 1 <= d <= CHUNK or (d > 0 and d % CHUNK == 0)
 
 
 def copy_width(d: int, *tensors: torch.Tensor) -> int:
@@ -122,9 +126,11 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> tuple:
         raise ValueError(f"{name}: expected (B, T, H, D), got {tuple(first.shape)}")
     b, t, h, d = first.shape
     if not head_size_ok(d):
-        raise ValueError(f"{name}: head size {d} has no kernel (1..128 and "
-                         f"{MAX_HEAD}; JAX's TPU kernel takes larger multiples of "
-                         f"128, not ported: ROADMAP.md Queue 3)")
+        raise ValueError(f"{name}: head size {d} has no kernel (1..128 or a "
+                         f"multiple of 128, as JAX's TPU kernel)")
+    if b > MAX_GRID_Y or (d > 2 * CHUNK and h * (d // CHUNK) > MAX_GRID_Y):
+        raise ValueError(f"{name}: B={b} H={h} D={d} exceed the kernels' grid "
+                         f"(B <= {MAX_GRID_Y}; past D = 256, H * D / 128 <= {MAX_GRID_Y})")
     for i, x in enumerate(tensors):
         _cuda.check(x, f"{name} input {i}", dtype=first.dtype,
                     shape=first.shape, device=first.device)

@@ -14,6 +14,13 @@ codes whose pre-round value sits near a rounding midpoint.
 CUDA implementation ``fsq_head_kernel`` launches the kernel
 (``csrc/fsq_head.cu``), on a CPU tensor it is the plain PyTorch version
 ``fsq_encode_plain``.
+
+Shapes on the card: any codebook below 2**31, the int32 index's range
+(``fsq_head_constants`` refuses a larger one, where the levels are known;
+the wrapper, which sees only the device constants, refuses d > 30, since
+every level is at least 2), and C up to 10,240 channels (W's group of 8
+dims in shared memory). Past 8 dims the kernel runs in groups of 8 and adds
+their partial indices in fp32, exact below a codebook of 2**24.
 """
 
 from __future__ import annotations
@@ -24,13 +31,20 @@ import torch
 from mqgan_tpu_torch.ops import _cuda
 from mqgan_tpu_torch.quant.fsq import FSQSpec, bound_constants
 
-MAX_D = 8  # the kernel keeps its accumulators per code dim in registers
-# W in shared memory: C * 4 * ceil(d / 4) fp32 values (d padded to float4s)
+GROUP_D = 8  # code dims the kernel reduces at once; more run in groups of 8
+MAX_CODEBOOK = 2 ** 31 - 1  # the int32 index's range
+MAX_D = 30  # 31 dims of 2 levels or more hold at least 2**31 codes
+# W's group in shared memory: C * 4 * ceil(min(d, 8) / 4) fp32 values
 MAX_SMEM_FLOATS = 40960
 
 
 def fsq_head_constants(spec: FSQSpec) -> np.ndarray:
-    """(5, d) fp32 rows: half_l, offset, shift, half_width, basis."""
+    """(5, d) fp32 rows: half_l, offset, shift, half_width, basis.
+    Raises ValueError for a codebook past the int32 index."""
+    if spec.codebook_size > MAX_CODEBOOK:
+        raise ValueError(f"fsq head: codebook of {spec.codebook_size} codes (levels "
+                         f"{list(spec.levels)}) exceeds the int32 index's "
+                         f"{MAX_CODEBOOK}")
     half_l, offset, shift = bound_constants(spec.levels)
     return np.stack([half_l, offset, shift, spec.half_width,
                      spec.basis.astype(np.float32)]).astype(np.float32)
@@ -57,11 +71,12 @@ def fsq_head_kernel(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     _cuda.check(w, "w", dtype=torch.float32, shape=(c, d), device=dev)
     _cuda.check(b, "b", dtype=torch.float32, shape=(d,), device=dev)
     _cuda.check(consts, "consts", dtype=torch.float32, shape=(5, d), device=dev)
-    smem_floats = c * 4 * -(-d // 4)
+    smem_floats = c * 4 * -(-min(d, GROUP_D) // 4)
     if not 1 <= d <= MAX_D or smem_floats > MAX_SMEM_FLOATS:
-        raise ValueError(f"fsq_encode_head: d={d} (1..{MAX_D}) and W's "
-                         f"{smem_floats} shared-memory floats (max "
-                         f"{MAX_SMEM_FLOATS}) exceed the kernel")
+        raise ValueError(f"fsq_encode_head: d={d} (1..{MAX_D}: 31 dims of at least 2 "
+                         f"levels pass the int32 index) or W's {smem_floats} "
+                         f"shared-memory floats a group of {GROUP_D} dims (at most "
+                         f"{MAX_SMEM_FLOATS}, C <= 10,240) outside the kernel")
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return idx

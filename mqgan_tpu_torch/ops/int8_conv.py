@@ -13,8 +13,10 @@ quantizes it; both scales divide (no reciprocal), rounding is half to even;
 the conv accumulates in int32 and the rescale multiplies then adds in fp32.
 
 x is the refiner's (B, Cin, T, F) image in channels-last memory and y its
-(B, Cout, T, F) output, likewise; wq is (Cout, 3, 3, Cin) int8, sw and bias
-(Cout,) fp32 (sw holds the compute dtype's values).
+(B, Cout, T, F) output, likewise; wq is (Cout, 3, 3, Cp) int8, Cin padded
+with zero codes to Cp, the next multiple of 16 (``quantize_weights`` lays it
+out so once, where it quantizes), sw and bias (Cout,) fp32 (sw holds the
+compute dtype's values).
 
 ``int8_conv`` is the op ``mqgan::int8_conv``: on a CUDA tensor its CUDA
 implementation ``int8_conv_kernel`` launches ``csrc/int8_conv.cu`` (the max,
@@ -25,9 +27,16 @@ int8 products exactly in float64 (a 9 * Cin * 127**2 sum exceeds fp32's
 
 The kernel's tiles come from ``int8_tile_plan``, a pure function of the
 shape: 128-pixel tiles (a ``box_w`` x ``box_h`` rectangle of one image, the
-pair that pads B*H*W least), BN output channels (64, 128 or 256, fitted to
-Cout), BK = 128 bytes of Cin a slice where Cin % 128 == 0, else 64, and
-as many ring stages as shared memory holds (at most 8).
+pair that pads B*H*W least), BN output channels (32, 64, 128 or 256, fitted
+to Cout; 32 only below Cout = 64), BK = 128 bytes of Cin a slice where Cin %
+128 == 0, else 64, and as many ring stages as shared memory holds (at most
+8).
+
+Shapes on the card: any Cin and Cout >= 1 and any image of fewer than 2**31
+pixels, x at any address. TMA needs 16-byte strides, so the kernel
+quantizes x into xq (B, H, W, Cp) and reads wq at Cp; the zero codes add
+nothing, so the int32 sums are those at the true Cin. wq must be
+16-byte aligned, as a fresh tensor is.
 """
 
 from __future__ import annotations
@@ -46,7 +55,8 @@ SCALE_FLOOR = 1e-8
 
 # the kernel's tiling (csrc/int8_conv.cu)
 BM = 128                           # pixels a tile: two consumer warpgroups of 64
-BN_CHOICES = (256, 128, 64)        # output channels a tile (the wgmma's N)
+BN_CHOICES = (256, 128, 64, 32)    # output channels a tile (the wgmma's N)
+BN_NARROW = 32                     # taken only below Cout = 64
 BOX_WIDTHS = (128, 64, 32, 16, 8)  # a tile's width in pixels; height = 128 / width
 N_TILE_COST = 64                   # an N tile's fixed cost, in channels' worth
 MAX_STAGES = 8
@@ -74,6 +84,11 @@ class TilePlan:
     box_w: int
     box_h: int
     smem_bytes: int
+
+    @property
+    def cin_padded(self) -> int:
+        """Cin as xq and wq hold it in the kernel: rounded up to 16."""
+        return padded_cin(self.cin)
 
     @property
     def tiles_w(self) -> int:
@@ -109,18 +124,17 @@ def int8_tile_plan(b: int, h: int, w: int, cin: int, cout: int) -> TilePlan:
     Raises ValueError for a shape the kernel does not take."""
     if min(b, h, w) < 1:
         raise ValueError(f"int8_conv: empty image B={b} H={h} W={w}")
-    if cin < 16 or cin % 16:
-        raise ValueError(f"int8_conv: the kernel needs Cin % 16 == 0, got {cin}")
-    if cout < 32 or cout % 16:
-        raise ValueError(f"int8_conv: the kernel needs Cout % 16 == 0 and Cout >= 32, "
-                         f"got {cout}")
+    if min(cin, cout) < 1:
+        raise ValueError(f"int8_conv: no channels, Cin={cin} Cout={cout}")
     if b * h * w >= 2 ** 31:
         raise ValueError(f"int8_conv: B*H*W={b * h * w} exceeds 2**31 - 1 pixels")
     bk = 128 if cin % 128 == 0 else 64
     # the BN whose tiles cost least (the padded channels plus a fixed cost a
-    # tile), among those whose last tile is at least half used; ties: wider
-    fits = [bn for bn in BN_CHOICES if cout - (-(-cout // bn) - 1) * bn >= bn // 2]
-    bn = min(fits, key=lambda n: (-(-cout // n) * (n + N_TILE_COST), -n))
+    # tile), among those whose last tile is at least half used (the narrowest
+    # where none is: Cout below 16); ties: wider
+    choices = [bn for bn in BN_CHOICES if bn != BN_NARROW or cout < 64]
+    fits = [bn for bn in choices if cout - (-(-cout // bn) - 1) * bn >= bn // 2]
+    bn = min(fits or [BN_NARROW], key=lambda n: (-(-cout // n) * (n + N_TILE_COST), -n))
     # the rectangle that pads the image least; ties: wider (longer rows)
     def covered(bw: int) -> int:
         return -(-w // bw) * bw * -(-h // (BM // bw)) * (BM // bw)
@@ -137,13 +151,20 @@ def _div(a: Tensor, b: float) -> Tensor:
     return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
+def padded_cin(cin: int) -> int:
+    """Cp: Cin rounded up to 16, the row of xq and wq in the kernel."""
+    return -(-cin // 16) * 16
+
+
 def quantize_weights(kernel: Tensor) -> tuple:
     """kernel (Cout, Cin, 3, 3) in the compute dtype -> (wq (Cout, 3, 3,
-    Cin) int8, sw (Cout,) fp32), computed in the compute dtype."""
+    Cp) int8, Cin padded with zero codes to ``padded_cin``, sw (Cout,)
+    fp32), computed in the compute dtype."""
     sw = _div(kernel.abs().amax(dim=(1, 2, 3)).clamp_min(SCALE_FLOOR), QMAX)
     wq = torch.round(kernel / sw[:, None, None, None]).clamp(-QMAX, QMAX)
-    return (wq.to(torch.int8).permute(0, 2, 3, 1).contiguous(),
-            sw.float().contiguous())
+    wq = wq.to(torch.int8).permute(0, 2, 3, 1)
+    pad = padded_cin(wq.shape[-1]) - wq.shape[-1]
+    return ((F.pad(wq, (0, pad)) if pad else wq).contiguous(), sw.float().contiguous())
 
 
 def activation_scale(x: Tensor) -> Tensor:
@@ -157,11 +178,11 @@ def quantize_activations(x: Tensor, sx: Tensor) -> Tensor:
 
 
 def int8_conv_accumulators(xq: Tensor, wq: Tensor) -> Tensor:
-    """The exact int32 sums: xq (B, H, W, Cin) int8, wq (Cout, 3, 3, Cin)
-    int8 -> (B, H, W, Cout) int32, nine shifted products in float64."""
-    b, h, w, _ = xq.shape
+    """The exact int32 sums: xq (B, H, W, Cin) int8, wq (Cout, 3, 3, Cin
+    or Cp) int8 -> (B, H, W, Cout) int32, nine shifted products in float64."""
+    b, h, w, cin = xq.shape
     xp = F.pad(xq.double(), (0, 0, 1, 1, 1, 1))
-    wd = wq.double()
+    wd = wq[..., :cin].double()
     acc = torch.zeros((b, h, w, wq.shape[0]), dtype=torch.float64, device=xq.device)
     for dh in range(3):
         for dw in range(3):
@@ -196,9 +217,10 @@ def _check(x: Tensor, wq: Tensor, sw: Tensor, bias: Tensor) -> tuple:
     bf16 = _cuda.cuda_dtype_flag(x.dtype)
     if not x.permute(0, 2, 3, 1).is_contiguous():
         raise ValueError("int8_conv: x must be channels-last contiguous")
-    if x.data_ptr() % 16 or wq.data_ptr() % 16:
-        raise ValueError("int8_conv: x and wq must be 16-byte aligned")
-    _cuda.check(wq, "wq", dtype=torch.int8, shape=(cout, 3, 3, cin), device=dev)
+    _cuda.check(wq, "wq", dtype=torch.int8, shape=(cout, 3, 3, padded_cin(cin)),
+                device=dev)
+    if wq.data_ptr() % 16:
+        raise ValueError("int8_conv: wq must be 16-byte aligned")
     _cuda.check(sw, "sw", dtype=torch.float32, shape=(cout,), device=dev)
     _cuda.check(bias, "bias", dtype=torch.float32, shape=(cout,), device=dev)
     plan = int8_tile_plan(b, h, w, cin, cout) if x.numel() else None
@@ -215,7 +237,7 @@ def int8_conv_kernel(x: Tensor, wq: Tensor, sw: Tensor, bias: Tensor,
     cout = wq.shape[0]
     dev = x.device
     out = _nhwc_out(x, cout, torch.int32 if accumulators else None)
-    xq = torch.empty((b, h, w, cin), dtype=torch.int8, device=dev)
+    xq = torch.empty((b, h, w, padded_cin(cin)), dtype=torch.int8, device=dev)
     if out.numel():
         amax = torch.empty((1,), dtype=torch.int32, device=dev)
         pt = _cuda.ptr
@@ -225,7 +247,7 @@ def int8_conv_kernel(x: Tensor, wq: Tensor, sw: Tensor, bias: Tensor,
                      plan.box_h, plan.smem_bytes)
         _cuda.COUNTERS.add("int8_conv")
     if accumulators:
-        return xq, out.permute(0, 2, 3, 1)
+        return xq[..., :cin], out.permute(0, 2, 3, 1)
     return out
 
 

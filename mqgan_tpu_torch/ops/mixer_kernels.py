@@ -15,6 +15,10 @@ CUDA implementation ``mel_mixer_kernel`` launches the kernel
 ``mel_mixer_plain``. The plain version evaluates the hidden in time chunks so its
 peak memory stays bounded (the whole hidden is 34 GB fp32 at B=64, T=512,
 C=P=512).
+
+Shapes on the card: odd taps up to 7 and any P (past 2048 the kernel
+streams (w1, b1, w2) through shared memory in slices of 2048); B <= 65,535
+rows and T <= 4,194,240 frames a launch (the grid).
 """
 
 from __future__ import annotations
@@ -28,7 +32,6 @@ from torch import Tensor
 from mqgan_tpu_torch.ops import _cuda
 
 MAX_DW_K = 7  # the kernel's shared halo tile is sized for taps <= 7
-MAX_P = 2048  # (w1, b1, w2) per p live in shared memory
 HIDDEN_CHUNK_BYTES = 1 << 28  # plain version: fp32 hidden per time chunk
 
 
@@ -62,12 +65,10 @@ def mel_mixer_plain(x: torch.Tensor, lengths: torch.Tensor,
     return out.to(x.dtype)
 
 
-def check_mixer_shape(name: str, k: int, p: int | None = None) -> None:
-    """Raise on a tap count (or P) outside the mixer kernels."""
+def check_mixer_shape(name: str, k: int) -> None:
+    """Raise on a tap count outside the mixer kernels."""
     if k % 2 == 0 or k > MAX_DW_K:
         raise ValueError(f"{name}: taps {k} outside the kernel (odd, <= {MAX_DW_K})")
-    if p is not None and not 1 <= p <= MAX_P:
-        raise ValueError(f"{name}: P={p} outside the kernel (1..{MAX_P})")
 
 
 def check_mixer_args(x: torch.Tensor, lengths: torch.Tensor,
@@ -119,6 +120,6 @@ mel_mixer_op = _cuda.register_op("mel_mixer", _mel_mixer_cpu, mel_mixer_kernel,
 def fused_mel_mixer(x: Tensor, lengths: Tensor, w: MixerWeights) -> Tensor:
     """x (B, T, C) in the compute dtype, lengths (B,) int32 valid frames
     (contiguous masks) -> (B, T, C) in the compute dtype."""
-    check_mixer_shape("fused_mel_mixer", w.dwk.shape[0], w.w1.shape[0])
+    check_mixer_shape("fused_mel_mixer", w.dwk.shape[0])
     _cuda.check_device("fused_mel_mixer", x)
     return _cuda.dispatch(mel_mixer_op, mel_mixer_kernel, x, lengths, *w)

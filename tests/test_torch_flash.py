@@ -125,12 +125,22 @@ def test_wrappers_take_plain_on_cpu_and_refuse_other_devices(rng):
         flash_attention_bwd(meta, meta, meta, meta, meta, meta, 0.5)
 
 
+def _jax_takes(d: int) -> bool:
+    """JAX's TPU flash kernel's head-size rule (jax/experimental/pallas/ops/
+    tpu/flash_attention.py, the kernel's `divmod(head_dim, MIN_BLOCK_SIZE)`:
+    a remainder is refused unless the head is below one block of 128)."""
+    repeats, rem = divmod(d, 128)
+    return d >= 1 and (rem == 0 or repeats == 0)
+
+
 def test_head_sizes_and_copy_widths():
-    """The kernels take D 1..128 and 256 (JAX's TPU kernel: below 128 or a
-    multiple of 128; past 256 refused), and copy rows in the widest of 16,
-    8, 4, 2 bytes that a row and every address allow."""
-    assert all(head_size_ok(d) for d in (*range(1, 129), 256))
-    assert not any(head_size_ok(d) for d in (0, 129, 200, 255, 384, 512))
+    """The kernels take JAX's TPU kernel's head sizes, D 1..128 and every
+    multiple of 128 (past 256 through the D-chunked kernels), and copy rows
+    in the widest of 16, 8, 4, 2 bytes that a row and every address
+    allow."""
+    assert [head_size_ok(d) for d in range(0, 1025)] == [_jax_takes(d) for d in range(0, 1025)]
+    assert all(head_size_ok(d) for d in (*range(1, 129), 256, 384, 512, 1024))
+    assert not any(head_size_ok(d) for d in (0, 129, 200, 255, 300, 513))
     x = torch.zeros(4096, dtype=torch.bfloat16)
     rows = lambda d, off=0: x[off:off + 2 * d].view(1, 1, 2, d)  # noqa: E731
     assert [copy_width(d, rows(d)) for d in (64, 40, 96, 20, 6, 3)] == [8, 8, 8, 4, 2, 1]

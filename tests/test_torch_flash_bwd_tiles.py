@@ -3,7 +3,8 @@
 replayed in torch on the CPU and held against the plain backward.
 
 The replay follows the kernels' decomposition, not their lane layouts:
-64-row tiles cut into 16-row warp strips; dQ per query strip over the key
+64-row tiles cut into 16-row warp strips (a tile's strips side by side, as
+its warps run); dQ per query strip over the key
 tiles 0 .. diagonal; dK/dV per key strip over the query tiles diagonal ..
 end, on the transposed scores S^T = K_w Q^T with lse and delta indexed by
 column, in passes of 64 query columns (32 at D=128); tiles above the
@@ -47,6 +48,14 @@ def _unpadded(x: torch.Tensor, t: int, dtype) -> torch.Tensor:
     return x[:, :, :t].transpose(1, 2).to(dtype)
 
 
+def _strips(x: torch.Tensor, tile: int) -> torch.Tensor:
+    """Rows [tile * 64, tile * 64 + 64) of a padded (B, H, n, ...) tensor as
+    its 4 warp strips, (B, H, 4, 16, ...): the strips run side by side,
+    each row's sums in the kernel's order."""
+    rows = x[:, :, tile * ROWS:(tile + 1) * ROWS]
+    return rows.reshape(rows.shape[:2] + (ROWS // STRIP, STRIP) + rows.shape[3:])
+
+
 def tiled_dq(q, k, v, o, lse, do, scale, rnd=lambda x: x):
     """dQ as ``flash_bwd_dq_mma`` computes it; ``rnd`` rounds dS where the
     kernel rounds it (to the A operand of dS K)."""
@@ -59,22 +68,23 @@ def tiled_dq(q, k, v, o, lse, do, scale, rnd=lambda x: x):
     lsep = _padded_stat(lse, n)
     dq = torch.zeros_like(qp)
     for qt in reversed(range(n_tiles)):  # longest rows first
-        for w in range(ROWS // STRIP):
-            r0 = qt * ROWS + w * STRIP
-            rows = slice(r0, r0 + STRIP)
-            query = torch.arange(r0, r0 + STRIP)[:, None]
-            acc = torch.zeros_like(qp[:, :, rows])
-            for kt in range(qt + 1):  # above-diagonal tiles skipped
-                keys = slice(kt * ROWS, (kt + 1) * ROWS)
-                s = qp[:, :, rows] @ kp[:, :, keys].transpose(-1, -2)
-                dp = dop[:, :, rows] @ vp[:, :, keys].transpose(-1, -2)
-                p = torch.exp(s * scale - lsep[:, :, rows, None])
-                if kt == qt:  # the diagonal tile only
-                    key = torch.arange(kt * ROWS, (kt + 1) * ROWS)[None, :]
-                    p = torch.where(key <= query, p, 0.0)
-                ds = p * (dp - delta[:, :, rows, None])
-                acc = acc + rnd(ds) @ kp[:, :, keys]
-            dq[:, :, rows] = acc * scale
+        # the tile's 4 warp strips (16 query rows each) side by side
+        qw, dow = _strips(qp, qt), _strips(dop, qt)
+        lse_w, delta_w = _strips(lsep, qt), _strips(delta, qt)
+        query = torch.arange(qt * ROWS, (qt + 1) * ROWS).reshape(-1, STRIP, 1)
+        acc = torch.zeros_like(qw)
+        for kt in range(qt + 1):  # above-diagonal tiles skipped
+            keys = slice(kt * ROWS, (kt + 1) * ROWS)
+            kk, vk = kp[:, :, None, keys], vp[:, :, None, keys]
+            s = qw @ kk.transpose(-1, -2)
+            dp = dow @ vk.transpose(-1, -2)
+            p = torch.exp(s * scale - lse_w[..., None])
+            if kt == qt:  # the diagonal tile only
+                key = torch.arange(kt * ROWS, (kt + 1) * ROWS)[None, None, :]
+                p = torch.where(key <= query, p, 0.0)
+            ds = p * (dp - delta_w[..., None])
+            acc = acc + rnd(ds) @ kk
+        dq[:, :, qt * ROWS:(qt + 1) * ROWS] = (acc * scale).flatten(2, 3)
     return _unpadded(dq, t, q.dtype)
 
 
@@ -90,28 +100,27 @@ def tiled_dkv(q, k, v, lse, delta, do, scale, rnd=lambda x: x):
     lsep, deltap = _padded_stat(lse, n), _padded_stat(delta, n)
     dk, dv = torch.zeros_like(kp), torch.zeros_like(vp)
     for kt in range(n_tiles):  # the longest column first
-        for w in range(ROWS // STRIP):
-            r0 = kt * ROWS + w * STRIP
-            rows = slice(r0, r0 + STRIP)
-            key = torch.arange(r0, r0 + STRIP)[:, None]
-            dk_acc = torch.zeros_like(kp[:, :, rows])
-            dv_acc = torch.zeros_like(vp[:, :, rows])
-            for qt in range(kt, n_tiles):
-                masked = qt == kt or (qt + 1) * ROWS > t
-                for c0 in range(qt * ROWS, (qt + 1) * ROWS, cols):
-                    qs = slice(c0, c0 + cols)
-                    st = kp[:, :, rows] @ qp[:, :, qs].transpose(-1, -2)
-                    dpt = vp[:, :, rows] @ dop[:, :, qs].transpose(-1, -2)
-                    # lse and delta indexed by column (query)
-                    pt = torch.exp(st * scale - lsep[:, :, None, qs])
-                    if masked:
-                        query = torch.arange(c0, c0 + cols)[None, :]
-                        pt = torch.where((key <= query) & (query < t), pt, 0.0)
-                    dst = pt * (dpt - deltap[:, :, None, qs])
-                    dv_acc = dv_acc + rnd(pt) @ dop[:, :, qs]
-                    dk_acc = dk_acc + rnd(dst) @ qp[:, :, qs]
-            dk[:, :, rows] = dk_acc * scale
-            dv[:, :, rows] = dv_acc
+        # the tile's 4 warp strips (16 key rows each) side by side
+        kw, vw = _strips(kp, kt), _strips(vp, kt)
+        key = torch.arange(kt * ROWS, (kt + 1) * ROWS).reshape(-1, STRIP, 1)
+        dk_acc, dv_acc = torch.zeros_like(kw), torch.zeros_like(vw)
+        for qt in range(kt, n_tiles):
+            masked = qt == kt or (qt + 1) * ROWS > t
+            for c0 in range(qt * ROWS, (qt + 1) * ROWS, cols):
+                qs = slice(c0, c0 + cols)
+                qc, doc = qp[:, :, None, qs], dop[:, :, None, qs]
+                st = kw @ qc.transpose(-1, -2)
+                dpt = vw @ doc.transpose(-1, -2)
+                # lse and delta indexed by column (query)
+                pt = torch.exp(st * scale - lsep[:, :, None, None, qs])
+                if masked:
+                    query = torch.arange(c0, c0 + cols)[None, None, :]
+                    pt = torch.where((key <= query) & (query < t), pt, 0.0)
+                dst = pt * (dpt - deltap[:, :, None, None, qs])
+                dv_acc = dv_acc + rnd(pt) @ doc
+                dk_acc = dk_acc + rnd(dst) @ qc
+        dk[:, :, kt * ROWS:(kt + 1) * ROWS] = (dk_acc * scale).flatten(2, 3)
+        dv[:, :, kt * ROWS:(kt + 1) * ROWS] = dv_acc.flatten(2, 3)
     return _unpadded(dk, t, k.dtype), _unpadded(dv, t, v.dtype)
 
 

@@ -3,14 +3,18 @@
 and held against the plain forward.
 
 The replay follows the kernel's decomposition, not its lane layout: 64-row
-query tiles cut into 16-row warp strips, each over the key tiles 0 ..
-diagonal; the online softmax in base 2 with the scale folded in (scores
+query tiles cut into 16-row warp strips (a tile's strips side by side, as
+its warps run), each over the key tiles 0 .. diagonal; the online softmax in base 2 with the scale folded in (scores
 times scale * log2 e, exp2 of the difference to the running max, alpha =
 exp2(m_old - m_new) rescaling the running sum and the O accumulator); the
 causal mask on the diagonal tile only; rows >= T read as zeros; O scaled
 by 1/l at the end, lse = m ln 2 + log l; P rounded to bf16 before P V in
-the bf16 case. The CUDA kernel itself is held against the plain version on
-the card by ``chip_smoke.py``.
+the bf16 case. Past D = 256 (``csrc/flash_attention_chunked.cu``) a block
+owns 128 output columns and S = Q K^T is summed over D in 128-column chunks
+(the forward in order 0 .. G-1, the backward's S and dP in the order group +
+1, ..., group mod G); the replay of that decomposition is held against the
+plain forward and backward. The CUDA kernel itself is held against the plain
+version on the card by ``chip_smoke.py``.
 """
 
 import math
@@ -38,9 +42,24 @@ def _padded(x: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
+CHUNK = 128  # columns of a chunk and of an output group past D = 256
+
+
+def chunked_product(a, b, order):
+    """a @ b^T summed over 128-column chunks of the last dim in ``order``
+    (the chunked kernels' S = Q K^T and dP = dO V^T)."""
+    out = None
+    for ch in order:
+        cols = slice(ch * CHUNK, (ch + 1) * CHUNK)
+        part = a[..., cols] @ b[..., cols].transpose(-1, -2)
+        out = part if out is None else out + part
+    return out
+
+
 def tiled_fwd(q, k, v, scale, rnd=lambda x: x):
-    """(o, lse) as ``flash_fwd_mma`` computes them; ``rnd`` rounds P where
-    the kernel rounds it (to the A operand of P V)."""
+    """(o, lse) as ``flash_fwd_mma`` (and, past D = 256, the chunked
+    forward: S summed over the chunks in order) computes them; ``rnd``
+    rounds P where the kernel rounds it (to the A operand of P V)."""
     t, d = q.shape[1], q.shape[3]
     n_tiles = math.ceil(t / ROWS)
     n = n_tiles * ROWS
@@ -48,28 +67,33 @@ def tiled_fwd(q, k, v, scale, rnd=lambda x: x):
     o = torch.zeros_like(qp)
     lse = torch.zeros(qp.shape[:3])
     scale2 = scale * LOG2E
+    n_w = ROWS // STRIP
     for qt in reversed(range(n_tiles)):  # longest rows first
-        for w in range(ROWS // STRIP):
-            r0 = qt * ROWS + w * STRIP
-            rows = slice(r0, r0 + STRIP)
-            query = torch.arange(r0, r0 + STRIP)[:, None]
-            m = torch.full((B, H, STRIP), -math.inf)
-            l = torch.zeros((B, H, STRIP))
-            acc = torch.zeros((B, H, STRIP, d))
-            for kt in range(qt + 1):  # above-diagonal tiles skipped
-                keys = slice(kt * ROWS, (kt + 1) * ROWS)
-                s2 = (qp[:, :, rows] @ kp[:, :, keys].transpose(-1, -2)) * scale2
-                if kt == qt:  # the diagonal tile only
-                    key = torch.arange(kt * ROWS, (kt + 1) * ROWS)[None, :]
-                    s2 = torch.where(key > query, -math.inf, s2)
-                m_new = torch.maximum(m, s2.amax(-1))  # finite: key kt * 64
-                alpha = torch.exp2(m - m_new)
-                p = torch.exp2(s2 - m_new[..., None])
-                l = l * alpha + p.sum(-1)
-                acc = acc * alpha[..., None] + rnd(p) @ vp[:, :, keys]
-                m = m_new
-            o[:, :, rows] = acc * (1.0 / l)[..., None]
-            lse[:, :, rows] = m * LN2 + torch.log(l)
+        # the tile's 4 warp strips (16 query rows each) side by side
+        tile = slice(qt * ROWS, (qt + 1) * ROWS)
+        qw = qp[:, :, tile].reshape(B, H, n_w, STRIP, d)
+        query = torch.arange(qt * ROWS, (qt + 1) * ROWS).reshape(n_w, STRIP, 1)
+        m = torch.full((B, H, n_w, STRIP), -math.inf)
+        l = torch.zeros((B, H, n_w, STRIP))
+        acc = torch.zeros((B, H, n_w, STRIP, d))
+        for kt in range(qt + 1):  # above-diagonal tiles skipped
+            keys = slice(kt * ROWS, (kt + 1) * ROWS)
+            kk, vk = kp[:, :, None, keys], vp[:, :, None, keys]
+            if d > 2 * CHUNK:
+                s2 = chunked_product(qw, kk, range(d // CHUNK)) * scale2
+            else:
+                s2 = (qw @ kk.transpose(-1, -2)) * scale2
+            if kt == qt:  # the diagonal tile only
+                key = torch.arange(kt * ROWS, (kt + 1) * ROWS)[None, None, :]
+                s2 = torch.where(key > query, -math.inf, s2)
+            m_new = torch.maximum(m, s2.amax(-1))  # finite: key kt * 64
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s2 - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + rnd(p) @ vk
+            m = m_new
+        o[:, :, tile] = (acc * (1.0 / l)[..., None]).flatten(2, 3)
+        lse[:, :, tile] = (m * LN2 + torch.log(l)).flatten(2, 3)
     return o[:, :, :t].transpose(1, 2).to(q.dtype), lse[..., :t]
 
 
@@ -120,3 +144,57 @@ def test_backward_reads_the_tiled_lse():
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=TOL, rtol=TOL,
                                    err_msg=name)
+
+
+def chunked_bwd(q, k, v, o, lse, do, scale):
+    """(dq, dk, dv) as the chunked backward kernels compute them: for each
+    output group of 128 columns, S and dP summed over the chunks in the
+    order group + 1, ..., group (mod G), P = exp2(S scale log2 e - lse log2
+    e) on visible keys, dS = P (dP - delta); the group's columns of dQ = dS
+    K scale, dK = dS^T Q scale, dV = P^T dO."""
+    t, d = q.shape[1], q.shape[3]
+    g_all = d // CHUNK
+    qp, kp, vp, op, dop = (x.float().transpose(1, 2) for x in (q, k, v, o, do))
+    visible = torch.ones((t, t), dtype=torch.bool).tril()
+    delta = (dop * op).sum(-1)
+    outs = [torch.zeros_like(qp) for _ in range(3)]
+    for grp in range(g_all):
+        order = [(grp + 1 + i) % g_all for i in range(g_all)]
+        s2 = chunked_product(qp, kp, order) * (scale * LOG2E)
+        dp = chunked_product(dop, vp, order)
+        p = torch.where(visible, torch.exp2(s2 - lse[..., None] * LOG2E), 0.0)
+        ds = p * (dp - delta[..., None])
+        cols = slice(grp * CHUNK, (grp + 1) * CHUNK)
+        outs[0][..., cols] = ds @ kp[..., cols] * scale
+        outs[1][..., cols] = ds.transpose(-1, -2) @ qp[..., cols] * scale
+        outs[2][..., cols] = p.transpose(-1, -2) @ dop[..., cols]
+    return tuple(x.transpose(1, 2).to(q.dtype) for x in outs)
+
+
+@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("t", [1, 70])
+def test_chunked_scores_match_plain_fp32(t, d):
+    """Past D = 256: the forward's chunked S and the backward's rotated
+    chunk order, fp32, against the plain forward and backward."""
+    q, k, v, do = _inputs(t, d, seed=t * 10 + d)
+    scale = d ** -0.5
+    o, lse = tiled_fwd(q, k, v, scale)
+    o_p, lse_p = flash_attention_fwd_plain(q, k, v, scale)
+    np.testing.assert_allclose(o.numpy(), o_p.numpy(), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(lse.numpy(), lse_p.numpy(), atol=TOL, rtol=TOL)
+    got = chunked_bwd(q, k, v, o, lse, do, scale)
+    want = flash_attention_bwd_plain(q, k, v, o_p, lse_p, do, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=TOL, rtol=TOL,
+                                   err_msg=name)
+
+
+def test_chunked_forward_bf16_rounding():
+    """D = 384 in bf16: P rounded before P V, within the card's bf16 gate."""
+    t, d = 70, 384
+    q, k, v = (x.bfloat16() for x in _inputs(t, d, seed=5)[:3])
+    scale = d ** -0.5
+    o, _ = tiled_fwd(q, k, v, scale, rnd=lambda x: x.bfloat16().float())
+    o_p, _ = flash_attention_fwd_plain(q, k, v, scale)
+    rel = float((o.float() - o_p.float()).norm() / o_p.float().norm())
+    assert rel <= BF16_REL_L2, rel

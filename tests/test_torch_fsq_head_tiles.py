@@ -11,8 +11,13 @@ multiply-adds in the order the kernel issues them; the transposing butterfly
 adds its partner's upper half) and the plain xor steps after it; the
 per-lane tail (lane L holds row r, dim j of value bitrev(L mod R*DP)):
 tanh, the separately rounded multiply and subtract, half-to-even rounding,
-and the pack summed over the DP lanes of a row. The CUDA kernel itself is
-held against the plain version on the card by ``chip_smoke.py``.
+and the pack summed over the DP lanes of a row. Past 8 code dims the kernel
+runs that machinery once per group of 8 dims (W's columns 8g .. 8g + 7, the
+dims past d zero columns) and adds the groups' partial indices in group
+order in fp32: exact below a codebook of 2**24, where the index equals the
+plain version's; past it (30 dims of level 2) the sums may round apart, and
+the replay counts the mismatches. The CUDA kernel itself is held against
+the plain version on the card by ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -27,6 +32,11 @@ MIDPOINT_TOL = 1e-4  # the plain pre-round value's distance to a midpoint
 LEVELS = {1: (8,), 2: (8, 5), 3: (8, 5, 5), 4: (8, 5, 5, 5), 5: (8, 8, 8, 5, 5),
           6: (8, 8, 5, 5, 5, 5), 7: (8, 5, 5, 5, 5, 5, 5),
           8: (8, 5, 5, 5, 5, 5, 5, 5)}
+GROUP_D = 8  # the kernel's dims a group (ops/fsq_kernels.py GROUP_D)
+# past 8 dims: codebooks 5**9, 5**10, 3**6 * 2**6, 2**16 (below 2**24) and
+# 2**30 (past it)
+GROUP_LEVELS = {9: (5,) * 9, 10: (5,) * 10, 12: (3,) * 6 + (2,) * 6, 16: (2,) * 16,
+                30: (2,) * 30}
 
 
 def kernel_shape(d: int):
@@ -74,6 +84,20 @@ def butterfly(a: torch.Tensor) -> torch.Tensor:
 
 def replay(h, w, b, consts, vec):
     """(N,) int32 indices as ``fsq_head_kernel`` computes them."""
+    d = w.shape[1]
+    if d <= GROUP_D:
+        return replay_terms(h, w, b, consts, vec).to(torch.int32)
+    total = None
+    for d0 in range(0, d, GROUP_D):  # a group: D = 8, its dims past d zero
+        dg = min(GROUP_D, d - d0)
+        pad = lambda a: torch.nn.functional.pad(a[..., d0:d0 + dg], (0, GROUP_D - dg))  # noqa: E731
+        part = replay_terms(h, pad(w), pad(b), pad(consts), vec)
+        total = part if total is None else total + part  # fp32, group order
+    return total.to(torch.int32)
+
+
+def replay_terms(h, w, b, consts, vec):
+    """(N,) fp32 packed index sums as the kernel's tail leaves them."""
     n, c = h.shape
     d = w.shape[1]
     dp, r_rows, m = kernel_shape(d)
@@ -106,14 +130,14 @@ def replay(h, w, b, consts, vec):
     while off < m:
         term = term + term[lanes ^ off]
         off *= 2
-    out = torch.zeros((groups, r_rows), dtype=torch.int32)
+    out = torch.zeros((groups, r_rows))
     for lane in range(r_rows):  # the writers: j == 0
-        out[:, rows[lane]] = term[lane].to(torch.int32)
+        out[:, rows[lane]] = term[lane]
     return out.reshape(-1)[:n]
 
 
 def _case(rng, n, c, d, dtype):
-    spec = FSQSpec(LEVELS[d])
+    spec = FSQSpec(LEVELS[d] if d in LEVELS else GROUP_LEVELS[d])
     h = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32)).to(dtype)
     w = torch.from_numpy((rng.standard_normal((c, d)) * 2.0 / np.sqrt(c))
                          .astype(np.float32))
@@ -170,3 +194,43 @@ def test_butterfly_leaves_bitreversed_sums(d):
     for lane in range(LANES):
         k = bitrev(lane % m, logm)
         assert float(got[lane]) == float(a[:, k].sum())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", sorted(GROUP_LEVELS))
+def test_replay_of_dim_groups_matches_plain(rng, d, dtype):
+    """Past 8 dims, the groups of 8 (the last one ragged but at d = 16):
+    indices equal the plain version's away from a midpoint below a codebook
+    of 2**24; at 2**30 the fp32 sums may round apart, by at most an ulp of
+    2**30 (128) a rounding, and the mismatches are counted."""
+    n, c = 8 * 3 + 1, 96
+    h, w, b, consts, spec = _case(rng, n, c, d, dtype)
+    got = replay(h, w, b, consts, vec_width(c, dtype))
+    want = fsq_encode_plain(h, w, b, consts)
+    far = ~_near_midpoint(h, w, b, consts)
+    assert far.float().mean() > 0.9
+    mismatches = int((got[far] != want[far]).sum())
+    print(f"d={d} {dtype}: codebook {spec.codebook_size}, {mismatches} of "
+          f"{int(far.sum())} indices differ from the plain version")
+    if spec.codebook_size < 2 ** 24:
+        assert mismatches == 0
+        assert int(got.min()) >= 0 and int(got.max()) < spec.codebook_size
+    else:
+        assert (got[far].long() - want[far].long()).abs().max() <= 4 * 128
+
+
+@pytest.mark.parametrize("levels,fits", [((2,) * 30, True), ((2,) * 31, False),
+                                         ((5,) * 13, True), ((5,) * 14, False)])
+def test_constants_refuse_a_codebook_past_the_int32_index(levels, fits):
+    """The head's constants are made only for a codebook whose indices fit
+    int32 (2**30 and 5**13 do; 2**31 and 5**14 do not); the kernel's
+    wrapper, which sees only the device constants, refuses d > 30."""
+    spec = FSQSpec(levels=levels)
+    if fits:
+        consts = fsq_head_constants(spec)
+        assert consts.shape == (5, len(levels))
+        assert np.array_equal(consts[4], spec.basis.astype(np.float32))
+        assert int(spec.basis[-1]) * levels[-1] == spec.codebook_size  # no int32 wrap
+    else:
+        with pytest.raises(ValueError, match="codebook"):
+            fsq_head_constants(spec)

@@ -20,6 +20,7 @@ from mqgan_tpu_torch.nn.mixer2d import MelMixer2D
 from mqgan_tpu_torch.ops import _cuda, mixer_kernels, mixer_poly
 from mqgan_tpu_torch.ops.mixer_kernels import MixerWeights, mel_mixer_plain
 from mqgan_tpu_torch.ops.mixer_poly import fused_poly_mixer, poly_mixer_apply
+from mqgan_tpu_torch.utils.init import seeded_init_
 from mqgan_tpu_torch.utils.params import state_dict_from_jax
 from tests.test_torch_bridge import max_err, perturb, to_numpy_tree
 
@@ -103,7 +104,8 @@ def test_poly_mixer_module_matches_jax(rng):
 def test_mixer_training_mode_raises(poly):
     """Training mode runs the exact pointwise MLP under autograd whatever
     the serving mode (as JAX's non-deterministic calls do); a hidden width
-    outside the kernel still raises on the inference path."""
+    past 2048, which the kernel once refused (even on the CPU), runs on the
+    inference path."""
     mix = MelMixer2D(4, poly_approx=poly)
     exact = MelMixer2D(4)
     with torch.no_grad():
@@ -115,8 +117,28 @@ def test_mixer_training_mode_raises(poly):
     assert torch.equal(out, exact(x, deterministic=False))
     out.sum().backward()
     assert all(p.grad is not None for p in mix.parameters())
-    with pytest.raises(ValueError, match="P="):
-        MelMixer2D(4096)(x)
+    with torch.no_grad():
+        wide = seeded_init_(MelMixer2D(4096), 3)(x)
+    assert wide.shape == x.shape and torch.isfinite(wide).all()
+
+
+def test_exact_mixer_past_2048_features_matches_jax(rng):
+    """MelMixer2D(4096), the mixers' P of a generator whose channels[0] is
+    4096 (the kernel streams (w1, b1, w2) in slices of 2048), against
+    JAX's module: fp32 within 1e-4."""
+    p, t, c, lengths = 4096, 12, 16, (12, 5)
+    x = (rng.standard_normal((2, t, c)) * 0.5).astype(np.float32)
+    mask = sequence_mask(t, jnp.asarray(lengths))
+    jmod = JaxMixer(features=p)
+    tree = perturb(to_numpy_tree(
+        jmod.init(jax.random.PRNGKey(1), jnp.asarray(x), mask, True)), rng)
+    want = np.asarray(jmod.apply({"params": tree}, jnp.asarray(x), mask, True))
+    mod = MelMixer2D(p)
+    mod.load_state_dict(state_dict_from_jax(tree, mod))
+    with torch.no_grad():
+        got = mod(torch.from_numpy(x), torch.from_numpy(np.array(mask))).numpy()
+    print(f"P={p}: max err vs JAX {max_err(got, want):.3e}")
+    np.testing.assert_allclose(got, want, atol=TOL * max(1.0, np.abs(want).max()))
 
 
 # --- the Chebyshev mode from the mixer's input, against JAX's module
@@ -202,6 +224,9 @@ def _weights(k=5, p=8):
     "exact_meta_device", "poly_taps_9", "poly_degree_0", "poly_degree_1024",
     "poly_meta_device"])
 def test_mixer_wrappers_raise_outside_the_kernels(call):
+    """Taps, degrees and devices outside the kernels raise. P is not among
+    them: P = 0 and P = 4096, which the wrapper once refused (on the CPU
+    too), compute."""
     mode, _, what = call.partition("_")
     x = torch.zeros(1, 4, 8)
     lengths = torch.tensor([4], dtype=torch.int32)
@@ -221,6 +246,10 @@ def test_mixer_wrappers_raise_outside_the_kernels(call):
     elif what == "meta_device":
         x = x.to("meta")
     fn = mixer_kernels.fused_mel_mixer if mode == "exact" else fused_poly_mixer
+    if what.startswith("p_"):
+        out = fn(x, lengths, w, **kw)
+        assert torch.equal(out, mel_mixer_plain(x, lengths, w))
+        return
     with pytest.raises(ValueError):
         fn(x, lengths, w, **kw)
 

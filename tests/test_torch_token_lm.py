@@ -127,6 +127,32 @@ def test_transformer_flash_at_head_size_96_matches_jax_fp32(rng):
                                    rtol=GRAD_TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("emb", [384, 512])
+def test_transformer_flash_at_chunked_head_sizes_matches_jax_fp32(rng, emb):
+    """Head sizes 384 and 512 (emb 384 or 512, one head), the multiples of
+    128 past 256 that JAX's TPU kernel takes and the CUDA kernels run by
+    128-column chunks: one layer of the port's flash route (its plain
+    versions on the CPU) against JAX's attention on the CPU, loss, logits
+    and gradients, as at head size 96."""
+    tf = dict(TF, emb_dim=emb, n_heads=1, n_layers=1)
+    tokens, genres, targets = _batch(rng, 37)
+    jmodel = JaxTransformer(**tf, dropout=0.0, flash=False)
+    tree = _jax_tree(jmodel, rng)
+    want_logits, jgrads = _jax_logits_and_grads(jmodel, tree, tokens, genres, targets)
+    model = _port(MusicTransformer, tree, **tf, dropout=0.0, flash=True)
+    assert model.blocks[0].attn.features // model.blocks[0].attn.n_heads == emb
+    logits, grads = _port_logits_and_grads(model, tokens, genres, targets)
+    loss, _ = masked_ce_loss(logits, torch.from_numpy(targets))
+    want_loss = jax_masked_ce(jnp.asarray(want_logits), jnp.asarray(targets))[0]
+    np.testing.assert_allclose(float(loss), float(want_loss), atol=LOGIT_TOL,
+                               rtol=LOGIT_TOL)
+    np.testing.assert_allclose(logits.numpy(), want_logits, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    want = state_dict_from_jax(jgrads, model)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL, err_msg=name)
+
+
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))

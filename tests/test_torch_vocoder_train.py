@@ -7,6 +7,8 @@ gradients, three spectral and three adversarial steps against the JAX step
 functions (and the NaN skip), the segment sampler, the trainer CLI and its
 exported artifact. Tolerances are stated beside each check."""
 
+import copy
+import functools
 import json
 import os
 import wave
@@ -163,6 +165,14 @@ def test_istft_ola_equals_torch_istft(rng):
 # --- the discriminators -----------------------------------------------------
 
 def _jax_discs(t, seed=0):
+    """(MPD, its params, MSD, its params), initialised once per (t, seed)
+    in this file's process; the trees are the caller's own copies."""
+    mpd, mp, msd, sp = _jax_discs_once(t, seed)
+    return mpd, copy.deepcopy(mp), msd, copy.deepcopy(sp)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_discs_once(t, seed):
     mpd = jwd.MultiPeriodDiscriminator(periods=PERIODS)
     msd = jwd.MultiScaleDiscriminator(n_scales=SCALES)
     wav = jnp.zeros((2, t))
@@ -191,9 +201,10 @@ def test_discriminators_match_jax(t, rng):
     real = rng.standard_normal((2, t)).astype(np.float32)
     fake = (0.5 * rng.standard_normal((2, t))).astype(np.float32)
     jout, pout = {}, {}
+    mpd_apply, msd_apply = jax.jit(jmpd.apply), jax.jit(jmsd.apply)  # one compile each
     for name, x in (("real", real), ("fake", fake)):
-        jo, jf = jmpd.apply({"params": mp}, jnp.asarray(x))
-        jo2, jf2 = jmsd.apply({"params": sp}, jnp.asarray(x))
+        jo, jf = mpd_apply({"params": mp}, jnp.asarray(x))
+        jo2, jf2 = msd_apply({"params": sp}, jnp.asarray(x))
         with torch.no_grad():
             po, pf = mpd(torch.from_numpy(x))
             po2, pf2 = msd(torch.from_numpy(x))
@@ -227,7 +238,15 @@ def test_discriminators_match_jax(t, rng):
 # --- the generator's spectral-loss gradients --------------------------------
 
 def _jax_gen(seed=0, **kw):
-    gen = JaxGenerator(**GEN, **kw)
+    """(JAX generator, its perturbed params), initialised once per (seed,
+    kw) in this file's process; the tree is the caller's own copy."""
+    gen, tree = _jax_gen_once(seed, tuple(sorted(kw.items())))
+    return gen, copy.deepcopy(tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_gen_once(seed, kw):
+    gen = JaxGenerator(**GEN, **dict(kw))
     params = jax.jit(gen.init)(jax.random.key(seed), jnp.zeros((2, N_MELS, FRAMES)))
     return gen, perturb(to_numpy_tree(params), np.random.default_rng(seed))
 
